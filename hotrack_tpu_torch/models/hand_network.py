@@ -1,13 +1,15 @@
-"""HandTrackNet in PyTorch (port of hotrack_tpu/models/hand_network.py).
+"""HandTrackNet and IKNet in PyTorch (port of hotrack_tpu/models/hand_network.py).
 
 HandTrackNet refines the previous frame's 21 hand keypoints against the
 current point cloud: canonicalise into the palm-Procrustes hand frame at
 scale 0.2, run a PointNet++ backbone over the cloud, query point features at
 the keypoints (two set-abstraction layers sharing one kNN), mix through the
-skeleton-rearrange modules and the FFN-mode TransT stack, and regress a
-per-keypoint delta. Channels-last; submodule names follow the reference's
-state dict, so reference checkpoints load (utils/convert.py). The visibility
-output (IKNet only) and IKNet itself are not ported yet (ROADMAP.md).
+skeleton-rearrange modules and the TransT stack (FFN mode as shipped), and
+regress a per-keypoint delta. IKNet maps canonical keypoints and bones to 15
+joint quaternions (MANO theta). Channels-last; submodule names follow the
+reference's state dict, so reference checkpoints load (utils/convert.py).
+The visibility output (used with IKNet in tracking) is not ported yet
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -17,15 +19,18 @@ from typing import Any, Mapping
 import torch
 from torch import nn
 
+from ..mano.layer import mano_forward
 from ..nn.backbones import PointNet2Msg
-from ..nn.blocks import RearrangeModule
+from ..nn.blocks import RearrangeModule, position_embedding_sine
 from ..nn.pointnet2 import SetAbstractionAtCenters
-from ..nn.transformer import ATTENTION_NOT_PORTED, AttnModule, TransT
+from ..nn.transformer import AttnModule, TransT
+from ..pose.rotations import matrix_to_unit_quaternion, mano_quat2axisang
 from .hand_utils import (
     CanonPose,
     camera_frame,
     canonicalize,
     decanonicalize,
+    kp_bones,
     solve_hand_frame,
 )
 
@@ -61,7 +66,8 @@ class HandTrackNet(nn.Module):
     """Per-frame hand keypoint refiner.
 
     forward(hand_points (B, N, 3), jittered_kp (B, 21, 3), palm_template
-    (6, 3) or (B, 6, 3), valid_mask (B, N) or None) -> dict with pred_kp
+    (6, 3) or (B, 6, 3) [handframe='kp'], obb_pose CanonPose
+    [handframe='OBB'], valid_mask (B, N) or None) -> dict with pred_kp
     (B, 21, 3), pred_kp_handframe, init_kp_handframe, points_handframe and
     canon_pose."""
 
@@ -72,12 +78,11 @@ class HandTrackNet(nn.Module):
         d = backbone_out_dim
         if d % 6:
             raise ValueError(f"backbone_out_dim must divide by 6, got {d}")
-        if use_attention:
-            raise NotImplementedError(ATTENTION_NOT_PORTED)
-        if handframe not in ("kp", "camera"):
-            raise NotImplementedError(
-                f"handframe={handframe!r} is not ported yet (ROADMAP.md, queue 1)")
+        if handframe not in ("kp", "OBB", "camera"):
+            raise ValueError(f"unknown handframe {handframe!r}")
         self.handframe = handframe
+        self.use_attention = use_attention
+        self.num_pos_feats = d // 6
         self.procrustes_solver = procrustes_solver
         q_mlps = ((128, 128, d // 2), (128, 128, d // 2))
         q_kwargs = dict(radius_list=(0.2, 0.2), nsample_list=(16, 64),
@@ -87,16 +92,20 @@ class HandTrackNet(nn.Module):
         self.r1 = RearrangeModule(d)
         self.q2 = SetAbstractionAtCenters(**q_kwargs, in_channel=d, center_channel=d)
         self.r2 = RearrangeModule(d)
-        self.transt = TransT(d)
-        self.c3 = AttnModule(d)
+        self.transt = TransT(d, attention=use_attention)
+        self.c3 = AttnModule(d, attention=use_attention)
         self.final_mlp = nn.Sequential(nn.Linear(d, 256), nn.ReLU(), nn.Linear(256, 3))
 
     def forward(self, hand_points, jittered_kp, palm_template=None,
-                valid_mask=None) -> dict:
+                valid_mask=None, obb_pose: CanonPose | None = None) -> dict:
         b, kp_num = jittered_kp.shape[0], jittered_kp.shape[1]
         if self.handframe == "kp":
             canon_pose = solve_hand_frame(palm_template, jittered_kp,
                                           solver=self.procrustes_solver)
+        elif self.handframe == "OBB":
+            if obb_pose is None:
+                raise ValueError("handframe='OBB' needs obb_pose")
+            canon_pose = obb_pose
         else:
             canon_pose = camera_frame(b, hand_points.dtype, hand_points.device)
 
@@ -110,7 +119,14 @@ class HandTrackNet(nn.Module):
         f12 = self.r1(f11)
         f13 = self.q2(xyz2, src2, xyz1, f12, pre_group_idx=group_idx)
         f14 = self.r2(f13)
-        fused = self.c3(self.transt(f14))
+        if self.use_attention:
+            pos = position_embedding_sine(cam, self.num_pos_feats)
+            pos2, pos1 = pos[:, :-kp_num], pos[:, -kp_num:]
+            f15, f251 = self.transt(f14, pos1, src2, pos2, attn=True)
+            fused = self.c3(f15, pos1, f251, pos2, attn=True)
+        else:
+            # FFN mode never reads the positional embedding or result2
+            fused = self.c3(self.transt(f14)[0])
         pred_kp_handframe = self.final_mlp(fused) + xyz1
         return {
             "canon_pose": canon_pose,
@@ -154,3 +170,70 @@ def hand_tracknet_loss(ret: dict, gt_kp, gt_palm_template=None,
             gt_hand_pose["translation"].transpose(-1, -2),
             canon_pose.translation.transpose(-1, -2))
     return loss, ret
+
+
+class IKNet(nn.Module):
+    """Inverse-kinematics net: canonical 21 keypoints + 21 parent-relative
+    bones -> 15 joint quaternions (B, 60).
+
+    The input is flattened kp-major (B, 21 * 3), as in the JAX package; the
+    reference flattens (B, 3, 21) coordinate-major, so utils/convert.py
+    permutes the first Linear's input columns between the two layouts.
+    forward(init_kp (B, 21, 3), palm_template (6, 3) or (B, 6, 3)) -> dict."""
+
+    def __init__(self, layer_num: int = 6, width: int = 1024,
+                 iknetframe: str = "kp", procrustes_solver: str | None = None):
+        super().__init__()
+        if iknetframe not in ("kp", "camera"):
+            raise ValueError(f"unknown iknetframe {iknetframe!r}")
+        self.iknetframe = iknetframe
+        self.procrustes_solver = procrustes_solver
+        widths = [2 * 21 * 3] + [width] * layer_num
+        self.linear = nn.ModuleList(
+            [nn.Linear(i, o) for i, o in zip(widths[:-1], widths[1:])]
+            + [nn.Linear(width, 15 * 4)])
+        self.bn = nn.ModuleList([nn.BatchNorm1d(width, eps=1e-5)
+                                 for _ in range(layer_num)])
+
+    def forward(self, init_kp, palm_template) -> dict:
+        b = init_kp.shape[0]
+        canon_pose = solve_hand_frame(palm_template, init_kp,
+                                      solver=self.procrustes_solver)
+        if self.iknetframe == "kp":
+            init_kp_handframe = canonicalize(init_kp, canon_pose)
+        else:
+            init_kp_handframe = init_kp * 5.0
+        bones = kp_bones(init_kp_handframe)
+        pack = torch.cat([init_kp_handframe.reshape(b, -1), bones.reshape(b, -1)],
+                         dim=-1)
+        for linear, bn in zip(self.linear, self.bn):
+            pack = torch.relu(bn(linear(pack)))
+        raw_quat = self.linear[-1](pack)
+        return {
+            "raw_quat": raw_quat,
+            "init_kp": init_kp,
+            "init_kp_handframe": init_kp_handframe,
+            "global_pose": canon_pose,
+            "MANO_theta": mano_quat2axisang(raw_quat),
+        }
+
+
+def iknet_predict_kp(mano_model, ret: dict, beta):
+    """Compose the IKNet joint quaternions with the estimated global pose and
+    run MANO: beta (B, 10) -> pred_kp (B, 21, 3)."""
+    canon_pose: CanonPose = ret["global_pose"]
+    b = ret["raw_quat"].shape[0]
+    root_quat = matrix_to_unit_quaternion(canon_pose.rotation)
+    pose_coeffs = mano_quat2axisang(torch.cat([root_quat, ret["raw_quat"]], dim=-1))
+    _, pred_kp = mano_forward(mano_model, pose_coeffs, betas=beta.reshape(b, -1),
+                              trans=canon_pose.translation.reshape(b, 3))
+    return pred_kp
+
+
+def iknet_loss(ret: dict, gt_quat, gt_kp):
+    """IKNet losses: gt_quat (B, 60) annotated MANO joint quaternions (the
+    global one stripped); gt_kp (B, 21, 3). Returns (loss_dict, ret)."""
+    return {
+        "quat_loss": torch.mean(torch.abs(ret["raw_quat"] - gt_quat)),
+        "init_gt_kp_diff": l2_loss(ret["init_kp"], gt_kp),
+    }, ret

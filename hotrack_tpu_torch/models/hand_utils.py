@@ -1,6 +1,6 @@
 """Hand-frame canonicalisation utilities.
 
-Port of hotrack_tpu/models/hand_utils.py (the part the tracking slice uses).
+Port of hotrack_tpu/models/hand_utils.py (the part the ported slices use).
 canonicalize/decanonicalize are channels-last: points (B, N, 3).
 """
 
@@ -74,3 +74,44 @@ def decanonicalize(points: torch.Tensor, pose: CanonPose) -> torch.Tensor:
     """hand -> camera frame: s * R x + t."""
     t = pose.translation.transpose(-1, -2)
     return _scale_col(pose) * torch.matmul(points, pose.rotation.transpose(-1, -2)) + t
+
+
+def obb_frame(points: torch.Tensor) -> CanonPose:
+    """Oriented-bounding-box canonical frame via PCA: points (B, N, 3) ->
+    CanonPose with R = principal axes (max eigenvalue as x, min as z, y by
+    cross product), scale = 1.2 * x-extent, and the translation that centres
+    the normalised cloud. Eigenvector signs are the solver's (as in the JAX
+    package); R^T (X - T) / s is defined up to those signs."""
+    trans = torch.mean(points, dim=-2, keepdim=True)  # (B, 1, 3)
+    x = points - trans
+    n = points.shape[-2]
+    c = torch.matmul(x.transpose(-1, -2), x) / (n - 1)
+    _, eigvecs = torch.linalg.eigh(c)  # ascending eigenvalues
+    r0 = eigvecs[..., :, 2]
+    r2 = eigvecs[..., :, 0]
+    r1 = torch.linalg.cross(r2, r0, dim=-1)
+    r1 = r1 / torch.linalg.norm(r1, dim=-1, keepdim=True)
+    r = torch.stack([r0, r1, r2], dim=-1)  # columns
+
+    rotated = torch.matmul(x, r)
+    bbox_len = 1.2 * (torch.amax(rotated, dim=-2) - torch.amin(rotated, dim=-2))
+    scale = bbox_len[..., 0]
+    t_local = torch.mean(rotated / scale[..., None, None], dim=-2)  # (B, 3)
+    translation = trans.transpose(-1, -2) + torch.matmul(
+        r, t_local[..., None]) * scale[..., None, None]
+    return CanonPose(rotation=r, translation=translation, scale=scale)
+
+
+# parent of each of the 21 keypoints along the skeleton; the wrist is its own
+KP_PARENT = (0, 0, 1, 2, 3, 0, 5, 6, 7, 0, 9, 10, 11, 0, 13, 14, 15, 0, 17, 18, 19)
+
+
+def kp_bones(kp: torch.Tensor) -> torch.Tensor:
+    """Parent-relative bone vectors: kp (B, 21, 3) -> (B, 21, 3)."""
+    return kp - kp[:, list(KP_PARENT), :]
+
+
+def kp2bone_lengths(kp: torch.Tensor) -> torch.Tensor:
+    """Lengths of the 20 real bones: kp (..., 21, 3) -> (..., 20)."""
+    bones = kp[..., 1:, :] - kp[..., list(KP_PARENT)[1:], :]
+    return torch.linalg.norm(bones, dim=-1)

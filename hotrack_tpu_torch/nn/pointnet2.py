@@ -102,7 +102,7 @@ class SetAbstractionMsg(nn.Module):
         outs = []
         for convs, bns, group_idx in zip(self.conv_blocks, self.bn_blocks, groups):
             grouped = _group(xyz, feats, new_xyz, group_idx)
-            outs.append(torch.amax(shared_mlp(convs, bns, grouped), dim=2))
+            outs.append(torch.max(shared_mlp(convs, bns, grouped), dim=2).values)
         return new_xyz, torch.cat(outs, dim=-1)
 
 
@@ -119,7 +119,7 @@ class SetAbstractionAll(nn.Module):
         new_feats (B, 1, mlp[-1])."""
         grouped = xyz if feats is None else torch.cat([xyz, feats], dim=-1)
         h = shared_mlp(self.mlp_convs, self.mlp_bns, grouped[:, None])
-        return torch.zeros_like(xyz[:, :1, :]), torch.amax(h, dim=2)
+        return torch.zeros_like(xyz[:, :1, :]), torch.max(h, dim=2).values
 
 
 class FeaturePropagation(nn.Module):
@@ -181,7 +181,7 @@ class SetAbstractionAtCenters(nn.Module):
                 tiled = center_feats[:, :, None, :].expand(
                     *grouped.shape[:3], center_feats.shape[-1])
                 grouped = torch.cat([grouped, tiled], dim=-1)
-            outs.append(torch.amax(shared_mlp(convs, bns, grouped), dim=2))
+            outs.append(torch.max(shared_mlp(convs, bns, grouped), dim=2).values)
         new_feats = torch.cat(outs, dim=-1)
         if return_group_idx:
             return new_feats, list(pre_group_idx)

@@ -31,7 +31,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # launches per kernel since the last reset; only the kernel wrappers add
-launch_counts = {"fps": 0}
+launch_counts = {"fps": 0, "gather_rows": 0, "scatter_rows_add": 0}
+SOURCES = ("fps", "gather_rows")  # csrc/<name>.cu
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -80,6 +81,14 @@ def build(name: str) -> Path:
     return out
 
 
+def build_all() -> dict[str, Path]:
+    """Compile every source of `SOURCES`, one nvcc each, all started
+    together; returns {name: library path}."""
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(max_workers=len(SOURCES)) as pool:
+        return dict(zip(SOURCES, pool.map(build, SOURCES)))
+
+
 def _load(name: str, bind) -> ctypes.CDLL:
     """Build (if needed), load and bind csrc/<name>.cu once per process."""
     with _lock:
@@ -100,6 +109,14 @@ def _bind_fps(lib: ctypes.CDLL) -> None:
     # shared memory above 48 KB (clouds above 3072 points), opted in once for
     # the device current at load: the port runs on one card per process
     _check_status(lib.hotrack_fps_init(), "fps set-up")
+
+
+def _bind_gather_rows(lib: ctypes.CDLL) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.hotrack_gather_rows.argtypes = [p, p, p, ctypes.c_longlong, i, i, i, i, p]
+    lib.hotrack_gather_rows.restype = i
+    lib.hotrack_scatter_rows_add.argtypes = [p, p, p, i, i, i, i, i, i, p]
+    lib.hotrack_scatter_rows_add.restype = i
 
 
 def _check_status(err: int, what: str) -> None:
@@ -146,3 +163,71 @@ def fps_cuda(xyz: torch.Tensor, npoint: int,
     _check_status(err, f"fps launch (B={b}, N={n}, npoint={npoint})")
     launch_counts["fps"] += 1
     return out
+
+
+_ROW_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _check_rows(name: str, t: torch.Tensor, flat_idx: torch.Tensor) -> None:
+    """The checks the two row kernels share: `t` (B, *, C) f32 or bf16 and
+    flat_idx (B, S) int32 or int64, both contiguous on the current card."""
+    if not t.is_cuda or t.device.index != torch.cuda.current_device():
+        raise ValueError(f"{name} takes a CUDA tensor on the current device, "
+                         f"got one on {t.device}")
+    if t.dtype not in _ROW_DTYPES or t.dim() != 3:
+        raise ValueError(f"{name} takes a (B, rows, C) float32 or bfloat16 "
+                         f"tensor, got {tuple(t.shape)} {t.dtype}")
+    if flat_idx.device != t.device or flat_idx.dim() != 2 or \
+            flat_idx.shape[0] != t.shape[0] or \
+            flat_idx.dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"{name} takes (B, S) int32 or int64 indices on the "
+                         f"tensor's device, got {tuple(flat_idx.shape)} "
+                         f"{flat_idx.dtype} on {flat_idx.device}")
+    if not t.is_contiguous() or not flat_idx.is_contiguous():
+        raise ValueError(f"{name} takes contiguous tensors")
+    if min(*t.shape, flat_idx.shape[1]) < 1:
+        raise ValueError(f"empty {name} problem: {tuple(t.shape)} by "
+                         f"{tuple(flat_idx.shape)}")
+
+
+def gather_rows_cuda(points: torch.Tensor, flat_idx: torch.Tensor) -> torch.Tensor:
+    """Row gather on the card (csrc/gather_rows.cu): points (B, N, C) f32 or
+    bf16, flat_idx (B, S) int32 or int64 -> (B, S, C), bitwise the selected
+    rows. An index outside [0, N) gives a zero row (the TPU kernel's rule for
+    its -1 padding) and reads nothing outside the tensor."""
+    _check_rows("gather_rows_cuda", points, flat_idx)
+    b, n, c = points.shape
+    s = flat_idx.shape[1]
+    lib = _load("gather_rows", _bind_gather_rows)
+    out = torch.empty((b, s, c), dtype=points.dtype, device=points.device)
+    stream = torch.cuda.current_stream(points.device).cuda_stream
+    err = lib.hotrack_gather_rows(
+        points.data_ptr(), flat_idx.data_ptr(), out.data_ptr(), b * s, s, n,
+        c * points.element_size(), int(flat_idx.dtype == torch.int64), stream)
+    _check_status(err, f"gather_rows launch (B={b}, N={n}, C={c}, S={s})")
+    launch_counts["gather_rows"] += 1
+    return out
+
+
+def scatter_rows_add_cuda(dout: torch.Tensor, flat_idx: torch.Tensor,
+                          n: int) -> torch.Tensor:
+    """The row gather's adjoint on the card: dout (B, S, C) f32 or bf16,
+    flat_idx (B, S) -> dsrc (B, n, C) of dout's dtype, with
+    dsrc[b, i] = sum of dout[b, s] over idx[b, s] == i. The sum is f32, taken
+    in ascending s with no atomics, so two launches agree bitwise; rows that
+    no index selects are exactly 0; indices outside [0, n) are skipped."""
+    _check_rows("scatter_rows_add_cuda", dout, flat_idx)
+    b, s, c = dout.shape
+    if flat_idx.shape[1] != s or n < 1:
+        raise ValueError(f"scatter_rows_add_cuda: dout {tuple(dout.shape)} "
+                         f"against indices {tuple(flat_idx.shape)}, n={n}")
+    lib = _load("gather_rows", _bind_gather_rows)
+    dsrc = torch.empty((b, n, c), dtype=dout.dtype, device=dout.device)
+    stream = torch.cuda.current_stream(dout.device).cuda_stream
+    err = lib.hotrack_scatter_rows_add(
+        dout.data_ptr(), flat_idx.data_ptr(), dsrc.data_ptr(), b, s, n, c,
+        int(dout.dtype == torch.bfloat16), int(flat_idx.dtype == torch.int64),
+        stream)
+    _check_status(err, f"scatter_rows_add launch (B={b}, N={n}, C={c}, S={s})")
+    launch_counts["scatter_rows_add"] += 1
+    return dsrc

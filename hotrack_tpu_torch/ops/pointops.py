@@ -16,9 +16,12 @@ Layout is channels-last like the JAX package: points (B, N, 3), features
 (B, N, C); `gather_operation`, `group_operation` and `three_interpolate` keep
 the reference's channels-first signatures.
 
-`farthest_point_sample` dispatches on the tensor's device: a CUDA tensor goes
-to the hand-written kernel (csrc/fps.cu via ops/kernels.py), a CPU tensor to
-the plain version below, which is also the kernel's oracle.
+`farthest_point_sample` and `index_points` dispatch on the tensor's device: a
+CUDA tensor goes to the hand-written kernels (csrc/fps.cu, csrc/gather_rows.cu
+via ops/kernels.py), a CPU tensor to the plain versions below, which are also
+the kernels' oracles. There is no size threshold: the JAX package's rule for
+its gather kernel (rows >= 16384, N <= 1024) is about the TPU's VMEM and
+launch latency.
 """
 
 from __future__ import annotations
@@ -37,11 +40,68 @@ def square_distance(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
     return d
 
 
+def _gather_rows_torch(points: torch.Tensor, flat_idx: torch.Tensor) -> torch.Tensor:
+    """Plain row gather: points (B, N, C), flat_idx (B, S) -> (B, S, C). The
+    CPU path and the kernel's oracle (in-range indices only)."""
+    c = points.shape[-1]
+    return torch.gather(points, 1, flat_idx.long()[..., None].expand(-1, -1, c))
+
+
+def _scatter_rows_add_torch(dout: torch.Tensor, flat_idx: torch.Tensor, n: int,
+                            acc_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """Plain adjoint of the row gather: dout (B, S, C), flat_idx (B, S) ->
+    (B, n, C) of dout's dtype, summed by `index_add_` per batch row in
+    `acc_dtype` (default: float32, or dout's own type if that is wider). On
+    the CPU `index_add_` adds in ascending s, the kernel's order. As the
+    kernel's oracle on the card, where `index_add_` uses atomics in no fixed
+    order, pass float64 so the order cannot show at the tolerance."""
+    b, _, c = dout.shape
+    if acc_dtype is None:
+        acc_dtype = torch.promote_types(dout.dtype, torch.float32)
+    out = torch.zeros((b, n, c), dtype=acc_dtype, device=dout.device)
+    idx = flat_idx.long()
+    for i in range(b):
+        out[i].index_add_(0, idx[i], dout[i].to(acc_dtype))
+    return out.to(dout.dtype)
+
+
+class _GatherRows(torch.autograd.Function):
+    """Row gather whose backward is the deterministic scatter-add; each
+    direction runs its CUDA kernel on a CUDA tensor and its plain version on
+    a CPU tensor."""
+
+    @staticmethod
+    def forward(ctx, points, flat_idx):
+        ctx.save_for_backward(flat_idx)
+        ctx.n = points.shape[1]
+        if points.is_cuda:
+            return kernels.gather_rows_cuda(points.contiguous(), flat_idx)
+        return _gather_rows_torch(points, flat_idx)
+
+    @staticmethod
+    def backward(ctx, dout):
+        if not ctx.needs_input_grad[0]:
+            return None, None
+        (flat_idx,) = ctx.saved_tensors
+        if dout.is_cuda:
+            # autograd runs this on the forward's stream; the wrapper takes
+            # the current stream itself and keeps its tensors until launched
+            return kernels.scatter_rows_add_cuda(dout.contiguous(), flat_idx,
+                                                 ctx.n), None
+        return _scatter_rows_add_torch(dout, flat_idx, ctx.n), None
+
+
 def index_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """points (B, N, C), idx (B, S) or (B, S1, .., Sk) -> (B, *idx, C)."""
+    """points (B, N, C), idx (B, S) or (B, S1, .., Sk) -> (B, *idx, C).
+    Differentiable in `points`. A CUDA tensor (float32 or bfloat16) runs the
+    hand-written kernels; a CPU tensor the plain versions."""
+    if points.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"no row gather for device {points.device}")
     b, _, c = points.shape
-    flat = idx.reshape(b, -1).long()
-    out = torch.gather(points, 1, flat[..., None].expand(-1, -1, c))
+    flat = idx.reshape(b, -1)
+    if flat.dtype not in (torch.int32, torch.int64):
+        flat = flat.long()
+    out = _GatherRows.apply(points, flat.contiguous())
     return out.reshape(*idx.shape, c)
 
 

@@ -1,8 +1,10 @@
-"""Rotation-representation conversions (the part the tracking slice uses).
+"""Rotation-representation conversions (the part the ported slices use).
 
 Port of hotrack_tpu/pose/rotations.py: quaternions are (w, x, y, z);
 `matrix_to_unit_quaternion` uses the trace branch only, like the reference.
-Arbitrary leading batch dimensions.
+Arbitrary leading batch dimensions. The random functions take an explicit
+`torch.Generator` and, like `data.pipeline.jitter_hand_kp`, an injectable
+unit draw, so a test can feed both packages the same numbers.
 """
 
 from __future__ import annotations
@@ -14,6 +16,15 @@ EPS = 1e-8
 
 def normalize_quat(q: torch.Tensor) -> torch.Tensor:
     return q / (torch.linalg.norm(q, dim=-1, keepdim=True) + EPS)
+
+
+def quat_multiply(q: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """Hamilton product of (w, x, y, z) quaternions."""
+    w1, v1 = q[..., :1], q[..., 1:]
+    w2, v2 = r[..., :1], r[..., 1:]
+    w = w1 * w2 - torch.sum(v1 * v2, dim=-1, keepdim=True)
+    v = w1 * v2 + w2 * v1 + torch.linalg.cross(v1, v2, dim=-1)
+    return torch.cat([w, v], dim=-1)
 
 
 def unit_quaternion_to_matrix(q: torch.Tensor) -> torch.Tensor:
@@ -50,6 +61,17 @@ def axis_theta_to_quater(axis: torch.Tensor, theta: torch.Tensor) -> torch.Tenso
     return normalize_quat(torch.cat([w[..., None], xyz], dim=-1))
 
 
+def quater_to_axis_theta(q: torch.Tensor):
+    """quaternion -> (axis, theta)."""
+    q = normalize_quat(q)
+    cosa = q[..., 0]
+    norm = torch.sqrt(torch.clamp(1.0 - cosa**2, min=0.0))[..., None]
+    mask = (norm < 1e-8).to(q.dtype)
+    axis = q[..., 1:] / torch.maximum(norm, mask)
+    theta = 2.0 * torch.arccos(torch.clamp(cosa, -1.0, 1.0))
+    return axis, theta
+
+
 def axis_theta_to_matrix(axis: torch.Tensor, theta: torch.Tensor) -> torch.Tensor:
     return unit_quaternion_to_matrix(axis_theta_to_quater(axis, theta))
 
@@ -66,3 +88,74 @@ def rotvec_to_matrix(rotvec: torch.Tensor) -> torch.Tensor:
     """Rodrigues: (.., 3) rotation vector -> (.., 3, 3)."""
     axis, theta = rotvec_to_axis_theta(rotvec)
     return axis_theta_to_matrix(axis, theta)
+
+
+def matrix_to_rotvec(m: torch.Tensor) -> torch.Tensor:
+    axis, theta = quater_to_axis_theta(matrix_to_unit_quaternion(m))
+    return axis * theta[..., None]
+
+
+def mano_axisang2quat(axisang: torch.Tensor, eps: float = 1e-7) -> torch.Tensor:
+    """(.., 3K) axis-angle blocks -> (.., 4K) quaternions (the reference's
+    epsilon-regularised axis)."""
+    lead = axisang.shape[:-1]
+    aa = axisang.reshape(*lead, -1, 3)
+    theta = torch.linalg.norm(aa, dim=-1, keepdim=True)
+    q = axis_theta_to_quater(aa / (theta + eps), theta[..., 0])
+    return q.reshape(*lead, -1)
+
+
+def mano_quat2axisang(quat: torch.Tensor) -> torch.Tensor:
+    """(.., 4K) quaternions -> (.., 3K) axis-angle."""
+    lead = quat.shape[:-1]
+    axis, theta = quater_to_axis_theta(quat.reshape(*lead, -1, 4))
+    return (axis * theta[..., None]).reshape(*lead, -1)
+
+
+def unit_draw(shape, kind: str, like: torch.Tensor,
+              generator: torch.Generator | None = None,
+              draw: torch.Tensor | None = None) -> torch.Tensor:
+    """The unit random draw behind every jitter: a standard normal
+    (kind='normal') or uniform in [0, 1) ('uniform'), of `like`'s dtype, made
+    on the generator's device (so a host generator gives the same numbers on
+    every device) and moved to `like`'s. `draw` replaces it."""
+    if draw is None:
+        if kind not in ("normal", "uniform"):
+            raise ValueError(kind)
+        fn = torch.rand if kind == "uniform" else torch.randn
+        draw = fn(tuple(shape), generator=generator, dtype=like.dtype,
+                  device=generator.device if generator is not None else like.device)
+    return draw.to(device=like.device, dtype=like.dtype)
+
+
+def generate_random_quaternion(shape, like: torch.Tensor,
+                               generator: torch.Generator | None = None,
+                               draw: torch.Tensor | None = None) -> torch.Tensor:
+    """Uniform random unit quaternions: a normalised standard-normal draw."""
+    return normalize_quat(unit_draw(shape, "normal", like, generator, draw))
+
+
+def jitter_quaternion(q: torch.Tensor, theta: torch.Tensor,
+                      generator: torch.Generator | None = None,
+                      draw: torch.Tensor | None = None) -> torch.Tensor:
+    """Perturb q by angle theta (shape q.shape[:-1] + (1,)) toward a random
+    orthogonal quaternion."""
+    new_q = generate_random_quaternion(q.shape, q, generator, draw)
+    dot = torch.sum(q * new_q, dim=-1, keepdim=True)
+    q_orth = normalize_quat(new_q - q * dot)
+    return q * torch.cos(theta / 2.0) + q_orth * torch.sin(theta / 2.0)
+
+
+def noisy_rot_matrix(matrix: torch.Tensor, rad, kind: str = "normal",
+                     generator: torch.Generator | None = None,
+                     draws: tuple | None = None) -> torch.Tensor:
+    """Random rotation noise of scale `rad` on (.., 3, 3) rotations. `draws`
+    = (angle draw of shape matrix.shape[:-2], quaternion draw (.., 4))
+    replaces the generator's."""
+    d_theta, d_quat = draws if draws is not None else (None, None)
+    base = matrix[..., 0, 0]
+    u = unit_draw(base.shape, kind, matrix, generator, d_theta)
+    theta = (torch.abs(u) if kind == "normal" else u) * rad
+    quat = matrix_to_unit_quaternion(matrix)
+    return unit_quaternion_to_matrix(
+        jitter_quaternion(quat, theta[..., None], generator, d_quat))

@@ -32,6 +32,7 @@ def build_handnet(cfg, device) -> HandTrackNet:
         model = HandTrackNet(cfg["pointnet"]["camera"],
                              backbone_out_dim=net["backbone_out_dim"],
                              handframe=net.get("handframe", "kp"),
+                             use_attention=net.get("use_attention", False),
                              procrustes_solver=net.get("procrustes_solver"))
     return model.to(device).eval()
 

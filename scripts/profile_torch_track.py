@@ -15,6 +15,10 @@ layer scaled by --head_scale (chip_smoke.py's HEAD_SCALE). Prints:
     time (the sum of the device events' durations), and the idle share = 1 - busy / (median unprofiled tracking wall
     time); the top entries by device time (the whole table goes to
     --out/profile_torch_track.txt);
+  - tracking ms/frame with index_points on the hand-written gather kernel
+    against index_points on torch.gather (what it was before the kernel), one
+    sequence each in turns within this one process, and the host time of one
+    index_points call either way;
   - drift: the largest per-frame keypoint change when the input clouds are
     scaled by (1 + 1e-7), and the MPJPE, at head scale 1 and --head_scale.
 """
@@ -36,6 +40,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from hotrack_tpu_torch.data import get_dataloader, prepare_batch  # noqa: E402
 from hotrack_tpu_torch.data.synthetic import generate_simgrasp_dataset  # noqa: E402
 from hotrack_tpu_torch.mano.model import get_mano_model  # noqa: E402
+from hotrack_tpu_torch.nn import pointnet2  # noqa: E402
+from hotrack_tpu_torch.ops import pointops  # noqa: E402
 from hotrack_tpu_torch.track.hand import track_hand_sequence  # noqa: E402
 from hotrack_tpu_torch.train.cli import load_config  # noqa: E402
 from hotrack_tpu_torch.train.run_hand_track import build_handnet  # noqa: E402
@@ -56,6 +62,13 @@ def _stats(xs) -> str:
     return f"median {med:.3f} (quartiles {q1:.3f}-{q3:.3f}; runs {[round(x, 3) for x in xs]})"
 
 
+def _index_points_library(points, idx):
+    """index_points as one torch.gather: the yardstick, used nowhere in the port."""
+    b, _, c = points.shape
+    flat = idx.reshape(b, -1).long()
+    return torch.gather(points, 1, flat[..., None].expand(-1, -1, c)).reshape(*idx.shape, c)
+
+
 def _net(cfg, device, scale: float):
     net = build_handnet(cfg, device)
     with torch.no_grad():
@@ -68,7 +81,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--runs", type=int, default=7)
     ap.add_argument("--head_scale", type=float, default=0.01)
-    ap.add_argument("--out", default="chiprun_out")
+    ap.add_argument("--out", default="profile_out")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_track: needs a CUDA card")
@@ -108,6 +121,39 @@ def main() -> int:
     track()  # warm-up
     track_ms = [1000.0 * _timed(track, device) / n_frames for _ in range(args.runs)]
     print(f"tracking ms/frame: {_stats(track_ms)} | {card}", flush=True)
+
+    # in turns, one sequence each: library, kernel, kernel, library, ... so
+    # that a slow spell of the shared host falls on both alike
+    ab = {"library": [], "kernel": []}
+    with torch.no_grad():
+        for r in range(2 * args.runs):
+            for name in (("library", "kernel") if r % 2 == 0 else ("kernel", "library")):
+                pointnet2.index_points = (_index_points_library if name == "library"
+                                          else pointops.index_points)
+                ab[name].append(1000.0 * _timed(track, device) / n_frames)
+    pointnet2.index_points = pointops.index_points
+    print(f"tracking ms/frame, index_points on the kernel: {_stats(ab['kernel'])}\n"
+          f"tracking ms/frame, index_points on torch.gather: {_stats(ab['library'])} "
+          f"| {card}", flush=True)
+
+    # what one call costs the host: 2000 calls at q1's feature shape, launched
+    # without waiting for the device (the queue never fills at this size)
+    pts = torch.randn(1, 512, 384, device=device)
+    idx = torch.randint(0, 512, (1, 21, 16), device=device)
+    host_us = {}
+    with torch.no_grad():
+        for name, fn in (("torch.gather", _index_points_library),
+                         ("kernel", pointops.index_points)) * 2:
+            fn(pts, idx)
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            for _ in range(2000):
+                fn(pts, idx)
+            host_us.setdefault(name, []).append(1e6 * (time.perf_counter() - t0) / 2000)
+            torch.cuda.synchronize(device)
+    print(f"index_points host microseconds per call (1,512,384)x(1,21,16), two rounds: "
+          f"{ {k: [round(x, 2) for x in v] for k, v in host_us.items()} } | {card}",
+          flush=True)
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile

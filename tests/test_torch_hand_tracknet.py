@@ -8,6 +8,8 @@ through ~20 layers of matmuls, with every FPS/kNN/ball-query index identical
 (the geometry is held to 1e-6 by test_torch_pointops/test_torch_mano_pose).
 """
 
+import os
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -179,10 +181,144 @@ def test_attention_weights_are_dropped_on_load(nets):
 
 
 def test_attention_mode_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        HandTrackNet(NET_CFG, backbone_out_dim=OUT_DIM, use_attention=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        AttnModule(OUT_DIM)(torch.zeros(1, 21, OUT_DIM), attn=True)
+    """An FFN-mode module carries no attention weights, so asking it for
+    attention raises; attention itself is ported (use_attention=True, held
+    against the JAX package below)."""
+    x = torch.zeros(1, 21, OUT_DIM)
+    with pytest.raises(ValueError, match="without attention"):
+        AttnModule(OUT_DIM)(x, None, x, None, attn=True)
+    assert not any(".attn." in k for k in
+                   HandTrackNet(NET_CFG, backbone_out_dim=OUT_DIM).state_dict())
+    with pytest.raises(ValueError, match="handframe"):
+        HandTrackNet(NET_CFG, backbone_out_dim=OUT_DIM, handframe="palm")
+
+
+def _init_variables(jmodel, *args, **kwargs):
+    variables = _to_numpy(jmodel.init(jax.random.PRNGKey(0), *args, **kwargs))
+    if "batch_stats" in variables:
+        variables["batch_stats"] = _randomize_stats(variables["batch_stats"],
+                                                    np.random.RandomState(1))
+    return variables
+
+
+def test_attention_mode_forward_matches_jax(tmp_path):
+    """use_attention=True: the live MultiheadAttention path of TransT and c3
+    (8 heads, sine positional embedding) on converted weights. Tolerance 2e-5
+    in the hand frame: the FFN-mode bound with the softmax and the embedding's
+    sin/cos of arguments up to pi * 2^7 on top."""
+    jmodel = JaxHandTrackNet(net_cfg=NET_CFG, backbone_out_dim=OUT_DIM, use_attention=True)
+    points, kp = _inputs()
+    palm = np.array(handkp2palmkp(jnp.asarray(kp))[0])
+    variables = _init_variables(jmodel, jnp.asarray(points), jnp.asarray(kp),
+                                jnp.asarray(palm))
+    tmodel = HandTrackNet(NET_CFG, backbone_out_dim=OUT_DIM, use_attention=True).eval()
+    sd = handtracknet_state_dict_from_flax(variables["params"], variables["batch_stats"])
+    assert sd["transt.c12.attn.in_proj_weight"].shape == (3 * OUT_DIM, OUT_DIM)
+    tmodel.load_state_dict(sd, strict=True)
+    points, kp = _inputs(seed=7)
+    jret = jmodel.apply(variables, jnp.asarray(points), jnp.asarray(kp), jnp.asarray(palm))
+    with torch.no_grad():
+        tret = tmodel(torch.from_numpy(points), torch.from_numpy(kp), torch.from_numpy(palm))
+    np.testing.assert_allclose(tret["pred_kp_handframe"].numpy(),
+                               np.asarray(jret["pred_kp_handframe"]), atol=2e-5, rtol=0)
+    np.testing.assert_allclose(tret["pred_kp"].numpy(), np.asarray(jret["pred_kp"]),
+                               atol=KP_TOL, rtol=0)
+    # attention weights survive the checkpoint round trip when the model has them
+    path = save_reference_checkpoint(tmodel, str(tmp_path / "model_0001.pt"))
+    fresh = HandTrackNet(NET_CFG, backbone_out_dim=OUT_DIM, use_attention=True)
+    load_reference_checkpoint(fresh, path)
+    for k, v in tmodel.state_dict().items():
+        assert torch.equal(fresh.state_dict()[k], v), k
+    # and in training every attention weight is reached
+    tmodel.train()
+    tmodel(torch.from_numpy(points), torch.from_numpy(kp),
+           torch.from_numpy(palm))["pred_kp"].sum().backward()
+    assert all(p.grad is not None for p in tmodel.parameters())
+
+
+def test_obb_handframe_forward_matches_jax(nets):
+    """handframe='OBB' takes the canonical pose from the caller (the
+    pipeline's OBB_pose); same weights as the 'kp' net."""
+    from hotrack_tpu.models.hand_utils import CanonPose as JaxCanonPose
+    from hotrack_tpu_torch.models import CanonPose
+    _, variables, tmodel, _ = nets
+    jmodel = JaxHandTrackNet(net_cfg=NET_CFG, backbone_out_dim=OUT_DIM, handframe="OBB")
+    omodel = HandTrackNet(NET_CFG, backbone_out_dim=OUT_DIM, handframe="OBB").eval()
+    omodel.load_state_dict(tmodel.state_dict())
+    points, kp = _inputs(seed=8)
+    rng = np.random.RandomState(9)
+    q, _ = np.linalg.qr(rng.randn(2, 3, 3))
+    rot = (q * np.sign(np.linalg.det(q))[:, None, None]).astype(np.float32)
+    trans = points.mean(1)[..., None].astype(np.float32)
+    scale = np.array([0.25, 0.3], np.float32)
+    jret = jmodel.apply(variables, jnp.asarray(points), jnp.asarray(kp),
+                        obb_pose=JaxCanonPose(jnp.asarray(rot), jnp.asarray(trans),
+                                              jnp.asarray(scale)))
+    with torch.no_grad():
+        tret = omodel(torch.from_numpy(points), torch.from_numpy(kp),
+                      obb_pose=CanonPose(torch.from_numpy(rot), torch.from_numpy(trans),
+                                         torch.from_numpy(scale)))
+    np.testing.assert_allclose(tret["pred_kp_handframe"].numpy(),
+                               np.asarray(jret["pred_kp_handframe"]), atol=2e-5, rtol=0)
+    np.testing.assert_allclose(tret["pred_kp"].numpy(), np.asarray(jret["pred_kp"]),
+                               atol=KP_TOL, rtol=0)
+    with pytest.raises(ValueError, match="obb_pose"):
+        omodel(torch.from_numpy(points), torch.from_numpy(kp))
+
+
+@pytest.mark.parametrize("frame", ["kp", "camera"])
+def test_iknet_forward_and_loss_match_jax(frame):
+    """IKNet (width 64) on converted weights: raw_quat and MANO_theta 2e-5,
+    the losses 1e-6, predicted keypoints through MANO 1e-5 m; and the
+    reference-format checkpoint (coordinate-major first layer) round trip."""
+    from hotrack_tpu.mano.model import synthetic_mano_model as jax_mano
+    from hotrack_tpu.models import IKNet as JaxIKNet
+    from hotrack_tpu.models import iknet_loss as jax_iknet_loss
+    from hotrack_tpu.models.hand_network import iknet_predict_kp as jax_predict
+    from hotrack_tpu_torch.mano.model import synthetic_mano_model
+    from hotrack_tpu_torch.models import IKNet, iknet_loss, iknet_predict_kp
+    from hotrack_tpu_torch.utils.convert import iknet_state_dict_from_flax
+
+    jmodel = JaxIKNet(width=64, iknetframe=frame)
+    _, kp = _inputs(b=3, seed=10)
+    palm = np.array(handkp2palmkp(jnp.asarray(kp))[0])
+    variables = _init_variables(jmodel, jnp.asarray(kp), jnp.asarray(palm))
+    tmodel = IKNet(width=64, iknetframe=frame).eval()
+    tmodel.load_state_dict(iknet_state_dict_from_flax(
+        variables["params"], variables["batch_stats"]), strict=True)
+    _, kp = _inputs(b=3, seed=11)
+    rng = np.random.RandomState(12)
+    gt_quat = rng.randn(3, 60).astype(np.float32)
+    gt_kp = kp + rng.randn(*kp.shape).astype(np.float32) * 0.01
+    beta = (rng.randn(3, 10) * 0.1).astype(np.float32)
+
+    jret = jmodel.apply(variables, jnp.asarray(kp), jnp.asarray(palm))
+    with torch.no_grad():
+        tret = tmodel(torch.from_numpy(kp), torch.from_numpy(palm))
+        tloss, _ = iknet_loss(tret, torch.from_numpy(gt_quat), torch.from_numpy(gt_kp))
+        tpred = iknet_predict_kp(synthetic_mano_model(), tret, torch.from_numpy(beta))
+    jloss, _ = jax_iknet_loss(jret, jnp.asarray(gt_quat), jnp.asarray(gt_kp))
+    jpred = jax_predict(jax_mano(), jret, jnp.asarray(beta))
+    for k in ("raw_quat", "MANO_theta", "init_kp_handframe"):
+        np.testing.assert_allclose(tret[k].numpy(), np.asarray(jret[k]), atol=2e-5,
+                                   rtol=0, err_msg=k)
+    assert set(tloss) == set(jloss)
+    for k in jloss:
+        np.testing.assert_allclose(float(tloss[k]), float(jloss[k]), atol=1e-6, err_msg=k)
+    np.testing.assert_allclose(tpred.numpy(), np.asarray(jpred), atol=1e-5, rtol=0)
+
+    # the JAX package's checkpoint writer and the port's reader/writer agree
+    import tempfile
+    with tempfile.TemporaryDirectory() as d:
+        path = jax_save_ckpt(os.path.join(d, "model_0002.pt"), iknet=variables, epoch=2)
+        fresh = IKNet(width=64, iknetframe=frame)
+        assert load_reference_checkpoint(fresh, path) == 2
+        for k, v in tmodel.state_dict().items():
+            if not k.endswith("num_batches_tracked"):
+                assert torch.equal(fresh.state_dict()[k], v), k
+        ref = torch.load(path, weights_only=True)["model"]
+        mine = port_to_reference_state_dict(tmodel.state_dict())
+        assert torch.equal(mine["linear.0.weight"], ref["linear.0.weight"])
 
 
 def test_position_embedding_sine_matches_jax():

@@ -147,3 +147,58 @@ def test_hand_frame_and_canonicalize(exact_env, monkeypatch):
     np.testing.assert_allclose(tc.numpy(), np.asarray(jc), atol=1e-5, rtol=0)
     back = thu.decanonicalize(tc, tpose)
     np.testing.assert_allclose(back.numpy(), kp, atol=1e-6, rtol=0)
+
+
+# ---- additions of the training slice ----
+
+def test_quaternion_algebra_and_mano_conversions_match_jax():
+    rng = np.random.RandomState(20)
+    q = rng.randn(5, 4).astype(np.float32)
+    r = rng.randn(5, 4).astype(np.float32)
+    np.testing.assert_allclose(
+        trot.quat_multiply(torch.from_numpy(q), torch.from_numpy(r)).numpy(),
+        np.asarray(jrot.quat_multiply(jnp.asarray(q), jnp.asarray(r))), atol=1e-6)
+    aa = (rng.randn(4, 48) * 0.6).astype(np.float32)
+    aa[0, :3] = 0.0  # the zero rotation goes through the regularised axis
+    jq = jrot.mano_axisang2quat(jnp.asarray(aa))
+    tq = trot.mano_axisang2quat(torch.from_numpy(aa))
+    assert tuple(tq.shape) == (4, 64)
+    np.testing.assert_allclose(tq.numpy(), np.asarray(jq), atol=1e-6)
+    np.testing.assert_allclose(trot.mano_quat2axisang(tq).numpy(),
+                               np.asarray(jrot.mano_quat2axisang(jq)), atol=1e-5)
+    m = np.array(jrot.rotvec_to_matrix(jnp.asarray(aa[:, 3:6])))
+    np.testing.assert_allclose(trot.matrix_to_rotvec(torch.from_numpy(m)).numpy(),
+                               np.asarray(jrot.matrix_to_rotvec(jnp.asarray(m))), atol=1e-5)
+
+
+@pytest.mark.parametrize("kind", ["normal", "uniform"])
+def test_noisy_rot_matrix_matches_jax_on_the_same_draws(kind):
+    import jax
+    key = jax.random.PRNGKey(5)
+    ka, kb = jax.random.split(key)
+    rng = np.random.RandomState(21)
+    m = np.array(jrot.rotvec_to_matrix(jnp.asarray(rng.randn(6, 3).astype(np.float32))))
+    want = jrot.noisy_rot_matrix(key, jnp.asarray(m), 0.3, kind)
+    unit = jax.random.uniform if kind == "uniform" else jax.random.normal
+    draws = (torch.from_numpy(np.array(unit(ka, (6,)))),
+             torch.from_numpy(np.array(jax.random.normal(kb, (6, 4)))))
+    got = trot.noisy_rot_matrix(torch.from_numpy(m), 0.3, kind, draws=draws)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6)
+    # from a generator: seeded, a rotation, and turned by at most a few rad-scales
+    a = trot.noisy_rot_matrix(torch.from_numpy(m), 0.3, kind,
+                              generator=torch.Generator().manual_seed(1))
+    b = trot.noisy_rot_matrix(torch.from_numpy(m), 0.3, kind,
+                              generator=torch.Generator().manual_seed(1))
+    assert torch.equal(a, b) and not torch.equal(a, torch.from_numpy(m))
+    np.testing.assert_allclose(torch.linalg.det(a).numpy(), 1.0, atol=1e-5)
+    with pytest.raises(ValueError):
+        trot.noisy_rot_matrix(torch.from_numpy(m), 0.3, "cauchy")
+
+
+def test_kp_bones_and_bone_lengths_match_jax():
+    kp = np.random.RandomState(22).randn(3, 21, 3).astype(np.float32)
+    assert thu.KP_PARENT == jhu.KP_PARENT
+    np.testing.assert_array_equal(thu.kp_bones(torch.from_numpy(kp)).numpy(),
+                                  np.asarray(jhu.kp_bones(jnp.asarray(kp))))
+    np.testing.assert_allclose(thu.kp2bone_lengths(torch.from_numpy(kp)).numpy(),
+                               np.asarray(jhu.kp2bone_lengths(jnp.asarray(kp))), atol=1e-6)

@@ -166,12 +166,124 @@ def test_tracker_options_of_later_slices_raise(batches, kwargs):
         track_hand_sequence(model, synthetic_mano_model(), tbatch, **kwargs)
 
 
-@pytest.mark.parametrize("kwargs", [{"sample_kind": "random"}, {"include_obb": True},
+@pytest.mark.parametrize("kwargs", [{"sample_kind": "grid"},
+                                    {"sample_kind": "random", "num_points": 10**6},
                                     {"obj_jitter": {"rotation": 0.1}}])
 def test_prepare_batch_options_of_later_slices_raise(sequence, kwargs):
+    """The training slice ported random sampling, object jitter and the OBB
+    pose (held against the JAX package below); what still raises is a value
+    neither package knows: an unknown sampler, more points than the cloud
+    has, a jitter config without its translation and scale."""
     raw, _ = sequence
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        prepare_batch(synthetic_mano_model(), raw, NUM_POINTS, **kwargs)
+    kwargs = dict(kwargs)
+    num_points = kwargs.pop("num_points", NUM_POINTS)
+    with pytest.raises((ValueError, RuntimeError, KeyError)):
+        prepare_batch(synthetic_mano_model(), raw, num_points, **kwargs)
+
+
+OBJ_JITTER = {"rotation": float(np.deg2rad(10.0)), "translation": 0.03, "scale": 0.05}
+
+
+@pytest.mark.parametrize("kind", ["normal", "uniform"])
+def test_prepare_batch_random_sampling_and_object_jitter_match_jax(sequence, kind):
+    """sample_kind='random' and object-pose jitter with the JAX package's own
+    draws injected: the subset indices (so the gathered clouds) exact, the
+    jittered pose to 1e-6, and the jitter of the size the config asks for."""
+    raw, _ = sequence
+    key = jax.random.PRNGKey(11)
+    jbatch = jax_prepare_batch(jax_mano(), jax.tree.map(jnp.asarray, raw), key,
+                               NUM_POINTS, hand_jitter_scale=JITTER, jitter_kind=kind,
+                               obj_jitter=OBJ_JITTER, obj_jitter_kind=kind,
+                               sample_kind="random")
+    # the draws, as hotrack_tpu/data/pipeline.py splits its key
+    k_kp, k_obj = jax.random.split(key)
+    k_kp, k_s1, k_s2 = jax.random.split(k_kp, 3)
+    k1, k2, k3, k4 = jax.random.split(k_obj, 4)
+    ka, kb = jax.random.split(k1)
+    unit = jax.random.uniform if kind == "uniform" else jax.random.normal
+    n_raw = raw.hand_points.shape[1]
+
+    def t(a):
+        return torch.from_numpy(np.array(a))
+
+    tbatch = prepare_batch(
+        synthetic_mano_model(), raw, NUM_POINTS, hand_jitter_scale=JITTER,
+        jitter_kind=kind, obj_jitter=OBJ_JITTER, obj_jitter_kind=kind,
+        sample_kind="random", kp_noise=t(unit(k_kp, (T, 21, 3))),
+        sample_scores=(t(jax.random.uniform(k_s1, (T, n_raw))),
+                       t(jax.random.uniform(k_s2, (T, raw.obj_points.shape[1])))),
+        obj_draws={"theta": t(unit(ka, (T,))), "quat": t(jax.random.normal(kb, (T, 4))),
+                   "scale": t(unit(k2, (T,))), "norm": t(unit(k3, (T,))),
+                   "direction": t(unit(k4, (T, 3)))})
+    for k in ("hand_points", "obj_points", "hand_valid", "obj_valid"):
+        np.testing.assert_array_equal(tbatch[k].numpy(), np.asarray(jbatch[k]), err_msg=k)
+    assert not np.array_equal(tbatch["hand_idx"].numpy(), batches_fps_idx(raw))
+    np.testing.assert_allclose(tbatch["jittered_hand_kp"].numpy(),
+                               np.asarray(jbatch["jittered_hand_kp"]), atol=1e-6, rtol=0)
+    for k in ("rotation", "translation", "scale"):
+        np.testing.assert_allclose(tbatch["jittered_obj_pose"][k].numpy(),
+                                   np.asarray(jbatch["jittered_obj_pose"][k]),
+                                   atol=1e-6, rtol=0, err_msg=k)
+    # rotation angle, translation norm and scale change against the draws
+    rel = torch.matmul(tbatch["gt_obj_pose"]["rotation"].transpose(-1, -2),
+                       tbatch["jittered_obj_pose"]["rotation"])
+    angle = torch.arccos(torch.clamp((rel.diagonal(dim1=-2, dim2=-1).sum(-1) - 1) / 2, -1, 1))
+    theta = np.asarray(unit(ka, (T,)))
+    want_angle = np.abs(theta) * OBJ_JITTER["rotation"]
+    np.testing.assert_allclose(angle.numpy(), want_angle, atol=2e-4)
+    signed = (lambda a: np.asarray(a) * 2 - 1) if kind == "uniform" else np.asarray
+    dt = (tbatch["jittered_obj_pose"]["translation"]
+          - tbatch["gt_obj_pose"]["translation"])[..., 0]
+    np.testing.assert_allclose(torch.linalg.norm(dt, dim=-1).numpy(),
+                               np.abs(signed(unit(k3, (T,)))) * OBJ_JITTER["translation"],
+                               atol=1e-6)
+    np.testing.assert_allclose(
+        (tbatch["jittered_obj_pose"]["scale"] - tbatch["gt_obj_pose"]["scale"]).numpy(),
+        signed(unit(k2, (T,))) * OBJ_JITTER["scale"], atol=1e-6)
+
+
+def batches_fps_idx(raw):
+    return prepare_batch(synthetic_mano_model(), raw, NUM_POINTS)["hand_idx"].numpy()
+
+
+def test_prepare_batch_random_sampling_from_a_generator(sequence):
+    """Drawn from a generator: seeded, a fresh subset on every call, only
+    valid points while enough are valid, no point twice."""
+    raw, _ = sequence
+    mano = synthetic_mano_model()
+
+    def run(gen):
+        return prepare_batch(mano, raw, NUM_POINTS, generator=gen, sample_kind="random",
+                             obj_jitter=OBJ_JITTER)
+
+    gen = torch.Generator().manual_seed(4)
+    a, b = run(gen), run(gen)
+    c = run(torch.Generator().manual_seed(4))
+    assert torch.equal(a["hand_idx"], c["hand_idx"])
+    assert torch.equal(a["jittered_obj_pose"]["rotation"], c["jittered_obj_pose"]["rotation"])
+    assert not torch.equal(a["hand_idx"], b["hand_idx"])
+    assert bool(a["hand_valid"].all())
+    assert all(len(set(row.tolist())) == NUM_POINTS for row in a["hand_idx"])
+
+
+def test_prepare_batch_obb_pose_matches_jax(batches, sequence):
+    """include_obb: scale and translation to 1e-6; the principal axes up to
+    the sign the eigen-solver gives each (1e-4: eigenvectors of a 3x3
+    covariance), with a right-handed frame either way."""
+    raw, _ = sequence
+    jbatch = jax_prepare_batch(jax_mano(), jax.tree.map(jnp.asarray, raw),
+                               jax.random.PRNGKey(3), NUM_POINTS, include_obb=True)
+    tbatch = prepare_batch(synthetic_mano_model(), raw, NUM_POINTS, include_obb=True)
+    got, want = tbatch["OBB_pose"], jbatch["OBB_pose"]
+    np.testing.assert_allclose(got["scale"].numpy(), np.asarray(want["scale"]), atol=1e-6)
+    np.testing.assert_allclose(got["translation"].numpy(), np.asarray(want["translation"]),
+                               atol=1e-6)
+    r, rj = got["rotation"].numpy(), np.asarray(want["rotation"])
+    for col in (0, 2):
+        sign = np.sign(np.sum(r[:, :, col] * rj[:, :, col], axis=-1, keepdims=True))
+        np.testing.assert_allclose(r[:, :, col], sign * rj[:, :, col], atol=1e-4)
+    np.testing.assert_allclose(np.linalg.det(r), 1.0, atol=1e-5)
+    assert "OBB_pose" not in batches[1]
 
 
 _CLI_SCRIPT = r"""
