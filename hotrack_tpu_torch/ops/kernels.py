@@ -2,9 +2,10 @@
 
 Each kernel source is compiled by `nvcc` for `sm_90a` into a shared library
 with a plain C interface, at first use, and loaded with `ctypes`. Libraries
-are keyed by a hash of the source and the flags, under `build/kernels/` at the
-repository root (or `HOTRACK_KERNEL_BUILD_DIR`), so an edited source rebuilds
-and an unchanged one loads in milliseconds.
+are keyed by a hash of the source, of every file of `csrc/` that it includes
+(directly or through another header) and of the flags, under `build/kernels/`
+at the repository root (or `HOTRACK_KERNEL_BUILD_DIR`), so an edited source
+or header rebuilds and an unchanged one loads in milliseconds.
 
 A wrapper here checks its inputs and raises on anything its kernel does not
 take, allocates the output with `torch.empty`, launches on the current
@@ -18,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -31,8 +33,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # launches per kernel since the last reset; only the kernel wrappers add
-launch_counts = {"fps": 0, "gather_rows": 0, "scatter_rows_add": 0}
-SOURCES = ("fps", "gather_rows")  # csrc/<name>.cu
+launch_counts = {"fps": 0, "gather_rows": 0, "scatter_rows_add": 0,
+                 "sdf_mlp": 0, "obj_sdf_energy": 0}
+SOURCES = ("fps", "gather_rows", "sdf_mlp", "obj_energy")  # csrc/<name>.cu
+_INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -59,14 +63,35 @@ def _nvcc() -> str:
     return found
 
 
+def source_files(name: str) -> list[Path]:
+    """csrc/<name>.cu and every file of csrc/ it includes with quotes,
+    through other headers too, each once, in the order found."""
+    files, todo = [], [CSRC_DIR / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in files:
+            continue
+        files.append(path)
+        todo += [path.parent / inc for inc in _INCLUDE.findall(path.read_text())
+                 if (path.parent / inc).exists()]
+    return files
+
+
+def library_path(name: str) -> Path:
+    """Where csrc/<name>.cu's library lies: the name carries a hash of the
+    source, its included headers and the flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in source_files(name):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    return build_dir() / f"lib{name}_{digest.hexdigest()[:16]}.so"
+
+
 def build(name: str) -> Path:
-    """Compile csrc/<name>.cu unless a library of the same source and flags
+    """Compile csrc/<name>.cu unless a library of the same sources and flags
     exists; returns the library's path. The compiler's resource report
     (registers, shared memory, spills) is kept beside it as <lib>.log."""
     src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = build_dir() / f"lib{name}_{digest}.so"
+    out = library_path(name)
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
@@ -117,6 +142,25 @@ def _bind_gather_rows(lib: ctypes.CDLL) -> None:
     lib.hotrack_gather_rows.restype = i
     lib.hotrack_scatter_rows_add.argtypes = [p, p, p, i, i, i, i, i, i, p]
     lib.hotrack_scatter_rows_add.restype = i
+
+
+def _bind_sdf_mlp(lib: ctypes.CDLL) -> None:
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.hotrack_sdf_mlp.argtypes = [p, p, p, ll, ll, ll, ll, ll, i, i,
+                                    ctypes.POINTER(ctypes.c_int), p]
+    lib.hotrack_sdf_mlp.restype = i
+    lib.hotrack_sdf_mlp_init.restype = i
+    # 72 KB of dynamic shared memory, opted in once for the current device
+    _check_status(lib.hotrack_sdf_mlp_init(), "sdf_mlp set-up")
+
+
+def _bind_obj_energy(lib: ctypes.CDLL) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.hotrack_obj_energy.argtypes = [p, p, p, p, i, i, i, i,
+                                       ctypes.POINTER(ctypes.c_int), p]
+    lib.hotrack_obj_energy.restype = i
+    lib.hotrack_obj_energy_init.restype = i
+    _check_status(lib.hotrack_obj_energy_init(), "obj_energy set-up")
 
 
 def _check_status(err: int, what: str) -> None:
@@ -231,3 +275,85 @@ def scatter_rows_add_cuda(dout: torch.Tensor, flat_idx: torch.Tensor,
     _check_status(err, f"scatter_rows_add launch (B={b}, N={n}, C={c}, S={s})")
     launch_counts["scatter_rows_add"] += 1
     return dsrc
+
+
+def _check_f32(name: str, what: str, t: torch.Tensor) -> None:
+    if not t.is_cuda or t.device.index != torch.cuda.current_device():
+        raise ValueError(f"{name} takes CUDA tensors on the current device, "
+                         f"got {what} on {t.device}")
+    if t.dtype != torch.float32 or not t.is_contiguous():
+        raise ValueError(f"{name}: {what} must be contiguous float32, got "
+                         f"{t.dtype}, contiguous={t.is_contiguous()}")
+
+
+def _mlp_args(name: str, packed, like: torch.Tensor):
+    """The packed model's arguments for a launch (ops/sdf_mlp.PackedSDF)."""
+    _check_f32(name, "the packed model", packed.packed)
+    if packed.packed.device != like.device:
+        raise ValueError(f"{name}: the packed model is on {packed.packed.device}, "
+                         f"the points on {like.device}")
+    widths = (ctypes.c_int * len(packed.widths))(*packed.widths)
+    return packed.n_freqs, len(packed.widths) - 1, widths
+
+
+def sdf_mlp_cuda(points: torch.Tensor, packed, channels_first: bool) -> torch.Tensor:
+    """The distilled-SDF MLP on the card (csrc/sdf_mlp.cu): points
+    (..., 3, N) (channels_first) or (..., 3), contiguous float32, and a
+    `PackedSDF` on the same device -> clamped sdf (..., N) or (...,).
+    Gradient-free."""
+    _check_f32("sdf_mlp_cuda", "points", points)
+    if torch.is_grad_enabled() and points.requires_grad:
+        raise ValueError("sdf_mlp_cuda has no backward: query under "
+                         "torch.no_grad() or detach the points")
+    if channels_first:
+        if points.dim() < 2 or points.shape[-2] != 3:
+            raise ValueError(f"points must be (..., 3, N), got {tuple(points.shape)}")
+        n = points.shape[-1]
+        shape = (*points.shape[:-2], n)
+        strides = (n, 3 * n, n, 1)  # n_inner, batch, channel, point
+    else:
+        if points.dim() < 1 or points.shape[-1] != 3:
+            raise ValueError(f"points must be (..., 3), got {tuple(points.shape)}")
+        shape = tuple(points.shape[:-1])
+        strides = (max(points.numel() // 3, 1), 0, 1, 3)
+    m = points.numel() // 3
+    if m < 1:
+        raise ValueError(f"empty sdf_mlp problem: {tuple(points.shape)}")
+    n_freqs, n_hidden, widths = _mlp_args("sdf_mlp_cuda", packed, points)
+    lib = _load("sdf_mlp", _bind_sdf_mlp)
+    out = torch.empty(shape, dtype=torch.float32, device=points.device)
+    stream = torch.cuda.current_stream(points.device).cuda_stream
+    err = lib.hotrack_sdf_mlp(points.data_ptr(), packed.packed.data_ptr(),
+                              out.data_ptr(), m, *strides, n_freqs, n_hidden,
+                              widths, stream)
+    _check_status(err, f"sdf_mlp launch (points {tuple(points.shape)}, "
+                       f"widths {packed.widths})")
+    launch_counts["sdf_mlp"] += 1
+    return out
+
+
+def obj_sdf_energy_cuda(pcld_cf: torch.Tensor, rts: torch.Tensor, packed) -> torch.Tensor:
+    """The fused object-pose energy on the card (csrc/obj_energy.cu):
+    pcld_cf (3, N), rts (P, 12) (ops/obj_energy.obj_rts), both contiguous
+    float32, and a `PackedSDF` -> (P,) sums over the cloud of |sdf|. No
+    atomics: two launches agree bitwise."""
+    _check_f32("obj_sdf_energy_cuda", "pcld_cf", pcld_cf)
+    _check_f32("obj_sdf_energy_cuda", "rts", rts)
+    if pcld_cf.dim() != 2 or pcld_cf.shape[0] != 3 or rts.dim() != 2 \
+            or rts.shape[1] != 12 or rts.device != pcld_cf.device:
+        raise ValueError(f"obj_sdf_energy_cuda takes pcld_cf (3, N) and rts (P, 12) "
+                         f"on one device, got {tuple(pcld_cf.shape)} and "
+                         f"{tuple(rts.shape)}")
+    p, n = rts.shape[0], pcld_cf.shape[1]
+    if p < 1 or n < 1:
+        raise ValueError(f"empty obj_sdf_energy problem: P={p} N={n}")
+    n_freqs, n_hidden, widths = _mlp_args("obj_sdf_energy_cuda", packed, pcld_cf)
+    lib = _load("obj_energy", _bind_obj_energy)
+    out = torch.empty(p, dtype=torch.float32, device=pcld_cf.device)
+    stream = torch.cuda.current_stream(pcld_cf.device).cuda_stream
+    err = lib.hotrack_obj_energy(pcld_cf.data_ptr(), rts.data_ptr(),
+                                 packed.packed.data_ptr(), out.data_ptr(), p, n,
+                                 n_freqs, n_hidden, widths, stream)
+    _check_status(err, f"obj_sdf_energy launch (P={p}, N={n}, widths {packed.widths})")
+    launch_counts["obj_sdf_energy"] += 1
+    return out

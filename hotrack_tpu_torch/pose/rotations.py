@@ -112,6 +112,55 @@ def mano_quat2axisang(quat: torch.Tensor) -> torch.Tensor:
     return (axis * theta[..., None]).reshape(*lead, -1)
 
 
+def rot_diff_rad(rot1: torch.Tensor, rot2: torch.Tensor) -> torch.Tensor:
+    """Geodesic rotation distance in radians."""
+    mat_diff = torch.matmul(rot1, rot2.transpose(-1, -2))
+    diff = mat_diff[..., 0, 0] + mat_diff[..., 1, 1] + mat_diff[..., 2, 2]
+    return torch.arccos(torch.clamp((diff - 1.0) / 2.0, -1.0, 1.0))
+
+
+def rot_diff_degree(rot1: torch.Tensor, rot2: torch.Tensor) -> torch.Tensor:
+    return rot_diff_rad(rot1, rot2) / torch.pi * 180.0
+
+
+def normalize_vector(v: torch.Tensor) -> torch.Tensor:
+    """Safe normalise along the last axis; [1, 0, 0] for ~zero vectors."""
+    mag = torch.linalg.norm(v, dim=-1, keepdim=True)
+    valid = (mag > EPS).to(v.dtype)
+    backup = torch.zeros_like(v)
+    backup[..., 0] = 1.0
+    out = v / torch.clamp(mag, min=EPS)
+    return out * valid + backup * (1.0 - valid)
+
+
+def compute_rotation_matrix_from_ortho6d(poses: torch.Tensor) -> torch.Tensor:
+    """(.., 6) -> (.., 3, 3) via Gram-Schmidt; columns = (x, y, z)."""
+    x = normalize_vector(poses[..., 0:3])
+    z = normalize_vector(torch.linalg.cross(x, poses[..., 3:6], dim=-1))
+    y = torch.linalg.cross(z, x, dim=-1)
+    return torch.stack([x, y, z], dim=-1)
+
+
+def compute_rotation_matrix_from_3d(vec: torch.Tensor) -> torch.Tensor:
+    """(.., 3) direction -> (.., 3, 3) with the normalised vector as the
+    middle column (y axis), completed by x = [1, 0, 0] cross products: the
+    rotation head for axially symmetric parts."""
+    y = normalize_vector(vec)
+    x_raw = torch.zeros_like(y)
+    x_raw[..., 0] = 1.0
+    z = normalize_vector(torch.linalg.cross(x_raw, y, dim=-1))
+    x = torch.linalg.cross(y, z, dim=-1)
+    return torch.stack([x, y, z], dim=-1)
+
+
+def compute_rotation_matrix_from_9d(m: torch.Tensor) -> torch.Tensor:
+    """Symmetric orthogonalisation of (.., 3, 3) onto SO(3) via SVD."""
+    u, _, vh = torch.linalg.svd(m, full_matrices=False)
+    det = torch.linalg.det(torch.matmul(u, vh))
+    vh = torch.cat([vh[..., :2, :], vh[..., 2:, :] * det[..., None, None]], dim=-2)
+    return torch.matmul(u, vh)
+
+
 def unit_draw(shape, kind: str, like: torch.Tensor,
               generator: torch.Generator | None = None,
               draw: torch.Tensor | None = None) -> torch.Tensor:

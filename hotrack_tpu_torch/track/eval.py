@@ -1,7 +1,8 @@
-"""Sequence evaluation (port of hotrack_tpu/track/eval.py:eval_hand_sequence).
+"""Sequence evaluation (port of hotrack_tpu/track/eval.py).
 
-Per-frame keypoint error (MPJPE, m) and the palm-Procrustes global R/t errors,
-batched over the T frames.
+Hand: per-frame keypoint error (MPJPE, m) and the palm-Procrustes global R/t
+errors. Object: symmetry-aware rotation / translation errors and the
+5deg5cm / 10deg10cm accuracies (`eval_part_full`). Batched over the T frames.
 """
 
 from __future__ import annotations
@@ -9,7 +10,8 @@ from __future__ import annotations
 import torch
 
 from ..models.hand_utils import canonicalize, solve_hand_frame
-from .types import HandTrackResult
+from ..pose.part_dof import eval_part_full
+from .types import HandTrackResult, ObjTrackResult
 
 
 @torch.inference_mode()
@@ -43,3 +45,20 @@ def eval_hand_sequence(result: HandTrackResult, gt_kp: torch.Tensor,
         "mean/hand_pred_r_diff": torch.mean(r_diff),
         "mean/hand_pred_t_diff": torch.mean(t_diff),
     }
+
+
+@torch.inference_mode()
+def eval_obj_sequence(result: ObjTrackResult, gt_rotation: torch.Tensor,
+                      gt_translation: torch.Tensor, sym_axis: int,
+                      up_and_down_sym: bool = False) -> dict:
+    """Per-frame symmetry-aware object pose metrics. gt_rotation (T, 3, 3),
+    gt_translation (T, 3, 1). Returns the per-frame tensors '<metric>_0' and
+    their means under 'mean/'."""
+    gt = {"rotation": gt_rotation[:, None], "translation": gt_translation[:, None]}
+    pred = {"rotation": result.rotation[:, None],
+            "translation": result.translation[:, None]}
+    mean, per = eval_part_full(gt, pred, axis=int(sym_axis),
+                               up_and_down_sym=up_and_down_sym, per_instance=True)
+    out = {f"mean/{k}": v for k, v in mean.items()}
+    out.update(per)
+    return out

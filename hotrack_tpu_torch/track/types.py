@@ -18,3 +18,11 @@ class HandTrackResult(NamedTuple):
     global_translation: torch.Tensor  # (T, 3, 1)
     mano_theta: torch.Tensor          # (T, 45)
     pred_beta: torch.Tensor           # (1, 10)
+
+
+class ObjTrackResult(NamedTuple):
+    """Per-sequence object tracking outputs; leading axis T."""
+
+    rotation: torch.Tensor      # (T, 3, 3)
+    translation: torch.Tensor   # (T, 3, 1)
+    sdf_energy: torch.Tensor    # (T,) final per-frame SDF energies

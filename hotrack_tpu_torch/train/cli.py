@@ -10,8 +10,10 @@ Overrides address nested config keys by '/'-path, as in the JAX package. The
 device defaults to `cuda`; without a card that raises, it does not carry on
 on the CPU. The epoch loop is the JAX package's: train, a test pass per
 epoch, loss accumulation, periodic checkpoints. `test` runs single-frame
-evaluation (`track: False`) or HandTrackNet sequence tracking (`track:
-hand`); the other tracking routes are not ported yet and raise.
+evaluation (`track: False`), HandTrackNet sequence tracking (`track: hand`)
+or object tracking by the SDF particle optimiser (`track: obj_opt`, see
+run_obj_track.py for its keys `sdf_query` and `obj_energy`); the other
+tracking routes are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -185,11 +187,14 @@ def test_main(argv=None):
     track = cfg.get("track")
     if not track:
         return _test_single_frame(cfg)
+    if track == "obj_opt":
+        from .run_obj_track import run_obj_tracking
+        return run_obj_tracking(cfg, save_flag)
     if track != "hand":
         raise NotImplementedError(
             f"track={track!r} is not ported yet: only HandTrackNet sequence "
-            f"tracking (track: hand) and single-frame evaluation (track: "
-            f"False) are; see ROADMAP.md, queue 1")
+            f"tracking (track: hand), object tracking (track: obj_opt) and "
+            f"single-frame evaluation (track: False) are; see ROADMAP.md, queue 1")
     from .run_hand_track import run_hand_tracking
     return run_hand_tracking(cfg, save_flag)
 

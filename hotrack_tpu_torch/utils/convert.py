@@ -17,6 +17,13 @@ hotrack_tpu/utils/torch_export.py, held equal to it by a test; the copy also
 exports attention-mode nets, into `nn.MultiheadAttention`'s layout.
 `handtracknet_state_dict_from_flax` / `iknet_state_dict_from_flax` finish the
 way into the port's modules.
+
+`distilled_from_numpy` / `distilled_to_numpy` carry a distilled SDF between
+the packages as a dict of numpy arrays ({'weights', 'biases', 'freqs',
+'scale', 'clamp'}: the fields of either package's `DistilledSDF`); weights
+are (in, out) in both, so nothing is transposed.
+`sdf_decoder_state_dict_from_flax` turns the JAX package's `SDFDecoder`
+params into the port's decoder state dict.
 """
 
 from __future__ import annotations
@@ -262,3 +269,51 @@ def save_reference_checkpoint(model: nn.Module, path: str, epoch: int = 0) -> st
     torch.save({"model": port_to_reference_state_dict(model.state_dict()),
                 "epoch": epoch, "iteration": 0}, path)
     return path
+
+
+def distilled_to_numpy(model) -> dict:
+    """A `DistilledSDF` of either package -> {'weights': tuple of (in, out)
+    arrays, 'biases': tuple, 'freqs' (F,), 'scale' (), 'clamp' ()} as
+    float32 numpy arrays."""
+    def arr(a):
+        return np.asarray(a.detach().cpu() if torch.is_tensor(a) else a, np.float32)
+
+    return {"weights": tuple(arr(w) for w in model.weights),
+            "biases": tuple(arr(b) for b in model.biases),
+            "freqs": arr(model.freqs), "scale": arr(model.scale),
+            "clamp": arr(model.clamp)}
+
+
+def distilled_from_numpy(arrays, device=None, dtype: torch.dtype = torch.float32):
+    """The port's `DistilledSDF` from `distilled_to_numpy`'s dict, or from
+    any object with those fields as arrays (the JAX package's tuple)."""
+    from ..sdf.distill import DistilledSDF
+    if not isinstance(arrays, dict):
+        arrays = distilled_to_numpy(arrays)
+
+    def ten(a):
+        return torch.tensor(np.asarray(a), dtype=dtype, device=device)
+
+    return DistilledSDF(tuple(ten(w) for w in arrays["weights"]),
+                        tuple(ten(b) for b in arrays["biases"]),
+                        ten(arrays["freqs"]), ten(arrays["scale"]), ten(arrays["clamp"]))
+
+
+def sdf_decoder_state_dict_from_flax(params: dict,
+                                     dtype: torch.dtype = torch.float32) -> dict:
+    """The JAX package's `SDFDecoder` params ({'lin{i}': {'v', 'g', 'bias'}
+    for weight-normalised layers, {'kernel', 'bias'} otherwise, 'bn{i}':
+    {'scale', 'bias'}}) -> the port's `SDFDecoder` state dict. The g / v
+    split is kept: v (out, in) and g (out, 1) as they are; a plain kernel
+    (in, out) is transposed to `weight` (out, in). The inverse of the JAX
+    package's sdf/assets.load_torch_decoder."""
+    names = {"v": "weight_v", "g": "weight_g", "bias": "bias", "scale": "weight"}
+    sd = {}
+    for layer, leaves in params.items():
+        for key, value in leaves.items():
+            a = np.asarray(value)
+            if key == "kernel":
+                sd[f"{layer}.weight"] = torch.tensor(a.T.copy(), dtype=dtype)
+            else:
+                sd[f"{layer}.{names[key]}"] = torch.tensor(a, dtype=dtype)
+    return sd

@@ -250,13 +250,23 @@ def test_exporter_copy_matches_the_jax_package(tmp_path, net_type):
 
 
 def test_port_imports_nothing_of_the_jax_package():
-    """No module of the port, and not chip_smoke.py, names jax, flax or
-    hotrack_tpu in an import statement."""
+    """No module of the port, and neither chip_smoke.py nor a profile script
+    of the port, names jax, flax or hotrack_tpu in an import statement."""
     pat = re.compile(r"^\s*(from|import)\s+(jax|flax|hotrack_tpu)(\.|\s|$)", re.M)
     files = [os.path.join(REPO, "chip_smoke.py")]
+    files += [os.path.join(REPO, "scripts", n) for n in os.listdir(os.path.join(REPO, "scripts"))
+              if n.startswith("profile_torch_")]
     for d, _, names in os.walk(os.path.join(REPO, "hotrack_tpu_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
-    assert len(files) > 30
+    assert len(files) > 45
+    walked = {os.path.relpath(f, REPO)[:-3].replace(os.sep, ".") for f in files}
+    assert walked >= {"scripts.profile_torch_obj", "hotrack_tpu_torch.opt.particle",
+                      "hotrack_tpu_torch.opt.obj_pose", "hotrack_tpu_torch.ops.sdf_mlp",
+                      "hotrack_tpu_torch.ops.obj_energy", "hotrack_tpu_torch.sdf.distill",
+                      "hotrack_tpu_torch.sdf.volume", "hotrack_tpu_torch.sdf.decoder",
+                      "hotrack_tpu_torch.sdf.assets", "hotrack_tpu_torch.track.obj",
+                      "hotrack_tpu_torch.train.run_obj_track",
+                      "hotrack_tpu_torch.pose.metrics", "hotrack_tpu_torch.pose.part_dof"}
     bad = [f for f in files if pat.search(open(f).read())]
     assert not bad, bad
 
