@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Drives the port's three main paths on `cuda`. Two run HandTrackNet at the
+Drives the port's four main paths on `cuda`. Two run HandTrackNet at the
 shipped width (512 points, 384-d features, pointnet2_camera_shallow1.yml)
 with seeded random weights: sequence tracking through the `python -m
 hotrack_tpu_torch.test` entry (the 100-frame synthetic SimGrasp sequence of
@@ -14,7 +14,12 @@ object tracking through the same test entry (objopt_test_SimGrasp_synth.yml,
 `track: obj_opt`) at its full operating point: a 201^3 volume at 2 mm
 distilled with the full budget (4000 Adam steps of batch 8192) into the
 21-128-128-128-1 MLP, 2048 particles x 10 iterations a frame on 1024 points,
-100 frames. Phases, each of which raises on failure:
+100 frames. The fourth is the full hand pipeline through the same test entry
+(handopt_test_SimGrasp_synth.yml, `track: hand_IKNet`, at HandTrackNet's 512
+points): HandTrackNet -> MANO shape optimiser on frame 0 (20 iterations x
+5120 particles) -> IKNet -> per-frame MANO pose optimiser (5 iterations x
+5120 particles x 778 vertices) against a 151^3 volume at 3 mm distilled with
+the full budget, and the silhouette. Phases, each of which raises on failure:
 
   1. device: require CUDA, print the card's name and power limit, pin fp32
      (no TF32 in matmuls or convolutions);
@@ -24,9 +29,12 @@ distilled with the full budget (4000 Adam steps of batch 8192) into the
      every shape the paths below give it (FPS index-exact; the row gather bitwise;
      its scatter-add adjoint against a float64 oracle, and bitwise equal on a
      second launch; the SDF MLP and the fused object energy within stated
-     float32 bounds, the energy bitwise equal on a second launch), timed in
-     turns with the plain version and, where one PyTorch call computes the
-     same function, that call;
+     float32 bounds, the energy bitwise equal on a second launch; the mask
+     lookup exact; the fused hand energy with an exact hit and its sdf within
+     the MLP's bound; the fused skinning + energy within stated bounds, its
+     flipped pixels counted; each of the three bitwise equal on a second
+     launch), timed in turns with the plain version and, where one PyTorch
+     call computes the same function, that call;
   4. tracking path: launch counters reset, one tracked sequence on the card
      after a warm-up one, counters read; the same entry on the CPU (plain
      versions) must pick the same frame-0 FPS indices and keypoints within
@@ -48,9 +56,21 @@ distilled with the full budget (4000 Adam steps of batch 8192) into the
      route and CPU are held against the card's fused route closed loop (to
      the tracker's accuracy) and open loop (every frame again from the same
      pose: energies to float32 rounding, poses within a step of the search);
-  7. the shapes the kernels' wrappers were given on those paths, noted while
+  7. hand optimiser: `optimize_hand_pose` at its full operating point (5120
+     particles x 778 vertices x 5 iterations, a seeded 480 x 640 mask) from a
+     perturbed ground-truth pose: the keypoint error falls; the routes skin,
+     fused, separate and volume agree on the energies of iteration 0 within
+     stated bounds and launch what they imply; with 512 particles the card is
+     held against the CPU (plain versions) open loop;
+  8. hand path: counters reset, a sequence tracked on the card through
+     `test_main` (skin route: 5 launches of the fused skinning kernel a
+     frame), counters read; finite metrics and betas; then
+     `track_hand_sequence` on the same nets with seeded 480 x 640 masks;
+     shorter runs on the fused, separate and volume routes and in shape modes
+     2 and 3, with the same fit;
+  9. the shapes the kernels' wrappers were given on those paths, noted while
      they ran, must be exactly the shapes phase 3 checked;
-  8. neither JAX nor the JAX package (hotrack_tpu) may have been imported.
+ 10. neither JAX nor the JAX package (hotrack_tpu) may have been imported.
 
 The line before the last is a JSON object describing the kernels; the last
 is {"ok": true, "device": {...}}. Exits non-zero, with no result line, when
@@ -122,7 +142,7 @@ OBJ_NUM_POINTS = 1024         # the optimiser's operating point (the config ship
 OBJ_POINTS_PER_PART = 1200    # >= OBJ_NUM_POINTS valid object points in every frame
 OBJ_PARTICLES, OBJ_ITERATIONS = 2048, 10
 OBJ_SHORT_FRAMES = 20         # composed and volume routes, against the fused one
-OBJ_CPU_FRAMES = 4            # card against CPU
+OBJ_CPU_FRAMES = 2            # card against CPU
 MLP_WIDTHS = (21, 128, 128, 128)   # 3 frequencies, hidden 128, depth 3
 # Kernel against plain version on the card, both float32: the kernel sums a
 # unit's 128 products in ascending order with FMA, cuBLAS in its own order.
@@ -162,6 +182,46 @@ OPEN_ROT_BOUND_DEG, OPEN_TRANS_BOUND_M = 0.5, 2e-4
 # and 0.33 mm between the routes).
 RUN_ROT_BOUND_DEG, RUN_TRANS_BOUND_M = 3.0, 1.5e-3
 
+HAND_CONFIG = "handopt_test_SimGrasp_synth.yml"
+HAND_NUM_POINTS = 512         # HandTrackNet's shipped width (the config ships 128)
+HAND_PARTICLES, HAND_ITERATIONS, HAND_VERTS, HAND_POSE_DIMS = 5120, 5, 778, 135
+HAND_FRAMES = 40              # the main run, and the run with masks
+HAND_SHORT_FRAMES = 10        # the fused, separate and volume routes
+HAND_MODE_FRAMES = 25         # shape modes 2 and 3 re-optimise on frames 10 and 20
+HAND_CPU_PARTICLES = 512      # card against CPU, open loop
+HAND_HW = (480, 640)
+HAND_INTRINSICS = {"fx": 600.0, "fy": 600.0, "cx": 320.0, "cy": 240.0}
+HAND_WEIGHTS = {"penetrate_sum_loss": 1.0, "sil_loss": 0.1, "attraction_loss": 0.05,
+                "vis_regu_loss": 10.0, "invis_regu_loss": 0.0, "temporal_smooth": 1.0}
+# Kernel #7 against its plain version on the card: the kernel sums a vertex in
+# ascending order with FMA, the plain version by library products, so the
+# vertices differ by float32 rounding (1e-7 m); through a seeded random net's
+# steep features that moves an sdf by up to SKIN_SDF_ATOL (the card showed
+# under a tenth of it), and a pixel may flip where the plain version's pixel
+# coordinate lies within PIXEL_MARGIN of an integer (a vertex difference of
+# 1e-7 m is 1.3e-4 pixels at 600 / 0.45 m): hit is held equal everywhere else,
+# and the share of flips is printed and bounded.
+SKIN_SDF_ATOL = 2e-5
+PIXEL_MARGIN = 2e-3
+FLIP_SHARE_BOUND = 1e-3
+# Energies of iteration 0 across the pose optimiser's routes, from the same
+# start. One flipped pixel moves a candidate's energy by HAND_FLIP = sil_loss
+# / 778. Between fused and separate the pixels are the same and the sdf
+# differs by the MLP's bound: HAND_E_ATOL. The skin route's vertices differ
+# from mano_forward's by rounding, so a candidate may carry a few flips (on a
+# random mask about one candidate in ten has one): each candidate within
+# HAND_E_ATOL + HAND_MAX_FLIPS x HAND_FLIP, and at most HAND_FLIPPED_SHARE of
+# them beyond HAND_E_ATOL. The volume route asks another SDF (the nearest
+# voxel of a 3 mm grid, off by up to a voxel's half diagonal of 2.6 mm, where
+# the others ask a fit with 0.5 mm RMSE), so it is held at HAND_VOLUME_ATOL.
+# Card against CPU the sinf / cosf differ too: HAND_CPU_E_ATOL.
+HAND_FLIP = HAND_WEIGHTS["sil_loss"] / HAND_VERTS
+HAND_E_ATOL, HAND_CPU_E_ATOL, HAND_VOLUME_ATOL = 5e-6, 2e-5, 5e-3
+HAND_MAX_FLIPS, HAND_FLIPPED_SHARE = 4, 0.3
+# the final keypoints of two correct runs from the same start (a step of the
+# search where a candidate is within rounding of particle 0: ROADMAP queue 3)
+HAND_KP_BOUND_M = 2e-3
+
 # the card's published peaks (NVIDIA H100 SXM data sheet): the bounds below
 # are the least time the card could take, whatever its power limit
 HBM_BYTES_PER_S = 3.35e12
@@ -177,6 +237,12 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
                 "hotrack_tpu/ops/pallas/sdf_mlp.py:43"),
     "obj_sdf_energy": ("hotrack_tpu_torch/csrc/obj_energy.cu",
                        "hotrack_tpu/ops/pallas/obj_energy.py:51"),
+    "packed_mask_lookup": ("hotrack_tpu_torch/csrc/mask_lookup.cu",
+                           "hotrack_tpu/ops/pallas/mask_lookup.py:50"),
+    "hand_energy": ("hotrack_tpu_torch/csrc/hand_energy.cu",
+                    "hotrack_tpu/ops/pallas/hand_energy.py:225"),
+    "hand_energy_skin": ("hotrack_tpu_torch/csrc/hand_energy_skin.cu",
+                         "hotrack_tpu/ops/pallas/hand_energy_skin.py:62"),
 }
 # launches per call of the model: index_points runs 15 times in a HandTrackNet
 # forward (sa1 2, sa2 3, fp2 1, fp1 1, q1 4, q2 4), 7 of them on feature
@@ -191,7 +257,8 @@ GATHERS_PER_FORWARD, SCATTERS_PER_BACKWARD, FPS_PER_FORWARD, PER_PREPARE = 15, 7
 TAILS = (2 * TRAIN_FRAMES % BATCH, TRAIN_FRAMES % BATCH)
 MODEL_BATCHES = (1, BATCH, *TAILS)
 BACKWARD_BATCHES = (BATCH, TAILS[0])
-PREPARE_BATCHES = (NUM_FRAMES, TRAIN_FRAMES, BATCH, *TAILS)
+PREPARE_BATCHES = (NUM_FRAMES, TRAIN_FRAMES, BATCH, *TAILS, HAND_FRAMES, HAND_SHORT_FRAMES,
+                   HAND_MODE_FRAMES)
 RAW_POINTS = 2560       # points of a raw hand or object cloud, padding included
 # the object path prepares whole sequences at 1024 points from 5 x 1024 raw ones
 OBJ_PREPARE_BATCHES = (NUM_FRAMES, OBJ_SHORT_FRAMES, OBJ_CPU_FRAMES)
@@ -225,8 +292,19 @@ TIMED_FPS_BATCHES = (NUM_FRAMES, 1, BATCH)
 TIMED_SHAPES = ("q feats k=64", "sa2 group feats")  # the two largest outputs, at BATCH
 # what the object path gives the two SDF kernels: the composed route's
 # (P, 3, N) transformed cloud, channels-first; the fused route's (P, N)
-SDF_MLP_SHAPES = [((OBJ_PARTICLES, 3, OBJ_NUM_POINTS), True)]
+# and the hand path's separate route: the (P, 778, 3) object-frame vertices,
+# channels-last
+SDF_MLP_SHAPES = [((OBJ_PARTICLES, 3, OBJ_NUM_POINTS), True),
+                  ((HAND_PARTICLES, HAND_VERTS, 3), False)]
 OBJ_ENERGY_SHAPES = [(OBJ_PARTICLES, OBJ_NUM_POINTS)]
+# what the hand paths give the three hand kernels: a synthetic sequence ships
+# no masks (1 x 1), the optimiser phase and the run with masks use 480 x 640
+NO_MASK_HW = (1, 1)
+MASK_LOOKUP_SHAPES = [((HAND_PARTICLES, HAND_VERTS), hw) for hw in (NO_MASK_HW, HAND_HW)]
+HAND_ENERGY_SHAPES = [((HAND_PARTICLES, HAND_VERTS, 3), hw) for hw in (NO_MASK_HW, HAND_HW)]
+HAND_SKIN_SHAPES = [(HAND_PARTICLES, HAND_POSE_DIMS, HAND_VERTS, NO_MASK_HW),
+                    (HAND_PARTICLES, HAND_POSE_DIMS, HAND_VERTS, HAND_HW),
+                    (HAND_CPU_PARTICLES, HAND_POSE_DIMS, HAND_VERTS, HAND_HW)]
 
 
 def _seen_shape(name: str, args: tuple) -> tuple:
@@ -242,6 +320,15 @@ def _seen_shape(name: str, args: tuple) -> tuple:
     if name == "obj_sdf_energy":
         pcld_cf, rts, _ = args
         return (rts.shape[0], pcld_cf.shape[1])
+    if name == "packed_mask_lookup":
+        _, iy, _, hw = args
+        return (tuple(iy.shape), tuple(hw))
+    if name == "hand_energy":
+        points, _, _, hw, _ = args
+        return (tuple(points.shape), tuple(hw))
+    if name == "hand_energy_skin":
+        pose_map, *_, hw, _ = args
+        return (*pose_map.shape, args[3].shape[2], tuple(hw))
     dout, flat_idx, n = args
     return (dout.shape[0], n, dout.shape[2], flat_idx.shape[1])
 
@@ -250,8 +337,8 @@ def _seen_shape(name: str, args: tuple) -> tuple:
 def noting_shapes(seen: dict):
     """While a path runs, note into `seen` (kernel name -> set) the shapes each
     kernel's wrapper is given: (B, N, npoint, masked) for FPS, (B, N, C, S)
-    for the row gather and its adjoint. The wrappers themselves run as they
-    are."""
+    for the row gather and its adjoint, and so on (`_seen_shape`). The
+    wrappers themselves run as they are."""
     from hotrack_tpu_torch.ops import kernels
     real = {name: getattr(kernels, name + "_cuda") for name in KERNELS}
 
@@ -276,7 +363,10 @@ def check_seen_shapes(seen: dict) -> None:
     checked = {"fps": {sh[1:] for sh in FPS_SHAPES},
                "gather_rows": {sh[1:] for sh in GATHER_SHAPES},
                "scatter_rows_add": {sh[1:] for sh in SCATTER_SHAPES},
-               "sdf_mlp": set(SDF_MLP_SHAPES), "obj_sdf_energy": set(OBJ_ENERGY_SHAPES)}
+               "sdf_mlp": set(SDF_MLP_SHAPES), "obj_sdf_energy": set(OBJ_ENERGY_SHAPES),
+               "packed_mask_lookup": set(MASK_LOOKUP_SHAPES),
+               "hand_energy": set(HAND_ENERGY_SHAPES),
+               "hand_energy_skin": set(HAND_SKIN_SHAPES)}
     for name in KERNELS:
         print(f"[shapes] {name}: the paths gave it {len(seen[name])} shapes: "
               f"{sorted(seen[name])}", flush=True)
@@ -322,6 +412,20 @@ def phase_build():
     fused_sdf_mlp(tiny, torch.zeros((5, 3), device="cuda"))
     fused_obj_sdf_energy(tiny, torch.zeros((3, 5), device="cuda"),
                          torch.eye(3, device="cuda")[None], torch.zeros((1, 3), device="cuda"))
+    from hotrack_tpu_torch.ops.hand_energy import fused_hand_energy, hand_frame
+    from hotrack_tpu_torch.ops.hand_energy_skin import SkinConsts, fused_hand_energy_skin
+    from hotrack_tpu_torch.ops.mask_lookup import pack_mask, packed_mask_lookup
+    bits = pack_mask(torch.zeros((2, 3), dtype=torch.bool, device="cuda"))
+    zero = torch.zeros((4,), dtype=torch.int32, device="cuda")
+    packed_mask_lookup(bits, zero, zero, (2, 3))
+    frame = hand_frame(torch.eye(3, device="cuda"), torch.zeros(3, device="cuda"), 1.0, 1.0,
+                       0.0, 0.0)
+    fused_hand_energy(tiny, bits, frame, torch.ones((1, 5, 3), device="cuda"), (2, 3))
+    f32 = dict(device="cuda", dtype=torch.float32)
+    fused_hand_energy_skin(tiny, bits, frame, torch.zeros((1, 4), **f32),
+                           torch.zeros((12, 16), **f32), torch.ones((1, 3), **f32),
+                           SkinConsts(torch.zeros((3, 4, 5), **f32), torch.zeros((3, 5), **f32),
+                                      torch.zeros((16, 5), **f32)), (2, 3))
     torch.cuda.synchronize()
     print(f"[build] {sorted(libs)}: {time.perf_counter() - t0:.3f} s", flush=True)
     for name, lib in libs.items():
@@ -631,7 +735,8 @@ def phase_kernels_sdf_mlp() -> dict:
                                                fused_sdf_mlp, fused_sdf_mlp_cf,
                                                pack_distilled)
     rng = np.random.RandomState(3)
-    cases = [(f"object path, composed route {shape}", MLP_WIDTHS, shape, cf, None, True)
+    cases = [((f"object path, composed route {shape}" if cf else
+               f"hand path, separate route {shape}"), MLP_WIDTHS, shape, cf, None, True)
              for shape, cf in SDF_MLP_SHAPES]
     cases += [
         ("config's 256 points (2048,3,256)", MLP_WIDTHS, (OBJ_PARTICLES, 3, 256), True, None, True),
@@ -668,11 +773,12 @@ def phase_kernels_sdf_mlp() -> dict:
             if is_timed and clamp == 0.05:
                 packed = pack_distilled(model)
                 m = pts.numel() // 3
-                feats = fourier_features(pts.transpose(-1, -2).reshape(-1, 3)[:1 << 18],
+                pts_cf = pts if cf else pts.transpose(-1, -2)
+                feats = fourier_features(pts_cf.transpose(-1, -2).reshape(-1, 3)[:1 << 18],
                                          model.freqs, model.scale)
                 feats = feats.repeat(-(-m // feats.shape[0]), 1)[:m].contiguous()
-                case = _in_turns(lambda: kernels.sdf_mlp_cuda(pts, packed, True),
-                                 lambda: _sdf_mlp_torch(model, pts), None, reps=10)
+                case = _in_turns(lambda: kernels.sdf_mlp_cuda(pts, packed, cf),
+                                 lambda: _sdf_mlp_torch(model, pts_cf), None, reps=10)
                 case["matmul_chain_ms"] = _time_ms(lambda: _matmul_chain(model, feats), 3)
                 del feats
                 case.update(_bound(16.0 * m + 4 * packed.packed.numel(), _mlp_ops(widths, m)))
@@ -1259,6 +1365,560 @@ def phase_object_path(card: str, seen: dict) -> dict:
             shutil.rmtree(root, ignore_errors=True)
 
 
+# --------------------------------------------------------------------------
+# the hand kernels and the hand paths
+
+def _hand_ops(widths, points: int) -> float:
+    """float32 operations of the per-vertex energy on `points` vertices: the
+    MLP, the object-frame transform (9 products, 9 sums, 3 scalings) and the
+    projection (2 quotients, 2 products, 2 sums)."""
+    return _mlp_ops(widths, points) + 27.0 * points
+
+
+def _seeded_mask(rng, hw):
+    return torch.from_numpy(rng.rand(*hw) > 0.5).cuda()
+
+
+def _seeded_frame(rng, hw):
+    """A seeded object pose about the hand and intrinsics scaled to the image."""
+    from hotrack_tpu_torch.ops.hand_energy import hand_frame
+    from hotrack_tpu_torch.pose.rotations import normalize_quat, unit_quaternion_to_matrix
+    quat = normalize_quat(torch.from_numpy(rng.randn(4).astype(np.float32)).cuda())
+    trans = torch.tensor([0.01, -0.02, 0.45], device="cuda")
+    h, w = hw
+    return hand_frame(unit_quaternion_to_matrix(quat), trans, 600.0 * w / 640.0,
+                      590.0 * h / 480.0, w / 2.0, h / 2.0)
+
+
+def _camera_points(rng, shape):
+    """Camera-frame vertices with z > 0.3 m, spread so that their pixels clip
+    on all four edges of the image."""
+    pts = rng.randn(*shape, 3).astype(np.float32) * np.float32(0.08)
+    pts[..., :2] *= np.float32(4.0)
+    pts[..., 2] = np.abs(pts[..., 2]) + np.float32(0.3)
+    return torch.from_numpy(pts).cuda()
+
+
+def phase_kernels_mask_lookup() -> dict:
+    """Mask lookup kernel vs its plain version and vs `mask[iy, ix]`: exact.
+    Library call: that indexing, on a float mask and int64 indices made
+    beforehand."""
+    from hotrack_tpu_torch.ops import kernels
+    from hotrack_tpu_torch.ops.mask_lookup import (_packed_mask_lookup_torch, pack_mask,
+                                                   packed_mask_lookup)
+    rng = np.random.RandomState(6)
+    cases = [(f"hand path {shape} on {hw}", shape, hw, 0, hw == HAND_HW)
+             for shape, hw in MASK_LOOKUP_SHAPES]
+    cases += [("width no multiple of 8 (64,778) on (37,53)", (64, HAND_VERTS), (37, 53), 0, False),
+              ("off a 16-byte boundary (1001,) on (480,640)", (1001,), HAND_HW, 1, False),
+              ("one query (1,) on (5,8)", (1,), (5, 8), 0, False)]
+    timed = []
+    for name, shape, hw, offset, is_timed in cases:
+        mask = _seeded_mask(rng, hw)
+        packed = pack_mask(mask)
+        n = int(np.prod(shape))
+        iy = torch.from_numpy(rng.randint(0, hw[0], n + offset).astype(np.int32)).cuda()
+        ix = torch.from_numpy(rng.randint(0, hw[1], n + offset).astype(np.int32)).cuda()
+        iy, ix = iy[offset:].reshape(shape), ix[offset:].reshape(shape)
+        got = packed_mask_lookup(packed, iy, ix, hw)
+        again = packed_mask_lookup(packed, iy, ix, hw)
+        mask_f, iy_l, ix_l = mask.float(), iy.long(), ix.long()
+        torch.cuda.synchronize()
+        if not (torch.equal(got, again) and torch.equal(got, mask_f[iy_l, ix_l])
+                and torch.equal(got, _packed_mask_lookup_torch(packed, iy, ix))):
+            raise AssertionError(f"[kernels] packed_mask_lookup {name}: not exact")
+        line = (f"[kernels] packed_mask_lookup {name}: exact against the plain version and "
+                f"mask[iy, ix] ({float(got.mean()):.3f} set), relaunch bitwise equal")
+        if is_timed:
+            case = _in_turns(lambda: kernels.packed_mask_lookup_cuda(packed, iy, ix, hw),
+                             lambda: _packed_mask_lookup_torch(packed, iy, ix),
+                             lambda: mask_f[iy_l, ix_l], slow_reps=10)
+            case.update(_bound(12.0 * n + packed.numel(), 0))
+            case["shape"] = name
+            timed.append(case)
+            line += "; " + _fmt(case)
+        print(line, flush=True)
+    return {"max_abs_err": 0.0, **_headline(timed), "cases": timed}
+
+
+def _chain_ms(model, m: int) -> float:
+    """The matmul-chain yardstick on `m` points' ready features."""
+    from hotrack_tpu_torch.ops.sdf_mlp import fourier_features
+    feats = fourier_features(torch.from_numpy(
+        (np.random.RandomState(9).randn(1 << 18, 3) * 0.08).astype(np.float32)).cuda(),
+        model.freqs, model.scale)
+    feats = feats.repeat(-(-m // feats.shape[0]), 1)[:m].contiguous()
+    return _time_ms(lambda: _matmul_chain(model, feats), 3)
+
+
+def phase_kernels_hand_energy() -> dict:
+    """Fused hand energy kernel vs plain version on the card: hit exact, sdf
+    within SDF_ATOL, a second launch bitwise equal. No single PyTorch call
+    computes the function: library_ms is null."""
+    from hotrack_tpu_torch.ops import kernels
+    from hotrack_tpu_torch.ops.hand_energy import (_hand_energy_torch, fused_hand_energy,
+                                                   pixel_coords)
+    from hotrack_tpu_torch.ops.mask_lookup import pack_mask
+    from hotrack_tpu_torch.ops.sdf_mlp import pack_distilled
+    rng = np.random.RandomState(7)
+    cases = [(f"hand path {shape} on {hw}", MLP_WIDTHS, shape[:-1], hw, None, hw == HAND_HW)
+             for shape, hw in HAND_ENERGY_SHAPES]
+    cases += [
+        ("odd P, small N (37,10) on (37,53)", MLP_WIDTHS, (37, 10), (37, 53), None, False),
+        ("one vertex (1,1) on (1,1)", MLP_WIDTHS, (1, 1), NO_MASK_HW, None, False),
+        ("6 frequencies, depth 4 (33,778) on (480,640)", (39, 128, 128, 128, 128),
+         (33, HAND_VERTS), HAND_HW, None, False),
+        ("non-geometric frequencies, narrow (5,129) on (480,640)", (15, 32, 48), (5, 129),
+         HAND_HW, [1.0, 2.5], False),
+    ]
+    max_err, timed = 0.0, []
+    for name, widths, shape, hw, freqs, is_timed in cases:
+        model = _random_sdf(rng, widths, 0.05, freqs)
+        packed_mask = pack_mask(_seeded_mask(rng, hw))
+        frame = _seeded_frame(rng, hw)
+        pts = _camera_points(rng, shape)
+        sdf, hit = fused_hand_energy(model, packed_mask, frame, pts, hw)
+        sdf2, hit2 = fused_hand_energy(model, packed_mask, frame, pts, hw)
+        want_sdf, want_hit = _hand_energy_torch(model, packed_mask, frame, pts, hw)
+        torch.cuda.synchronize()
+        if not (torch.equal(sdf, sdf2) and torch.equal(hit, hit2)):
+            raise AssertionError(f"[kernels] hand_energy {name}: two launches differ")
+        if sdf.shape != tuple(shape) or hit.shape != sdf.shape or not torch.isfinite(sdf).all():
+            raise AssertionError(f"[kernels] hand_energy {name}: shape {tuple(sdf.shape)}")
+        wrong = int((hit != want_hit).sum())
+        err = float((sdf - want_sdf).abs().max())
+        max_err = max(max_err, err)
+        if wrong or err > SDF_ATOL:
+            raise AssertionError(f"[kernels] hand_energy {name}: {wrong} hits differ, sdf max "
+                                 f"error {err:.3e} > {SDF_ATOL}")
+        iy, ix = pixel_coords(pts, frame, hw)
+        edges = [int((iy == 0).sum()), int((iy == hw[0] - 1).sum()), int((ix == 0).sum()),
+                 int((ix == hw[1] - 1).sum())]
+        if shape[-1] == HAND_VERTS and hw == HAND_HW and min(edges) == 0:
+            raise AssertionError(f"[kernels] hand_energy {name}: no pixel clips on an edge")
+        line = (f"[kernels] hand_energy {name}: hit exact ({float(hit.mean()):.3f} set; pixels "
+                f"clipped at top/bottom/left/right {edges}), sdf max error {err:.3e} (bound "
+                f"{SDF_ATOL}), relaunch bitwise equal")
+        if is_timed:
+            packed = pack_distilled(model)
+            m = pts.numel() // 3
+            case = _in_turns(
+                lambda: kernels.hand_energy_cuda(pts, frame, packed_mask, hw, packed),
+                lambda: _hand_energy_torch(model, packed_mask, frame, pts, hw), None, reps=10)
+            case["matmul_chain_ms"] = _chain_ms(model, m)
+            ops = _hand_ops(widths, m)
+            case.update(_bound(20.0 * m + 4 * packed.packed.numel() + packed_mask.numel(), ops))
+            case["shape"] = name
+            timed.append(case)
+            line += (f"; {_fmt(case)}; matmul chain {case['matmul_chain_ms']:.4f} ms; "
+                     f"{ops / case['ms'] / 1e9:.1f} TFLOP/s")
+        print(line, flush=True)
+    return {"max_abs_err": max_err, **_headline(timed), "cases": timed}
+
+
+def _skin_candidates(rng, p: int, n_verts: int = HAND_VERTS):
+    """Seeded MANO candidates about 0.45 m in front of the camera on the
+    synthetic rig (cut to its first n_verts vertices for a small N)."""
+    from hotrack_tpu_torch.mano.layer import shape_hand
+    from hotrack_tpu_torch.mano.model import synthetic_mano_model
+    mano = synthetic_mano_model().to("cuda")
+    if n_verts != HAND_VERTS:
+        mano = mano._replace(
+            v_template=mano.v_template[:n_verts], shapedirs=mano.shapedirs[:n_verts],
+            posedirs=mano.posedirs[:n_verts], j_regressor=mano.j_regressor[:, :n_verts],
+            weights=mano.weights[:n_verts],
+            tips=torch.arange(5, device="cuda") * (n_verts // 5))
+    pose = torch.from_numpy(rng.randn(p, 48).astype(np.float32) * 0.2).cuda()
+    trans = torch.from_numpy(rng.randn(p, 3).astype(np.float32) * 0.02
+                             + np.array([0, 0, 0.45], np.float32)).cuda()
+    beta = torch.from_numpy(rng.randn(1, 10).astype(np.float32) * 0.3).cuda()
+    return mano, pose, trans, shape_hand(mano, beta)
+
+
+def phase_kernels_hand_energy_skin() -> dict:
+    """Fused skinning + energy kernel vs plain version on the card: sdf within
+    SKIN_SDF_ATOL, hit equal wherever the plain version's pixel coordinates
+    are PIXEL_MARGIN clear of an integer and differing on at most
+    FLIP_SHARE_BOUND of the vertices; against mano_forward the built vertices
+    within 5e-6 m; a second launch bitwise equal. No single PyTorch call
+    computes the function: library_ms is null."""
+    from hotrack_tpu_torch.mano.layer import mano_forward, mano_skin_inputs
+    from hotrack_tpu_torch.ops import kernels
+    from hotrack_tpu_torch.ops.hand_energy_skin import (_hand_energy_skin_torch,
+                                                        fused_hand_energy_skin, skin_consts,
+                                                        skin_reference)
+    from hotrack_tpu_torch.ops.mask_lookup import pack_mask
+    from hotrack_tpu_torch.ops.sdf_mlp import pack_distilled
+    rng = np.random.RandomState(8)
+    cases = [(f"hand path ({p},{k},{n}) on {hw}", MLP_WIDTHS, p, n, hw, None,
+              (p, hw) == (HAND_PARTICLES, HAND_HW)) for p, k, n, hw in HAND_SKIN_SHAPES]
+    cases += [
+        ("odd P (33,135,778) on (37,53)", MLP_WIDTHS, 33, HAND_VERTS, (37, 53), None, False),
+        ("one candidate, small N (1,135,50) on (480,640)", MLP_WIDTHS, 1, 50, HAND_HW, None,
+         False),
+        ("6 frequencies, depth 4 (7,135,129) on (480,640)", (39, 128, 128, 128, 128), 7, 129,
+         HAND_HW, None, False),
+        ("non-geometric frequencies, narrow (6,135,778) on (1,1)", (15, 32, 48), 6, HAND_VERTS,
+         NO_MASK_HW, [1.0, 2.5], False),
+    ]
+    max_err, timed = 0.0, []
+    for name, widths, p, n, hw, freqs, is_timed in cases:
+        model = _random_sdf(rng, widths, 0.05, freqs)
+        packed_mask = pack_mask(_seeded_mask(rng, hw))
+        frame = _seeded_frame(rng, hw)
+        mano, pose, trans, shaped = _skin_candidates(rng, p, n)
+        _, pose_map, rt_flat, offset = mano_skin_inputs(mano, pose, trans, shaped)
+        consts = skin_consts(mano, shaped)
+        args = (model, packed_mask, frame, pose_map, rt_flat, offset, consts, hw)
+        sdf, hit = fused_hand_energy_skin(*args)
+        sdf2, hit2 = fused_hand_energy_skin(*args)
+        want_sdf, want_hit = _hand_energy_skin_torch(*args)
+        verts = skin_reference(pose_map, rt_flat, offset, consts)
+        full, _ = mano_forward(mano, pose, trans=trans, shaped=shaped)
+        torch.cuda.synchronize()
+        if not (torch.equal(sdf, sdf2) and torch.equal(hit, hit2)):
+            raise AssertionError(f"[kernels] hand_energy_skin {name}: two launches differ")
+        if tuple(sdf.shape) != (p, n) or hit.shape != sdf.shape or not torch.isfinite(sdf).all():
+            raise AssertionError(f"[kernels] hand_energy_skin {name}: shape {tuple(sdf.shape)}")
+        z = verts[..., 2]
+        v_pix = verts[..., 1] / z * frame[13] + frame[15]
+        u_pix = verts[..., 0] / z * frame[12] + frame[14]
+        clear = ((v_pix - torch.round(v_pix)).abs() > PIXEL_MARGIN) \
+            & ((u_pix - torch.round(u_pix)).abs() > PIXEL_MARGIN)
+        err = float((sdf - want_sdf).abs().max())
+        flips = float((hit != want_hit).float().mean())
+        wrong = int((hit[clear] != want_hit[clear]).sum())
+        vert_err = float((verts - full).abs().max())
+        max_err = max(max_err, err)
+        if err > SKIN_SDF_ATOL or wrong or flips > FLIP_SHARE_BOUND or vert_err > 5e-6:
+            raise AssertionError(
+                f"[kernels] hand_energy_skin {name}: sdf max error {err:.3e} (bound "
+                f"{SKIN_SDF_ATOL}), {wrong} hits differ clear of a pixel border, {flips:.2e} "
+                f"of all hits differ, vertices {vert_err:.3e} m from mano_forward's")
+        line = (f"[kernels] hand_energy_skin {name}: sdf max error {err:.3e} (bound "
+                f"{SKIN_SDF_ATOL}); hit equal on the {float(clear.float().mean()):.4f} of "
+                f"vertices {PIXEL_MARGIN} px clear of a pixel border, {flips:.2e} of all hits "
+                f"flipped (bound {FLIP_SHARE_BOUND}); skin_reference within {vert_err:.2e} m "
+                f"of mano_forward; relaunch bitwise equal")
+        if is_timed:
+            packed = pack_distilled(model)
+            m = p * n
+            flat = (pose_map, rt_flat, offset, *consts, frame, packed_mask, hw, packed)
+            case = _in_turns(lambda: kernels.hand_energy_skin_cuda(*flat),
+                             lambda: _hand_energy_skin_torch(*args), None, reps=10)
+            case["matmul_chain_ms"] = _chain_ms(model, m)
+            k = pose_map.shape[1]
+            ops = _hand_ops(widths, m) + (2.0 * (3 * k + 12 * 16) + 18.0) * m
+            n_bytes = 4.0 * (pose_map.numel() + rt_flat.numel() + offset.numel()
+                             + sum(c.numel() for c in consts) + packed.packed.numel()) \
+                + packed_mask.numel() + 8.0 * m
+            case.update(_bound(n_bytes, ops))
+            case["shape"] = name
+            timed.append(case)
+            line += (f"; {_fmt(case)}; matmul chain {case['matmul_chain_ms']:.4f} ms; "
+                     f"{ops / case['ms'] / 1e9:.1f} TFLOP/s")
+        print(line, flush=True)
+    return {"max_abs_err": max_err, **_headline(timed), "cases": timed}
+
+
+def _handopt_scene(device: str) -> dict:
+    """The pose optimiser's test problem: a ground-truth hand 0.45 m in front
+    of the camera around the box, a perturbed start, the network's keypoints
+    at the truth with three hidden, a seeded random 480 x 640 mask."""
+    from hotrack_tpu_torch.mano.layer import mano_forward
+    from hotrack_tpu_torch.mano.model import synthetic_mano_model
+    from hotrack_tpu_torch.opt import load_contact_zones
+    from hotrack_tpu_torch.pose.rotations import matrix_to_rotvec, rotvec_to_matrix
+    rng = np.random.RandomState(5)
+    t = lambda a: torch.tensor(np.asarray(a, np.float32), device=device)  # noqa: E731
+    mano = synthetic_mano_model().to(device)
+    beta = t(rng.randn(1, 10) * 0.3)
+    gt_theta = t(rng.randn(1, 45) * 0.2)
+    gt_r = rotvec_to_matrix(t(rng.randn(1, 3) * 0.3))
+    gt_t = t([[[0.0], [0.0], [0.45]]])
+    _, gt_kp = mano_forward(mano, torch.cat([matrix_to_rotvec(gt_r), gt_theta], -1),
+                            betas=beta, trans=gt_t[..., 0])
+    init_r = torch.matmul(gt_r, rotvec_to_matrix(t([[0.05, 0.03, -0.04]])))
+    init_t, init_theta = gt_t + 0.01, gt_theta + 0.1
+    _, init_kp = mano_forward(mano, torch.cat([matrix_to_rotvec(init_r), init_theta], -1),
+                              betas=beta, trans=init_t[..., 0])
+    vis = torch.ones((1, 21), dtype=torch.bool, device=device)
+    vis[0, 18:] = False
+    return dict(
+        mano=mano, gt_kp=gt_kp, init_kp=init_kp, zones=load_contact_zones(device=device),
+        kwargs=dict(hand_shape=beta, init_rotation=init_r, init_translation=init_t,
+                    init_theta=init_theta, pred_kp=gt_kp, vis_mask=vis, last_frame_kp=gt_kp,
+                    has_last=1.0, obj_rotation=torch.eye(3, device=device),
+                    obj_translation=t([0.0, 0.0, 0.45]),
+                    background_mask=torch.from_numpy(rng.rand(*HAND_HW) > 0.5).to(device),
+                    intrinsics=HAND_INTRINSICS, energy_weight=HAND_WEIGHTS))
+
+
+def _mpjpe(a, b) -> float:
+    return float(torch.mean(torch.linalg.norm(a - b, dim=-1)))
+
+
+def phase_hand_optimiser(card: str, seen: dict):
+    """`optimize_hand_pose` at its operating point on every route, and with
+    a smaller bank on the card against the CPU. Returns (launches by route,
+    the distilled fit on the CPU)."""
+    from hotrack_tpu_torch.ops import kernels
+    from hotrack_tpu_torch.opt import optimize_hand_pose, presample_particles
+    from hotrack_tpu_torch.sdf.assets import synthetic_box_sdf_setup
+    from hotrack_tpu_torch.sdf.distill import distill_sdf_volume, distilled_to
+    from hotrack_tpu_torch.train.run_hand_track import HAND_VOLUME_SIZE, HAND_VOXEL_SCALE
+
+    t0 = time.perf_counter()
+    volume = synthetic_box_sdf_setup(HAND_VOLUME_SIZE, HAND_VOXEL_SCALE, device="cuda")
+    fit = distill_sdf_volume(volume, HAND_VOXEL_SCALE, torch.Generator().manual_seed(3))
+    torch.cuda.synchronize()
+    distill_s = time.perf_counter() - t0
+    bank = presample_particles(HAND_PARTICLES, 16, torch.Generator().manual_seed(4))
+    scene = _handopt_scene("cuda")
+
+    def run(route, particles, device="cuda", scene=scene, model=fit, vol=volume):
+        trace = []
+        out = optimize_hand_pose(
+            scene["mano"], particles.to(device), scene["zones"], vol, **scene["kwargs"],
+            voxel_scale=HAND_VOXEL_SCALE, distilled=None if route == "volume" else model,
+            hand_energy="skin" if route == "volume" else route, trace=trace)
+        return out, trace[0][0]
+
+    want = {"skin": {"hand_energy_skin": HAND_ITERATIONS},
+            "fused": {"hand_energy": HAND_ITERATIONS},
+            "separate": {"sdf_mlp": HAND_ITERATIONS, "packed_mask_lookup": HAND_ITERATIONS},
+            "volume": {"packed_mask_lookup": HAND_ITERATIONS}}
+    results, launches, times = {}, {}, {}
+    for route in want:
+        run(route, bank)  # warm-up
+        kernels.reset_launch_counts()
+        with noting_shapes(seen):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            results[route] = run(route, bank)
+            torch.cuda.synchronize()
+            times[route] = 1e3 * (time.perf_counter() - t1)
+        launches[route] = dict(kernels.launch_counts)
+        if {k: v for k, v in launches[route].items() if v} != want[route]:
+            raise AssertionError(f"[handopt] route {route} launched {launches[route]}, "
+                                 f"expected {want[route]}")
+    err0 = _mpjpe(scene["init_kp"], scene["gt_kp"])
+    errs = {route: _mpjpe(out[0], scene["gt_kp"]) for route, (out, _) in results.items()}
+    print(f"[handopt] cuda: {HAND_PARTICLES} particles x {HAND_VERTS} vertices x "
+          f"{HAND_ITERATIONS} iterations on a {HAND_HW} mask; distillation of the "
+          f"{HAND_VOLUME_SIZE}^3 volume {distill_s:.2f} s; ms a call by route "
+          f"{ {k: round(v, 3) for k, v in times.items()} }; keypoint error {1e3 * err0:.3f} mm "
+          f"at the start -> {{ {', '.join(f'{k}: {1e3 * v:.3f}' for k, v in errs.items())} }} mm; "
+          f"launches {launches} | {card}", flush=True)
+    if not all(e < err0 for e in errs.values()):
+        raise AssertionError("[handopt] the keypoint error did not fall on every route")
+
+    e_skin = results["skin"][1]
+    for route, bound in (("fused", None), ("separate", None), ("volume", HAND_VOLUME_ATOL)):
+        gap = (results[route][1] - (e_skin if route != "separate" else results["fused"][1])).abs()
+        against = "fused" if route == "separate" else "skin"
+        line = (f"[handopt] iteration-0 energies ({float(e_skin.min()):.4f} to "
+                f"{float(e_skin.max()):.4f}), {route} vs {against}: max gap "
+                f"{float(gap.max()):.3e}")
+        if route == "separate":   # the same pixels: the sdf's rounding alone
+            ok = float(gap.max()) <= HAND_E_ATOL
+            line += f" (bound {HAND_E_ATOL})"
+        elif bound is None:       # skin's vertices differ by rounding: pixels may flip
+            share = float((gap > HAND_E_ATOL).float().mean())
+            ok = float(gap.max()) <= HAND_E_ATOL + HAND_MAX_FLIPS * HAND_FLIP \
+                and share <= HAND_FLIPPED_SHARE
+            line += (f", {share:.4f} of the candidates beyond {HAND_E_ATOL} (a flipped pixel is "
+                     f"{HAND_FLIP:.3e}; bounds {HAND_MAX_FLIPS} flips, share "
+                     f"{HAND_FLIPPED_SHARE})")
+        else:
+            ok = float(gap.max()) <= bound + HAND_MAX_FLIPS * HAND_FLIP
+            line += f" (bound {bound}: another SDF)"
+        print(line, flush=True)
+        if not ok:
+            raise AssertionError(f"[handopt] {route} route: iteration-0 energies differ beyond "
+                                 f"the bound")
+
+    # card against CPU (plain versions), a smaller bank, the same fit and start
+    small = bank[:HAND_CPU_PARTICLES]
+    with noting_shapes(seen):
+        (kp_card, *_), e_card = run("skin", small)
+    cpu_scene = _handopt_scene("cpu")
+    t1 = time.perf_counter()
+    (kp_cpu, *_), e_cpu = run("skin", small, "cpu", cpu_scene, distilled_to(fit, "cpu"),
+                              volume.cpu())
+    gap = (e_card.cpu() - e_cpu).abs()
+    share = float((gap > HAND_CPU_E_ATOL).float().mean())
+    kp_gap = float((kp_card.cpu() - kp_cpu).abs().max())
+    print(f"[handopt] cpu vs cuda, {HAND_CPU_PARTICLES} particles, skin route (cpu run "
+          f"{time.perf_counter() - t1:.1f} s): iteration-0 energies differ by at most "
+          f"{float(gap.max()):.3e}, {share:.4f} of the candidates beyond {HAND_CPU_E_ATOL}; "
+          f"final keypoints differ by {1e3 * kp_gap:.4f} mm (bound {1e3 * HAND_KP_BOUND_M} mm)",
+          flush=True)
+    if float(gap.max()) > HAND_CPU_E_ATOL + HAND_MAX_FLIPS * HAND_FLIP \
+            or share > HAND_FLIPPED_SHARE or kp_gap > HAND_KP_BOUND_M:
+        raise AssertionError("[handopt] card and CPU differ beyond the bound")
+    return launches, distilled_to(fit, "cpu")
+
+
+def _hand_dataset(frames: int) -> str:
+    """A generated set whose test sequence has `frames` frames, with the two
+    seeded checkpoints the hand pipeline loads (HandTrackNet with its delta
+    head scaled, IKNet)."""
+    from hotrack_tpu_torch.data.synthetic import generate_simgrasp_dataset
+    from hotrack_tpu_torch.train.cli import load_config
+    from hotrack_tpu_torch.train.run_hand_track import build_iknet
+    from hotrack_tpu_torch.utils.convert import save_reference_checkpoint
+    root = tempfile.mkdtemp(prefix=f"hotrack_smoke_hand{frames}_")
+    generate_simgrasp_dataset(root, num_instances=2, num_frames=frames,
+                              points_per_part=POINTS_PER_PART)
+    os.environ["HOTRACK_DATA_ROOT"] = root
+    cfg = load_config(_hand_argv())
+    _write_checkpoint(cfg)
+    save_reference_checkpoint(build_iknet(cfg, "cpu"),
+                              os.path.join(cfg["IKNet_dir"], "ckpt", "model_0001.pt"))
+    return root
+
+
+def _hand_argv(*extra) -> list:
+    return ["--config", HAND_CONFIG, "--device", "cuda", "--num_points", str(HAND_NUM_POINTS),
+            *extra]
+
+
+def _hand_run(root: str, seen: dict, fit=None, extra=()):
+    """One run of the hand path on the data under `root`: through `test_main`
+    when it distils itself, through `run_hand_tracking` with the fit carried
+    over otherwise. Returns (mean metrics, stats, launches)."""
+    from hotrack_tpu_torch.ops import kernels
+    from hotrack_tpu_torch.train.cli import load_config, test_main
+    from hotrack_tpu_torch.train.run_hand_track import run_hand_tracking
+    os.environ["HOTRACK_DATA_ROOT"] = root
+    kernels.reset_launch_counts()
+    with noting_shapes(seen):
+        if fit is None:
+            avg, stats = test_main(_hand_argv(*extra))
+        else:
+            avg, stats = run_hand_tracking(load_config(_hand_argv(*extra)), distilled=[fit])
+    torch.cuda.synchronize()
+    launches = dict(kernels.launch_counts)
+    seq = stats["sequences"][0]
+    frames = stats["n_frames"]
+    for key, shape in (("pred_kp", (frames, 21, 3)), ("mano_theta", (frames, 45)),
+                       ("pred_beta", (1, 10)), ("global_translation", (frames, 3, 1))):
+        if seq[key].shape != shape or not np.isfinite(seq[key]).all():
+            raise AssertionError(f"[hand] {extra}: {key} {seq[key].shape}, finite "
+                                 f"{bool(np.isfinite(seq[key]).all())}")
+    if not all(math.isfinite(v) for v in avg.values()):
+        raise AssertionError(f"[hand] {extra}: non-finite metrics {avg}")
+    return avg, stats, launches
+
+
+def phase_hand_path(card: str, seen: dict, fit) -> dict:
+    from hotrack_tpu_torch.data import get_dataloader, prepare_batch
+    from hotrack_tpu_torch.mano.model import get_mano_model
+    from hotrack_tpu_torch.ops import kernels
+    from hotrack_tpu_torch.opt import load_contact_zones
+    from hotrack_tpu_torch.sdf.distill import distilled_to
+    from hotrack_tpu_torch.track import track_hand_sequence
+    from hotrack_tpu_torch.train.cli import load_config
+    from hotrack_tpu_torch.train.run_hand_track import (HAND_VOXEL_SCALE, load_handnet,
+                                                        load_iknet)
+    roots = {n: _hand_dataset(n) for n in (HAND_FRAMES, HAND_SHORT_FRAMES, HAND_MODE_FRAMES)}
+    try:
+        # the main run: test_main distils the volume itself; skin route, shape mode 1
+        _hand_run(roots[HAND_SHORT_FRAMES], {name: set() for name in KERNELS}, fit)  # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        avg, stats, launches = _hand_run(roots[HAND_FRAMES], seen)
+        peak = torch.cuda.max_memory_allocated()
+        seq = stats["sequences"][0]
+        expect = {"fps": PER_PREPARE + FPS_PER_FORWARD * (HAND_FRAMES + 1),
+                  "gather_rows": PER_PREPARE + GATHERS_PER_FORWARD * (HAND_FRAMES + 1),
+                  "hand_energy_skin": HAND_ITERATIONS * HAND_FRAMES}
+        if {k: v for k, v in launches.items() if v} != expect:
+            raise AssertionError(f"[hand] the main run launched {launches}, expected {expect}")
+        if not np.abs(seq["pred_beta"]).max() > 0:
+            raise AssertionError("[hand] the frame-0 shape optimiser left beta at zero")
+        ms_net = 1e3 * stats["net_seconds"] / HAND_FRAMES
+        ms_all = 1e3 * (stats["net_seconds"] + stats["data_seconds"]) / HAND_FRAMES
+        print(f"[hand] cuda, skin route, shape mode 1: {HAND_FRAMES} frames at "
+              f"{HAND_NUM_POINTS} points, {HAND_PARTICLES} particles; tracking {ms_net:.3f} "
+              f"ms/frame (the frame-0 shape optimiser included), {ms_all:.3f} ms/frame with the "
+              f"sequence's set-up ({seq['setup_seconds']:.2f} s, of which distillation "
+              f"{seq['distill_seconds']:.2f} s); peak memory {peak / 2**20:.1f} MiB; beta "
+              f"{np.array2string(seq['pred_beta'][0], precision=3)}; launches {launches}; "
+              f"metrics {avg} | {card}", flush=True)
+        by_path = {"hand": launches}
+
+        # the same nets with seeded 480 x 640 masks: the silhouette term at work
+        os.environ["HOTRACK_DATA_ROOT"] = roots[HAND_FRAMES]
+        cfg = load_config(_hand_argv())
+        mano = get_mano_model(cfg.get("mano_root")).to("cuda")
+        raw, _ = get_dataloader(cfg, "test")[0]
+        hj = cfg["hand_jitter_cfg"]
+        masks = torch.from_numpy(np.random.RandomState(13).rand(HAND_FRAMES, *HAND_HW) > 0.5)
+        kwargs = dict(
+            iknet=load_iknet(cfg, "cuda"), use_opt=True, shape_mode=1,
+            shape_particles=torch.from_numpy(stats["shape_particles"]).cuda(),
+            pose_particles=torch.from_numpy(stats["pose_particles"]).cuda(),
+            zones=load_contact_zones(device="cuda"), background_masks=masks.cuda(),
+            energy_weight=HAND_WEIGHTS, sdf_voxel_scale=HAND_VOXEL_SCALE,
+            distilled=distilled_to(seq["distilled"], "cuda"))
+        handnet = load_handnet(cfg, "cuda")
+        kernels.reset_launch_counts()
+        with noting_shapes(seen):
+            batch = prepare_batch(mano, raw, HAND_NUM_POINTS,
+                                  generator=torch.Generator().manual_seed(0),
+                                  hand_jitter_scale=hj["rand_scale"],
+                                  jitter_kind=hj["rand_type"], device="cuda")
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            result = track_hand_sequence(handnet, mano, batch, **kwargs)
+            torch.cuda.synchronize()
+            ms_masks = 1e3 * (time.perf_counter() - t1) / HAND_FRAMES
+        by_path["hand_masks"] = dict(kernels.launch_counts)
+        if by_path["hand_masks"]["hand_energy_skin"] != HAND_ITERATIONS * HAND_FRAMES \
+                or not all(bool(torch.isfinite(t).all()) for t in result):
+            raise AssertionError(f"[hand] the run with masks: launches {by_path['hand_masks']}")
+        print(f"[hand] cuda, track_hand_sequence with seeded {HAND_HW} masks: {ms_masks:.3f} "
+              f"ms/frame; keypoints moved by the optimiser {1e3 * _mpjpe(result.pred_kp, result.baseline_pred_kp):.3f} "
+              f"mm from HandTrackNet's", flush=True)
+
+        # the other routes and shape modes, with the hand-optimiser phase's fit
+        _, ref, _ = _hand_run(roots[HAND_SHORT_FRAMES], seen, fit)
+        ref_kp = ref["sequences"][0]["pred_kp"]
+        per_frame = HAND_ITERATIONS * HAND_SHORT_FRAMES
+        for tag, extra, expect in (
+                ("fused", ("--hand_energy", "fused"), {"hand_energy": per_frame}),
+                ("separate", ("--hand_energy", "separate"),
+                 {"sdf_mlp": per_frame, "packed_mask_lookup": per_frame}),
+                ("volume", ("--sdf_query", "volume"), {"packed_mask_lookup": per_frame})):
+            _, st, ln = _hand_run(roots[HAND_SHORT_FRAMES], seen,
+                                  None if tag == "volume" else fit, extra)
+            got = {k: v for k, v in ln.items() if k not in ("fps", "gather_rows") and v}
+            if got != expect:
+                raise AssertionError(f"[hand] route {tag} launched {ln}, expected {expect}")
+            gap = np.abs(st["sequences"][0]["pred_kp"] - ref_kp).reshape(HAND_SHORT_FRAMES, -1)
+            print(f"[hand] cuda, {HAND_SHORT_FRAMES} frames, route {tag}: "
+                  f"{1e3 * st['net_seconds'] / HAND_SHORT_FRAMES:.3f} ms/frame against skin's "
+                  f"{1e3 * ref['net_seconds'] / HAND_SHORT_FRAMES:.3f}; launches {got}; keypoints "
+                  f"against the skin route's: frame 0 {1e3 * gap[0].max():.4f} mm, worst frame "
+                  f"{1e3 * gap.max():.4f} mm (closed loop)", flush=True)
+            by_path[f"hand_{tag}"] = ln
+        for mode in (2, 3):
+            _, st, ln = _hand_run(roots[HAND_MODE_FRAMES], seen, fit,
+                                  ("--use_pred_hand_shape", str(mode)))
+            if ln["hand_energy_skin"] != HAND_ITERATIONS * HAND_MODE_FRAMES:
+                raise AssertionError(f"[hand] shape mode {mode} launched {ln}")
+            print(f"[hand] cuda, {HAND_MODE_FRAMES} frames, shape mode {mode}: "
+                  f"{1e3 * st['net_seconds'] / HAND_MODE_FRAMES:.3f} ms/frame (two "
+                  f"re-optimisations included); beta "
+                  f"{np.array2string(st['sequences'][0]['pred_beta'][0], precision=3)}",
+                  flush=True)
+        return by_path
+    finally:
+        for root in roots.values():
+            shutil.rmtree(root, ignore_errors=True)
+
+
 def check_no_jax() -> None:
     bad = sorted(m for m in sys.modules if m in ("jax", "hotrack_tpu")
                  or m.startswith(("jax.", "jaxlib", "flax", "optax", "hotrack_tpu.")))
@@ -1273,14 +1933,22 @@ def main() -> int:
     numbers = {"fps": phase_kernels_fps(), "gather_rows": phase_kernels_gather(),
                "scatter_rows_add": phase_kernels_scatter(),
                "sdf_mlp": phase_kernels_sdf_mlp(),
-               "obj_sdf_energy": phase_kernels_obj_energy()}
+               "obj_sdf_energy": phase_kernels_obj_energy(),
+               "packed_mask_lookup": phase_kernels_mask_lookup(),
+               "hand_energy": phase_kernels_hand_energy(),
+               "hand_energy_skin": phase_kernels_hand_energy_skin()}
     seen = {name: set() for name in KERNELS}
     by_path = {"tracking": phase_tracking_path(card, seen),
                "train": phase_train_path(card, seen),
                **phase_object_path(card, seen)}
+    handopt_launches, fit = phase_hand_optimiser(card, seen)
+    by_path.update({f"handopt_{route}": counts for route, counts in handopt_launches.items()})
+    by_path.update(phase_hand_path(card, seen, fit))
     # the path whose count stands for the kernel in the result line
     main_path = {"fps": "train", "gather_rows": "train", "scatter_rows_add": "train",
-                 "sdf_mlp": "object_composed", "obj_sdf_energy": "object"}
+                 "sdf_mlp": "object_composed", "obj_sdf_energy": "object",
+                 "packed_mask_lookup": "hand_separate", "hand_energy": "hand_fused",
+                 "hand_energy_skin": "hand"}
     check_seen_shapes(seen)
     check_no_jax()
     print(f"[done] {time.perf_counter() - t0:.1f} s", flush=True)

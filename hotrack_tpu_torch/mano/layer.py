@@ -4,6 +4,10 @@ Port of hotrack_tpu/mano/layer.py: axis-angle -> rotations with the
 reference's +1e-8 norm shift, shape and pose blendshapes, the explicit
 3-level kinematic chain, LBS skinning, 5 fingertip vertices, the 21-kp
 reorder and the wrist-centred output convention. Batched over a leading axis.
+`mano_skin_inputs` gives the fused skinning + energy kernel
+(ops/hand_energy_skin.py) what it needs per candidate, without the vertices.
+`mano_forward`'s `channels_first` output of the JAX package is a TPU layout
+device and is not carried over.
 """
 
 from __future__ import annotations
@@ -35,6 +39,11 @@ def mano_rodrigues(axisang: torch.Tensor) -> torch.Tensor:
         dim=-1,
     )
     return m.reshape(*axisang.shape[:-1], 3, 3)
+
+
+def pca_comps2pose(model: ManoModel, pca: torch.Tensor, ncomps: int = 10) -> torch.Tensor:
+    """PCA coefficients (..., ncomps) -> 45-dof axis-angle pose."""
+    return torch.matmul(pca, model.hands_components[:ncomps])
 
 
 def shape_hand(model: ManoModel, betas: torch.Tensor):
@@ -114,3 +123,60 @@ def mano_forward(model: ManoModel, pose_coeffs: torch.Tensor,
         jtr = jtr + trans[:, None]
         verts = verts + trans[:, None]
     return verts, jtr
+
+
+def mano_skin_inputs(model: ManoModel, pose_coeffs: torch.Tensor,
+                     trans: torch.Tensor, shaped):
+    """Keypoints and the per-candidate skinning inputs of the fused
+    skinning + energy kernel (ops/hand_energy_skin.py), which computes
+    verts(v) = R_skin(v) vp(v) + t_skin(v) + offset with
+    vp = v_shaped + posedirs @ pose_map and [R_skin | t_skin] the per-vertex
+    weight blend of (r_all, t_rel): mano_forward's LBS. offset = trans -
+    wrist centre gives the wrist-centred, translated convention.
+
+    pose_coeffs (B, 48), trans (B, 3), shaped = shape_hand(...) with batch 1
+    or B -> (kp (B, 21, 3), pose_map (B, 135), rt_flat (B * 12, 16): row
+    12 b + r holds role r (9 rotation entries row-major, then 3 of t_rel) of
+    the 16 joints, offset (B, 3)). The fingertips come from a 5-vertex
+    mini-skin with the full path's per-element products."""
+    b = pose_coeffs.shape[0]
+    rot_mats = mano_rodrigues(pose_coeffs.reshape(b, 16, 3))
+    eye = torch.eye(3, dtype=pose_coeffs.dtype, device=pose_coeffs.device)
+    pose_map = (rot_mats[:, 1:] - eye).reshape(b, 135)
+
+    v_shaped, joints = shaped
+    v_shaped = v_shaped.expand(b, *v_shaped.shape[1:])
+    joints = joints.expand(b, *joints.shape[1:])
+    r_all, t_all, t_rel = _kinematic_chain(rot_mats, joints)
+
+    w5 = model.weights[model.tips]      # (5, 16)
+    pd5 = model.posedirs[model.tips]    # (5, 3, 135)
+    vp5 = v_shaped[:, model.tips] + torch.einsum("vcp,bp->bvc", pd5, pose_map)
+    r5 = torch.einsum("vj,bjxy->bvxy", w5, r_all)
+    t5 = torch.einsum("vj,bjx->bvx", w5, t_rel)
+    tips = torch.einsum("bvxy,bvy->bvx", r5, vp5) + t5
+
+    jtr = torch.cat([t_all, tips], dim=1)[:, list(KP_REORDER)]
+    center = jtr[:, :1]
+    kp = jtr - center + trans[:, None]
+    offset = trans - center[:, 0]
+
+    rt = torch.cat([r_all.reshape(b, 16, 9), t_rel], dim=-1)      # (B, 16, 12)
+    rt_flat = rt.transpose(1, 2).reshape(b * 12, 16)
+    return kp, pose_map, rt_flat, offset
+
+
+def mano_keypoints(model: ManoModel, pose_coeffs, betas=None, trans=None, shaped=None):
+    """The 21 keypoints alone (the vertices dropped)."""
+    return mano_forward(model, pose_coeffs, betas, trans, shaped)[1]
+
+
+def template_keypoints(model: ManoModel, betas: torch.Tensor | None = None):
+    """Rest-pose 21 keypoints (wrist-centred): the source of the trackers'
+    palm template."""
+    if betas is None:
+        betas = torch.zeros((1, model.shapedirs.shape[-1]), dtype=model.v_template.dtype,
+                            device=model.v_template.device)
+    pose = torch.zeros((betas.shape[0], 48), dtype=model.v_template.dtype,
+                       device=model.v_template.device)
+    return mano_forward(model, pose, betas)[1]

@@ -8,8 +8,6 @@ skeleton-rearrange modules and the TransT stack (FFN mode as shipped), and
 regress a per-keypoint delta. IKNet maps canonical keypoints and bones to 15
 joint quaternions (MANO theta). Channels-last; submodule names follow the
 reference's state dict, so reference checkpoints load (utils/convert.py).
-The visibility output (used with IKNet in tracking) is not ported yet
-(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -24,6 +22,7 @@ from ..nn.backbones import PointNet2Msg
 from ..nn.blocks import RearrangeModule, position_embedding_sine
 from ..nn.pointnet2 import SetAbstractionAtCenters
 from ..nn.transformer import AttnModule, TransT
+from ..ops.pointops import knn_point
 from ..pose.rotations import matrix_to_unit_quaternion, mano_quat2axisang
 from .hand_utils import (
     CanonPose,
@@ -69,7 +68,9 @@ class HandTrackNet(nn.Module):
     (6, 3) or (B, 6, 3) [handframe='kp'], obb_pose CanonPose
     [handframe='OBB'], valid_mask (B, N) or None) -> dict with pred_kp
     (B, 21, 3), pred_kp_handframe, init_kp_handframe, points_handframe and
-    canon_pose."""
+    canon_pose; with compute_visibility also pred_kp_vis_mask (B, 21) bool:
+    a keypoint counts as visible when the mean distance to its 4 nearest
+    cloud points is under 2 cm (3 cm for the wrist and the thumb base)."""
 
     def __init__(self, net_cfg: Mapping[str, Any], backbone_out_dim: int = 384,
                  handframe: str = "kp", use_attention: bool = False,
@@ -97,7 +98,8 @@ class HandTrackNet(nn.Module):
         self.final_mlp = nn.Sequential(nn.Linear(d, 256), nn.ReLU(), nn.Linear(256, 3))
 
     def forward(self, hand_points, jittered_kp, palm_template=None,
-                valid_mask=None, obb_pose: CanonPose | None = None) -> dict:
+                valid_mask=None, obb_pose: CanonPose | None = None,
+                compute_visibility: bool = False) -> dict:
         b, kp_num = jittered_kp.shape[0], jittered_kp.shape[1]
         if self.handframe == "kp":
             canon_pose = solve_hand_frame(palm_template, jittered_kp,
@@ -128,13 +130,20 @@ class HandTrackNet(nn.Module):
             # FFN mode never reads the positional embedding or result2
             fused = self.c3(self.transt(f14)[0])
         pred_kp_handframe = self.final_mlp(fused) + xyz1
-        return {
+        ret = {
             "canon_pose": canon_pose,
             "init_kp_handframe": xyz1,
             "points_handframe": xyz2,
             "pred_kp_handframe": pred_kp_handframe,
             "pred_kp": decanonicalize(pred_kp_handframe, canon_pose),
         }
+        if compute_visibility:
+            dist4, _ = knn_point(4, ret["pred_kp"], hand_points)
+            avg = torch.mean(dist4, dim=-1)
+            discount = torch.zeros(kp_num, dtype=avg.dtype, device=avg.device)
+            discount[:2] = 0.01
+            ret["pred_kp_vis_mask"] = (avg - discount) < 0.02
+        return ret
 
 
 def hand_tracknet_loss(ret: dict, gt_kp, gt_palm_template=None,

@@ -34,8 +34,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # launches per kernel since the last reset; only the kernel wrappers add
 launch_counts = {"fps": 0, "gather_rows": 0, "scatter_rows_add": 0,
-                 "sdf_mlp": 0, "obj_sdf_energy": 0}
-SOURCES = ("fps", "gather_rows", "sdf_mlp", "obj_energy")  # csrc/<name>.cu
+                 "sdf_mlp": 0, "obj_sdf_energy": 0, "packed_mask_lookup": 0,
+                 "hand_energy": 0, "hand_energy_skin": 0}
+SOURCES = ("fps", "gather_rows", "sdf_mlp", "obj_energy", "mask_lookup",
+           "hand_energy", "hand_energy_skin")  # csrc/<name>.cu
 _INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
 
 _libs: dict[str, ctypes.CDLL] = {}
@@ -161,6 +163,30 @@ def _bind_obj_energy(lib: ctypes.CDLL) -> None:
     lib.hotrack_obj_energy.restype = i
     lib.hotrack_obj_energy_init.restype = i
     _check_status(lib.hotrack_obj_energy_init(), "obj_energy set-up")
+
+
+def _bind_mask_lookup(lib: ctypes.CDLL) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.hotrack_mask_lookup.argtypes = [p, p, p, p, ctypes.c_longlong, i, i, p]
+    lib.hotrack_mask_lookup.restype = i
+
+
+def _bind_hand_energy(lib: ctypes.CDLL) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.hotrack_hand_energy.argtypes = [p, p, p, p, p, p, ctypes.c_longlong, i, i, i, i,
+                                        ctypes.POINTER(ctypes.c_int), p]
+    lib.hotrack_hand_energy.restype = i
+    lib.hotrack_hand_energy_init.restype = i
+    _check_status(lib.hotrack_hand_energy_init(), "hand_energy set-up")
+
+
+def _bind_hand_energy_skin(lib: ctypes.CDLL) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.hotrack_hand_energy_skin.argtypes = [p] * 11 + [i] * 7 + [
+        ctypes.POINTER(ctypes.c_int), p]
+    lib.hotrack_hand_energy_skin.restype = i
+    lib.hotrack_hand_energy_skin_init.restype = i
+    _check_status(lib.hotrack_hand_energy_skin_init(), "hand_energy_skin set-up")
 
 
 def _check_status(err: int, what: str) -> None:
@@ -357,3 +383,137 @@ def obj_sdf_energy_cuda(pcld_cf: torch.Tensor, rts: torch.Tensor, packed) -> tor
     _check_status(err, f"obj_sdf_energy launch (P={p}, N={n}, widths {packed.widths})")
     launch_counts["obj_sdf_energy"] += 1
     return out
+
+
+def _check_mask(name: str, mask: torch.Tensor, hw, like: torch.Tensor) -> tuple:
+    """A packed mask (ops/mask_lookup.pack_mask) for image size hw on the
+    device of `like`; returns (H, W)."""
+    h, w = int(hw[0]), int(hw[1])
+    if mask.device != like.device or mask.dtype != torch.uint8 or not mask.is_contiguous() \
+            or h < 1 or w < 1 or tuple(mask.shape) != (h, (w + 7) // 8):
+        raise ValueError(f"{name}: the packed mask must be contiguous uint8 "
+                         f"(H, ceil(W / 8)) for hw={tuple(hw)} on {like.device}, got "
+                         f"{tuple(mask.shape)} {mask.dtype} on {mask.device}")
+    return h, w
+
+
+def packed_mask_lookup_cuda(mask: torch.Tensor, iy: torch.Tensor, ix: torch.Tensor,
+                            hw) -> torch.Tensor:
+    """The background-mask bit at integer pixels on the card
+    (csrc/mask_lookup.cu): mask uint8 (H, ceil(W / 8)) from `pack_mask`,
+    iy and ix int32 of one shape, contiguous, inside [0, H) and [0, W)
+    -> float32 in {0, 1} of that shape. An index outside the image reads the
+    nearest pixel inside it, never memory outside the mask."""
+    for what, t in (("iy", iy), ("ix", ix)):
+        if not t.is_cuda or t.device.index != torch.cuda.current_device():
+            raise ValueError(f"packed_mask_lookup_cuda takes CUDA tensors on the current "
+                             f"device, got {what} on {t.device}")
+        if t.dtype != torch.int32 or not t.is_contiguous():
+            raise ValueError(f"packed_mask_lookup_cuda: {what} must be contiguous int32, "
+                             f"got {t.dtype}, contiguous={t.is_contiguous()}")
+    if iy.shape != ix.shape or ix.device != iy.device or iy.numel() < 1:
+        raise ValueError(f"packed_mask_lookup_cuda: iy {tuple(iy.shape)} and ix "
+                         f"{tuple(ix.shape)} must be one non-empty shape on one device")
+    h, w = _check_mask("packed_mask_lookup_cuda", mask, hw, iy)
+    lib = _load("mask_lookup", _bind_mask_lookup)
+    out = torch.empty(iy.shape, dtype=torch.float32, device=iy.device)
+    stream = torch.cuda.current_stream(iy.device).cuda_stream
+    err = lib.hotrack_mask_lookup(mask.data_ptr(), iy.data_ptr(), ix.data_ptr(),
+                                  out.data_ptr(), iy.numel(), h, w, stream)
+    _check_status(err, f"packed_mask_lookup launch ({tuple(iy.shape)} queries, mask {h}x{w})")
+    launch_counts["packed_mask_lookup"] += 1
+    return out
+
+
+def _check_frame(name: str, frame: torch.Tensor, like: torch.Tensor) -> None:
+    _check_f32(name, "frame", frame)
+    if tuple(frame.shape) != (16,) or frame.device != like.device:
+        raise ValueError(f"{name}: frame must be (16,) on {like.device} "
+                         f"(ops/hand_energy.hand_frame), got {tuple(frame.shape)} "
+                         f"on {frame.device}")
+
+
+def hand_energy_cuda(points: torch.Tensor, frame: torch.Tensor, mask: torch.Tensor,
+                     hw, packed) -> tuple:
+    """The fused per-vertex hand energy on the card (csrc/hand_energy.cu):
+    points (..., 3) contiguous float32 camera-frame vertices, frame (16,)
+    from `hand_frame`, the packed mask for image size hw and a `PackedSDF`
+    -> (sdf (...), hit (...)) float32. Gradient-free."""
+    _check_f32("hand_energy_cuda", "points", points)
+    if points.dim() < 1 or points.shape[-1] != 3 or points.numel() < 3:
+        raise ValueError(f"points must be a non-empty (..., 3), got {tuple(points.shape)}")
+    if torch.is_grad_enabled() and points.requires_grad:
+        raise ValueError("hand_energy_cuda has no backward: call it under "
+                         "torch.no_grad() or detach the points")
+    _check_frame("hand_energy_cuda", frame, points)
+    h, w = _check_mask("hand_energy_cuda", mask, hw, points)
+    n_freqs, n_hidden, widths = _mlp_args("hand_energy_cuda", packed, points)
+    lib = _load("hand_energy", _bind_hand_energy)
+    shape = tuple(points.shape[:-1])
+    sdf = torch.empty(shape, dtype=torch.float32, device=points.device)
+    hit = torch.empty(shape, dtype=torch.float32, device=points.device)
+    stream = torch.cuda.current_stream(points.device).cuda_stream
+    err = lib.hotrack_hand_energy(points.data_ptr(), frame.data_ptr(), mask.data_ptr(),
+                                  packed.packed.data_ptr(), sdf.data_ptr(), hit.data_ptr(),
+                                  points.numel() // 3, h, w, n_freqs, n_hidden, widths, stream)
+    _check_status(err, f"hand_energy launch (points {tuple(points.shape)}, mask {h}x{w}, "
+                       f"widths {packed.widths})")
+    launch_counts["hand_energy"] += 1
+    return sdf, hit
+
+
+SKIN_JOINTS = 16  # csrc/hand_energy_skin.cu blends this many joints a vertex
+
+
+def hand_energy_skin_cuda(pose_map: torch.Tensor, rt_flat: torch.Tensor,
+                          offset: torch.Tensor, posedirs_cf: torch.Tensor,
+                          vshaped_cf: torch.Tensor, weights_t: torch.Tensor,
+                          frame: torch.Tensor, mask: torch.Tensor, hw, packed) -> tuple:
+    """MANO skinning fused with the per-vertex hand energy on the card
+    (csrc/hand_energy_skin.cu). Per candidate: pose_map (P, K), rt_flat
+    (P * 12, 16), offset (P, 3) (mano/layer.mano_skin_inputs); per call:
+    posedirs_cf (3, K, N), vshaped_cf (3, N), weights_t (16, N)
+    (ops/hand_energy_skin.skin_consts); frame (16,), the packed mask for
+    image size hw and a `PackedSDF`; all contiguous float32 on the current
+    card -> (sdf (P, N), hit (P, N)). The vertices never reach device
+    memory. Gradient-free."""
+    name = "hand_energy_skin_cuda"
+    for what, t in (("pose_map", pose_map), ("rt_flat", rt_flat), ("offset", offset),
+                    ("posedirs_cf", posedirs_cf), ("vshaped_cf", vshaped_cf),
+                    ("weights_t", weights_t)):
+        _check_f32(name, what, t)
+        if t.device != pose_map.device:
+            raise ValueError(f"{name}: {what} is on {t.device}, pose_map on {pose_map.device}")
+        if torch.is_grad_enabled() and t.requires_grad:
+            raise ValueError(f"{name} has no backward: call it under torch.no_grad()")
+    if pose_map.dim() != 2 or posedirs_cf.dim() != 3:
+        raise ValueError(f"{name}: pose_map {tuple(pose_map.shape)}, posedirs_cf "
+                         f"{tuple(posedirs_cf.shape)}")
+    p, k = pose_map.shape
+    n = posedirs_cf.shape[2]
+    want = {"rt_flat": (p * 12, SKIN_JOINTS), "offset": (p, 3), "posedirs_cf": (3, k, n),
+            "vshaped_cf": (3, n), "weights_t": (SKIN_JOINTS, n)}
+    got = {"rt_flat": rt_flat, "offset": offset, "posedirs_cf": posedirs_cf,
+           "vshaped_cf": vshaped_cf, "weights_t": weights_t}
+    for what, shape in want.items():
+        if tuple(got[what].shape) != shape:
+            raise ValueError(f"{name}: {what} must be {shape} beside pose_map "
+                             f"{(p, k)}, got {tuple(got[what].shape)}")
+    if p < 1 or k < 1 or n < 1:
+        raise ValueError(f"empty {name} problem: P={p} K={k} N={n}")
+    _check_frame(name, frame, pose_map)
+    h, w = _check_mask(name, mask, hw, pose_map)
+    n_freqs, n_hidden, widths = _mlp_args(name, packed, pose_map)
+    lib = _load("hand_energy_skin", _bind_hand_energy_skin)
+    sdf = torch.empty((p, n), dtype=torch.float32, device=pose_map.device)
+    hit = torch.empty((p, n), dtype=torch.float32, device=pose_map.device)
+    stream = torch.cuda.current_stream(pose_map.device).cuda_stream
+    err = lib.hotrack_hand_energy_skin(
+        pose_map.data_ptr(), rt_flat.data_ptr(), offset.data_ptr(), posedirs_cf.data_ptr(),
+        vshaped_cf.data_ptr(), weights_t.data_ptr(), frame.data_ptr(), mask.data_ptr(),
+        packed.packed.data_ptr(), sdf.data_ptr(), hit.data_ptr(), p, k, n, h, w, n_freqs,
+        n_hidden, widths, stream)
+    _check_status(err, f"hand_energy_skin launch (P={p}, K={k}, N={n}, mask {h}x{w}, "
+                       f"widths {packed.widths})")
+    launch_counts["hand_energy_skin"] += 1
+    return sdf, hit

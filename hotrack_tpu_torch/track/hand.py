@@ -1,12 +1,20 @@
-"""Hand tracking: the per-sequence frame loop.
+"""Hand tracking: the per-sequence frame loop (port of
+hotrack_tpu/track/hand.py:track_hand_sequence).
 
-Port of hotrack_tpu/track/hand.py:track_hand_sequence without IKNet and the
-optimisers. The JAX package runs the frames as one `lax.scan`; here the same
-step is a Python loop over frames, with the state on the device:
+The JAX package runs the frames as one `lax.scan`; here the same step is a
+Python loop over frames, with the state (last keypoints, palm template,
+shape code, bone-length history) on the device and nothing read back on the
+way:
 
-  - the palm template is the rest-pose MANO's palm at zero shape;
+  - the palm template starts as the rest-pose MANO's palm and is replaced by
+    the optimised shape's when a shape mode is on;
   - frame 0 starts from the dataset's jittered keypoints; every later frame
-    re-centres the previous prediction by the current cloud mean.
+    re-centres the previous prediction by the current cloud mean;
+  - with IKNet: optional MANO shape optimisation from HandTrackNet's
+    prediction on frame 0 (shape_mode 1), again every 10 frames (2), or every
+    10 frames against the history of predicted bone lengths (3); IKNet ->
+    MANO theta and global pose; optional per-frame pose optimisation against
+    the object's SDF and the silhouette (`use_opt`).
 """
 
 from __future__ import annotations
@@ -15,12 +23,16 @@ import torch
 
 from ..mano.layer import mano_forward
 from ..mano.model import ManoModel
-from ..models.hand_network import HandTrackNet
+from ..models.hand_network import HandTrackNet, IKNet, iknet_predict_kp
 from ..models.hand_utils import handkp2palmkp
+from ..ops.sdf_mlp import pack_distilled
+from ..opt.hand_pose import ContactZones, optimize_hand_pose
+from ..opt.hand_shape import kp2length, optimize_hand_shape
 from .types import HandTrackResult
 
-_SLICE_TODO = ("{} is not ported yet: see ROADMAP.md, queue 1, slice 4 "
-               "(full hand pipeline: IKNet and the shape/pose optimisers)")
+SHAPE_MODES = (0, 1, 2, 3)
+HISTORY_ROWS = 64   # shape_mode 3: ring buffer of per-frame bone lengths
+REOPT_EVERY = 10    # shape modes 2 and 3 re-optimise on frames 10, 20, ...
 
 
 def _rest_palm_template(mano_model: ManoModel, beta: torch.Tensor) -> torch.Tensor:
@@ -31,42 +43,130 @@ def _rest_palm_template(mano_model: ManoModel, beta: torch.Tensor) -> torch.Tens
 
 
 @torch.inference_mode()
-def track_hand_sequence(handnet: HandTrackNet, mano_model: ManoModel,
-                        frames: dict, iknet=None, use_opt: bool = False,
-                        shape_mode=False) -> HandTrackResult:
-    """Track one sequence. `frames` holds (T, ...) tensors on the model's
-    device (prepare_batch output): hand_points (T, N, 3) and
-    jittered_hand_kp (T, 21, 3)."""
-    if iknet is not None:
-        raise NotImplementedError(_SLICE_TODO.format("iknet"))
-    if use_opt:
-        raise NotImplementedError(_SLICE_TODO.format("use_opt"))
-    if shape_mode:
-        raise NotImplementedError(_SLICE_TODO.format("shape_mode"))
+def track_hand_sequence(
+    handnet: HandTrackNet,
+    mano_model: ManoModel,
+    frames: dict,                                # (T, ...) tensors (prepare_batch output)
+    iknet: IKNet | None = None,
+    use_opt: bool = False,
+    shape_mode: int | bool = False,              # False / 0: annotated beta; 1: optimised
+                                                 # on frame 0; 2: again every 10 frames;
+                                                 # 3: every 10 frames on the history
+    shape_particles: torch.Tensor | None = None,   # (P, 10)
+    pose_particles: torch.Tensor | None = None,    # (P, 16)
+    zones: ContactZones | None = None,
+    sdf_volume: torch.Tensor | None = None,
+    background_masks: torch.Tensor | None = None,  # (T, H, W) bool
+    energy_weight: dict | None = None,
+    use_pred_obj_pose: bool = False,
+    sdf_voxel_scale: float = 0.003,
+    distilled=None,                              # DistilledSDF for the pose optimiser
+    hand_energy: str = "skin",
+) -> HandTrackResult:
+    """Track one sequence on the device the frames lie on. Without `iknet`
+    this is HandTrackNet alone and every other option is ignored, as in the
+    JAX package; `use_opt` needs `iknet`, the particle banks and zones are
+    needed where the options that use them are on."""
+    shape_mode = int(shape_mode)
+    if shape_mode not in SHAPE_MODES:
+        raise ValueError(f"shape_mode must be one of {SHAPE_MODES}, got {shape_mode}")
+    use_iknet = iknet is not None
+    use_opt = bool(use_opt) and use_iknet
+    if use_iknet and shape_mode and shape_particles is None:
+        raise ValueError(f"shape_mode {shape_mode} needs shape_particles")
+    if use_opt and (pose_particles is None or zones is None or energy_weight is None
+                    or (sdf_volume is None and distilled is None)):
+        raise ValueError("use_opt needs pose_particles, zones, energy_weight and an SDF "
+                         "(sdf_volume or distilled)")
     points = frames["hand_points"]
     init_kp = frames["jittered_hand_kp"]
     t_total = points.shape[0]
-    zero_beta = torch.zeros((1, 10), dtype=points.dtype, device=points.device)
-    palm = _rest_palm_template(mano_model, zero_beta)
+    like = dict(dtype=points.dtype, device=points.device)
 
-    pred, rot, trans = [], [], []
+    zero_beta = torch.zeros((1, 10), **like)
+    shape_code = zero_beta
+    palm = _rest_palm_template(mano_model, zero_beta)
+    if use_iknet and shape_mode:
+        # frame-0 shape optimisation from HandTrackNet's first prediction
+        ret0 = handnet(points[:1], init_kp[:1], palm)
+        shape_code, _ = optimize_hand_shape(mano_model, shape_particles,
+                                            kp2length(ret0["pred_kp"]))
+        palm = _rest_palm_template(mano_model, shape_code)
+    elif use_iknet:
+        # the annotated shape: its rest template
+        shape_code = frames["gt_hand_pose"]["mano_beta"][:1]
+        palm = _rest_palm_template(mano_model, shape_code)
+
+    obj_pose = frames["pred_obj_pose" if use_pred_obj_pose else "gt_obj_pose"] \
+        if use_opt else None
+    if use_opt and background_masks is None:
+        background_masks = torch.zeros((t_total, 1, 1), dtype=torch.bool, device=points.device)
+    packed = pack_distilled(distilled) if use_opt and distilled is not None \
+        and points.is_cuda else None  # once per sequence
+    history = torch.zeros((HISTORY_ROWS, 15), **like) if shape_mode == 3 else None
+
+    out = {k: [] for k in ("pred_kp", "baseline", "canon_r", "canon_t", "global_r",
+                           "global_t", "theta")}
     last_kp = None
     for i in range(t_total):
         hand_points = points[i:i + 1]
         cloud_mean = torch.mean(hand_points, dim=-2, keepdim=True)
-        jittered_kp = init_kp[i:i + 1] if i == 0 else last_kp + cloud_mean
-        ret = handnet(hand_points, jittered_kp, palm)
-        last_kp = ret["pred_kp"] - cloud_mean
-        pred.append(ret["pred_kp"][0])
-        rot.append(ret["canon_pose"].rotation[0])
-        trans.append(ret["canon_pose"].translation[0])
+        recentred = None if i == 0 else last_kp + cloud_mean
+        jittered_kp = init_kp[i:i + 1] if i == 0 else recentred
+        ret = handnet(hand_points, jittered_kp, palm, compute_visibility=use_iknet)
+        baseline_kp = ret["pred_kp"]
+        pred_kp = baseline_kp
+        theta = torch.zeros((1, 45), **like)
+        global_r = ret["canon_pose"].rotation
+        global_t = ret["canon_pose"].translation
 
-    pred_kp = torch.stack(pred)
-    rotation, translation = torch.stack(rot), torch.stack(trans)
+        if use_iknet:
+            if shape_mode == 3:
+                history[i % HISTORY_ROWS] = kp2length(baseline_kp)[0]
+            if shape_mode in (2, 3) and i % REOPT_EVERY == 0 and i > 0:
+                if shape_mode == 2:
+                    lengths = kp2length(baseline_kp)
+                else:
+                    # unfilled slots repeat the newest row, which leaves the
+                    # mean |bone difference| over the filled rows' targets
+                    lengths = history.clone()
+                    lengths[min(i + 1, HISTORY_ROWS):] = history[i % HISTORY_ROWS]
+                shape_code, _ = optimize_hand_shape(mano_model, shape_particles, lengths)
+                palm = _rest_palm_template(mano_model, shape_code)
+
+            ik_ret = iknet(baseline_kp, palm)
+            theta = ik_ret["MANO_theta"]
+            global_r = ik_ret["global_pose"].rotation
+            global_t = ik_ret["global_pose"].translation
+            if use_opt:
+                proj = frames["projection"][i]
+                pred_kp, theta, global_r, global_t, _ = optimize_hand_pose(
+                    mano_model, pose_particles, zones, sdf_volume, hand_shape=shape_code,
+                    init_rotation=global_r, init_translation=global_t, init_theta=theta,
+                    pred_kp=baseline_kp, vis_mask=ret["pred_kp_vis_mask"],
+                    last_frame_kp=baseline_kp if i == 0 else recentred,
+                    has_last=float(i > 0),
+                    obj_rotation=obj_pose["rotation"][i],
+                    obj_translation=obj_pose["translation"][i][..., 0],
+                    background_mask=background_masks[i],
+                    intrinsics={"fx": proj[0], "fy": proj[1], "cx": proj[2], "cy": proj[3]},
+                    energy_weight=energy_weight, voxel_scale=sdf_voxel_scale,
+                    distilled=distilled, hand_energy=hand_energy, packed=packed)
+            else:
+                pred_kp = iknet_predict_kp(mano_model, ik_ret, shape_code)
+
+        last_kp = pred_kp - cloud_mean
+        out["pred_kp"].append(pred_kp[0])
+        out["baseline"].append(baseline_kp[0])
+        out["canon_r"].append(ret["canon_pose"].rotation[0])
+        out["canon_t"].append(ret["canon_pose"].translation[0])
+        out["global_r"].append(global_r[0])
+        out["global_t"].append(global_t[0])
+        out["theta"].append(theta[0])
+
+    stacked = {k: torch.stack(v) for k, v in out.items()}
     return HandTrackResult(
-        pred_kp=pred_kp, baseline_pred_kp=pred_kp,
-        canon_rotation=rotation, canon_translation=translation,
-        global_rotation=rotation, global_translation=translation,
-        mano_theta=torch.zeros((t_total, 45), dtype=points.dtype,
-                               device=points.device),
-        pred_beta=zero_beta)
+        pred_kp=stacked["pred_kp"], baseline_pred_kp=stacked["baseline"],
+        canon_rotation=stacked["canon_r"], canon_translation=stacked["canon_t"],
+        global_rotation=stacked["global_r"], global_translation=stacked["global_t"],
+        mano_theta=stacked["theta"], pred_beta=shape_code)

@@ -10,10 +10,11 @@ Overrides address nested config keys by '/'-path, as in the JAX package. The
 device defaults to `cuda`; without a card that raises, it does not carry on
 on the CPU. The epoch loop is the JAX package's: train, a test pass per
 epoch, loss accumulation, periodic checkpoints. `test` runs single-frame
-evaluation (`track: False`), HandTrackNet sequence tracking (`track: hand`)
-or object tracking by the SDF particle optimiser (`track: obj_opt`, see
-run_obj_track.py for its keys `sdf_query` and `obj_energy`); the other
-tracking routes are not ported yet and raise.
+evaluation (`track: False`), HandTrackNet sequence tracking (`track: hand`),
+the full hand pipeline with IKNet and the MANO shape and pose optimisers
+(`track: hand_IKNet`, see run_hand_track.py for its keys `sdf_query` and
+`hand_energy`) or object tracking by the SDF particle optimiser (`track:
+obj_opt`, see run_obj_track.py for `sdf_query` and `obj_energy`).
 """
 
 from __future__ import annotations
@@ -190,12 +191,10 @@ def test_main(argv=None):
     if track == "obj_opt":
         from .run_obj_track import run_obj_tracking
         return run_obj_tracking(cfg, save_flag)
-    if track != "hand":
-        raise NotImplementedError(
-            f"track={track!r} is not ported yet: only HandTrackNet sequence "
-            f"tracking (track: hand), object tracking (track: obj_opt) and "
-            f"single-frame evaluation (track: False) are; see ROADMAP.md, queue 1")
-    from .run_hand_track import run_hand_tracking
+    from .run_hand_track import TRACK_ROUTES, run_hand_tracking
+    if track not in TRACK_ROUTES:
+        raise ValueError(f"unknown track={track!r}: the routes are False (single-frame "
+                         f"evaluation), obj_opt and {TRACK_ROUTES}")
     return run_hand_tracking(cfg, save_flag)
 
 

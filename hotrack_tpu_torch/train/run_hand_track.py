@@ -1,9 +1,29 @@
-"""Hand tracking runner: sequence loop + eval (+ trajectory pickles).
+"""Hand tracking runner: sequence loop, evaluation and trajectory pickles
+(port of hotrack_tpu/train/run_hand_track.py).
 
-Port of hotrack_tpu/train/run_hand_track.py for track='hand' (HandTrackNet
-without IKNet or optimisers). Loads the latest reference-format checkpoint
-`<experiment_dir>/ckpt/model_*.pt` (or `model_{resume_epoch:04d}.pt`); with
-none, warns and runs a seeded random init, as the JAX runner does.
+`track: hand` runs HandTrackNet alone; `track: hand_IKNet` adds IKNet, the
+MANO shape optimiser (`use_pred_hand_shape`: 0 annotated shape, 1 optimised
+on frame 0, 2 again every 10 frames, 3 every 10 frames on the history) and,
+with `use_optimization: True`, the per-frame pose optimiser against the
+object's SDF (a 151^3 volume at 3 mm) and the background silhouette.
+
+Checkpoints are reference-format `.pt` files: HandTrackNet's latest (or
+`resume_epoch`'s) under `<experiment_dir>/ckpt`, IKNet's under
+`<IKNet_dir>/ckpt`. With none, a warning and a seeded random init, as the
+JAX runner does.
+
+Config keys beyond the JAX package's, which chooses by backend and
+environment variables:
+
+- `sdf_query`: distilled | volume. Default by device: `distilled` on a CUDA
+  device (the volume is distilled per sequence and queried in the
+  hand-written kernels), `volume` on the CPU (the nearest-voxel lookup).
+- `hand_energy`: skin | fused | separate, default skin. How the distilled
+  route computes the per-vertex terms (opt/hand_pose.py): skinning and energy
+  in one kernel, `mano_forward` and the fused energy kernel, or the SDF MLP
+  and the mask lookup as kernels of their own.
+
+`eval_batch_seqs` > 1 (several sequences through one loop) is not ported yet.
 """
 
 from __future__ import annotations
@@ -14,14 +34,26 @@ import pickle
 import time
 from os.path import join as pjoin
 
+import numpy as np
 import torch
 
 from ..data import get_dataloader, prepare_batch
 from ..mano.model import get_mano_model
-from ..models.hand_network import HandTrackNet
+from ..models.hand_network import HandTrackNet, IKNet
+from ..opt import load_contact_zones, presample_particles
+from ..opt.hand_pose import HAND_ENERGY_ROUTES
+from ..pose.rotations import mano_quat2axisang, matrix_to_unit_quaternion
+from ..sdf.distill import distill_sdf_volume, distilled_to
 from ..track.eval import eval_hand_sequence
 from ..track.hand import track_hand_sequence
 from ..utils.convert import load_reference_checkpoint
+from .run_obj_track import _sequence_assets
+from .trainer import build_model
+
+HAND_VOLUME_SIZE = 151
+HAND_VOXEL_SCALE = 0.003
+NUM_PARTICLES = 5120
+TRACK_ROUTES = ("hand", "hand_IKNet")
 
 
 def build_handnet(cfg, device) -> HandTrackNet:
@@ -37,8 +69,14 @@ def build_handnet(cfg, device) -> HandTrackNet:
     return model.to(device).eval()
 
 
-def find_checkpoint(cfg) -> str | None:
-    ckpt_dir = pjoin(cfg["experiment_dir"], "ckpt")
+def build_iknet(cfg, device) -> IKNet:
+    """IKNet as the trainer initialises it from `cfg['seed']`."""
+    sub = dict(cfg, network=dict(cfg["network"], type="iknet"))
+    return build_model(sub).to(device).eval()
+
+
+def find_checkpoint(cfg, experiment_dir: str | None = None) -> str | None:
+    ckpt_dir = pjoin(experiment_dir or cfg["experiment_dir"], "ckpt")
     want = int(cfg.get("resume_epoch") or -1)
     if want > 0:
         path = pjoin(ckpt_dir, f"model_{want:04d}.pt")
@@ -49,11 +87,10 @@ def find_checkpoint(cfg) -> str | None:
     return ckpts[-1] if ckpts else None
 
 
-def load_handnet(cfg, device) -> HandTrackNet:
-    model = build_handnet(cfg, device)
-    path = find_checkpoint(cfg)
+def _resume(model, cfg, experiment_dir: str):
+    path = find_checkpoint(cfg, experiment_dir)
     if path is None:
-        print(f"WARNING: no checkpoint found in {cfg['experiment_dir']}/ckpt; "
+        print(f"WARNING: no checkpoint found in {experiment_dir}/ckpt; "
               f"using random init")
     else:
         epoch = load_reference_checkpoint(model, path)
@@ -61,26 +98,119 @@ def load_handnet(cfg, device) -> HandTrackNet:
     return model
 
 
+def load_handnet(cfg, device) -> HandTrackNet:
+    return _resume(build_handnet(cfg, device), cfg, cfg["experiment_dir"])
+
+
+def load_iknet(cfg, device) -> IKNet:
+    return _resume(build_iknet(cfg, device), cfg,
+                   cfg.get("IKNet_dir", cfg["experiment_dir"]))
+
+
 def _sync(device: torch.device):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
 
 
-def run_hand_tracking(cfg, save_flag: bool = False):
+def load_background_masks(cfg, metas) -> np.ndarray:
+    """The per-frame background silhouette masks of one sequence, (T, H, W)
+    bool, True = background pixel, read once per sequence. A dataset that
+    ships no masks (the synthetic SimGrasp set) gives the (T, 1, 1) all-False
+    stack: no silhouette term. OpenCV is imported only where an image file
+    is read."""
+    ds = cfg["data_cfg"]["dataset_name"]
+    root = cfg["data_cfg"]["basepath"]
+
+    masks = []
+    for meta in metas:
+        fname = meta["file_name"]
+        if ds == "HO3D":
+            import cv2
+            seq, fid = fname.split("/")
+            img = cv2.imread(pjoin(root, f"train/{seq}/seg/{fid}.png"))
+            img = cv2.resize(img, (640, 480), interpolation=cv2.INTER_NEAREST)
+            masks.append(img.sum(axis=-1) == 0)
+        elif ds == "SimGrasp":
+            path = pjoin(root, "masks/%s/seq/%s.png" % (meta["category"], fname))
+            if os.path.exists(path):
+                import cv2
+                masks.append(cv2.imread(path).sum(axis=-1) == 0)
+            else:
+                masks.append(np.zeros((1, 1), bool))
+        elif ds == "DexYCB":
+            parts = fname.split("+")
+            lbl = np.load(pjoin(root, "%s/%s/%s/labels_%s.npz"
+                                % (parts[0], parts[1], parts[2], parts[3])))
+            masks.append(lbl["seg"] == 0)
+        else:
+            masks.append(np.zeros((1, 1), bool))
+    h = max(m.shape[0] for m in masks)
+    w = max(m.shape[1] for m in masks)
+    out = np.zeros((len(masks), h, w), bool)
+    for i, m in enumerate(masks):
+        out[i, :m.shape[0], :m.shape[1]] = m
+    return out
+
+
+def _hand_volume(cfg, meta0, device) -> torch.Tensor:
+    """The 151^3 volume at 3 mm the hand optimiser queries: the analytic box
+    of the synthetic set, or the sequence's DeepSDF decoder baked over it."""
+    return _sequence_assets(cfg, meta0, device, HAND_VOLUME_SIZE, HAND_VOXEL_SCALE)["volume"]
+
+
+def run_hand_tracking(cfg, save_flag: bool = False, distilled: list | None = None):
     """Track every test sequence on cfg['device']. Returns (mean metrics,
     stats): stats holds fps_all / fps_network (frames per second of wall
-    time, with and without data preparation) and, per sequence, pred_kp,
-    the frame-0 FPS indices of the hand cloud and the metric means."""
-    if cfg["track"] != "hand":
+    time, with and without the per-sequence set-up) and, per sequence, the
+    tracked keypoints and poses, the frame-0 FPS indices of the clouds, the
+    metric means and the seconds of set-up, distillation and tracking; with
+    the optimisers also the particle banks and the distilled model (on the
+    CPU). `distilled`: one DistilledSDF per sequence, used instead of
+    distilling (a rerun on another device or route with the same fit)."""
+    track = cfg["track"]
+    if track not in TRACK_ROUTES:
+        raise ValueError(f"run_hand_tracking takes track in {TRACK_ROUTES}, got {track!r}")
+    if int(cfg.get("eval_batch_seqs", 1)) > 1:
         raise NotImplementedError(
-            f"track={cfg['track']!r} is not ported yet (ROADMAP.md, queue 1)")
+            "eval_batch_seqs > 1 (several sequences through one loop, with the batched "
+            "kernels) is not ported yet: ROADMAP.md, queue 1, slice 5")
+    if cfg.get("debug") or cfg.get("debug_save"):
+        raise NotImplementedError(
+            "debug / debug_save figures wait for utils/vis.py: ROADMAP.md, queue 1, slice 5")
     device = torch.device(cfg.get("device", "cuda"))
+    use_iknet = track == "hand_IKNet"
+    use_opt = bool(cfg.get("use_optimization", False)) and use_iknet
+    shape_mode = int(cfg.get("use_pred_hand_shape", False) or 0) if use_iknet else 0
+    sdf_query = cfg.get("sdf_query") or ("distilled" if device.type == "cuda" else "volume")
+    if sdf_query not in ("distilled", "volume"):
+        raise ValueError(f"sdf_query must be distilled or volume, got {sdf_query!r}")
+    hand_energy = cfg.get("hand_energy") or "skin"
+    if hand_energy not in HAND_ENERGY_ROUTES:
+        raise ValueError(f"hand_energy must be one of {HAND_ENERGY_ROUTES}, "
+                         f"got {hand_energy!r}")
+
     loader = get_dataloader(cfg, "test")
     mano = get_mano_model(cfg.get("mano_root")).to(device)
-    # jitter is drawn on the host: the same keypoint noise on every device
+    # every draw on the host: the same banks, jitter and fit draws on any device
     generator = torch.Generator().manual_seed(int(cfg.get("seed", 0)))
     hj = cfg["hand_jitter_cfg"]
     handnet = load_handnet(cfg, device)
+    iknet = load_iknet(cfg, device) if use_iknet else None
+
+    opt_kwargs, banks = {}, {}
+    if use_iknet and shape_mode:
+        banks["shape_particles"] = presample_particles(NUM_PARTICLES, 10, generator,
+                                                       device=device)
+    if use_opt:
+        banks["pose_particles"] = presample_particles(NUM_PARTICLES, 16, generator,
+                                                      device=device)
+        zones_path = cfg.get("contact_zones_path")
+        opt_kwargs = dict(
+            zones=load_contact_zones(zones_path if zones_path and os.path.exists(zones_path)
+                                     else None, device=device),
+            energy_weight={k: float(v) for k, v in cfg["opt"]["energy_weight"].items()},
+            use_pred_obj_pose=bool(cfg.get("use_pred_obj_pose", False)),
+            sdf_voxel_scale=HAND_VOXEL_SCALE, hand_energy=hand_energy)
 
     total, sequences = {}, []
     n_frames, net_time, data_time = 0, 0.0, 0.0
@@ -92,9 +222,25 @@ def run_hand_tracking(cfg, save_flag: bool = False):
                               jitter_kind=hj["rand_type"],
                               sample_kind=cfg.get("point_sample", "fps"),
                               device=device)
+        model, distill_s = None, 0.0
+        if use_opt:
+            volume = _hand_volume(cfg, metas[0], device)
+            if sdf_query == "distilled":
+                _sync(device)
+                td = time.perf_counter()
+                if distilled is not None:
+                    model = distilled_to(distilled[seq_idx], device)
+                else:
+                    model = distill_sdf_volume(volume, HAND_VOXEL_SCALE, generator)
+                _sync(device)
+                distill_s = time.perf_counter() - td
+            opt_kwargs.update(
+                sdf_volume=volume, distilled=model,
+                background_masks=torch.from_numpy(load_background_masks(cfg, metas)).to(device))
         _sync(device)
         t1 = time.perf_counter()
-        result = track_hand_sequence(handnet, mano, batch)
+        result = track_hand_sequence(handnet, mano, batch, iknet=iknet, use_opt=use_opt,
+                                     shape_mode=shape_mode, **banks, **opt_kwargs)
         _sync(device)
         t2 = time.perf_counter()
         data_time += t1 - t0
@@ -107,26 +253,33 @@ def run_hand_tracking(cfg, save_flag: bool = False):
         for k, v in means.items():
             total[k] = total.get(k, 0.0) + v
         sequences.append({"pred_kp": result.pred_kp.cpu().numpy(),
+                          "global_translation": result.global_translation.cpu().numpy(),
+                          "mano_theta": result.mano_theta.cpu().numpy(),
+                          "pred_beta": result.pred_beta.cpu().numpy(),
                           "hand_idx0": batch["hand_idx"][0].cpu().numpy(),
                           "obj_idx0": batch["obj_idx"][0].cpu().numpy(),
-                          "means": means, "net_seconds": t2 - t1})
+                          "distilled": None if model is None else distilled_to(model, "cpu"),
+                          "means": means, "setup_seconds": t1 - t0,
+                          "distill_seconds": distill_s, "net_seconds": t2 - t1})
         print(f"seq {seq_idx}: {({k: round(v, 5) for k, v in means.items()})}")
         if save_flag:
-            _save_sequence(cfg, metas, result, batch, metrics)
+            _save_sequence(cfg, metas, result, batch, metrics, use_iknet)
 
     avg = {k: v / max(len(sequences), 1) for k, v in total.items()}
     fps_all = n_frames / max(net_time + data_time, 1e-9)
     fps_net = n_frames / max(net_time, 1e-9)
     print(f"frames {n_frames}  FPS(all) {fps_all:.1f}  FPS(network) {fps_net:.1f}"
-          f"  device {device}")
+          f"  device {device}" + (f"  sdf_query {sdf_query}  hand_energy {hand_energy}"
+                                  if use_opt else ""))
     print("overall:", {k: round(v, 5) for k, v in avg.items()})
     return avg, {"fps_all": fps_all, "fps_network": fps_net,
                  "n_frames": n_frames, "net_seconds": net_time,
-                 "data_seconds": data_time, "sequences": sequences}
+                 "data_seconds": data_time, "sequences": sequences,
+                 **{k: v.cpu().numpy() for k, v in banks.items()}}
 
 
-def _save_sequence(cfg, metas, result, batch, metrics):
-    """Trajectory pickle, as the JAX runner writes it for SimGrasp."""
+def _save_sequence(cfg, metas, result, batch, metrics, use_iknet: bool = False):
+    """Trajectory pickle, as the JAX runner writes it."""
     t = result.pred_kp.shape[0]
     gt = batch["gt_hand_kp"].cpu().numpy()
     pred = result.pred_kp.cpu().numpy()
@@ -138,7 +291,24 @@ def _save_sequence(cfg, metas, result, batch, metrics):
         "r_error": metrics["hand_pred_r_diff"].cpu().numpy(),
         "t_error": metrics["hand_pred_t_diff"].cpu().numpy(),
     }
-    name = metas[0]["category"] + "_" + metas[0]["file_name"][:-4] + ".pkl"
+    if use_iknet:
+        global_aa = mano_quat2axisang(matrix_to_unit_quaternion(result.global_rotation))
+        save_dict["pred_hand_poses"] = {
+            "mano_pose": torch.cat([global_aa, result.mano_theta], dim=-1).cpu().numpy(),
+            "mano_trans": result.global_translation[..., 0].cpu().numpy(),
+            "mano_beta": result.pred_beta.cpu().numpy(),
+        }
+        baseline = result.baseline_pred_kp.cpu().numpy()
+        save_dict["baseline_pred_kp"] = [baseline[i] for i in range(t)]
+
+    ds = cfg["data_cfg"]["dataset_name"]
+    if ds in ("HO3D", "DexYCB", "HOI4D"):
+        name = metas[0]["file_name"].replace("/", "_") + ".pkl"
+        if ds == "HOI4D":
+            name = name.replace("_preprocess", "")
+        save_dict["CAD_ID"] = metas[0]["category"]
+    else:
+        name = metas[0]["category"] + "_" + metas[0]["file_name"][:-4] + ".pkl"
     os.makedirs(cfg["save_dir"], exist_ok=True)
     with open(pjoin(cfg["save_dir"], name), "wb") as f:
         pickle.dump(save_dict, f)

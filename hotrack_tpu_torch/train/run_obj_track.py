@@ -50,23 +50,26 @@ VOXEL_SCALE = 0.002
 NUM_PARTICLES = 2048
 
 
-def _sequence_assets(cfg, meta0, device) -> dict:
-    """The per-sequence SDF assets on `device`: the volume and, where the
-    DeepSDF checkpoints exist, the decoder and latent code it was baked
-    from."""
+def _sequence_assets(cfg, meta0, device, size: int | None = None,
+                     scale: float | None = None) -> dict:
+    """The per-sequence SDF assets on `device`: the size^3 volume at `scale`
+    (default: the object optimiser's 201^3 at 2 mm) and, where the DeepSDF
+    checkpoints exist, the decoder and latent code it was baked from."""
+    size = VOLUME_SIZE if size is None else size
+    scale = VOXEL_SCALE if scale is None else scale
     source = cfg.get("sdf_code_source", "pred")
     if source == "synthetic":
-        return {"volume": synthetic_box_sdf_setup(VOLUME_SIZE, VOXEL_SCALE, device=device),
+        return {"volume": synthetic_box_sdf_setup(size, scale, device=device),
                 "decoder": None}
     assets = load_obj_for_opt(cfg["data_cfg"]["basepath"],
                               cfg["data_cfg"]["dataset_name"], source,
                               meta0["file_name"], meta0["category"])
     decoder = load_torch_decoder(assets.model_pth, cfg["opt"]["NetworkSpecs"]).to(device)
     latent = load_torch_latent(assets.latent_code_pth).to(device)
-    coords = volume_coords(VOLUME_SIZE, VOXEL_SCALE, device=device)
+    coords = volume_coords(size, scale, device=device)
     ins_coords = cat_to_ins_coords(coords, assets.normalization)
     norm_scale = float(assets.normalization["scale"][0])
-    volume = bake_sdf_volume(decoder, latent, ins_coords, VOLUME_SIZE, norm_scale)
+    volume = bake_sdf_volume(decoder, latent, ins_coords, size, norm_scale)
     return {"volume": volume, "decoder": decoder, "latent": latent, "assets": assets}
 
 

@@ -157,12 +157,17 @@ def test_track_and_eval_match_jax(batches):
                                np.asarray(jm["hand_pred_kp_diff"]), atol=1e-4, rtol=0)
 
 
-@pytest.mark.parametrize("kwargs", [{"iknet": object()}, {"use_opt": True},
-                                    {"shape_mode": 1}])
+@pytest.mark.parametrize("kwargs", [{"iknet": object(), "shape_mode": 1},
+                                    {"iknet": object(), "use_opt": True},
+                                    {"shape_mode": 7}])
 def test_tracker_options_of_later_slices_raise(batches, kwargs):
+    """IKNet, the optimisers and the shape modes are ported (held against the
+    JAX scan in test_torch_hand_pipeline.py); what raises now is an option
+    without what it needs (a particle bank, the zones, an SDF) and a shape
+    mode neither package knows."""
     _, tbatch = batches
     model = HandTrackNet(NET_CFG, backbone_out_dim=OUT_DIM).eval()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="shape_particles|pose_particles|shape_mode"):
         track_hand_sequence(model, synthetic_mano_model(), tbatch, **kwargs)
 
 

@@ -258,7 +258,7 @@ def test_port_imports_nothing_of_the_jax_package():
               if n.startswith("profile_torch_")]
     for d, _, names in os.walk(os.path.join(REPO, "hotrack_tpu_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
-    assert len(files) > 45
+    assert len(files) > 52
     walked = {os.path.relpath(f, REPO)[:-3].replace(os.sep, ".") for f in files}
     assert walked >= {"scripts.profile_torch_obj", "hotrack_tpu_torch.opt.particle",
                       "hotrack_tpu_torch.opt.obj_pose", "hotrack_tpu_torch.ops.sdf_mlp",
@@ -266,7 +266,13 @@ def test_port_imports_nothing_of_the_jax_package():
                       "hotrack_tpu_torch.sdf.volume", "hotrack_tpu_torch.sdf.decoder",
                       "hotrack_tpu_torch.sdf.assets", "hotrack_tpu_torch.track.obj",
                       "hotrack_tpu_torch.train.run_obj_track",
-                      "hotrack_tpu_torch.pose.metrics", "hotrack_tpu_torch.pose.part_dof"}
+                      "hotrack_tpu_torch.pose.metrics", "hotrack_tpu_torch.pose.part_dof",
+                      "scripts.profile_torch_hand", "hotrack_tpu_torch.opt.hand_shape",
+                      "hotrack_tpu_torch.opt.hand_pose", "hotrack_tpu_torch.ops.mask_lookup",
+                      "hotrack_tpu_torch.ops.hand_energy",
+                      "hotrack_tpu_torch.ops.hand_energy_skin",
+                      "hotrack_tpu_torch.track.hand",
+                      "hotrack_tpu_torch.train.run_hand_track"}
     bad = [f for f in files if pat.search(open(f).read())]
     assert not bad, bad
 
