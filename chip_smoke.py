@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py
 
-Drives the port's four main paths on `cuda`. Two run HandTrackNet at the
+Drives the port's four main paths on `cuda`, and two of them with several
+sequences through one loop. Two run HandTrackNet at the
 shipped width (512 points, 384-d features, pointnet2_camera_shallow1.yml)
 with seeded random weights: sequence tracking through the `python -m
 hotrack_tpu_torch.test` entry (the 100-frame synthetic SimGrasp sequence of
@@ -19,7 +20,10 @@ distilled with the full budget (4000 Adam steps of batch 8192) into the
 points): HandTrackNet -> MANO shape optimiser on frame 0 (20 iterations x
 5120 particles) -> IKNet -> per-frame MANO pose optimiser (5 iterations x
 5120 particles x 778 vertices) against a 151^3 volume at 3 mm distilled with
-the full budget, and the silhouette. Phases, each of which raises on failure:
+the full budget, and the silhouette. The batched paths: the same test entry
+with `--eval_batch_seqs 4` on four 20-frame sequences (a fit a sequence),
+and `track_obj_sequences_batched` at 4 x 2048 x 1024 x 10 on four 10-frame
+sequences. Phases, each of which raises on failure:
 
   1. device: require CUDA, print the card's name and power limit, pin fp32
      (no TF32 in matmuls or convolutions);
@@ -34,7 +38,11 @@ the full budget, and the silhouette. Phases, each of which raises on failure:
      the MLP's bound; the fused skinning + energy within stated bounds, its
      flipped pixels counted; each of the three bitwise equal on a second
      launch), timed in turns with the plain version and, where one PyTorch
-     call computes the same function, that call;
+     call computes the same function, that call; the four batched kernels
+     with a model, mask, shape and object pose a sequence that differ, each
+     sequence within the unbatched kernel's bounds of the batched plain
+     version and bitwise an unbatched launch on its own inputs, a second
+     batched launch bitwise the first;
   4. tracking path: launch counters reset, one tracked sequence on the card
      after a warm-up one, counters read; the same entry on the CPU (plain
      versions) must pick the same frame-0 FPS indices and keypoints within
@@ -68,9 +76,21 @@ the full budget, and the silhouette. Phases, each of which raises on failure:
      `track_hand_sequence` on the same nets with seeded 480 x 640 masks;
      shorter runs on the fused, separate and volume routes and in shape modes
      2 and 3, with the same fit;
-  9. the shapes the kernels' wrappers were given on those paths, noted while
+  9. batched hand path: counters reset, four sequences through `test_main
+     --eval_batch_seqs 4` (5 launches of the batched skinning kernel a frame,
+     none of the unbatched one), counters read; the unbatched runner on the
+     same sequences and fits (the same inputs; frame 0 of every sequence
+     within HAND_KP_BOUND_M); `track_hand_sequences_batched` with seeded
+     480 x 640 masks a sequence on the skin, fused, separate and volume
+     routes;
+ 10. batched object path: the unbatched runner on four sequences with a fit
+     each, then `track_obj_sequences_batched` on the fused (#4b) and
+     composed (#3b) routes, held against it closed loop (the tracker's
+     accuracy) and open loop (every frame again from the batched run's pose:
+     the batched optimiser bitwise, the unbatched one to float32 rounding);
+ 11. the shapes the kernels' wrappers were given on those paths, noted while
      they ran, must be exactly the shapes phase 3 checked;
- 10. neither JAX nor the JAX package (hotrack_tpu) may have been imported.
+ 12. neither JAX nor the JAX package (hotrack_tpu) may have been imported.
 
 The line before the last is a JSON object describing the kernels; the last
 is {"ok": true, "device": {...}}. Exits non-zero, with no result line, when
@@ -218,9 +238,22 @@ FLIP_SHARE_BOUND = 1e-3
 HAND_FLIP = HAND_WEIGHTS["sil_loss"] / HAND_VERTS
 HAND_E_ATOL, HAND_CPU_E_ATOL, HAND_VOLUME_ATOL = 5e-6, 2e-5, 5e-3
 HAND_MAX_FLIPS, HAND_FLIPPED_SHARE = 4, 0.3
-# the final keypoints of two correct runs from the same start (a step of the
-# search where a candidate is within rounding of particle 0: ROADMAP queue 3)
-HAND_KP_BOUND_M = 2e-3
+# the final keypoints of two correct runs from the same start whose candidates
+# better than particle 0 are the same at every iteration (float32 rounding
+# through the weighted means); where a candidate within rounding of particle 0,
+# or a flipped pixel away from it, enters the set on one side only, the runs
+# take another step of the search from that iteration on (ROADMAP queue 3) and
+# are held to the tracker's accuracy, as the tests hold keypoints across packages
+HAND_KP_BOUND_M, HAND_STEP_BOUND_M = 2e-3, 1e-2
+
+# Several sequences through one loop (`eval_batch_seqs`, the batched kernels
+# #3b, #4b, #5b, #7b): chunks of HAND_SEQS / OBJ_SEQS sequences of one length
+# on generated sets whose test split holds that many. The fits of these paths
+# are extra fits, distilled with BATCH_FIT_STEPS Adam steps (the unbatched
+# paths distil with the full 4000), one a sequence, so that they differ.
+HAND_SEQS, HAND_BATCH_FRAMES, HAND_BATCH_SHORT = 4, 20, 5
+OBJ_SEQS, OBJ_BATCH_FRAMES = 4, 10
+BATCH_FIT_STEPS = 500
 
 # the card's published peaks (NVIDIA H100 SXM data sheet): the bounds below
 # are the least time the card could take, whatever its power limit
@@ -243,6 +276,14 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
                     "hotrack_tpu/ops/pallas/hand_energy.py:225"),
     "hand_energy_skin": ("hotrack_tpu_torch/csrc/hand_energy_skin.cu",
                          "hotrack_tpu/ops/pallas/hand_energy_skin.py:62"),
+    "sdf_mlp_batched": ("hotrack_tpu_torch/csrc/sdf_mlp.cu",
+                        "hotrack_tpu/ops/pallas/sdf_mlp.py:183"),
+    "obj_sdf_energy_batched": ("hotrack_tpu_torch/csrc/obj_energy.cu",
+                               "hotrack_tpu/ops/pallas/obj_energy.py:171"),
+    "packed_mask_lookup_batched": ("hotrack_tpu_torch/csrc/mask_lookup.cu",
+                                   "hotrack_tpu/ops/pallas/mask_lookup.py:105"),
+    "hand_energy_skin_batched": ("hotrack_tpu_torch/csrc/hand_energy_skin.cu",
+                                 "hotrack_tpu/ops/pallas/hand_energy_skin.py:197"),
 }
 # launches per call of the model: index_points runs 15 times in a HandTrackNet
 # forward (sa1 2, sa2 3, fp2 1, fp1 1, q1 4, q2 4), 7 of them on feature
@@ -251,17 +292,18 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
 GATHERS_PER_FORWARD, SCATTERS_PER_BACKWARD, FPS_PER_FORWARD, PER_PREPARE = 15, 7, 2, 2
 
 # The batch sizes the paths give the kernels. The model runs on one frame
-# when tracking, on full batches and on the ragged tails of the train and the
+# when tracking (on one frame of each of HAND_SEQS sequences on the batched
+# hand path), on full batches and on the ragged tails of the train and the
 # test split when training; prepare_batch also takes a whole sequence at once
 # when tracking (the tracking path's and the train path's test sequence).
 TAILS = (2 * TRAIN_FRAMES % BATCH, TRAIN_FRAMES % BATCH)
-MODEL_BATCHES = (1, BATCH, *TAILS)
+MODEL_BATCHES = (1, BATCH, *TAILS, HAND_SEQS)
 BACKWARD_BATCHES = (BATCH, TAILS[0])
 PREPARE_BATCHES = (NUM_FRAMES, TRAIN_FRAMES, BATCH, *TAILS, HAND_FRAMES, HAND_SHORT_FRAMES,
-                   HAND_MODE_FRAMES)
+                   HAND_MODE_FRAMES, HAND_BATCH_FRAMES)
 RAW_POINTS = 2560       # points of a raw hand or object cloud, padding included
 # the object path prepares whole sequences at 1024 points from 5 x 1024 raw ones
-OBJ_PREPARE_BATCHES = (NUM_FRAMES, OBJ_SHORT_FRAMES, OBJ_CPU_FRAMES)
+OBJ_PREPARE_BATCHES = (NUM_FRAMES, OBJ_SHORT_FRAMES, OBJ_CPU_FRAMES, OBJ_BATCH_FRAMES)
 OBJ_RAW_POINTS = 5 * OBJ_NUM_POINTS
 # (name, N, C, S) of the index_points calls of one HandTrackNet forward; the
 # sources of C = 3 are coordinates (no gradient), the others features
@@ -275,7 +317,7 @@ FORWARD_GATHERS = [
 ]
 # (name, B, N, C, S) of every gather the paths launch; its adjoint runs for
 # the feature sources in the train step's backward
-GATHER_SHAPES = [(name, b, n, c, s) for b in (BATCH, 1, *TAILS)
+GATHER_SHAPES = [(name, b, n, c, s) for b in MODEL_BATCHES
                  for name, n, c, s in FORWARD_GATHERS] \
     + [("prepare_batch", b, RAW_POINTS, 3, 512) for b in PREPARE_BATCHES] \
     + [("prepare_batch obj", b, OBJ_RAW_POINTS, 3, OBJ_NUM_POINTS)
@@ -305,9 +347,33 @@ HAND_ENERGY_SHAPES = [((HAND_PARTICLES, HAND_VERTS, 3), hw) for hw in (NO_MASK_H
 HAND_SKIN_SHAPES = [(HAND_PARTICLES, HAND_POSE_DIMS, HAND_VERTS, NO_MASK_HW),
                     (HAND_PARTICLES, HAND_POSE_DIMS, HAND_VERTS, HAND_HW),
                     (HAND_CPU_PARTICLES, HAND_POSE_DIMS, HAND_VERTS, HAND_HW)]
+# what the batched paths give the batched kernels: the object path's
+# composed route (#3b) and fused route (#4b); the batched hand path's fused
+# and separate routes (#3b, #5b), the volume route (#5b) and the skin route
+# (#7b) through the entry (the synthetic set's 1 x 1 masks) and with seeded
+# 480 x 640 masks
+SDF_MLP_BATCHED_SHAPES = [((OBJ_SEQS, OBJ_PARTICLES, 3, OBJ_NUM_POINTS), True),
+                          ((HAND_SEQS, HAND_PARTICLES, 3, HAND_VERTS), True),
+                          ((HAND_SEQS, HAND_PARTICLES, HAND_VERTS, 3), False)]
+OBJ_ENERGY_BATCHED_SHAPES = [(OBJ_SEQS, OBJ_PARTICLES, OBJ_NUM_POINTS)]
+MASK_LOOKUP_BATCHED_SHAPES = [((HAND_SEQS, HAND_PARTICLES, HAND_VERTS), HAND_HW)]
+HAND_SKIN_BATCHED_SHAPES = [(HAND_SEQS, HAND_PARTICLES, HAND_POSE_DIMS, HAND_VERTS, hw)
+                            for hw in (NO_MASK_HW, HAND_HW)]
 
 
 def _seen_shape(name: str, args: tuple) -> tuple:
+    if name == "sdf_mlp_batched":
+        points, _, channels_first = args
+        return (tuple(points.shape), channels_first)
+    if name == "obj_sdf_energy_batched":
+        pcld_cf, rts, _ = args
+        return (*rts.shape[:2], pcld_cf.shape[-1])
+    if name == "packed_mask_lookup_batched":
+        _, iy, _, hw = args
+        return (tuple(iy.shape), tuple(hw))
+    if name == "hand_energy_skin_batched":
+        pose_map, *_, hw, _ = args
+        return (*pose_map.shape, args[3].shape[-1], tuple(hw))
     if name == "fps":
         xyz, npoint, *mask = args
         return (*xyz.shape[:2], npoint, bool(mask) and mask[0] is not None)
@@ -366,7 +432,11 @@ def check_seen_shapes(seen: dict) -> None:
                "sdf_mlp": set(SDF_MLP_SHAPES), "obj_sdf_energy": set(OBJ_ENERGY_SHAPES),
                "packed_mask_lookup": set(MASK_LOOKUP_SHAPES),
                "hand_energy": set(HAND_ENERGY_SHAPES),
-               "hand_energy_skin": set(HAND_SKIN_SHAPES)}
+               "hand_energy_skin": set(HAND_SKIN_SHAPES),
+               "sdf_mlp_batched": set(SDF_MLP_BATCHED_SHAPES),
+               "obj_sdf_energy_batched": set(OBJ_ENERGY_BATCHED_SHAPES),
+               "packed_mask_lookup_batched": set(MASK_LOOKUP_BATCHED_SHAPES),
+               "hand_energy_skin_batched": set(HAND_SKIN_BATCHED_SHAPES)}
     for name in KERNELS:
         print(f"[shapes] {name}: the paths gave it {len(seen[name])} shapes: "
               f"{sorted(seen[name])}", flush=True)
@@ -426,6 +496,19 @@ def phase_build():
                            torch.zeros((12, 16), **f32), torch.ones((1, 3), **f32),
                            SkinConsts(torch.zeros((3, 4, 5), **f32), torch.zeros((3, 5), **f32),
                                       torch.zeros((16, 5), **f32)), (2, 3))
+    # and the batched forms, two sequences
+    from hotrack_tpu_torch.ops.sdf_mlp import pack_distilled_batched
+    two = pack_distilled_batched([tiny, tiny])
+    kernels.sdf_mlp_batched_cuda(torch.zeros((2, 5, 3), **f32), two, False)
+    kernels.obj_sdf_energy_batched_cuda(torch.zeros((2, 3, 5), **f32),
+                                        torch.zeros((2, 1, 12), **f32), two)
+    kernels.packed_mask_lookup_batched_cuda(torch.stack([bits, bits]), zero.reshape(2, 2),
+                                            zero.reshape(2, 2), (2, 3))
+    kernels.hand_energy_skin_batched_cuda(
+        torch.zeros((2, 1, 4), **f32), torch.zeros((2, 12, 16), **f32),
+        torch.ones((2, 1, 3), **f32), torch.zeros((3, 4, 5), **f32), torch.zeros((2, 3, 5), **f32),
+        torch.zeros((16, 5), **f32), torch.stack([frame, frame]), torch.stack([bits, bits]),
+        (2, 3), two)
     torch.cuda.synchronize()
     print(f"[build] {sorted(libs)}: {time.perf_counter() - t0:.3f} s", flush=True)
     for name, lib in libs.items():
@@ -1241,11 +1324,22 @@ def _fit_rmse(model, device) -> tuple:
     return float(sq[near].mean().sqrt()), float(sq.mean().sqrt()), int(near.sum())
 
 
-def _obj_dataset(frames: int) -> str:
+def _test_split_of(base: str, sequences: int) -> None:
+    """Rewrite a generated set's split: the first `sequences` instances are
+    the test split (one sequence each), the last the training split."""
+    from hotrack_tpu_torch.data.simgrasp import split_dataset
+    split_dataset(os.path.join(base, "splits", "bottle_sim", "seq"),
+                  os.path.join(base, "preproc", "bottle_sim", "seq"),
+                  [f"{i:05d}" for i in range(sequences)])
+
+
+def _obj_dataset(frames: int, sequences: int = 1) -> str:
     from hotrack_tpu_torch.data.synthetic import generate_simgrasp_dataset
     root = tempfile.mkdtemp(prefix=f"hotrack_smoke_obj{frames}_")
-    generate_simgrasp_dataset(root, num_instances=2, num_frames=frames,
-                              points_per_part=OBJ_POINTS_PER_PART)
+    base = generate_simgrasp_dataset(root, num_instances=sequences + 1, num_frames=frames,
+                                     points_per_part=OBJ_POINTS_PER_PART)
+    if sequences > 1:
+        _test_split_of(base, sequences)
     return root
 
 
@@ -1282,7 +1376,7 @@ def _obj_run(root: str, seen: dict, device: str, distilled=None, extra=()):
 
 def phase_object_path(card: str, seen: dict) -> dict:
     from hotrack_tpu_torch.pose.metrics import rot_diff_degree
-    roots = {n: _obj_dataset(n) for n in OBJ_PREPARE_BATCHES}
+    roots = {n: _obj_dataset(n) for n in (NUM_FRAMES, OBJ_SHORT_FRAMES, OBJ_CPU_FRAMES)}
     try:
         # the main run: 100 frames, distilled here, fused energy kernel
         torch.cuda.reset_peak_memory_stats()
@@ -1621,6 +1715,287 @@ def phase_kernels_hand_energy_skin() -> dict:
     return {"max_abs_err": max_err, **_headline(timed), "cases": timed}
 
 
+# --------------------------------------------------------------------------
+# the batched kernels: a model, mask, shape and object pose a sequence
+
+def _seq_checks(tag: str, got, again, ones, others=()) -> None:
+    """Each sequence bitwise an unbatched launch on its inputs, a second
+    batched launch bitwise the first, and (others) a sequence computed with
+    another sequence's model, mask or shape differs from its own result."""
+    got, again = (got if isinstance(got, tuple) else (got,)), \
+        (again if isinstance(again, tuple) else (again,))
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"[kernels] {tag}: two batched launches differ")
+    for s, one in enumerate(ones):
+        one = one if isinstance(one, tuple) else (one,)
+        if not all(torch.equal(g[s], o) for g, o in zip(got, one)):
+            raise AssertionError(f"[kernels] {tag}: sequence {s} is not bitwise an unbatched "
+                                 f"launch on its own inputs")
+    for s, other in others:
+        if torch.equal(got[0][s], other):
+            raise AssertionError(f"[kernels] {tag}: sequence {s} gives the same result with "
+                                 f"sequence 0's model, mask or shape")
+
+
+def phase_kernels_sdf_mlp_batched() -> dict:
+    """#3b against its batched plain version on the card: |diff| <= SDF_ATOL
+    a value, a model a sequence (each differs); each sequence bitwise an
+    unbatched launch on its inputs; a second launch bitwise the first. No
+    single PyTorch call computes the function: library_ms is null."""
+    from hotrack_tpu_torch.ops import kernels
+    from hotrack_tpu_torch.ops.sdf_mlp import (_sdf_mlp_batched_torch, pack_distilled,
+                                               pack_distilled_batched)
+    rng = np.random.RandomState(21)
+    route = {(OBJ_PARTICLES, True): "object composed", (HAND_PARTICLES, True): "hand fused",
+             (HAND_PARTICLES, False): "hand separate"}
+    cases = [(f"{route[shape[1], cf]} route {shape}", MLP_WIDTHS, shape, cf, None, True)
+             for shape, cf in SDF_MLP_BATCHED_SHAPES]
+    cases += [("S=3, ragged tile (3,37,3,129)", MLP_WIDTHS, (3, 37, 3, 129), True, None, False),
+              ("S=3 channels-last (3,5,77,3)", MLP_WIDTHS, (3, 5, 77, 3), False, None, False),
+              ("narrow, non-geometric frequencies (2,4,3,100)", (15, 32, 48), (2, 4, 3, 100),
+               True, [1.0, 2.5], False)]
+    max_err, timed = 0.0, []
+    for name, widths, shape, cf, freqs, is_timed in cases:
+        models = [_random_sdf(rng, widths, 0.05, freqs) for _ in range(shape[0])]
+        packed = pack_distilled_batched(models)
+        pts = torch.from_numpy((rng.randn(*shape) * 0.08).astype(np.float32)).cuda()
+        pts_cf = pts if cf else pts.transpose(-1, -2)
+        got = kernels.sdf_mlp_batched_cuda(pts, packed, cf)
+        again = kernels.sdf_mlp_batched_cuda(pts, packed, cf)
+        want = _sdf_mlp_batched_torch(models, pts_cf)
+        ones = [kernels.sdf_mlp_cuda(pts[i].contiguous(), pack_distilled(m), cf)
+                for i, m in enumerate(models)]
+        other = kernels.sdf_mlp_cuda(pts[1].contiguous(), pack_distilled(models[0]), cf)
+        torch.cuda.synchronize()
+        _seq_checks(f"sdf_mlp_batched {name}", got, again, ones, [(1, other)])
+        err = float((got - want).abs().max())
+        max_err = max(max_err, err)
+        if got.shape != want.shape or err > SDF_ATOL:
+            raise AssertionError(f"[kernels] sdf_mlp_batched {name}: max error {err:.3e}")
+        line = (f"[kernels] sdf_mlp_batched {name}: max error {err:.3e} (bound {SDF_ATOL}); "
+                f"each sequence bitwise an unbatched launch; relaunch bitwise equal")
+        if is_timed:
+            m = pts.numel() // 3
+            case = _in_turns(lambda: kernels.sdf_mlp_batched_cuda(pts, packed, cf),
+                             lambda: _sdf_mlp_batched_torch(models, pts_cf), None, reps=5,
+                             slow_reps=2)
+            case.update(_bound(16.0 * m + 4 * packed.packed.numel(), _mlp_ops(widths, m)))
+            case["shape"] = name
+            timed.append(case)
+            line += f"; {_fmt(case)}; {_mlp_ops(widths, m) / case['ms'] / 1e9:.1f} TFLOP/s"
+        print(line, flush=True)
+    return {"max_abs_err": max_err, **_headline(timed), "cases": timed}
+
+
+def phase_kernels_obj_energy_batched() -> dict:
+    """#4b against its batched plain version: every sum within ENERGY_RTOL
+    (+ ENERGY_ATOL a point), a model and a cloud a sequence; each sequence
+    bitwise an unbatched launch; a second launch bitwise the first (fixed
+    summation order on the (P, S) grid, no atomics). library_ms is null."""
+    from hotrack_tpu_torch.ops import kernels
+    from hotrack_tpu_torch.ops.obj_energy import _obj_sdf_energy_batched_torch, obj_rts
+    from hotrack_tpu_torch.ops.sdf_mlp import pack_distilled, pack_distilled_batched
+    from hotrack_tpu_torch.pose.rotations import normalize_quat, unit_quaternion_to_matrix
+    rng = np.random.RandomState(22)
+    cases = [(f"object path ({s},{p},{n})", MLP_WIDTHS, s, p, n, None, True)
+             for s, p, n in OBJ_ENERGY_BATCHED_SHAPES]
+    cases += [("S=3, odd P and N (3,2047,1000)", MLP_WIDTHS, 3, 2047, 1000, None, False),
+              ("S=3, small (3,10,200)", MLP_WIDTHS, 3, 10, 200, None, False),
+              ("narrow, non-geometric frequencies (2,33,129)", (15, 32, 48), 2, 33, 129,
+               [1.0, 2.5], False)]
+    max_err, timed = 0.0, []
+    for name, widths, s, p, n, freqs, is_timed in cases:
+        models = [_random_sdf(rng, widths, 0.05, freqs) for _ in range(s)]
+        packed = pack_distilled_batched(models)
+        pcld = torch.from_numpy((rng.randn(s, 3, n) * 0.06).astype(np.float32)).cuda()
+        quat = normalize_quat(torch.from_numpy(rng.randn(s, p, 4).astype(np.float32)).cuda())
+        trans = torch.from_numpy((rng.randn(s, p, 3) * 0.03).astype(np.float32)).cuda()
+        rts = obj_rts(unit_quaternion_to_matrix(quat), trans).contiguous()
+        got = kernels.obj_sdf_energy_batched_cuda(pcld, rts, packed)
+        again = kernels.obj_sdf_energy_batched_cuda(pcld, rts, packed)
+        want = _obj_sdf_energy_batched_torch(models, pcld, rts)
+        ones = [kernels.obj_sdf_energy_cuda(pcld[i].contiguous(), rts[i].contiguous(),
+                                            pack_distilled(m)) for i, m in enumerate(models)]
+        other = kernels.obj_sdf_energy_cuda(pcld[1].contiguous(), rts[1].contiguous(),
+                                            pack_distilled(models[0]))
+        torch.cuda.synchronize()
+        _seq_checks(f"obj_sdf_energy_batched {name}", got, again, ones, [(1, other)])
+        err = (got - want).abs()
+        max_err = max(max_err, float(err.max()))
+        if got.shape != (s, p) or not bool((err <= ENERGY_RTOL * want.abs()
+                                            + ENERGY_ATOL * n).all()):
+            raise AssertionError(f"[kernels] obj_sdf_energy_batched {name}: max error "
+                                 f"{float(err.max()):.3e}")
+        line = (f"[kernels] obj_sdf_energy_batched {name}: max error {float(err.max()):.3e} of "
+                f"sums near {float(want.mean()):.3f} (bound {ENERGY_RTOL} relative); each "
+                f"sequence bitwise an unbatched launch; relaunch bitwise equal")
+        if is_timed:
+            case = _in_turns(lambda: kernels.obj_sdf_energy_batched_cuda(pcld, rts, packed),
+                             lambda: _obj_sdf_energy_batched_torch(models, pcld, rts), None,
+                             reps=5, slow_reps=2)
+            ops = _mlp_ops(widths, s * p * n)
+            case.update(_bound(12.0 * s * n + 52.0 * s * p + 4 * packed.packed.numel(), ops))
+            case["shape"] = name
+            timed.append(case)
+            line += f"; {_fmt(case)}; {ops / case['ms'] / 1e9:.1f} TFLOP/s"
+        print(line, flush=True)
+    return {"max_abs_err": max_err, **_headline(timed), "cases": timed}
+
+
+def phase_kernels_mask_lookup_batched() -> dict:
+    """#5b against its batched plain version and each sequence's
+    mask[iy, ix]: exact; each sequence bitwise an unbatched launch. Library
+    call: one advanced index masks[s, iy, ix] on float masks and int64
+    indices made beforehand."""
+    from hotrack_tpu_torch.ops import kernels
+    from hotrack_tpu_torch.ops.mask_lookup import _packed_mask_lookup_batched_torch, pack_mask
+    rng = np.random.RandomState(23)
+    cases = [(f"hand path {shape} on {hw}", shape, hw, 0, True)
+             for shape, hw in MASK_LOOKUP_BATCHED_SHAPES]
+    cases += [("S=3, a sequence no multiple of 4 (3,7,13) on (37,53)", (3, 7, 13), (37, 53), 0,
+               False),
+              ("off a 16-byte boundary (3,1001) on (480,640)", (3, 1001), HAND_HW, 1, False),
+              ("one query a sequence (2,1) on (5,8)", (2, 1), (5, 8), 0, False)]
+    timed = []
+    for name, shape, hw, offset, is_timed in cases:
+        s = shape[0]
+        masks = torch.stack([_seeded_mask(rng, hw) for _ in range(s)])
+        packed = torch.stack([pack_mask(m) for m in masks])
+        n = int(np.prod(shape))
+        iy = torch.from_numpy(rng.randint(0, hw[0], n + offset).astype(np.int32)).cuda()
+        ix = torch.from_numpy(rng.randint(0, hw[1], n + offset).astype(np.int32)).cuda()
+        iy, ix = iy[offset:].reshape(shape), ix[offset:].reshape(shape)
+        got = kernels.packed_mask_lookup_batched_cuda(packed, iy, ix, hw)
+        again = kernels.packed_mask_lookup_batched_cuda(packed, iy, ix, hw)
+        ones = [kernels.packed_mask_lookup_cuda(packed[i], iy[i].contiguous(),
+                                                ix[i].contiguous(), hw) for i in range(s)]
+        masks_f, iy_l, ix_l = masks.float(), iy.long(), ix.long()
+        sidx = torch.arange(s, device="cuda").reshape(s, *(1,) * (iy.dim() - 1))
+        other = kernels.packed_mask_lookup_cuda(packed[0], iy[1].contiguous(),
+                                                ix[1].contiguous(), hw)
+        torch.cuda.synchronize()
+        _seq_checks(f"packed_mask_lookup_batched {name}", got, again, ones,
+                    [(1, other)] if n // s > 8 else [])
+        if not (torch.equal(got, masks_f[sidx, iy_l, ix_l])
+                and torch.equal(got, _packed_mask_lookup_batched_torch(packed, iy, ix))):
+            raise AssertionError(f"[kernels] packed_mask_lookup_batched {name}: not exact")
+        line = (f"[kernels] packed_mask_lookup_batched {name}: exact against the plain version "
+                f"and masks[s, iy, ix]; each sequence bitwise an unbatched launch; relaunch "
+                f"bitwise equal")
+        if is_timed:
+            case = _in_turns(lambda: kernels.packed_mask_lookup_batched_cuda(packed, iy, ix, hw),
+                             lambda: _packed_mask_lookup_batched_torch(packed, iy, ix),
+                             lambda: masks_f[sidx, iy_l, ix_l], slow_reps=10)
+            case.update(_bound(12.0 * n + packed.numel(), 0))
+            case["shape"] = name
+            timed.append(case)
+            line += "; " + _fmt(case)
+        print(line, flush=True)
+    return {"max_abs_err": 0.0, **_headline(timed), "cases": timed}
+
+
+def _skin_sequences(rng, s: int, p: int, n: int, hw):
+    """S sequences of P seeded MANO candidates on the (cut) synthetic rig,
+    each with its own shape, object pose, mask and model slot: (pose_map,
+    rt_flat, offset) stacked, the batched SkinConsts, frames (S, 16), packed
+    masks (S, H, WP), and each sequence's unbatched SkinConsts."""
+    from hotrack_tpu_torch.mano.layer import mano_skin_inputs
+    from hotrack_tpu_torch.ops.hand_energy_skin import skin_consts
+    from hotrack_tpu_torch.ops.mask_lookup import pack_mask
+    parts, shapes = [], []
+    for _ in range(s):
+        mano, pose, trans, shaped = _skin_candidates(rng, p, n)
+        parts.append(mano_skin_inputs(mano, pose, trans, shaped)[1:])
+        shapes.append(shaped)
+    pose_map, rt_flat, offset = (torch.stack(t).contiguous() for t in zip(*parts))
+    consts = skin_consts(mano, (torch.cat([v for v, _ in shapes]),
+                                torch.cat([j for _, j in shapes])), batched=True)
+    frames = torch.stack([_seeded_frame(rng, hw) for _ in range(s)])
+    masks = torch.stack([pack_mask(_seeded_mask(rng, hw)) for _ in range(s)])
+    return pose_map, rt_flat, offset, consts, frames, masks, \
+        [skin_consts(mano, shaped) for shaped in shapes]
+
+
+def phase_kernels_hand_energy_skin_batched() -> dict:
+    """#7b against its batched plain version on the card: sdf within
+    SKIN_SDF_ATOL, hit equal wherever the plain version's pixel is
+    PIXEL_MARGIN clear of an integer and flipped on at most FLIP_SHARE_BOUND
+    of the vertices, with a shape, object pose, mask and model a sequence;
+    each sequence bitwise an unbatched launch (and sequence 0's shape in
+    place of sequence 1's changes the result); a second launch bitwise the
+    first. library_ms is null."""
+    from hotrack_tpu_torch.ops import kernels
+    from hotrack_tpu_torch.ops.hand_energy_skin import (_hand_energy_skin_batched_torch,
+                                                        skin_reference)
+    from hotrack_tpu_torch.ops.sdf_mlp import pack_distilled, pack_distilled_batched
+    rng = np.random.RandomState(24)
+    cases = [(f"hand path ({s},{p},{k},{n}) on {hw}", MLP_WIDTHS, s, p, n, hw, None,
+              hw == HAND_HW) for s, p, k, n, hw in HAND_SKIN_BATCHED_SHAPES]
+    cases += [("S=3, odd P (3,33,135,778) on (37,53)", MLP_WIDTHS, 3, 33, HAND_VERTS, (37, 53),
+               None, False),
+              ("S=3, one candidate, small N (3,1,135,50) on (480,640)", MLP_WIDTHS, 3, 1, 50,
+               HAND_HW, None, False),
+              ("narrow, non-geometric frequencies (2,6,135,778) on (1,1)", (15, 32, 48), 2, 6,
+               HAND_VERTS, NO_MASK_HW, [1.0, 2.5], False)]
+    max_err, timed = 0.0, []
+    for name, widths, s, p, n, hw, freqs, is_timed in cases:
+        models = [_random_sdf(rng, widths, 0.05, freqs) for _ in range(s)]
+        packed = pack_distilled_batched(models)
+        pose_map, rt_flat, offset, consts, frames, masks, one_consts = \
+            _skin_sequences(rng, s, p, n, hw)
+        flat = (pose_map, rt_flat, offset, *consts, frames, masks, hw, packed)
+        got = kernels.hand_energy_skin_batched_cuda(*flat)
+        again = kernels.hand_energy_skin_batched_cuda(*flat)
+        ones = [kernels.hand_energy_skin_cuda(pose_map[i], rt_flat[i], offset[i], *one_consts[i],
+                                              frames[i], masks[i], hw, pack_distilled(models[i]))
+                for i in range(s)]
+        other = kernels.hand_energy_skin_cuda(pose_map[1], rt_flat[1], offset[1], *one_consts[0],
+                                              frames[1], masks[1], hw, pack_distilled(models[1]))
+        want_sdf, want_hit = _hand_energy_skin_batched_torch(models, masks, frames, pose_map,
+                                                             rt_flat, offset, consts, hw)
+        torch.cuda.synchronize()
+        _seq_checks(f"hand_energy_skin_batched {name}", got, again, ones, [(1, other[0])])
+        sdf, hit = got
+        verts = torch.stack([skin_reference(pose_map[i], rt_flat[i], offset[i], one_consts[i])
+                             for i in range(s)])
+        z = verts[..., 2]
+        f = frames[:, None, None]
+        v_pix = verts[..., 1] / z * f[..., 13] + f[..., 15]
+        u_pix = verts[..., 0] / z * f[..., 12] + f[..., 14]
+        clear = ((v_pix - torch.round(v_pix)).abs() > PIXEL_MARGIN) \
+            & ((u_pix - torch.round(u_pix)).abs() > PIXEL_MARGIN)
+        err = float((sdf - want_sdf).abs().max())
+        flips = float((hit != want_hit).float().mean())
+        wrong = int((hit[clear] != want_hit[clear]).sum())
+        max_err = max(max_err, err)
+        if tuple(sdf.shape) != (s, p, n) or err > SKIN_SDF_ATOL or wrong \
+                or flips > FLIP_SHARE_BOUND:
+            raise AssertionError(f"[kernels] hand_energy_skin_batched {name}: sdf max error "
+                                 f"{err:.3e}, {wrong} hits differ clear of a pixel border, "
+                                 f"{flips:.2e} of all hits differ")
+        line = (f"[kernels] hand_energy_skin_batched {name}: sdf max error {err:.3e} (bound "
+                f"{SKIN_SDF_ATOL}); hit equal on the {float(clear.float().mean()):.4f} of "
+                f"vertices clear of a pixel border, {flips:.2e} flipped; each sequence bitwise "
+                f"an unbatched launch; relaunch bitwise equal")
+        if is_timed:
+            case = _in_turns(lambda: kernels.hand_energy_skin_batched_cuda(*flat),
+                             lambda: _hand_energy_skin_batched_torch(
+                                 models, masks, frames, pose_map, rt_flat, offset, consts, hw),
+                             None, reps=5, slow_reps=2)
+            k = pose_map.shape[-1]
+            m = s * p * n
+            ops = _hand_ops(widths, m) + (2.0 * (3 * k + 12 * 16) + 18.0) * m
+            n_bytes = 4.0 * (pose_map.numel() + rt_flat.numel() + offset.numel()
+                             + sum(c.numel() for c in consts) + packed.packed.numel()
+                             + frames.numel()) + masks.numel() + 8.0 * m
+            case.update(_bound(n_bytes, ops))
+            case["shape"] = name
+            timed.append(case)
+            line += f"; {_fmt(case)}; {ops / case['ms'] / 1e9:.1f} TFLOP/s"
+        print(line, flush=True)
+    return {"max_abs_err": max_err, **_headline(timed), "cases": timed}
+
+
 def _handopt_scene(device: str) -> dict:
     """The pose optimiser's test problem: a ground-truth hand 0.45 m in front
     of the camera around the box, a perturbed start, the network's keypoints
@@ -1682,7 +2057,7 @@ def phase_hand_optimiser(card: str, seen: dict):
             scene["mano"], particles.to(device), scene["zones"], vol, **scene["kwargs"],
             voxel_scale=HAND_VOXEL_SCALE, distilled=None if route == "volume" else model,
             hand_energy="skin" if route == "volume" else route, trace=trace)
-        return out, trace[0][0]
+        return out, trace
 
     want = {"skin": {"hand_energy_skin": HAND_ITERATIONS},
             "fused": {"hand_energy": HAND_ITERATIONS},
@@ -1713,9 +2088,10 @@ def phase_hand_optimiser(card: str, seen: dict):
     if not all(e < err0 for e in errs.values()):
         raise AssertionError("[handopt] the keypoint error did not fall on every route")
 
-    e_skin = results["skin"][1]
+    e0 = {route: trace[0][0] for route, (_, trace) in results.items()}
+    e_skin = e0["skin"]
     for route, bound in (("fused", None), ("separate", None), ("volume", HAND_VOLUME_ATOL)):
-        gap = (results[route][1] - (e_skin if route != "separate" else results["fused"][1])).abs()
+        gap = (e0[route] - (e_skin if route != "separate" else e0["fused"])).abs()
         against = "fused" if route == "separate" else "skin"
         line = (f"[handopt] iteration-0 energies ({float(e_skin.min()):.4f} to "
                 f"{float(e_skin.max()):.4f}), {route} vs {against}: max gap "
@@ -1741,36 +2117,44 @@ def phase_hand_optimiser(card: str, seen: dict):
     # card against CPU (plain versions), a smaller bank, the same fit and start
     small = bank[:HAND_CPU_PARTICLES]
     with noting_shapes(seen):
-        (kp_card, *_), e_card = run("skin", small)
+        (kp_card, *_), tr_card = run("skin", small)
     cpu_scene = _handopt_scene("cpu")
     t1 = time.perf_counter()
-    (kp_cpu, *_), e_cpu = run("skin", small, "cpu", cpu_scene, distilled_to(fit, "cpu"),
-                              volume.cpu())
-    gap = (e_card.cpu() - e_cpu).abs()
+    (kp_cpu, *_), tr_cpu = run("skin", small, "cpu", cpu_scene, distilled_to(fit, "cpu"),
+                               volume.cpu())
+    gap = (tr_card[0][0].cpu() - tr_cpu[0][0]).abs()
     share = float((gap > HAND_CPU_E_ATOL).float().mean())
     kp_gap = float((kp_card.cpu() - kp_cpu).abs().max())
+    # the first iteration whose candidates better than particle 0 differ
+    parted = next((k for k, ((ea, *_), (eb, *_)) in enumerate(zip(tr_card, tr_cpu))
+                   if not torch.equal((ea < ea[0]).cpu(), eb < eb[0])), None)
+    kp_bound = HAND_KP_BOUND_M if parted is None else HAND_STEP_BOUND_M
     print(f"[handopt] cpu vs cuda, {HAND_CPU_PARTICLES} particles, skin route (cpu run "
           f"{time.perf_counter() - t1:.1f} s): iteration-0 energies differ by at most "
           f"{float(gap.max()):.3e}, {share:.4f} of the candidates beyond {HAND_CPU_E_ATOL}; "
-          f"final keypoints differ by {1e3 * kp_gap:.4f} mm (bound {1e3 * HAND_KP_BOUND_M} mm)",
-          flush=True)
+          f"the candidates better than particle 0 "
+          + ("the same at every iteration" if parted is None else
+             f"first differ at iteration {parted}") + f"; final keypoints differ by "
+          f"{1e3 * kp_gap:.4f} mm (bound {1e3 * kp_bound} mm)", flush=True)
     if float(gap.max()) > HAND_CPU_E_ATOL + HAND_MAX_FLIPS * HAND_FLIP \
-            or share > HAND_FLIPPED_SHARE or kp_gap > HAND_KP_BOUND_M:
+            or share > HAND_FLIPPED_SHARE or kp_gap > kp_bound:
         raise AssertionError("[handopt] card and CPU differ beyond the bound")
     return launches, distilled_to(fit, "cpu")
 
 
-def _hand_dataset(frames: int) -> str:
-    """A generated set whose test sequence has `frames` frames, with the two
-    seeded checkpoints the hand pipeline loads (HandTrackNet with its delta
-    head scaled, IKNet)."""
+def _hand_dataset(frames: int, sequences: int = 1) -> str:
+    """A generated set whose test split holds `sequences` sequences of
+    `frames` frames, with the two seeded checkpoints the hand pipeline loads
+    (HandTrackNet with its delta head scaled, IKNet)."""
     from hotrack_tpu_torch.data.synthetic import generate_simgrasp_dataset
     from hotrack_tpu_torch.train.cli import load_config
     from hotrack_tpu_torch.train.run_hand_track import build_iknet
     from hotrack_tpu_torch.utils.convert import save_reference_checkpoint
     root = tempfile.mkdtemp(prefix=f"hotrack_smoke_hand{frames}_")
-    generate_simgrasp_dataset(root, num_instances=2, num_frames=frames,
-                              points_per_part=POINTS_PER_PART)
+    base = generate_simgrasp_dataset(root, num_instances=sequences + 1, num_frames=frames,
+                                     points_per_part=POINTS_PER_PART)
+    if sequences > 1:
+        _test_split_of(base, sequences)
     os.environ["HOTRACK_DATA_ROOT"] = root
     cfg = load_config(_hand_argv())
     _write_checkpoint(cfg)
@@ -1919,6 +2303,325 @@ def phase_hand_path(card: str, seen: dict, fit) -> dict:
             shutil.rmtree(root, ignore_errors=True)
 
 
+# --------------------------------------------------------------------------
+# several sequences through one loop
+
+@contextlib.contextmanager
+def _short_fits(module):
+    """The runner in `module` distils with BATCH_FIT_STEPS Adam steps (its
+    own draws, so one fit a sequence, each different)."""
+    real = module.distill_sdf_volume
+    module.distill_sdf_volume = lambda volume, scale, generator: real(
+        volume, scale, generator, steps=BATCH_FIT_STEPS)
+    try:
+        yield
+    finally:
+        module.distill_sdf_volume = real
+
+
+def _tree(fn, tree):
+    return {k: _tree(fn, v) for k, v in tree.items()} if isinstance(tree, dict) else fn(tree)
+
+
+def _fits_differ(tag: str, fits) -> None:
+    for i in range(1, len(fits)):
+        if torch.equal(fits[0].weights[0], fits[i].weights[0]):
+            raise AssertionError(f"[{tag}] the fits of sequences 0 and {i} are the same")
+
+
+def phase_hand_batched(card: str, seen: dict) -> dict:
+    """`test_main --eval_batch_seqs HAND_SEQS` on a set of HAND_SEQS
+    sequences (skin route, shape mode 1, a fit a sequence), `test_main`
+    without it on the same set (the same generator draws in the same order:
+    the same inputs and fits; frame 0 of every sequence held at
+    HAND_KP_BOUND_M), then `track_hand_sequences_batched` with seeded
+    480 x 640 masks a sequence on the skin, fused, separate and volume
+    routes."""
+    from hotrack_tpu_torch.data import get_dataloader, prepare_batch
+    from hotrack_tpu_torch.mano.model import get_mano_model
+    from hotrack_tpu_torch.ops import kernels
+    from hotrack_tpu_torch.opt import load_contact_zones
+    from hotrack_tpu_torch.sdf.distill import distilled_to
+    from hotrack_tpu_torch.track import track_hand_sequences_batched
+    from hotrack_tpu_torch.train import run_hand_track
+    from hotrack_tpu_torch.train.cli import load_config, test_main
+    root = _hand_dataset(HAND_BATCH_FRAMES, HAND_SEQS)
+    argv = _hand_argv("--data_cfg/num_frames", str(HAND_BATCH_FRAMES))
+    frames = HAND_BATCH_FRAMES
+    try:
+        os.environ["HOTRACK_DATA_ROOT"] = root
+        kernels.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        with noting_shapes(seen), _short_fits(run_hand_track):
+            avg, stats = test_main([*argv, "--eval_batch_seqs", str(HAND_SEQS)])
+        torch.cuda.synchronize()
+        launches = dict(kernels.launch_counts)
+        peak = torch.cuda.max_memory_allocated()
+        seqs = stats["sequences"]
+        expect = {"fps": HAND_SEQS * PER_PREPARE + FPS_PER_FORWARD * (frames + 1),
+                  "gather_rows": HAND_SEQS * PER_PREPARE + GATHERS_PER_FORWARD * (frames + 1),
+                  "hand_energy_skin_batched": HAND_ITERATIONS * frames}
+        if {k: v for k, v in launches.items() if v} != expect:
+            raise AssertionError(f"[hand batched] launched {launches}, expected {expect}")
+        for i, seq in enumerate(seqs):
+            for key, shape in (("pred_kp", (frames, 21, 3)), ("mano_theta", (frames, 45)),
+                               ("pred_beta", (1, 10))):
+                if seq[key].shape != shape or not np.isfinite(seq[key]).all():
+                    raise AssertionError(f"[hand batched] sequence {i}: {key} {seq[key].shape}")
+        if not all(math.isfinite(v) for v in avg.values()):
+            raise AssertionError(f"[hand batched] non-finite metrics {avg}")
+        fits = [seq["distilled"] for seq in seqs]
+        _fits_differ("hand batched", fits)
+        seq_gap = min(float(np.abs(seqs[0]["pred_kp"] - seq["pred_kp"]).max()) for seq in seqs[1:])
+        beta_gap = min(float(np.abs(seqs[0]["pred_beta"] - seq["pred_beta"]).max())
+                       for seq in seqs[1:])
+        if seq_gap < 1e-3 or beta_gap == 0.0:
+            raise AssertionError("[hand batched] the sequences' fits or betas do not differ")
+        ms_chunk = 1e3 * stats["net_seconds"] / frames
+        print(f"[hand batched] cuda, test_main --eval_batch_seqs {HAND_SEQS}: {HAND_SEQS} "
+              f"sequences x {frames} frames through one loop, skin route, shape mode 1, "
+              f"{HAND_PARTICLES} particles; {ms_chunk:.3f} ms a chunk-frame, "
+              f"{stats['n_frames'] / stats['net_seconds']:.2f} frames/s tracking, "
+              f"{stats['fps_all']:.2f} frames/s over the whole run (set-up, {HAND_SEQS} fits of "
+              f"{BATCH_FIT_STEPS} steps at {np.mean([q['distill_seconds'] for q in seqs]):.2f} s "
+              f"each, included); peak memory {peak / 2**20:.1f} MiB; launches {launches}; "
+              f"sequences differ by >= {1e3 * seq_gap:.2f} mm; metrics {avg} | {card}",
+              flush=True)
+        by_path = {"hand_batched": launches}
+
+        # the unbatched runner on the same sequences: the same draws, so the
+        # same inputs and fits
+        kernels.reset_launch_counts()
+        with noting_shapes(seen), _short_fits(run_hand_track):
+            _, one = test_main(argv)
+        torch.cuda.synchronize()
+        by_path["hand_batched_one_at_a_time"] = dict(kernels.launch_counts)
+        if by_path["hand_batched_one_at_a_time"]["hand_energy_skin"] \
+                != HAND_ITERATIONS * frames * HAND_SEQS:
+            raise AssertionError(f"[hand batched] the unbatched runner launched "
+                                 f"{by_path['hand_batched_one_at_a_time']}")
+        gaps, fit_diff, beta_diff = [], 0.0, []
+        for i, (a, b) in enumerate(zip(one["sequences"], seqs)):
+            if not (np.array_equal(a["hand_idx0"], b["hand_idx0"])
+                    and np.array_equal(a["obj_idx0"], b["obj_idx0"])):
+                raise AssertionError(f"[hand batched] sequence {i}: other inputs than the "
+                                     f"unbatched runner's")
+            gaps.append(np.abs(a["pred_kp"] - b["pred_kp"]).reshape(frames, -1).max(-1))
+            fit_diff = max(fit_diff, max(float((wa - wb).abs().max()) for wa, wb in zip(
+                a["distilled"].weights, b["distilled"].weights)))
+            beta_diff.append(float(np.abs(a["pred_beta"] - b["pred_beta"]).max()))
+        gaps = np.stack(gaps)
+        # frame 0 to the rounding of two runs that take the same steps; where the
+        # frame-0 shape optimiser took another step (a near-tie: its betas
+        # differ), to a step of the search
+        kp_bound = np.where(np.array(beta_diff) > 1e-4, HAND_STEP_BOUND_M, HAND_KP_BOUND_M)
+        ms_one = 1e3 * one["net_seconds"] / one["n_frames"]
+        print(f"[hand batched] the unbatched runner on the same {HAND_SEQS} sequences and fits: "
+              f"{ms_one:.3f} ms/frame ({1e3 / ms_one:.2f} frames/s) against the batched loop's "
+              f"{ms_chunk / HAND_SEQS:.3f} ms a sequence-frame "
+              f"({stats['n_frames'] / stats['net_seconds']:.2f} frames/s): "
+              f"{ms_one * HAND_SEQS / ms_chunk:.3f}x the aggregate frames/s; the same inputs, "
+              f"fits within {fit_diff:.2e} of the batched run's; "
+              f"betas differ by {np.array2string(np.array(beta_diff), precision=3)}; keypoint "
+              f"gap frame 0 {np.array2string(1e3 * gaps[:, 0], precision=4)} mm (bounds "
+              f"{np.array2string(1e3 * kp_bound)} mm), worst frame {1e3 * gaps.max():.4f} mm "
+              f"(closed loop)", flush=True)
+        if (gaps[:, 0] > kp_bound).any():
+            raise AssertionError("[hand batched] frame 0 differs from the unbatched runner's")
+
+        # the batched tracker on the first frames, seeded masks a sequence
+        cfg = load_config(argv)
+        mano = get_mano_model(cfg.get("mano_root")).to("cuda")
+        loader = get_dataloader(cfg, "test")
+        hj = cfg["hand_jitter_cfg"]
+        gen = torch.Generator().manual_seed(0)
+        with noting_shapes(seen):
+            batches = [prepare_batch(mano, loader[i][0], HAND_NUM_POINTS, generator=gen,
+                                     hand_jitter_scale=hj["rand_scale"],
+                                     jitter_kind=hj["rand_type"], device="cuda")
+                       for i in range(HAND_SEQS)]
+        short = _tree(lambda x: x[:, :HAND_BATCH_SHORT].contiguous(),
+                      run_hand_track._stack_tree(batches))
+        masks = torch.from_numpy(np.random.RandomState(31).rand(
+            HAND_SEQS, HAND_BATCH_SHORT, *HAND_HW) > 0.5).cuda()
+        volume = run_hand_track._hand_volume(cfg, loader[0][1][0], "cuda")
+        kwargs = dict(
+            iknet=run_hand_track.load_iknet(cfg, "cuda"), use_opt=True, shape_mode=1,
+            shape_particles=torch.from_numpy(stats["shape_particles"]).cuda(),
+            pose_particles=torch.from_numpy(stats["pose_particles"]).cuda(),
+            zones=load_contact_zones(device="cuda"), background_masks=masks,
+            energy_weight=HAND_WEIGHTS, sdf_voxel_scale=run_hand_track.HAND_VOXEL_SCALE,
+            sdf_volumes=torch.stack([volume] * HAND_SEQS))
+        handnet = run_hand_track.load_handnet(cfg, "cuda")
+        cuda_fits = [distilled_to(f, "cuda") for f in fits]
+        per_frame = HAND_ITERATIONS * HAND_BATCH_SHORT
+        ref = None
+        for tag, extra, want in (
+                ("masks", dict(hand_energy="skin", distilled=cuda_fits),
+                 {"hand_energy_skin_batched": per_frame}),
+                ("fused", dict(hand_energy="fused", distilled=cuda_fits),
+                 {"sdf_mlp_batched": per_frame, "packed_mask_lookup_batched": per_frame}),
+                ("separate", dict(hand_energy="separate", distilled=cuda_fits),
+                 {"sdf_mlp_batched": per_frame, "packed_mask_lookup_batched": per_frame}),
+                ("volume", dict(distilled=None), {"packed_mask_lookup_batched": per_frame})):
+            kernels.reset_launch_counts()
+            with noting_shapes(seen):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                result = track_hand_sequences_batched(handnet, mano, short, **kwargs, **extra)
+                torch.cuda.synchronize()
+                ms = 1e3 * (time.perf_counter() - t1) / HAND_BATCH_SHORT
+            counts = dict(kernels.launch_counts)
+            by_path[f"hand_batched_{tag}"] = counts
+            got = {k: v for k, v in counts.items() if k not in ("fps", "gather_rows") and v}
+            if got != want or not all(bool(torch.isfinite(t).all()) for t in result):
+                raise AssertionError(f"[hand batched] route {tag} launched {counts}, expected "
+                                     f"{want}")
+            ref = result.pred_kp if ref is None else ref
+            gap = (result.pred_kp - ref).abs().reshape(HAND_SEQS, HAND_BATCH_SHORT, -1)
+            print(f"[hand batched] cuda, track_hand_sequences_batched, {HAND_SEQS} x "
+                  f"{HAND_BATCH_SHORT} frames with seeded {HAND_HW} masks a sequence, route "
+                  f"{'skin' if tag == 'masks' else tag}: {ms:.3f} ms a chunk-frame; launches "
+                  f"{got}; keypoints against the skin route's: frame 0 "
+                  f"{1e3 * float(gap[:, 0].max()):.4f} mm, worst {1e3 * float(gap.max()):.4f} mm",
+                  flush=True)
+        return by_path
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _hold_batched_open_loop(tag: str, res, points, init_r, init_t, bank, fits,
+                            energy: str) -> None:
+    """The batched run `res`, frame by frame from its own previous poses: the
+    batched optimiser again (bitwise the same poses) and the unbatched one on
+    each sequence (iteration-0 energies within OPEN_SDF_ATOL_M of the mean
+    |sdf|, poses within a step of the search, as `_hold_open_loop` holds the
+    routes)."""
+    from hotrack_tpu_torch.opt import optimize_obj_pose
+    from hotrack_tpu_torch.ops.sdf_mlp import pack_distilled, pack_distilled_batched
+    packed_b = pack_distilled_batched(fits)
+    packs = [pack_distilled(m) for m in fits]
+    n_seq, n_frames = points.shape[:2]
+    e_gap = 0.0
+    poses = {"batched": {"rotation": [], "translation": []},
+             "one": {"rotation": [], "translation": []}}
+    for f in range(n_frames):
+        r0 = init_r if f == 0 else res.rotation[:, f - 1]
+        t0 = init_t if f == 0 else res.translation[:, f - 1]
+        trace = []
+        rb, tb, _ = optimize_obj_pose(None, bank, points[:, f], r0, t0, distilled=fits,
+                                      obj_energy=energy, packed=packed_b, trace=trace)
+        if not (torch.equal(rb, res.rotation[:, f]) and torch.equal(tb, res.translation[:, f])):
+            raise AssertionError(f"[object batched] {tag}: frame {f} again from the same poses "
+                                 f"does not give the same poses bitwise")
+        for i in range(n_seq):
+            one_trace = []
+            r1, t1, _ = optimize_obj_pose(None, bank, points[i, f], r0[i], t0[i],
+                                          distilled=fits[i], obj_energy=energy,
+                                          packed=packs[i], trace=one_trace)
+            e_gap = max(e_gap, float((trace[0][0][i] - one_trace[0][0]).abs().max()) / 500.0)
+            for key, a, b in (("rotation", rb[i], r1), ("translation", tb[i], t1)):
+                poses["batched"][key].append(a.cpu().numpy())
+                poses["one"][key].append(b.cpu().numpy())
+    rot, trans = _pose_gap(*({k: np.stack(v) for k, v in poses[w].items()}
+                             for w in ("batched", "one")))
+    tight = (rot <= OPEN_TIGHT_ROT_DEG) & (trans <= OPEN_TIGHT_TRANS_M)
+    print(f"[object batched] {tag}, open loop over {n_frames} frames x {n_seq} sequences (the "
+          f"batched optimiser again: bitwise the same poses): iteration-0 mean |sdf| of the "
+          f"batched and the unbatched optimiser differ by at most {e_gap:.3e} m (bound "
+          f"{OPEN_SDF_ATOL_M} m); pose gap up to {rot.max():.2e} deg / {1e3 * trans.max():.2e} mm, "
+          f"{int(tight.sum())} of {tight.size} within {OPEN_TIGHT_ROT_DEG} deg / "
+          f"{1e3 * OPEN_TIGHT_TRANS_M} mm", flush=True)
+    if e_gap > OPEN_SDF_ATOL_M or tight.mean() < OPEN_TIGHT_SHARE \
+            or rot.max() > OPEN_ROT_BOUND_DEG or trans.max() > OPEN_TRANS_BOUND_M:
+        raise AssertionError(f"[object batched] {tag}: open-loop energies or poses differ "
+                             f"beyond the bound")
+
+
+def phase_object_batched(card: str, seen: dict) -> dict:
+    """`track_obj_sequences_batched` at OBJ_SEQS x 2048 particles x 1024
+    points x 10 iterations on a set of OBJ_SEQS sequences, a fit a sequence,
+    on the fused (#4b) and composed (#3b) routes; held against the unbatched
+    runner on the same sequences and fits closed loop (the tracker's
+    accuracy) and open loop."""
+    from hotrack_tpu_torch.ops import kernels
+    from hotrack_tpu_torch.sdf.assets import synthetic_box_sdf_setup
+    from hotrack_tpu_torch.sdf.distill import distill_sdf_volume, distilled_to
+    from hotrack_tpu_torch.track import track_obj_sequences_batched
+    from hotrack_tpu_torch.train.cli import load_config
+    from hotrack_tpu_torch.train.run_obj_track import (VOLUME_SIZE, VOXEL_SCALE,
+                                                       run_obj_tracking)
+    root = _obj_dataset(OBJ_BATCH_FRAMES, OBJ_SEQS)
+    frames = OBJ_BATCH_FRAMES
+    try:
+        os.environ["HOTRACK_DATA_ROOT"] = root
+        t0 = time.perf_counter()
+        volume = synthetic_box_sdf_setup(VOLUME_SIZE, VOXEL_SCALE, device="cuda")
+        fits = [distill_sdf_volume(volume, VOXEL_SCALE, torch.Generator().manual_seed(40 + i),
+                                   steps=BATCH_FIT_STEPS) for i in range(OBJ_SEQS)]
+        torch.cuda.synchronize()
+        fit_s = (time.perf_counter() - t0) / OBJ_SEQS
+        _fits_differ("object batched", fits)
+        cfg = load_config(["--config", OBJ_CONFIG, "--device", "cuda", "--num_points",
+                           str(OBJ_NUM_POINTS), "--data_cfg/num_frames", str(frames),
+                           "--sdf_query", "distilled"])
+        # the unbatched runner: each sequence's inputs, and the reference runs
+        kernels.reset_launch_counts()
+        with noting_shapes(seen):
+            _, one = run_obj_tracking(cfg, distilled=[distilled_to(f, "cpu") for f in fits])
+        torch.cuda.synchronize()
+        by_path = {"object_batched_one_at_a_time": dict(kernels.launch_counts)}
+        if by_path["object_batched_one_at_a_time"]["obj_sdf_energy"] \
+                != OBJ_ITERATIONS * frames * OBJ_SEQS:
+            raise AssertionError(f"[object batched] the unbatched runner launched "
+                                 f"{by_path['object_batched_one_at_a_time']}")
+        seqs = one["sequences"]
+        points = torch.from_numpy(np.stack([q["obj_points"] for q in seqs])).cuda()
+        init_r = torch.from_numpy(np.stack([q["init_rotation"] for q in seqs])).cuda()
+        init_t = torch.from_numpy(np.stack([q["init_translation"] for q in seqs])).cuda()
+        bank = torch.from_numpy(one["particles"]).cuda()
+        ms_one = 1e3 * one["net_seconds"] / one["n_frames"]
+        results = {}
+        for energy, name in (("fused", "obj_sdf_energy_batched"), ("composed", "sdf_mlp_batched")):
+            kernels.reset_launch_counts()
+            torch.cuda.reset_peak_memory_stats()
+            with noting_shapes(seen):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                res = track_obj_sequences_batched(None, bank, points, init_r, init_t,
+                                                  voxel_scale=VOXEL_SCALE, bbox_res=VOLUME_SIZE,
+                                                  distilled=fits, obj_energy=energy)
+                torch.cuda.synchronize()
+                ms = 1e3 * (time.perf_counter() - t1) / frames
+            counts = dict(kernels.launch_counts)
+            by_path["object_batched" if energy == "fused" else "object_batched_composed"] = counts
+            if {k: v for k, v in counts.items() if v} != {name: OBJ_ITERATIONS * frames}:
+                raise AssertionError(f"[object batched] {energy} route launched {counts}")
+            if not all(bool(torch.isfinite(t).all()) for t in res):
+                raise AssertionError(f"[object batched] {energy} route: non-finite poses")
+            results[energy] = res
+            rot, trans = [], []
+            for i, q in enumerate(seqs):
+                r, t = _pose_gap({"rotation": res.rotation[i].cpu().numpy(),
+                                  "translation": res.translation[i].cpu().numpy()}, q)
+                rot.append(r), trans.append(t)
+            print(f"[object batched] cuda, track_obj_sequences_batched, {energy} route: "
+                  f"{OBJ_SEQS} sequences x {frames} frames x {OBJ_PARTICLES} particles x "
+                  f"{OBJ_NUM_POINTS} points x {OBJ_ITERATIONS} iterations; {ms:.3f} ms a "
+                  f"chunk-frame ({1e3 * OBJ_SEQS / ms:.2f} frames/s) against the unbatched "
+                  f"runner's {ms_one:.3f} ms/frame ({1e3 / ms_one:.2f} frames/s): "
+                  f"{ms_one * OBJ_SEQS / ms:.3f}x the aggregate frames/s; peak memory "
+                  f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; {OBJ_SEQS} fits of "
+                  f"{BATCH_FIT_STEPS} steps, {fit_s:.2f} s each | {card}", flush=True)
+            _hold_closed_loop(f"batched {energy} route vs the unbatched fused runner",
+                              np.concatenate(rot), np.concatenate(trans))
+            _hold_batched_open_loop(f"{energy} route", res, points, init_r, init_t, bank,
+                                    fits, energy)
+        return by_path
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def check_no_jax() -> None:
     bad = sorted(m for m in sys.modules if m in ("jax", "hotrack_tpu")
                  or m.startswith(("jax.", "jaxlib", "flax", "optax", "hotrack_tpu.")))
@@ -1936,7 +2639,11 @@ def main() -> int:
                "obj_sdf_energy": phase_kernels_obj_energy(),
                "packed_mask_lookup": phase_kernels_mask_lookup(),
                "hand_energy": phase_kernels_hand_energy(),
-               "hand_energy_skin": phase_kernels_hand_energy_skin()}
+               "hand_energy_skin": phase_kernels_hand_energy_skin(),
+               "sdf_mlp_batched": phase_kernels_sdf_mlp_batched(),
+               "obj_sdf_energy_batched": phase_kernels_obj_energy_batched(),
+               "packed_mask_lookup_batched": phase_kernels_mask_lookup_batched(),
+               "hand_energy_skin_batched": phase_kernels_hand_energy_skin_batched()}
     seen = {name: set() for name in KERNELS}
     by_path = {"tracking": phase_tracking_path(card, seen),
                "train": phase_train_path(card, seen),
@@ -1944,11 +2651,16 @@ def main() -> int:
     handopt_launches, fit = phase_hand_optimiser(card, seen)
     by_path.update({f"handopt_{route}": counts for route, counts in handopt_launches.items()})
     by_path.update(phase_hand_path(card, seen, fit))
+    by_path.update(phase_hand_batched(card, seen))
+    by_path.update(phase_object_batched(card, seen))
     # the path whose count stands for the kernel in the result line
     main_path = {"fps": "train", "gather_rows": "train", "scatter_rows_add": "train",
                  "sdf_mlp": "object_composed", "obj_sdf_energy": "object",
                  "packed_mask_lookup": "hand_separate", "hand_energy": "hand_fused",
-                 "hand_energy_skin": "hand"}
+                 "hand_energy_skin": "hand", "sdf_mlp_batched": "object_batched_composed",
+                 "obj_sdf_energy_batched": "object_batched",
+                 "packed_mask_lookup_batched": "hand_batched_separate",
+                 "hand_energy_skin_batched": "hand_batched"}
     check_seen_shapes(seen)
     check_no_jax()
     print(f"[done] {time.perf_counter() - t0:.1f} s", flush=True)

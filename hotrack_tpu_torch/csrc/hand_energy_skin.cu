@@ -1,8 +1,10 @@
 // MANO skinning fused with the per-vertex hand energy for Hopper (sm_90a).
 //
-// Replaces the TPU kernel of hotrack_tpu/ops/pallas/hand_energy_skin.py
-// (_skin_energy_kernel, reached through _skin_impl from
-// fused_hand_energy_skin): per candidate p and vertex v
+// Replaces the TPU kernels of hotrack_tpu/ops/pallas/hand_energy_skin.py:
+// _skin_energy_kernel, reached through _skin_impl from
+// fused_hand_energy_skin, and its per-sequence form _skin_energy_kernel_b,
+// reached through _skin_impl_batched when several sequences are tracked, each
+// with its shape, object pose, mask and model: per candidate p and vertex v
 //   vp_c  = v_shaped[c][v] + sum_k posedirs[c][k][v] * pose_map[p][k]
 //   s_r   = sum_j rt[p][r][j] * weights[j][v]        r = 0..11: R (9) then t (3)
 //   x_c   = ((s_3c vp_0 + s_3c+1 vp_1 + s_3c+2 vp_2) + s_9+c) + offset[p][c]
@@ -31,7 +33,13 @@
 // vertices, where a tile per candidate and 128 vertices would need 14):
 // features, MLP and pixel lookup per tile as in hand_energy.cu. With an odd
 // P the last block has one candidate. No atomics; nothing depends on the
-// grid, so two launches agree bitwise.
+// grid, so two launches agree bitwise. Sequences: the grid is (pairs, S),
+// blockIdx.y the sequence s. The per-candidate inputs and the outputs are
+// (S, P, ...); each per-call input (posedirs, v_shaped, weights, frame, mask,
+// packed model) lies s times its own stride further on, and a stride of 0
+// shares it between the sequences (posedirs and weights always are). An
+// unbatched launch is the case of one sequence: sequence s of a batched launch
+// computes bitwise what an unbatched launch on s's inputs computes.
 
 #include "hand_energy_core.cuh"
 #include "sdf_mlp_core.cuh"
@@ -43,6 +51,12 @@ using namespace hotrack;
 constexpr int kPair = 2;       // candidates a block
 constexpr int kJoints = 16;
 constexpr int kRoles = 12;     // 9 rotation entries, 3 translation entries
+
+// Floats (bytes for the mask) from one sequence's per-call input to the
+// next; 0 shares the input between the sequences.
+struct SeqStrides {
+  long long posedirs, v_shaped, weights, frame, mask, packed;
+};
 
 // floats of shared memory beyond the MLP's: the pair's vertices, then per
 // candidate pose_map (K), rt (12 x 16) and offset (3, padded to 4)
@@ -59,8 +73,22 @@ hand_energy_skin_kernel(const float* __restrict__ pose_map, const float* __restr
                         const float* __restrict__ frame_g, const unsigned char* __restrict__ mask,
                         const float* __restrict__ packed, float* __restrict__ sdf_out,
                         float* __restrict__ hit_out, int p_total, int k_pose, int n, int h, int w,
-                        MlpShape shape) {
+                        SeqStrides seq, MlpShape shape) {
   extern __shared__ float4 smem4[];
+  {
+    const long long s = blockIdx.y;
+    pose_map += s * p_total * k_pose;
+    rt += s * p_total * (kRoles * kJoints);
+    offset += s * p_total * 3;
+    sdf_out += s * p_total * n;
+    hit_out += s * p_total * n;
+    posedirs += s * seq.posedirs;
+    v_shaped += s * seq.v_shaped;
+    weights += s * seq.weights;
+    frame_g += s * seq.frame;
+    mask += s * seq.mask;
+    packed += s * seq.packed;
+  }
   float* act = reinterpret_cast<float*>(smem4);
   float* red = act + kActFloats;
   float* xs = red + kRedFloats;                      // [cand][coord][n4]
@@ -185,29 +213,34 @@ int hotrack_hand_energy_skin_init() {
 
 // pose_map (p, k), rt (p, 12, 16), offset (p, 3), posedirs (3, k, n), v_shaped (3, n),
 // weights (16, n), frame (16,), mask (h, ceil(w / 8)) uint8, packed, sdf (p, n),
-// hit (p, n): device pointers; widths: n_hidden + 1 host ints. Returns
-// cudaErrorInvalidValue when the pair's vertices do not fit a block's shared
-// memory (n above about 6000).
+// hit (p, n), each with a leading n_seq: device pointers; seq_strides: 6 host
+// long longs, SeqStrides' fields in order; widths: n_hidden + 1 host ints.
+// Returns cudaErrorInvalidValue when the pair's vertices do not fit a block's
+// shared memory (n above about 6000).
 int hotrack_hand_energy_skin(const void* pose_map, const void* rt, const void* offset,
                              const void* posedirs, const void* v_shaped, const void* weights,
                              const void* frame, const void* mask, const void* packed,
                              void* sdf, void* hit, int p, int k, int n, int h, int w,
-                             int n_freqs, int n_hidden, const int* widths, void* stream) {
+                             int n_seq, const long long* seq_strides, int n_freqs,
+                             int n_hidden, const int* widths, void* stream) {
   const MlpShape shape = make_mlp_shape(n_freqs, n_hidden, widths);
-  if (mlp_shape_error(shape) || p < 1 || k < 1 || n < 1 || h < 1 || w < 1)
+  if (mlp_shape_error(shape) || p < 1 || k < 1 || n < 1 || h < 1 || w < 1 || n_seq < 1 ||
+      n_seq > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
+  const SeqStrides seq{seq_strides[0], seq_strides[1], seq_strides[2], seq_strides[3],
+                       seq_strides[4], seq_strides[5]};
   const long long smem = skin_smem_bytes(k, n);
   if (smem > g_smem_limit || static_cast<long long>(kPair) * n > 2147483647LL)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int blocks = (p + kPair - 1) / kPair;
-  hand_energy_skin_kernel<<<static_cast<unsigned>(blocks), kMlpThreads,
-                            static_cast<size_t>(smem), static_cast<cudaStream_t>(stream)>>>(
+  const dim3 grid(static_cast<unsigned>((p + kPair - 1) / kPair), static_cast<unsigned>(n_seq));
+  hand_energy_skin_kernel<<<grid, kMlpThreads, static_cast<size_t>(smem),
+                            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(pose_map), static_cast<const float*>(rt),
       static_cast<const float*>(offset), static_cast<const float*>(posedirs),
       static_cast<const float*>(v_shaped), static_cast<const float*>(weights),
       static_cast<const float*>(frame), static_cast<const unsigned char*>(mask),
       static_cast<const float*>(packed), static_cast<float*>(sdf), static_cast<float*>(hit), p,
-      k, n, h, w, shape);
+      k, n, h, w, seq, shape);
   return static_cast<int>(cudaGetLastError());
 }
 

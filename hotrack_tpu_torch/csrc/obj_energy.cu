@@ -1,8 +1,10 @@
 // Fused object-pose SDF energy for Hopper (sm_90a).
 //
-// Replaces the TPU kernel of hotrack_tpu/ops/pallas/obj_energy.py
-// (_obj_energy_kernel, reached through _obj_impl from fused_obj_sdf_energy):
-// for every candidate pose p
+// Replaces the TPU kernels of hotrack_tpu/ops/pallas/obj_energy.py:
+// _obj_energy_kernel, reached through _obj_impl from fused_obj_sdf_energy,
+// and its per-sequence form _obj_energy_kernel_b, reached through
+// _obj_impl_batched when several sequences are tracked with a model each:
+// for every (sequence and) candidate pose p
 //   out[p] = sum over n of | SDF( R_p^T x_n - R_p^T t_p ) |
 // with the distilled-SDF MLP of sdf_mlp_core.cuh. Inputs: the observed cloud
 // channels-first (3, N), and per candidate rts (P, 12) = row-major R^T then
@@ -23,7 +25,11 @@
 // on the tile, |sdf| added to the point slot's running sum (tiles in ascending
 // order). At the end the 128 slot sums are added by a fixed tree in shared
 // memory. No atomics and no dependence on the grid, so two launches agree
-// bitwise.
+// bitwise. Sequences: the grid is (P, S), blockIdx.y the sequence s; its
+// cloud, its candidates, its packed model and its output lie s times their
+// per-sequence strides further on (0 shares an input). An unbatched launch is
+// the case of one sequence: sequence s of a batched launch sums bitwise what
+// an unbatched launch on s's inputs sums.
 
 #include "sdf_mlp_core.cuh"
 
@@ -34,8 +40,11 @@ using namespace hotrack;
 __global__ void __launch_bounds__(kMlpThreads, 2)
 obj_energy_kernel(const float* __restrict__ pcld_cf, const float* __restrict__ rts,
                   const float* __restrict__ packed, float* __restrict__ out, int n,
-                  MlpShape shape) {
+                  long long pcld_seq, long long packed_seq, MlpShape shape) {
   extern __shared__ float4 smem4[];
+  const long long cand = static_cast<long long>(blockIdx.y) * gridDim.x + blockIdx.x;
+  pcld_cf += blockIdx.y * pcld_seq;
+  packed += blockIdx.y * packed_seq;
   float* act = reinterpret_cast<float*>(smem4);
   float* red = act + kActFloats;
   const float scale = __ldg(packed), clamp = __ldg(packed + 1);
@@ -44,7 +53,7 @@ obj_energy_kernel(const float* __restrict__ pcld_cf, const float* __restrict__ r
 
   float r[12];
 #pragma unroll
-  for (int i = 0; i < 12; ++i) r[i] = __ldg(rts + static_cast<long long>(blockIdx.x) * 12 + i);
+  for (int i = 0; i < 12; ++i) r[i] = __ldg(rts + cand * 12 + i);
 
   const int slot = threadIdx.x & (kTilePoints - 1);
   float energy = 0.0f;
@@ -74,7 +83,7 @@ obj_energy_kernel(const float* __restrict__ pcld_cf, const float* __restrict__ r
     if (threadIdx.x < s) red[threadIdx.x] += red[threadIdx.x + s];
     __syncthreads();
   }
-  if (threadIdx.x == 0) out[blockIdx.x] = red[0];
+  if (threadIdx.x == 0) out[cand] = red[0];
 }
 
 }  // namespace
@@ -86,17 +95,20 @@ int hotrack_obj_energy_init() {
       obj_energy_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMlpSmemBytes));
 }
 
-// pcld_cf (3, n), rts (p, 12), packed, out (p,): device pointers; widths:
-// n_hidden + 1 host ints.
+// pcld_cf (n_seq, 3, n), rts (n_seq, p, 12), packed, out (n_seq, p): device
+// pointers; pcld_seq, packed_seq: floats from one sequence's cloud or model to
+// the next (0: shared); widths: n_hidden + 1 host ints.
 int hotrack_obj_energy(const void* pcld_cf, const void* rts, const void* packed, void* out,
-                       int p, int n, int n_freqs, int n_hidden, const int* widths,
-                       void* stream) {
+                       int p, int n, int n_seq, long long pcld_seq, long long packed_seq,
+                       int n_freqs, int n_hidden, const int* widths, void* stream) {
   const MlpShape shape = make_mlp_shape(n_freqs, n_hidden, widths);
-  if (mlp_shape_error(shape) || p < 1 || n < 1) return static_cast<int>(cudaErrorInvalidValue);
-  obj_energy_kernel<<<static_cast<unsigned>(p), kMlpThreads, kMlpSmemBytes,
-                      static_cast<cudaStream_t>(stream)>>>(
+  if (mlp_shape_error(shape) || p < 1 || n < 1 || n_seq < 1 || n_seq > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(p), static_cast<unsigned>(n_seq));
+  obj_energy_kernel<<<grid, kMlpThreads, kMlpSmemBytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(pcld_cf), static_cast<const float*>(rts),
-      static_cast<const float*>(packed), static_cast<float*>(out), n, shape);
+      static_cast<const float*>(packed), static_cast<float*>(out), n, pcld_seq, packed_seq,
+      shape);
   return static_cast<int>(cudaGetLastError());
 }
 

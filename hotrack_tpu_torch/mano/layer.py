@@ -53,6 +53,19 @@ def shape_hand(model: ManoModel, betas: torch.Tensor):
     return v_shaped, joints
 
 
+def _rows(x: torch.Tensor, b: int) -> torch.Tensor:
+    """A per-shape tensor (B', ...) for b rows: as it is for B' = b, expanded
+    for B' = 1, else each row repeated b / B' times (B' shapes of b / B'
+    candidates each, shape-major)."""
+    if x.shape[0] == b:
+        return x
+    if x.shape[0] == 1:
+        return x.expand(b, *x.shape[1:])
+    if b % x.shape[0]:
+        raise ValueError(f"{x.shape[0]} shapes for {b} rows")
+    return x.repeat_interleave(b // x.shape[0], dim=0)
+
+
 def _kinematic_chain(rot_mats: torch.Tensor, joints: torch.Tensor):
     """Base-to-tips chain, 3 levels of 5 fingers. Returns (r_all (B,16,3,3),
     t_all (B,16,3) posed joints, t_rel (B,16,3) = t_all - r_all @ rest)."""
@@ -83,7 +96,7 @@ def mano_forward(model: ManoModel, pose_coeffs: torch.Tensor,
     """pose_coeffs (B, 48) = 3 global + 45 joint axis-angle -> (verts
     (B, 778, 3), keypoints (B, 21, 3)), wrist-centred unless
     `original_version`; `shaped` is a precomputed `shape_hand` result whose
-    batch dim may be 1 or B."""
+    batch dim may be 1 or B, or S dividing B (S shapes of B / S rows each)."""
     b = pose_coeffs.shape[0]
     rot_mats = mano_rodrigues(pose_coeffs.reshape(b, 16, 3))
     eye = torch.eye(3, dtype=pose_coeffs.dtype, device=pose_coeffs.device)
@@ -91,8 +104,7 @@ def mano_forward(model: ManoModel, pose_coeffs: torch.Tensor,
 
     if shaped is not None:
         v_shaped, joints = shaped
-        v_shaped = v_shaped.expand(b, *v_shaped.shape[1:])
-        joints = joints.expand(b, *joints.shape[1:])
+        v_shaped, joints = _rows(v_shaped, b), _rows(joints, b)
     else:
         if betas is None:
             betas = torch.zeros((1, model.shapedirs.shape[-1]),
@@ -134,24 +146,24 @@ def mano_skin_inputs(model: ManoModel, pose_coeffs: torch.Tensor,
     weight blend of (r_all, t_rel): mano_forward's LBS. offset = trans -
     wrist centre gives the wrist-centred, translated convention.
 
-    pose_coeffs (B, 48), trans (B, 3), shaped = shape_hand(...) with batch 1
-    or B -> (kp (B, 21, 3), pose_map (B, 135), rt_flat (B * 12, 16): row
-    12 b + r holds role r (9 rotation entries row-major, then 3 of t_rel) of
-    the 16 joints, offset (B, 3)). The fingertips come from a 5-vertex
-    mini-skin with the full path's per-element products."""
+    pose_coeffs (B, 48), trans (B, 3), shaped = shape_hand(...) with batch 1,
+    B, or S dividing B (S shapes of B / S candidates each) -> (kp (B, 21, 3),
+    pose_map (B, 135), rt_flat (B * 12, 16): row 12 b + r holds role r (9
+    rotation entries row-major, then 3 of t_rel) of the 16 joints, offset
+    (B, 3)). The fingertips come from a 5-vertex mini-skin with the full
+    path's per-element products."""
     b = pose_coeffs.shape[0]
     rot_mats = mano_rodrigues(pose_coeffs.reshape(b, 16, 3))
     eye = torch.eye(3, dtype=pose_coeffs.dtype, device=pose_coeffs.device)
     pose_map = (rot_mats[:, 1:] - eye).reshape(b, 135)
 
     v_shaped, joints = shaped
-    v_shaped = v_shaped.expand(b, *v_shaped.shape[1:])
-    joints = joints.expand(b, *joints.shape[1:])
+    joints = _rows(joints, b)
     r_all, t_all, t_rel = _kinematic_chain(rot_mats, joints)
 
     w5 = model.weights[model.tips]      # (5, 16)
     pd5 = model.posedirs[model.tips]    # (5, 3, 135)
-    vp5 = v_shaped[:, model.tips] + torch.einsum("vcp,bp->bvc", pd5, pose_map)
+    vp5 = _rows(v_shaped[:, model.tips], b) + torch.einsum("vcp,bp->bvc", pd5, pose_map)
     r5 = torch.einsum("vj,bjxy->bvxy", w5, r_all)
     t5 = torch.einsum("vj,bjx->bvx", w5, t_rel)
     tips = torch.einsum("bvxy,bvy->bvx", r5, vp5) + t5

@@ -3,7 +3,10 @@ version and the dispatch to the CUDA kernel (csrc/hand_energy_skin.cu,
 kernel wrapper in ops/kernels.py).
 
 Replaces hotrack_tpu/ops/pallas/hand_energy_skin.py
-(`fused_hand_energy_skin`, `skin_reference`). Per candidate p and vertex v:
+(`fused_hand_energy_skin`, `skin_reference`, and `_skin_impl_batched`, which
+JAX's `vmap` reaches when several sequences are tracked, each with its shape,
+object pose, mask and model: `fused_hand_energy_skin_batched` here). Per
+candidate p and vertex v:
 
     vp   = v_shaped[v] + posedirs[v] @ pose_map[p]          (135 terms a coordinate)
     R|t  = sum_j weights[v, j] * [r_all | t_rel][p, j]      (16 joints, 12 numbers)
@@ -39,25 +42,26 @@ import torch
 from ..mano.model import ManoModel
 from . import kernels
 from .hand_energy import _hand_energy_torch
-from .sdf_mlp import PackedSDF, pack_distilled
+from .sdf_mlp import PackedSDF, _check_batch, pack_distilled, pack_distilled_batched
 
 
 class SkinConsts(NamedTuple):
     """What is constant over an optimiser call, vertex-minor."""
 
     posedirs_cf: torch.Tensor   # (3, 135, N)
-    vshaped_cf: torch.Tensor    # (3, N)
+    vshaped_cf: torch.Tensor    # (3, N); (S, 3, N) with a shape a sequence
     weights_t: torch.Tensor     # (16, N)
 
 
-def skin_consts(model: ManoModel, shaped) -> SkinConsts:
+def skin_consts(model: ManoModel, shaped, batched: bool = False) -> SkinConsts:
     """The per-call constants of the fused kernel from the rig and a
-    `shape_hand` result of batch 1."""
+    `shape_hand` result of batch 1, or with `batched` of batch S (a shape a
+    sequence: vshaped_cf (S, 3, N); the rig's tables are shared)."""
     v_shaped = shaped[0]
-    if v_shaped.shape[0] != 1:
+    if not batched and v_shaped.shape[0] != 1:
         raise ValueError(f"skin_consts takes one shape, got v_shaped {tuple(v_shaped.shape)}")
-    return SkinConsts(model.posedirs.permute(1, 2, 0).contiguous(),
-                      v_shaped[0].transpose(0, 1).contiguous(),
+    vshaped_cf = v_shaped.transpose(1, 2) if batched else v_shaped[0].transpose(0, 1)
+    return SkinConsts(model.posedirs.permute(1, 2, 0).contiguous(), vshaped_cf.contiguous(),
                       model.weights.transpose(0, 1).contiguous())
 
 
@@ -99,3 +103,42 @@ def fused_hand_energy_skin(model, packed_mask: torch.Tensor, frame: torch.Tensor
         raise ValueError(f"no fused hand energy for device {pose_map.device}")
     return _hand_energy_skin_torch(model, packed_mask, frame, pose_map, rt_flat, offset,
                                    consts, hw)
+
+
+@torch.no_grad()
+def _hand_energy_skin_batched_torch(models, packed_masks: torch.Tensor, frames: torch.Tensor,
+                                    pose_map: torch.Tensor, rt_flat: torch.Tensor,
+                                    offset: torch.Tensor, consts: SkinConsts, hw) -> tuple:
+    """Plain version of the batched kernel: the unbatched plain version on
+    each sequence's candidates, shape, frame, mask and model."""
+    out = [_hand_energy_skin_torch(models[s], packed_masks[s], frames[s], pose_map[s],
+                                   rt_flat[s], offset[s],
+                                   consts._replace(vshaped_cf=consts.vshaped_cf[s]), hw)
+           for s in range(len(models))]
+    return torch.stack([o[0] for o in out]), torch.stack([o[1] for o in out])
+
+
+def fused_hand_energy_skin_batched(models, packed_masks: torch.Tensor, frames: torch.Tensor,
+                                   pose_map: torch.Tensor, rt_flat: torch.Tensor,
+                                   offset: torch.Tensor, consts: SkinConsts, hw,
+                                   packed: PackedSDF | None = None) -> tuple:
+    """S sequences at once: per candidate pose_map (S, P, 135), rt_flat
+    (S, P * 12, 16), offset (S, P, 3); `skin_consts(..., batched=True)` of
+    the S shapes; frames (S, 16), packed masks (S, H, ceil(W / 8)) of masks
+    padded to hw, S models -> (sdf (S, P, N), hit (S, P, N)). On the card one
+    launch of the kernel on a (pairs, S) grid (`packed` from
+    `pack_distilled_batched`), sequence s bitwise what the unbatched kernel
+    gives on its inputs; on the CPU the plain version."""
+    _check_batch(models, pose_map)
+    if pose_map.dim() != 3 or consts.vshaped_cf.dim() != 3:
+        raise ValueError(f"pose_map must be (S, P, 135) beside vshaped_cf (S, 3, N), got "
+                         f"{tuple(pose_map.shape)} and {tuple(consts.vshaped_cf.shape)}")
+    if pose_map.is_cuda:
+        packed = packed if packed is not None else pack_distilled_batched(models)
+        return kernels.hand_energy_skin_batched_cuda(
+            pose_map.contiguous(), rt_flat.contiguous(), offset.contiguous(), *consts, frames,
+            packed_masks, hw, packed)
+    if pose_map.device.type != "cpu":
+        raise ValueError(f"no fused hand energy for device {pose_map.device}")
+    return _hand_energy_skin_batched_torch(models, packed_masks, frames, pose_map, rt_flat,
+                                           offset, consts, hw)

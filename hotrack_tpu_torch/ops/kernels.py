@@ -12,12 +12,21 @@ take, allocates the output with `torch.empty`, launches on the current
 stream, checks the launch status, and does not synchronise. It counts its
 launches in `launch_counts`, so a run can show that it went through the
 kernel. Nothing here falls back to another implementation.
+
+Four kernels also take a leading sequence axis S, for several sequences
+tracked in one loop (`*_batched_cuda`, each with its own launch counter): a
+launch covers every sequence, sequence s reads its own per-sequence inputs,
+and an input given without the axis is shared (a stride of 0). The unbatched
+wrapper launches the same kernel body with one sequence, so sequence s of a
+batched launch is bitwise an unbatched launch on s's inputs.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
+import math
 import os
 import re
 import shutil
@@ -35,7 +44,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # launches per kernel since the last reset; only the kernel wrappers add
 launch_counts = {"fps": 0, "gather_rows": 0, "scatter_rows_add": 0,
                  "sdf_mlp": 0, "obj_sdf_energy": 0, "packed_mask_lookup": 0,
-                 "hand_energy": 0, "hand_energy_skin": 0}
+                 "hand_energy": 0, "hand_energy_skin": 0, "sdf_mlp_batched": 0,
+                 "obj_sdf_energy_batched": 0, "packed_mask_lookup_batched": 0,
+                 "hand_energy_skin_batched": 0}
 SOURCES = ("fps", "gather_rows", "sdf_mlp", "obj_energy", "mask_lookup",
            "hand_energy", "hand_energy_skin")  # csrc/<name>.cu
 _INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
@@ -148,7 +159,7 @@ def _bind_gather_rows(lib: ctypes.CDLL) -> None:
 
 def _bind_sdf_mlp(lib: ctypes.CDLL) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.hotrack_sdf_mlp.argtypes = [p, p, p, ll, ll, ll, ll, ll, i, i,
+    lib.hotrack_sdf_mlp.argtypes = [p, p, p, ll, ll, ll, ll, ll, i, ll, ll, i, i,
                                     ctypes.POINTER(ctypes.c_int), p]
     lib.hotrack_sdf_mlp.restype = i
     lib.hotrack_sdf_mlp_init.restype = i
@@ -157,8 +168,8 @@ def _bind_sdf_mlp(lib: ctypes.CDLL) -> None:
 
 
 def _bind_obj_energy(lib: ctypes.CDLL) -> None:
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.hotrack_obj_energy.argtypes = [p, p, p, p, i, i, i, i,
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.hotrack_obj_energy.argtypes = [p, p, p, p, i, i, i, ll, ll, i, i,
                                        ctypes.POINTER(ctypes.c_int), p]
     lib.hotrack_obj_energy.restype = i
     lib.hotrack_obj_energy_init.restype = i
@@ -166,8 +177,8 @@ def _bind_obj_energy(lib: ctypes.CDLL) -> None:
 
 
 def _bind_mask_lookup(lib: ctypes.CDLL) -> None:
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.hotrack_mask_lookup.argtypes = [p, p, p, p, ctypes.c_longlong, i, i, p]
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.hotrack_mask_lookup.argtypes = [p, p, p, p, ll, i, ll, i, i, p]
     lib.hotrack_mask_lookup.restype = i
 
 
@@ -182,8 +193,8 @@ def _bind_hand_energy(lib: ctypes.CDLL) -> None:
 
 def _bind_hand_energy_skin(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.hotrack_hand_energy_skin.argtypes = [p] * 11 + [i] * 7 + [
-        ctypes.POINTER(ctypes.c_int), p]
+    lib.hotrack_hand_energy_skin.argtypes = [p] * 11 + [i] * 6 + [
+        ctypes.POINTER(ctypes.c_longlong), i, i, ctypes.POINTER(ctypes.c_int), p]
     lib.hotrack_hand_energy_skin.restype = i
     lib.hotrack_hand_energy_skin_init.restype = i
     _check_status(lib.hotrack_hand_energy_skin_init(), "hand_energy_skin set-up")
@@ -312,14 +323,70 @@ def _check_f32(name: str, what: str, t: torch.Tensor) -> None:
                          f"{t.dtype}, contiguous={t.is_contiguous()}")
 
 
-def _mlp_args(name: str, packed, like: torch.Tensor):
-    """The packed model's arguments for a launch (ops/sdf_mlp.PackedSDF)."""
+def _seq_stride(name: str, what: str, t: torch.Tensor, shape, n_seq: int | None) -> int:
+    """For an input of one sequence's `shape`: 0 when `t` has that shape (one
+    input for every sequence), its element count when `t` is the stack of
+    n_seq of them (n_seq None: unbatched, one input only)."""
+    shape = tuple(shape)
+    if tuple(t.shape) == shape:
+        return 0
+    if n_seq is not None and tuple(t.shape) == (n_seq, *shape):
+        return math.prod(shape)
+    raise ValueError(f"{name}: {what} must be {shape}"
+                     + ("" if n_seq is None else f" or {(n_seq, *shape)}")
+                     + f", got {tuple(t.shape)}")
+
+
+def _mlp_args(name: str, packed, like: torch.Tensor, n_seq: int | None = None):
+    """The packed model's arguments for a launch (ops/sdf_mlp.PackedSDF): its
+    frequency count, hidden depth, widths and the floats from one sequence's
+    model to the next (a stack (S, n) of `pack_distilled_batched`, or 0)."""
     _check_f32(name, "the packed model", packed.packed)
     if packed.packed.device != like.device:
         raise ValueError(f"{name}: the packed model is on {packed.packed.device}, "
                          f"the points on {like.device}")
+    stride = _seq_stride(name, "the packed model", packed.packed, packed.packed.shape[-1:],
+                         n_seq)
     widths = (ctypes.c_int * len(packed.widths))(*packed.widths)
-    return packed.n_freqs, len(packed.widths) - 1, widths
+    return packed.n_freqs, len(packed.widths) - 1, widths, stride
+
+
+def _sdf_mlp(name: str, counter: str, points: torch.Tensor, packed, channels_first: bool,
+             batched: bool) -> torch.Tensor:
+    _check_f32(name, "points", points)
+    if torch.is_grad_enabled() and points.requires_grad:
+        raise ValueError(f"{name} has no backward: query under "
+                         "torch.no_grad() or detach the points")
+    n_seq = points.shape[0] if batched and points.dim() else 1
+    inner = tuple(points.shape[1:] if batched else points.shape)
+    lead = "(S, ...," if batched else "(...,"
+    if channels_first:
+        if len(inner) < 2 or inner[-2] != 3:
+            raise ValueError(f"points must be {lead} 3, N), got {tuple(points.shape)}")
+        n = inner[-1]
+        shape = (*inner[:-2], n)
+        strides = (n, 3 * n, n, 1)  # n_inner, batch, channel, point
+    else:
+        if len(inner) < 1 or inner[-1] != 3:
+            raise ValueError(f"points must be {lead} 3), got {tuple(points.shape)}")
+        shape = inner[:-1]
+        strides = (max(math.prod(inner) // 3, 1), 0, 1, 3)
+    m = math.prod(inner) // 3
+    if m < 1 or n_seq < 1:
+        raise ValueError(f"empty sdf_mlp problem: {tuple(points.shape)}")
+    n_freqs, n_hidden, widths, packed_seq = _mlp_args(name, packed, points,
+                                                      n_seq if batched else None)
+    lib = _load("sdf_mlp", _bind_sdf_mlp)
+    out = torch.empty((n_seq, *shape) if batched else shape, dtype=torch.float32,
+                      device=points.device)
+    stream = torch.cuda.current_stream(points.device).cuda_stream
+    err = lib.hotrack_sdf_mlp(points.data_ptr(), packed.packed.data_ptr(), out.data_ptr(), m,
+                              *strides, n_seq, 3 * m if batched else 0, packed_seq, n_freqs,
+                              n_hidden, widths, stream)
+    _check_status(err, f"{counter} launch (points {tuple(points.shape)}, "
+                       f"widths {packed.widths})")
+    launch_counts[counter] += 1
+    return out
 
 
 def sdf_mlp_cuda(points: torch.Tensor, packed, channels_first: bool) -> torch.Tensor:
@@ -327,34 +394,43 @@ def sdf_mlp_cuda(points: torch.Tensor, packed, channels_first: bool) -> torch.Te
     (..., 3, N) (channels_first) or (..., 3), contiguous float32, and a
     `PackedSDF` on the same device -> clamped sdf (..., N) or (...,).
     Gradient-free."""
-    _check_f32("sdf_mlp_cuda", "points", points)
-    if torch.is_grad_enabled() and points.requires_grad:
-        raise ValueError("sdf_mlp_cuda has no backward: query under "
-                         "torch.no_grad() or detach the points")
-    if channels_first:
-        if points.dim() < 2 or points.shape[-2] != 3:
-            raise ValueError(f"points must be (..., 3, N), got {tuple(points.shape)}")
-        n = points.shape[-1]
-        shape = (*points.shape[:-2], n)
-        strides = (n, 3 * n, n, 1)  # n_inner, batch, channel, point
-    else:
-        if points.dim() < 1 or points.shape[-1] != 3:
-            raise ValueError(f"points must be (..., 3), got {tuple(points.shape)}")
-        shape = tuple(points.shape[:-1])
-        strides = (max(points.numel() // 3, 1), 0, 1, 3)
-    m = points.numel() // 3
-    if m < 1:
-        raise ValueError(f"empty sdf_mlp problem: {tuple(points.shape)}")
-    n_freqs, n_hidden, widths = _mlp_args("sdf_mlp_cuda", packed, points)
-    lib = _load("sdf_mlp", _bind_sdf_mlp)
-    out = torch.empty(shape, dtype=torch.float32, device=points.device)
-    stream = torch.cuda.current_stream(points.device).cuda_stream
-    err = lib.hotrack_sdf_mlp(points.data_ptr(), packed.packed.data_ptr(),
-                              out.data_ptr(), m, *strides, n_freqs, n_hidden,
-                              widths, stream)
-    _check_status(err, f"sdf_mlp launch (points {tuple(points.shape)}, "
-                       f"widths {packed.widths})")
-    launch_counts["sdf_mlp"] += 1
+    return _sdf_mlp("sdf_mlp_cuda", "sdf_mlp", points, packed, channels_first, False)
+
+
+def sdf_mlp_batched_cuda(points: torch.Tensor, packed, channels_first: bool) -> torch.Tensor:
+    """The SDF MLP with a model a sequence, in one launch (csrc/sdf_mlp.cu):
+    points (S, ..., 3, N) (channels_first) or (S, ..., 3), contiguous float32,
+    and a `PackedSDF` of S models (packed (S, n), `pack_distilled_batched`) or
+    of one model for all -> sdf (S, ..., N) or (S, ...). Sequence s is bitwise
+    `sdf_mlp_cuda` on its points and model. Gradient-free."""
+    return _sdf_mlp("sdf_mlp_batched_cuda", "sdf_mlp_batched", points, packed, channels_first,
+                    True)
+
+
+def _obj_energy(name: str, counter: str, pcld_cf: torch.Tensor, rts: torch.Tensor, packed,
+                batched: bool) -> torch.Tensor:
+    _check_f32(name, "pcld_cf", pcld_cf)
+    _check_f32(name, "rts", rts)
+    if rts.device != pcld_cf.device or rts.dim() != 2 + batched or rts.shape[-1] != 12 \
+            or pcld_cf.dim() < 2 or pcld_cf.shape[-2] != 3:
+        raise ValueError(f"{name} takes pcld_cf {'(S, 3, N) or ' * batched}(3, N) and rts "
+                         f"{'(S, P, 12)' if batched else '(P, 12)'} on one device, got "
+                         f"{tuple(pcld_cf.shape)} and {tuple(rts.shape)}")
+    n_seq = rts.shape[0] if batched else 1
+    p, n = rts.shape[-2], pcld_cf.shape[-1]
+    pcld_seq = _seq_stride(name, "pcld_cf", pcld_cf, (3, n), n_seq if batched else None)
+    if p < 1 or n < 1 or n_seq < 1:
+        raise ValueError(f"empty obj_sdf_energy problem: S={n_seq} P={p} N={n}")
+    n_freqs, n_hidden, widths, packed_seq = _mlp_args(name, packed, pcld_cf,
+                                                      n_seq if batched else None)
+    lib = _load("obj_energy", _bind_obj_energy)
+    out = torch.empty(rts.shape[:-1], dtype=torch.float32, device=pcld_cf.device)
+    stream = torch.cuda.current_stream(pcld_cf.device).cuda_stream
+    err = lib.hotrack_obj_energy(pcld_cf.data_ptr(), rts.data_ptr(), packed.packed.data_ptr(),
+                                 out.data_ptr(), p, n, n_seq, pcld_seq, packed_seq, n_freqs,
+                                 n_hidden, widths, stream)
+    _check_status(err, f"{counter} launch (S={n_seq}, P={p}, N={n}, widths {packed.widths})")
+    launch_counts[counter] += 1
     return out
 
 
@@ -363,38 +439,62 @@ def obj_sdf_energy_cuda(pcld_cf: torch.Tensor, rts: torch.Tensor, packed) -> tor
     pcld_cf (3, N), rts (P, 12) (ops/obj_energy.obj_rts), both contiguous
     float32, and a `PackedSDF` -> (P,) sums over the cloud of |sdf|. No
     atomics: two launches agree bitwise."""
-    _check_f32("obj_sdf_energy_cuda", "pcld_cf", pcld_cf)
-    _check_f32("obj_sdf_energy_cuda", "rts", rts)
-    if pcld_cf.dim() != 2 or pcld_cf.shape[0] != 3 or rts.dim() != 2 \
-            or rts.shape[1] != 12 or rts.device != pcld_cf.device:
-        raise ValueError(f"obj_sdf_energy_cuda takes pcld_cf (3, N) and rts (P, 12) "
-                         f"on one device, got {tuple(pcld_cf.shape)} and "
-                         f"{tuple(rts.shape)}")
-    p, n = rts.shape[0], pcld_cf.shape[1]
-    if p < 1 or n < 1:
-        raise ValueError(f"empty obj_sdf_energy problem: P={p} N={n}")
-    n_freqs, n_hidden, widths = _mlp_args("obj_sdf_energy_cuda", packed, pcld_cf)
-    lib = _load("obj_energy", _bind_obj_energy)
-    out = torch.empty(p, dtype=torch.float32, device=pcld_cf.device)
-    stream = torch.cuda.current_stream(pcld_cf.device).cuda_stream
-    err = lib.hotrack_obj_energy(pcld_cf.data_ptr(), rts.data_ptr(),
-                                 packed.packed.data_ptr(), out.data_ptr(), p, n,
-                                 n_freqs, n_hidden, widths, stream)
-    _check_status(err, f"obj_sdf_energy launch (P={p}, N={n}, widths {packed.widths})")
-    launch_counts["obj_sdf_energy"] += 1
-    return out
+    return _obj_energy("obj_sdf_energy_cuda", "obj_sdf_energy", pcld_cf, rts, packed, False)
 
 
-def _check_mask(name: str, mask: torch.Tensor, hw, like: torch.Tensor) -> tuple:
+def obj_sdf_energy_batched_cuda(pcld_cf: torch.Tensor, rts: torch.Tensor,
+                                packed) -> torch.Tensor:
+    """The fused object-pose energy of S sequences in one launch
+    (csrc/obj_energy.cu, grid (P, S)): pcld_cf (S, 3, N) (or (3, N) for all),
+    rts (S, P, 12), contiguous float32, and a `PackedSDF` of S models (or of
+    one) -> (S, P). Sequence s is bitwise `obj_sdf_energy_cuda` on its
+    inputs; no atomics."""
+    return _obj_energy("obj_sdf_energy_batched_cuda", "obj_sdf_energy_batched", pcld_cf, rts,
+                       packed, True)
+
+
+def _check_mask(name: str, mask: torch.Tensor, hw, like: torch.Tensor,
+                n_seq: int | None = None) -> tuple:
     """A packed mask (ops/mask_lookup.pack_mask) for image size hw on the
-    device of `like`; returns (H, W)."""
+    device of `like`, or n_seq of them stacked; returns (H, W, the bytes from
+    one sequence's mask to the next)."""
     h, w = int(hw[0]), int(hw[1])
-    if mask.device != like.device or mask.dtype != torch.uint8 or not mask.is_contiguous() \
-            or h < 1 or w < 1 or tuple(mask.shape) != (h, (w + 7) // 8):
+    stride = None
+    if mask.device == like.device and mask.dtype == torch.uint8 and mask.is_contiguous() \
+            and h >= 1 and w >= 1:
+        with contextlib.suppress(ValueError):
+            stride = _seq_stride(name, "mask", mask, (h, (w + 7) // 8), n_seq)
+    if stride is None:
         raise ValueError(f"{name}: the packed mask must be contiguous uint8 "
-                         f"(H, ceil(W / 8)) for hw={tuple(hw)} on {like.device}, got "
-                         f"{tuple(mask.shape)} {mask.dtype} on {mask.device}")
-    return h, w
+                         f"{'(S, ) ' if n_seq else ''}(H, ceil(W / 8)) for hw={tuple(hw)} on "
+                         f"{like.device}, got {tuple(mask.shape)} {mask.dtype} on {mask.device}")
+    return h, w, stride
+
+
+def _mask_lookup(name: str, counter: str, mask: torch.Tensor, iy: torch.Tensor,
+                 ix: torch.Tensor, hw, batched: bool) -> torch.Tensor:
+    for what, t in (("iy", iy), ("ix", ix)):
+        if not t.is_cuda or t.device.index != torch.cuda.current_device():
+            raise ValueError(f"{name} takes CUDA tensors on the current "
+                             f"device, got {what} on {t.device}")
+        if t.dtype != torch.int32 or not t.is_contiguous():
+            raise ValueError(f"{name}: {what} must be contiguous int32, "
+                             f"got {t.dtype}, contiguous={t.is_contiguous()}")
+    if iy.shape != ix.shape or ix.device != iy.device or iy.numel() < 1 \
+            or (batched and iy.dim() < 1):
+        raise ValueError(f"{name}: iy {tuple(iy.shape)} and ix {tuple(ix.shape)} must be one "
+                         f"non-empty shape{' with a leading S' * batched} on one device")
+    n_seq = iy.shape[0] if batched else 1
+    h, w, mask_seq = _check_mask(name, mask, hw, iy, n_seq if batched else None)
+    lib = _load("mask_lookup", _bind_mask_lookup)
+    out = torch.empty(iy.shape, dtype=torch.float32, device=iy.device)
+    stream = torch.cuda.current_stream(iy.device).cuda_stream
+    err = lib.hotrack_mask_lookup(mask.data_ptr(), iy.data_ptr(), ix.data_ptr(),
+                                  out.data_ptr(), iy.numel() // n_seq, n_seq, mask_seq, h, w,
+                                  stream)
+    _check_status(err, f"{counter} launch ({tuple(iy.shape)} queries, mask {h}x{w})")
+    launch_counts[counter] += 1
+    return out
 
 
 def packed_mask_lookup_cuda(mask: torch.Tensor, iy: torch.Tensor, ix: torch.Tensor,
@@ -404,33 +504,32 @@ def packed_mask_lookup_cuda(mask: torch.Tensor, iy: torch.Tensor, ix: torch.Tens
     iy and ix int32 of one shape, contiguous, inside [0, H) and [0, W)
     -> float32 in {0, 1} of that shape. An index outside the image reads the
     nearest pixel inside it, never memory outside the mask."""
-    for what, t in (("iy", iy), ("ix", ix)):
-        if not t.is_cuda or t.device.index != torch.cuda.current_device():
-            raise ValueError(f"packed_mask_lookup_cuda takes CUDA tensors on the current "
-                             f"device, got {what} on {t.device}")
-        if t.dtype != torch.int32 or not t.is_contiguous():
-            raise ValueError(f"packed_mask_lookup_cuda: {what} must be contiguous int32, "
-                             f"got {t.dtype}, contiguous={t.is_contiguous()}")
-    if iy.shape != ix.shape or ix.device != iy.device or iy.numel() < 1:
-        raise ValueError(f"packed_mask_lookup_cuda: iy {tuple(iy.shape)} and ix "
-                         f"{tuple(ix.shape)} must be one non-empty shape on one device")
-    h, w = _check_mask("packed_mask_lookup_cuda", mask, hw, iy)
-    lib = _load("mask_lookup", _bind_mask_lookup)
-    out = torch.empty(iy.shape, dtype=torch.float32, device=iy.device)
-    stream = torch.cuda.current_stream(iy.device).cuda_stream
-    err = lib.hotrack_mask_lookup(mask.data_ptr(), iy.data_ptr(), ix.data_ptr(),
-                                  out.data_ptr(), iy.numel(), h, w, stream)
-    _check_status(err, f"packed_mask_lookup launch ({tuple(iy.shape)} queries, mask {h}x{w})")
-    launch_counts["packed_mask_lookup"] += 1
-    return out
+    return _mask_lookup("packed_mask_lookup_cuda", "packed_mask_lookup", mask, iy, ix, hw,
+                        False)
 
 
-def _check_frame(name: str, frame: torch.Tensor, like: torch.Tensor) -> None:
+def packed_mask_lookup_batched_cuda(mask: torch.Tensor, iy: torch.Tensor, ix: torch.Tensor,
+                                    hw) -> torch.Tensor:
+    """The mask lookup with a mask a sequence, in one launch
+    (csrc/mask_lookup.cu): mask uint8 (S, H, ceil(W / 8)) (or one mask for
+    all), iy and ix int32 (S, ...) -> float32 (S, ...); sequence s reads its
+    own mask, exactly as `packed_mask_lookup_cuda` on its inputs."""
+    return _mask_lookup("packed_mask_lookup_batched_cuda", "packed_mask_lookup_batched", mask,
+                        iy, ix, hw, True)
+
+
+def _check_frame(name: str, frame: torch.Tensor, like: torch.Tensor,
+                 n_seq: int | None = None) -> int:
     _check_f32(name, "frame", frame)
-    if tuple(frame.shape) != (16,) or frame.device != like.device:
-        raise ValueError(f"{name}: frame must be (16,) on {like.device} "
-                         f"(ops/hand_energy.hand_frame), got {tuple(frame.shape)} "
-                         f"on {frame.device}")
+    stride = None
+    if frame.device == like.device:
+        with contextlib.suppress(ValueError):
+            stride = _seq_stride(name, "frame", frame, (16,), n_seq)
+    if stride is None:
+        raise ValueError(f"{name}: frame must be {'(S, 16) or ' if n_seq else ''}(16,) on "
+                         f"{like.device} (ops/hand_energy.hand_frame), got "
+                         f"{tuple(frame.shape)} on {frame.device}")
+    return stride
 
 
 def hand_energy_cuda(points: torch.Tensor, frame: torch.Tensor, mask: torch.Tensor,
@@ -446,8 +545,8 @@ def hand_energy_cuda(points: torch.Tensor, frame: torch.Tensor, mask: torch.Tens
         raise ValueError("hand_energy_cuda has no backward: call it under "
                          "torch.no_grad() or detach the points")
     _check_frame("hand_energy_cuda", frame, points)
-    h, w = _check_mask("hand_energy_cuda", mask, hw, points)
-    n_freqs, n_hidden, widths = _mlp_args("hand_energy_cuda", packed, points)
+    h, w, _ = _check_mask("hand_energy_cuda", mask, hw, points)
+    n_freqs, n_hidden, widths, _ = _mlp_args("hand_energy_cuda", packed, points)
     lib = _load("hand_energy", _bind_hand_energy)
     shape = tuple(points.shape[:-1])
     sdf = torch.empty(shape, dtype=torch.float32, device=points.device)
@@ -465,6 +564,53 @@ def hand_energy_cuda(points: torch.Tensor, frame: torch.Tensor, mask: torch.Tens
 SKIN_JOINTS = 16  # csrc/hand_energy_skin.cu blends this many joints a vertex
 
 
+def _hand_energy_skin(name: str, counter: str, pose_map, rt_flat, offset, posedirs_cf,
+                      vshaped_cf, weights_t, frame, mask, hw, packed, batched: bool) -> tuple:
+    per_cand = {"pose_map": pose_map, "rt_flat": rt_flat, "offset": offset}
+    per_call = {"posedirs_cf": posedirs_cf, "vshaped_cf": vshaped_cf, "weights_t": weights_t}
+    for what, t in (*per_cand.items(), *per_call.items()):
+        _check_f32(name, what, t)
+        if t.device != pose_map.device:
+            raise ValueError(f"{name}: {what} is on {t.device}, pose_map on {pose_map.device}")
+        if torch.is_grad_enabled() and t.requires_grad:
+            raise ValueError(f"{name} has no backward: call it under torch.no_grad()")
+    if pose_map.dim() != 2 + batched or posedirs_cf.dim() < 3:
+        raise ValueError(f"{name}: pose_map {tuple(pose_map.shape)}, posedirs_cf "
+                         f"{tuple(posedirs_cf.shape)}")
+    n_seq = pose_map.shape[0] if batched else 1
+    p, k = pose_map.shape[-2:]
+    n = posedirs_cf.shape[-1]
+    lead = (n_seq,) if batched else ()
+    want = {"rt_flat": (*lead, p * 12, SKIN_JOINTS), "offset": (*lead, p, 3)}
+    for what, shape in want.items():
+        if tuple(per_cand[what].shape) != shape:
+            raise ValueError(f"{name}: {what} must be {shape} beside pose_map "
+                             f"{tuple(pose_map.shape)}, got {tuple(per_cand[what].shape)}")
+    one = n_seq if batched else None
+    strides = [_seq_stride(name, what, per_call[what], shape, one) for what, shape in
+               (("posedirs_cf", (3, k, n)), ("vshaped_cf", (3, n)),
+                ("weights_t", (SKIN_JOINTS, n)))]
+    if p < 1 or k < 1 or n < 1 or n_seq < 1:
+        raise ValueError(f"empty {name} problem: S={n_seq} P={p} K={k} N={n}")
+    strides.append(_check_frame(name, frame, pose_map, one))
+    h, w, mask_seq = _check_mask(name, mask, hw, pose_map, one)
+    n_freqs, n_hidden, widths, packed_seq = _mlp_args(name, packed, pose_map, one)
+    seq_strides = (ctypes.c_longlong * 6)(*strides, mask_seq, packed_seq)
+    lib = _load("hand_energy_skin", _bind_hand_energy_skin)
+    sdf = torch.empty((*lead, p, n), dtype=torch.float32, device=pose_map.device)
+    hit = torch.empty((*lead, p, n), dtype=torch.float32, device=pose_map.device)
+    stream = torch.cuda.current_stream(pose_map.device).cuda_stream
+    err = lib.hotrack_hand_energy_skin(
+        pose_map.data_ptr(), rt_flat.data_ptr(), offset.data_ptr(), posedirs_cf.data_ptr(),
+        vshaped_cf.data_ptr(), weights_t.data_ptr(), frame.data_ptr(), mask.data_ptr(),
+        packed.packed.data_ptr(), sdf.data_ptr(), hit.data_ptr(), p, k, n, h, w, n_seq,
+        seq_strides, n_freqs, n_hidden, widths, stream)
+    _check_status(err, f"{counter} launch (S={n_seq}, P={p}, K={k}, N={n}, mask {h}x{w}, "
+                       f"widths {packed.widths})")
+    launch_counts[counter] += 1
+    return sdf, hit
+
+
 def hand_energy_skin_cuda(pose_map: torch.Tensor, rt_flat: torch.Tensor,
                           offset: torch.Tensor, posedirs_cf: torch.Tensor,
                           vshaped_cf: torch.Tensor, weights_t: torch.Tensor,
@@ -477,43 +623,24 @@ def hand_energy_skin_cuda(pose_map: torch.Tensor, rt_flat: torch.Tensor,
     image size hw and a `PackedSDF`; all contiguous float32 on the current
     card -> (sdf (P, N), hit (P, N)). The vertices never reach device
     memory. Gradient-free."""
-    name = "hand_energy_skin_cuda"
-    for what, t in (("pose_map", pose_map), ("rt_flat", rt_flat), ("offset", offset),
-                    ("posedirs_cf", posedirs_cf), ("vshaped_cf", vshaped_cf),
-                    ("weights_t", weights_t)):
-        _check_f32(name, what, t)
-        if t.device != pose_map.device:
-            raise ValueError(f"{name}: {what} is on {t.device}, pose_map on {pose_map.device}")
-        if torch.is_grad_enabled() and t.requires_grad:
-            raise ValueError(f"{name} has no backward: call it under torch.no_grad()")
-    if pose_map.dim() != 2 or posedirs_cf.dim() != 3:
-        raise ValueError(f"{name}: pose_map {tuple(pose_map.shape)}, posedirs_cf "
-                         f"{tuple(posedirs_cf.shape)}")
-    p, k = pose_map.shape
-    n = posedirs_cf.shape[2]
-    want = {"rt_flat": (p * 12, SKIN_JOINTS), "offset": (p, 3), "posedirs_cf": (3, k, n),
-            "vshaped_cf": (3, n), "weights_t": (SKIN_JOINTS, n)}
-    got = {"rt_flat": rt_flat, "offset": offset, "posedirs_cf": posedirs_cf,
-           "vshaped_cf": vshaped_cf, "weights_t": weights_t}
-    for what, shape in want.items():
-        if tuple(got[what].shape) != shape:
-            raise ValueError(f"{name}: {what} must be {shape} beside pose_map "
-                             f"{(p, k)}, got {tuple(got[what].shape)}")
-    if p < 1 or k < 1 or n < 1:
-        raise ValueError(f"empty {name} problem: P={p} K={k} N={n}")
-    _check_frame(name, frame, pose_map)
-    h, w = _check_mask(name, mask, hw, pose_map)
-    n_freqs, n_hidden, widths = _mlp_args(name, packed, pose_map)
-    lib = _load("hand_energy_skin", _bind_hand_energy_skin)
-    sdf = torch.empty((p, n), dtype=torch.float32, device=pose_map.device)
-    hit = torch.empty((p, n), dtype=torch.float32, device=pose_map.device)
-    stream = torch.cuda.current_stream(pose_map.device).cuda_stream
-    err = lib.hotrack_hand_energy_skin(
-        pose_map.data_ptr(), rt_flat.data_ptr(), offset.data_ptr(), posedirs_cf.data_ptr(),
-        vshaped_cf.data_ptr(), weights_t.data_ptr(), frame.data_ptr(), mask.data_ptr(),
-        packed.packed.data_ptr(), sdf.data_ptr(), hit.data_ptr(), p, k, n, h, w, n_freqs,
-        n_hidden, widths, stream)
-    _check_status(err, f"hand_energy_skin launch (P={p}, K={k}, N={n}, mask {h}x{w}, "
-                       f"widths {packed.widths})")
-    launch_counts["hand_energy_skin"] += 1
-    return sdf, hit
+    return _hand_energy_skin("hand_energy_skin_cuda", "hand_energy_skin", pose_map, rt_flat,
+                             offset, posedirs_cf, vshaped_cf, weights_t, frame, mask, hw,
+                             packed, False)
+
+
+def hand_energy_skin_batched_cuda(pose_map: torch.Tensor, rt_flat: torch.Tensor,
+                                  offset: torch.Tensor, posedirs_cf: torch.Tensor,
+                                  vshaped_cf: torch.Tensor, weights_t: torch.Tensor,
+                                  frame: torch.Tensor, mask: torch.Tensor, hw,
+                                  packed) -> tuple:
+    """The fused skinning + energy of S sequences in one launch
+    (csrc/hand_energy_skin.cu, grid (pairs, S)): per candidate pose_map
+    (S, P, K), rt_flat (S, P * 12, 16), offset (S, P, 3); per call, each
+    either per sequence (a leading S) or shared: posedirs_cf (3, K, N),
+    vshaped_cf (3, N), weights_t (16, N), frame (16,), the packed mask
+    (H, ceil(W / 8)) for the padded image size hw, and a `PackedSDF` of S
+    models (or one) -> (sdf (S, P, N), hit (S, P, N)). Sequence s is bitwise
+    `hand_energy_skin_cuda` on its inputs. Gradient-free."""
+    return _hand_energy_skin("hand_energy_skin_batched_cuda", "hand_energy_skin_batched",
+                             pose_map, rt_flat, offset, posedirs_cf, vshaped_cf, weights_t,
+                             frame, mask, hw, packed, True)

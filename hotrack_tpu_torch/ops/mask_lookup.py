@@ -3,8 +3,10 @@ PyTorch version and the dispatch to the CUDA kernel (csrc/mask_lookup.cu,
 kernel wrapper in ops/kernels.py).
 
 Replaces hotrack_tpu/ops/pallas/mask_lookup.py (`pack_mask`,
-`packed_mask_lookup`). The hand pose optimiser asks, for 5120 candidates x
-778 vertices an iteration, whether a vertex's pixel lies on the background.
+`packed_mask_lookup`, and `_lookup_impl_batched`, which JAX's `vmap` reaches
+with a mask a sequence: `packed_mask_lookup_batched` here). The hand pose
+optimiser asks, for 5120 candidates x 778 vertices an iteration, whether a
+vertex's pixel lies on the background.
 On the TPU that gather is rewritten as one-hot matrix products over float
 words; on a card a lookup is one byte load and a shift, so none of that is
 carried over. What is kept is the packing: 8 pixels of a row to a word,
@@ -58,3 +60,28 @@ def packed_mask_lookup(packed: torch.Tensor, iy: torch.Tensor, ix: torch.Tensor,
     if iy.device.type != "cpu":
         raise ValueError(f"no mask lookup for device {iy.device}")
     return _packed_mask_lookup_torch(packed, iy, ix)
+
+
+def _packed_mask_lookup_batched_torch(packed: torch.Tensor, iy: torch.Tensor,
+                                      ix: torch.Tensor) -> torch.Tensor:
+    """Plain version of the batched kernel: each sequence's queries (S, ...)
+    in its own mask (S, H, ceil(W / 8))."""
+    return torch.stack([_packed_mask_lookup_torch(m, y, x) for m, y, x in zip(packed, iy, ix)])
+
+
+def packed_mask_lookup_batched(packed: torch.Tensor, iy: torch.Tensor, ix: torch.Tensor,
+                               hw) -> torch.Tensor:
+    """A mask a sequence: packed (S, H, ceil(W / 8)) from `pack_mask` of
+    masks padded to one hw = (H, W); iy, ix int32 (S, ...), clipped to the
+    padded image -> float32 (S, ...) in {0, 1}."""
+    if iy.shape != ix.shape or iy.dim() < 1 or packed.dim() != 3 \
+            or packed.shape[0] != iy.shape[0]:
+        raise ValueError(f"packed_mask_lookup_batched takes masks (S, H, WP) and iy, ix of one "
+                         f"shape (S, ...), got {tuple(packed.shape)}, {tuple(iy.shape)} and "
+                         f"{tuple(ix.shape)}")
+    if iy.is_cuda:
+        return kernels.packed_mask_lookup_batched_cuda(packed, iy.contiguous(), ix.contiguous(),
+                                                       hw)
+    if iy.device.type != "cpu":
+        raise ValueError(f"no mask lookup for device {iy.device}")
+    return _packed_mask_lookup_batched_torch(packed, iy, ix)

@@ -1,8 +1,9 @@
 """Fused object-pose SDF energy: the plain PyTorch version and the dispatch
 to the CUDA kernel (csrc/obj_energy.cu, kernel wrapper in ops/kernels.py).
 
-Replaces hotrack_tpu/ops/pallas/obj_energy.py (`fused_obj_sdf_energy`): for
-every candidate pose p,
+Replaces hotrack_tpu/ops/pallas/obj_energy.py (`fused_obj_sdf_energy`, and
+`_obj_impl_batched`, which JAX's `vmap` reaches with a model a sequence:
+`fused_obj_sdf_energy_batched` here): for every candidate pose p,
 
     out[p] = sum over n of | SDF( R_p^T x_n - R_p^T t_p ) |
 
@@ -25,16 +26,18 @@ from __future__ import annotations
 import torch
 
 from . import kernels
-from .sdf_mlp import PLAIN_CHUNK, PackedSDF, _sdf_mlp_torch, pack_distilled
+from .sdf_mlp import (PLAIN_CHUNK, PackedSDF, _check_batch, _sdf_mlp_torch, pack_distilled,
+                      pack_distilled_batched)
 
 
 def obj_rts(rotations: torch.Tensor, translations: torch.Tensor) -> torch.Tensor:
-    """Per candidate (R (P, 3, 3), t (P, 3, 1) or (P, 3)) -> rts (P, 12): the
-    row-major R^T followed by R^T t."""
+    """Per candidate (R (..., P, 3, 3), t (..., P, 3, 1) or (..., P, 3)) ->
+    rts (..., P, 12): the row-major R^T followed by R^T t."""
+    lead = rotations.shape[:-2]
     rot_t = rotations.transpose(-1, -2)
-    t = translations.reshape(translations.shape[0], 3, 1)
+    t = translations.reshape(*lead, 3, 1)
     rt = torch.matmul(rot_t, t)[..., 0]
-    return torch.cat([rot_t.reshape(-1, 9), rt], dim=-1)
+    return torch.cat([rot_t.reshape(*lead, 9), rt], dim=-1)
 
 
 @torch.no_grad()
@@ -72,3 +75,31 @@ def fused_obj_sdf_energy(model, pcld_cf: torch.Tensor, rotations: torch.Tensor,
     if pcld_cf.device.type != "cpu":
         raise ValueError(f"no object energy for device {pcld_cf.device}")
     return _obj_sdf_energy_torch(model, pcld_cf, rts)
+
+
+def _obj_sdf_energy_batched_torch(models, pcld_cf: torch.Tensor,
+                                  rts: torch.Tensor) -> torch.Tensor:
+    """Plain version of the batched kernel: the unbatched plain version on
+    each sequence's cloud (S, 3, N) and candidates (S, P, 12) -> (S, P)."""
+    return torch.stack([_obj_sdf_energy_torch(m, c, r) for m, c, r in zip(models, pcld_cf, rts)])
+
+
+def fused_obj_sdf_energy_batched(models, pcld_cf: torch.Tensor, rotations: torch.Tensor,
+                                 translations: torch.Tensor,
+                                 packed: PackedSDF | None = None) -> torch.Tensor:
+    """A model a sequence: pcld_cf (S, 3, N), rotations (S, P, 3, 3),
+    translations (S, P, 3) or (S, P, 3, 1) and S models -> (S, P) sums of
+    |sdf|. On the card one launch on a (P, S) grid (`packed` from
+    `pack_distilled_batched`); on the CPU the plain version."""
+    _check_batch(models, pcld_cf)
+    if pcld_cf.dim() != 3 or pcld_cf.shape[1] != 3 or rotations.shape[0] != pcld_cf.shape[0]:
+        raise ValueError(f"pcld_cf must be (S, 3, N) beside rotations (S, P, 3, 3), got "
+                         f"{tuple(pcld_cf.shape)} and {tuple(rotations.shape)}")
+    rts = obj_rts(rotations, translations)
+    if pcld_cf.is_cuda:
+        packed = packed if packed is not None else pack_distilled_batched(models)
+        return kernels.obj_sdf_energy_batched_cuda(pcld_cf.contiguous(), rts.contiguous(),
+                                                   packed)
+    if pcld_cf.device.type != "cpu":
+        raise ValueError(f"no object energy for device {pcld_cf.device}")
+    return _obj_sdf_energy_batched_torch(models, pcld_cf, rts)

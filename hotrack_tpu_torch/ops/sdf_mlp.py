@@ -2,9 +2,12 @@
 to the CUDA kernel (csrc/sdf_mlp.cu, kernel wrapper in ops/kernels.py).
 
 Replaces hotrack_tpu/ops/pallas/sdf_mlp.py (`fused_sdf_mlp`,
-`fused_sdf_mlp_cf`). Per point: Fourier features s*x | sin(f*s*x) | cos(f*s*x)
-(axis-major, frequency-minor; 3 + 6F values) -> Dense + ReLU hidden layers ->
-Dense to one value -> clamp to [-clamp, clamp]. Gradient-free, as on the TPU:
+`fused_sdf_mlp_cf`, and `_cf_impl_batched`, which JAX's `vmap` reaches with
+a model a sequence: `fused_sdf_mlp_batched` / `fused_sdf_mlp_cf_batched`
+here, with the S models packed into one (S, n) buffer). Per point: Fourier
+features s*x | sin(f*s*x) | cos(f*s*x) (axis-major, frequency-minor; 3 + 6F
+values) -> Dense + ReLU hidden layers -> Dense to one value -> clamp to
+[-clamp, clamp]. Gradient-free, as on the TPU:
 the particle optimisers never differentiate an SDF query, and the
 distillation trains through `raw_sdf_mlp`, which is plain autograd.
 
@@ -36,7 +39,7 @@ class PackedSDF(NamedTuple):
     """A model's parameters as the kernels read them: one float32 buffer and
     the layer widths (see csrc/sdf_mlp_core.cuh for the layout)."""
 
-    packed: torch.Tensor    # (n,) float32 on the card
+    packed: torch.Tensor    # (n,) float32 on the card; (S, n) for S models
     n_freqs: int
     widths: tuple           # (3 + 6F, hidden widths...)
 
@@ -120,6 +123,60 @@ def pack_distilled(model) -> PackedSDF:
     parts += [pad(model.weights[-1][:, 0], MAX_WIDTH), model.biases[-1].to(torch.float32),
               torch.zeros(3, **f32)]
     return PackedSDF(torch.cat(parts).contiguous(), n_freqs, widths)
+
+
+@torch.no_grad()
+def pack_distilled_batched(models) -> PackedSDF:
+    """S models as one PackedSDF with packed (S, n), for the batched
+    kernels. Raises unless every model has the same widths and frequency
+    count, as stacking them in the JAX package would."""
+    packs = [pack_distilled(m) for m in models]
+    if not packs or any(p.widths != packs[0].widths for p in packs):
+        raise ValueError(f"pack_distilled_batched takes one or more models of equal widths, "
+                         f"got {[p.widths for p in packs]}")
+    return PackedSDF(torch.stack([p.packed for p in packs]), packs[0].n_freqs, packs[0].widths)
+
+
+def _check_batch(models, points: torch.Tensor) -> None:
+    if points.dim() < 1 or len(models) != points.shape[0]:
+        raise ValueError(f"{len(models)} models for points {tuple(points.shape)}: the "
+                         f"leading axis is the sequence")
+
+
+def _sdf_mlp_batched_torch(models, points_cf: torch.Tensor) -> torch.Tensor:
+    """Plain version of the batched kernel: the unbatched plain version on
+    each sequence's points (S, ..., 3, N) with its own model -> (S, ..., N)."""
+    return torch.stack([_sdf_mlp_torch(m, p) for m, p in zip(models, points_cf)])
+
+
+def fused_sdf_mlp_cf_batched(models, points_cf: torch.Tensor,
+                             packed: PackedSDF | None = None) -> torch.Tensor:
+    """A model a sequence: points_cf (S, ..., 3, N) float32 and S models ->
+    sdf (S, ..., N). On the card one launch for every sequence (`packed`
+    from `pack_distilled_batched`); on the CPU the plain version."""
+    _check_batch(models, points_cf)
+    if points_cf.dim() < 3 or points_cf.shape[-2] != 3:
+        raise ValueError(f"points_cf must be (S, ..., 3, N), got {tuple(points_cf.shape)}")
+    if points_cf.is_cuda:
+        packed = packed if packed is not None else pack_distilled_batched(models)
+        return kernels.sdf_mlp_batched_cuda(points_cf.contiguous(), packed, channels_first=True)
+    if points_cf.device.type != "cpu":
+        raise ValueError(f"no SDF MLP for device {points_cf.device}")
+    return _sdf_mlp_batched_torch(models, points_cf)
+
+
+def fused_sdf_mlp_batched(models, points: torch.Tensor,
+                          packed: PackedSDF | None = None) -> torch.Tensor:
+    """A model a sequence, channels-last: points (S, ..., 3) -> (S, ...)."""
+    _check_batch(models, points)
+    if points.dim() < 2 or points.shape[-1] != 3:
+        raise ValueError(f"points must be (S, ..., 3), got {tuple(points.shape)}")
+    if points.is_cuda:
+        packed = packed if packed is not None else pack_distilled_batched(models)
+        return kernels.sdf_mlp_batched_cuda(points.contiguous(), packed, channels_first=False)
+    if points.device.type != "cpu":
+        raise ValueError(f"no SDF MLP for device {points.device}")
+    return _sdf_mlp_batched_torch(models, points.transpose(-1, -2))
 
 
 def fused_sdf_mlp_cf(model, points_cf: torch.Tensor,

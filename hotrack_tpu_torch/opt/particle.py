@@ -15,8 +15,14 @@ One update scheme serves all the reference's optimisers:
      parameters stay as they were.
 
 The loop body is branch-free, as in the JAX package: `torch.where` on the
-success flag, a 0-d tensor that is never read on the host, so the loop
-enqueues its iterations without waiting for the device.
+success flag, a tensor that is never read on the host, so the loop enqueues
+its iterations without waiting for the device.
+
+Several sequences at once (the JAX package's `vmap` of an optimiser) are a
+leading batch axis written out: `batch=(S,)` gives the search sizes (S, D),
+the candidates (S, P, De), the energies (S, P) and the success flags (S,),
+each sequence's parameters with a leading S; the bank (P, D) is shared, as
+JAX closes over it. `batch=()` is the single sequence.
 """
 
 from __future__ import annotations
@@ -50,15 +56,21 @@ def presample_particles(particle_size: int, dim: int,
 
 
 def quat_extend(scaled: torch.Tensor) -> torch.Tensor:
-    """Prepend qw = sqrt(1 - qx^2 - qy^2 - qz^2) to (P, 3 + k) pose samples."""
-    qw = torch.sqrt(torch.clamp(1.0 - torch.sum(scaled[:, :3] ** 2, dim=1), min=0.0))
-    return torch.cat([qw[:, None], scaled], dim=1)
+    """Prepend qw = sqrt(1 - qx^2 - qy^2 - qz^2) to (..., P, 3 + k) pose samples."""
+    qw = torch.sqrt(torch.clamp(1.0 - torch.sum(scaled[..., :3] ** 2, dim=-1), min=0.0))
+    return torch.cat([qw[..., None], scaled], dim=-1)
 
 
 def normalize_quat_head(mean_ext: torch.Tensor) -> torch.Tensor:
-    """Normalise the leading 4 components."""
-    q = mean_ext[:4] / (torch.linalg.norm(mean_ext[:4]) + 1e-8)
-    return torch.cat([q, mean_ext[4:]])
+    """Normalise the leading 4 components of (..., De)."""
+    q = mean_ext[..., :4] / (torch.linalg.norm(mean_ext[..., :4], dim=-1, keepdim=True) + 1e-8)
+    return torch.cat([q, mean_ext[..., 4:]], dim=-1)
+
+
+def _per_batch(flag: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A per-sequence flag (*batch) shaped to select whole parameters `like`
+    (*batch, ...): a reshape, never a broadcast along another axis."""
+    return flag.reshape(*flag.shape, *(1,) * (like.dim() - flag.dim()))
 
 
 @torch.no_grad()
@@ -67,12 +79,13 @@ def run_particle_opt(
     presampled: torch.Tensor,         # (P, D) fixed bank, row 0 == 0
     initial_scale,                    # scalar or (D,)
     params: tuple,                    # tuple of tensors: the current parameters
-    energy_fn: Callable,              # (params, sample_ext (P, De)) -> ((P,), (P,))
-    apply_mean: Callable,             # (params, mean_ext (De,)) -> params
-    extend_sample: Callable = lambda s: s,       # (P, D) -> (P, De)
-    postprocess_mean: Callable | None = None,    # (De,) -> (De,)
-    search_slice: Callable = lambda m: m,        # (De,) -> (D,)
+    energy_fn: Callable,              # (params, sample_ext (*b, P, De)) -> ((*b, P), (*b, P))
+    apply_mean: Callable,             # (params, mean_ext (*b, De)) -> params
+    extend_sample: Callable = lambda s: s,       # (*b, P, D) -> (*b, P, De)
+    postprocess_mean: Callable | None = None,    # (*b, De) -> (*b, De)
+    search_slice: Callable = lambda m: m,        # (*b, De) -> (*b, D)
     trace: list | None = None,
+    batch: tuple = (),                # the leading batch shape b: () or (S,)
 ):
     """Run the shared particle loop; returns (params, last_mean_energy).
 
@@ -80,42 +93,44 @@ def run_particle_opt(
     `energy`, the search-size update the weighted `aux` (the object optimiser
     ranks on the x500 energy and adapts on the raw one). `trace`, a list,
     receives each iteration's (energy, success, mean_ext) tensors."""
+    batch = tuple(batch)
     dim = presampled.shape[1]
     like = dict(dtype=presampled.dtype, device=presampled.device)
-    search = torch.as_tensor(initial_scale, **like).expand(dim).clone()
+    search = torch.as_tensor(initial_scale, **like).expand(*batch, dim).clone()
     prev_search = search
-    prev_success = torch.ones((), dtype=torch.bool, device=presampled.device)
-    mean_aux = torch.zeros((), **like)
+    prev_success = torch.ones(batch, dtype=torch.bool, device=presampled.device)
+    mean_aux = torch.zeros(batch, **like)
 
     for _ in range(spec.iterations):
-        sample_ext = extend_sample(presampled * search)  # (P, De)
+        sample_ext = extend_sample(presampled * search[..., None, :])  # (*b, P, De)
         energy, aux = energy_fn(params, sample_ext)
 
-        origin = energy[0]
+        origin = energy[..., :1]
         better = energy < origin
         weight = torch.where(better, origin - energy, torch.zeros_like(energy))
-        weight_sum = torch.sum(weight) + spec.weight_eps
-        success = torch.any(better)
+        weight_sum = torch.sum(weight, dim=-1) + spec.weight_eps
+        success = torch.any(better, dim=-1)
         safe_sum = torch.where(weight_sum > 0, weight_sum, torch.ones_like(weight_sum))
 
-        mean_aux = torch.where(success, torch.sum(aux * weight) / safe_sum, aux[0])
-        mean_ext = torch.sum(sample_ext * weight[:, None], dim=0) / safe_sum
+        mean_aux = torch.where(success, torch.sum(aux * weight, dim=-1) / safe_sum, aux[..., 0])
+        mean_ext = torch.sum(sample_ext * weight[..., None], dim=-2) / safe_sum[..., None]
         if postprocess_mean is not None:
             mean_ext = postprocess_mean(mean_ext)
-        mean_ext = torch.where(success, mean_ext, torch.zeros_like(mean_ext))
+        mean_ext = torch.where(success[..., None], mean_ext, torch.zeros_like(mean_ext))
         if trace is not None:
             trace.append((energy, success, mean_ext))
 
         new_params = apply_mean(params, mean_ext)
-        params = tuple(torch.where(success, new, old)
+        params = tuple(torch.where(_per_batch(success, old), new, old)
                        for new, old in zip(new_params, params))
 
         # search = E * c2 * |m| / ||m|| + 1e-3
         s = torch.abs(search_slice(mean_ext)) + 1e-3
-        new_search = mean_aux * spec.scaling_coefficient2 * s / torch.linalg.norm(s) + 1e-3
-        both = torch.logical_and(prev_success, success)
+        new_search = mean_aux[..., None] * spec.scaling_coefficient2 * s \
+            / torch.linalg.norm(s, dim=-1, keepdim=True) + 1e-3
+        both = torch.logical_and(prev_success, success)[..., None]
         search = torch.where(
             both, spec.beta * new_search + (1 - spec.beta) * prev_search, new_search)
-        prev_search = torch.where(success, search, prev_search)
+        prev_search = torch.where(success[..., None], search, prev_search)
         prev_success = success
     return params, mean_aux

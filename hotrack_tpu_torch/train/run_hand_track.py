@@ -23,7 +23,13 @@ environment variables:
   in one kernel, `mano_forward` and the fused energy kernel, or the SDF MLP
   and the mask lookup as kernels of their own.
 
-`eval_batch_seqs` > 1 (several sequences through one loop) is not ported yet.
+`eval_batch_seqs` > 1 (JAX `_run_batched`) tracks the test sequences in
+chunks of at most that many sequences of equal length, each chunk through one
+frame loop (`track/hand.track_hand_sequences_batched`), with a volume, masks
+(padded to the chunk's largest image by edge replication) and a distilled
+model a sequence; on the card the batched kernels. Every sequence is prepared
+in the unbatched runner's order, from the same generator draws, so S and 1
+track the same inputs.
 """
 
 from __future__ import annotations
@@ -45,7 +51,7 @@ from ..opt.hand_pose import HAND_ENERGY_ROUTES
 from ..pose.rotations import mano_quat2axisang, matrix_to_unit_quaternion
 from ..sdf.distill import distill_sdf_volume, distilled_to
 from ..track.eval import eval_hand_sequence
-from ..track.hand import track_hand_sequence
+from ..track.hand import track_hand_sequence, track_hand_sequences_batched
 from ..utils.convert import load_reference_checkpoint
 from .run_obj_track import _sequence_assets
 from .trainer import build_model
@@ -170,10 +176,6 @@ def run_hand_tracking(cfg, save_flag: bool = False, distilled: list | None = Non
     track = cfg["track"]
     if track not in TRACK_ROUTES:
         raise ValueError(f"run_hand_tracking takes track in {TRACK_ROUTES}, got {track!r}")
-    if int(cfg.get("eval_batch_seqs", 1)) > 1:
-        raise NotImplementedError(
-            "eval_batch_seqs > 1 (several sequences through one loop, with the batched "
-            "kernels) is not ported yet: ROADMAP.md, queue 1, slice 5")
     if cfg.get("debug") or cfg.get("debug_save"):
         raise NotImplementedError(
             "debug / debug_save figures wait for utils/vis.py: ROADMAP.md, queue 1, slice 5")
@@ -212,9 +214,10 @@ def run_hand_tracking(cfg, save_flag: bool = False, distilled: list | None = Non
             use_pred_obj_pose=bool(cfg.get("use_pred_obj_pose", False)),
             sdf_voxel_scale=HAND_VOXEL_SCALE, hand_energy=hand_energy)
 
-    total, sequences = {}, []
-    n_frames, net_time, data_time = 0, 0.0, 0.0
-    for seq_idx in range(len(loader)):
+    def prepare(seq_idx):
+        """Sequence seq_idx's batch and assets, drawn from the generator in
+        sequence order: (batch, metas, volume, model, masks, setup and
+        distillation seconds)."""
         t0 = time.perf_counter()
         raw, metas = loader[seq_idx]
         batch = prepare_batch(mano, raw, cfg["num_points"], generator=generator,
@@ -222,7 +225,8 @@ def run_hand_tracking(cfg, save_flag: bool = False, distilled: list | None = Non
                               jitter_kind=hj["rand_type"],
                               sample_kind=cfg.get("point_sample", "fps"),
                               device=device)
-        model, distill_s = None, 0.0
+        volume = model = masks = None
+        distill_s = 0.0
         if use_opt:
             volume = _hand_volume(cfg, metas[0], device)
             if sdf_query == "distilled":
@@ -234,48 +238,115 @@ def run_hand_tracking(cfg, save_flag: bool = False, distilled: list | None = Non
                     model = distill_sdf_volume(volume, HAND_VOXEL_SCALE, generator)
                 _sync(device)
                 distill_s = time.perf_counter() - td
-            opt_kwargs.update(
-                sdf_volume=volume, distilled=model,
-                background_masks=torch.from_numpy(load_background_masks(cfg, metas)).to(device))
+            masks = load_background_masks(cfg, metas)
         _sync(device)
-        t1 = time.perf_counter()
-        result = track_hand_sequence(handnet, mano, batch, iknet=iknet, use_opt=use_opt,
-                                     shape_mode=shape_mode, **banks, **opt_kwargs)
-        _sync(device)
-        t2 = time.perf_counter()
-        data_time += t1 - t0
-        net_time += t2 - t1
-        n_frames += batch["hand_points"].shape[0]
+        return batch, metas, volume, model, masks, time.perf_counter() - t0, distill_s
 
+    total, sequences = {}, [None] * len(loader)
+
+    def record(seq_idx, result, batch, metas, model, setup_s, distill_s, net_s):
         metrics = eval_hand_sequence(result, batch["gt_hand_kp"],
                                      batch["gt_hand_pose"]["palm_template"][0])
         means = {k[5:]: float(v) for k, v in metrics.items() if k.startswith("mean/")}
         for k, v in means.items():
             total[k] = total.get(k, 0.0) + v
-        sequences.append({"pred_kp": result.pred_kp.cpu().numpy(),
-                          "global_translation": result.global_translation.cpu().numpy(),
-                          "mano_theta": result.mano_theta.cpu().numpy(),
-                          "pred_beta": result.pred_beta.cpu().numpy(),
-                          "hand_idx0": batch["hand_idx"][0].cpu().numpy(),
-                          "obj_idx0": batch["obj_idx"][0].cpu().numpy(),
-                          "distilled": None if model is None else distilled_to(model, "cpu"),
-                          "means": means, "setup_seconds": t1 - t0,
-                          "distill_seconds": distill_s, "net_seconds": t2 - t1})
+        sequences[seq_idx] = {"pred_kp": result.pred_kp.cpu().numpy(),
+                              "global_translation": result.global_translation.cpu().numpy(),
+                              "mano_theta": result.mano_theta.cpu().numpy(),
+                              "pred_beta": result.pred_beta.cpu().numpy(),
+                              "hand_idx0": batch["hand_idx"][0].cpu().numpy(),
+                              "obj_idx0": batch["obj_idx"][0].cpu().numpy(),
+                              "distilled": None if model is None else distilled_to(model, "cpu"),
+                              "means": means, "setup_seconds": setup_s,
+                              "distill_seconds": distill_s, "net_seconds": net_s}
         print(f"seq {seq_idx}: {({k: round(v, 5) for k, v in means.items()})}")
         if save_flag:
             _save_sequence(cfg, metas, result, batch, metrics, use_iknet)
 
-    avg = {k: v / max(len(sequences), 1) for k, v in total.items()}
-    fps_all = n_frames / max(net_time + data_time, 1e-9)
+    track_kwargs = dict(iknet=iknet, use_opt=use_opt, shape_mode=shape_mode, **banks,
+                        **opt_kwargs)
+    batch_seqs = int(cfg.get("eval_batch_seqs", 1))
+    n_frames, net_time, data_time = 0, 0.0, 0.0
+    t_start = time.perf_counter()
+    if batch_seqs <= 1:
+        for seq_idx in range(len(loader)):
+            batch, metas, volume, model, masks, setup_s, distill_s = prepare(seq_idx)
+            if use_opt:
+                opt_kwargs_seq = dict(sdf_volume=volume, distilled=model,
+                                      background_masks=torch.from_numpy(masks).to(device))
+            else:
+                opt_kwargs_seq = {}
+            t1 = time.perf_counter()
+            result = track_hand_sequence(handnet, mano, batch, **track_kwargs, **opt_kwargs_seq)
+            _sync(device)
+            net_s = time.perf_counter() - t1
+            data_time += setup_s
+            net_time += net_s
+            n_frames += batch["hand_points"].shape[0]
+            record(seq_idx, result, batch, metas, model, setup_s, distill_s, net_s)
+        fps_all = n_frames / max(net_time + data_time, 1e-9)
+    else:
+        # every sequence prepared first, in the unbatched runner's order; then
+        # chunks of at most batch_seqs sequences of one length, in order
+        prepared = [prepare(i) for i in range(len(loader))]
+        data_time = sum(p[5] for p in prepared)
+        groups = {}
+        for seq_idx, p in enumerate(prepared):
+            groups.setdefault(p[0]["hand_points"].shape[0], []).append(seq_idx)
+        chunks = [idxs[k:k + batch_seqs] for idxs in groups.values()
+                  for k in range(0, len(idxs), batch_seqs)]
+        for chunk in chunks:
+            parts = [prepared[i] for i in chunk]
+            stacked = _stack_tree([p[0] for p in parts])
+            opt_kwargs_seq = {}
+            if use_opt:
+                opt_kwargs_seq = dict(
+                    sdf_volumes=torch.stack([p[2] for p in parts]),
+                    distilled=None if parts[0][3] is None else [p[3] for p in parts],
+                    background_masks=torch.from_numpy(_pad_edge([p[4] for p in parts]))
+                    .to(device))
+            t1 = time.perf_counter()
+            results = track_hand_sequences_batched(handnet, mano, stacked, **track_kwargs,
+                                                   **opt_kwargs_seq)
+            _sync(device)
+            net_s = time.perf_counter() - t1
+            net_time += net_s
+            for k, (seq_idx, part) in enumerate(zip(chunk, parts)):
+                batch, metas, _, model, _, setup_s, distill_s = part
+                n_frames += batch["hand_points"].shape[0]
+                record(seq_idx, type(results)(*(x[k] for x in results)), batch, metas, model,
+                       setup_s, distill_s, net_s)
+        # the whole wall time, as the JAX runner counts a batched run
+        fps_all = n_frames / max(time.perf_counter() - t_start, 1e-9)
+
+    avg = {k: v / max(len(loader), 1) for k, v in total.items()}
     fps_net = n_frames / max(net_time, 1e-9)
     print(f"frames {n_frames}  FPS(all) {fps_all:.1f}  FPS(network) {fps_net:.1f}"
-          f"  device {device}" + (f"  sdf_query {sdf_query}  hand_energy {hand_energy}"
-                                  if use_opt else ""))
+          f"  device {device}" + (f"  batched({batch_seqs})" if batch_seqs > 1 else "")
+          + (f"  sdf_query {sdf_query}  hand_energy {hand_energy}" if use_opt else ""))
     print("overall:", {k: round(v, 5) for k, v in avg.items()})
     return avg, {"fps_all": fps_all, "fps_network": fps_net,
                  "n_frames": n_frames, "net_seconds": net_time,
                  "data_seconds": data_time, "sequences": sequences,
                  **{k: v.cpu().numpy() for k, v in banks.items()}}
+
+
+def _stack_tree(trees: list):
+    """Stack equal-shaped nested dicts of tensors along a new leading axis."""
+    if isinstance(trees[0], dict):
+        return {k: _stack_tree([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def _pad_edge(masks: list) -> np.ndarray:
+    """Per-sequence (T, H_s, W_s) masks padded to the largest H and W by
+    edge replication (JAX `_run_batched`): the optimiser clips a pixel to the
+    padded image, so a vertex past a smaller mask's border must read the
+    border's pixel, as the unbatched clip gives it, not a padded zero."""
+    h = max(m.shape[1] for m in masks)
+    w = max(m.shape[2] for m in masks)
+    return np.stack([np.pad(m, ((0, 0), (0, h - m.shape[1]), (0, w - m.shape[2])), mode="edge")
+                     for m in masks])
 
 
 def _save_sequence(cfg, metas, result, batch, metrics, use_iknet: bool = False):

@@ -306,8 +306,11 @@ def test_cli_routes(runner, capsys, monkeypatch, extra, route):
 
 def test_cli_refuses_what_is_not_ported_and_checks_its_keys(runner):
     argv = runner[0]
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        cli.test_main([*argv, "--eval_batch_seqs", "2"])
+    # several sequences through one loop are ported: the one test sequence
+    # is a chunk of one (tests/test_torch_batched_track.py holds the chunks)
+    avg, stats = cli.test_main([*argv, "--eval_batch_seqs", "2"])
+    assert stats["n_frames"] == 3 and stats["sequences"][0]["pred_kp"].shape == (3, 21, 3)
+    assert all(np.isfinite(v) for v in avg.values())
     with pytest.raises(NotImplementedError, match="slice 5"):
         cli.test_main([*argv, "--debug_save", "1"])
     with pytest.raises(ValueError, match="hand_energy"):
@@ -332,6 +335,8 @@ from hotrack_tpu_torch.train import run_hand_track
 from hotrack_tpu_torch.train.cli import test_main
 run_hand_track.NUM_PARTICLES = 192
 avg, stats = test_main(sys.argv[1:])
+batched = test_main([*sys.argv[1:], "--eval_batch_seqs", "2"])[1]
+assert batched["n_frames"] == stats["n_frames"]
 bad = sorted(m for m in sys.modules if m in ("jax", "hotrack_tpu", "cv2")
              or m.startswith(("jax.", "jaxlib", "flax", "optax", "hotrack_tpu.")))
 assert not bad, bad

@@ -120,14 +120,14 @@ def test_iknet_trains_through_the_same_entry(trained):
 
 
 def test_other_tracking_routes_still_raise(trained):
-    """Every route of the JAX package's test entry is ported; what is left to
-    raise is a route neither package has and, for `hand_IKNet`, several
-    sequences through one loop (not ported yet)."""
+    """Every route of the JAX package's test entry is ported, several
+    sequences through one loop (`eval_batch_seqs`) too; what is left to
+    raise is a route neither package has."""
     argv = ["--config", "handtracknet_test_SimGrasp.yml", *TINY, "--device", "cpu"]
     with pytest.raises(ValueError, match="unknown track"):
         cli.test_main([*argv, "--track", "hand_obj"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.test_main([*argv, "--track", "hand_IKNet", "--eval_batch_seqs", "2"])
+    avg, stats = cli.test_main([*argv, "--track", "hand_IKNet", "--eval_batch_seqs", "2"])
+    assert stats["n_frames"] == FRAMES and all(np.isfinite(v) for v in avg.values())
 
 
 def test_cuda_without_a_card_raises(trained):
