@@ -169,9 +169,22 @@ MLP_WIDTHS = (21, 128, 128, 128)   # 3 frequencies, hidden 128, depth 3
 # One sdf value (|sdf| <= 0.05 after the clamp, activations of order 1); the
 # card showed 4.1e-08:
 SDF_ATOL = 5e-7
+# The kernels that run the MLP on the tensor cores in 3xTF32 (#4, #4b, #7,
+# #7b; csrc/sdf_mlp_tc.cuh) round otherwise than float32 FMA: the tensor
+# cores truncate their float32 sums, so one sdf value lay up to 1.64e-7 from
+# the plain version's (#4 on 4096 single points) and 1.68e-7 (#7 on 398,336
+# vertices built bitwise alike), and 1.53e-7 from the exact-sum 3xTF32
+# emulation (ops/tf32.py), on the card (the float32 FMA kernel: 4.1e-08 from
+# the plain version). TC_SDF_ATOL holds one such value; for #7 against the
+# emulation it is the tight hold, where the plain version's vertices carry
+# their own rounding (SKIN_SDF_ATOL).
+TC_SDF_ATOL = 2.5e-7
 # a sum of N |sdf| values, relative to the sum's size (the card showed
-# 2.2e-07), plus ENERGY_ATOL a point for sums near 0
-ENERGY_RTOL, ENERGY_ATOL = 2e-6, 1e-8
+# 2.2e-07 for the float32 FMA kernel, 1.64e-06 for the 3xTF32 one at the
+# object path's shape, whose truncated sums come out low), plus ENERGY_ATOL a
+# point for sums near 0 (one value of the 3xTF32 kernel: TC_SDF_ATOL; it was
+# 1e-8 for the FMA one)
+ENERGY_RTOL, ENERGY_ATOL = 2e-6, TC_SDF_ATOL
 # Fused against composed route on the card, and card against CPU, are
 # compared twice. Open loop: every frame again from the main run's previous
 # pose, so both start alike. The 2048 energies of iteration 0 then differ by
@@ -245,6 +258,13 @@ HAND_MAX_FLIPS, HAND_FLIPPED_SHARE = 4, 0.3
 # take another step of the search from that iteration on (ROADMAP queue 3) and
 # are held to the tracker's accuracy, as the tests hold keypoints across packages
 HAND_KP_BOUND_M, HAND_STEP_BOUND_M = 2e-3, 1e-2
+# frame 0 where the frame-0 shape optimiser took another step of its search
+# (betas apart): the step is in beta, whose search starts at a scale of 5
+# (opt/hand_shape.INITIAL_SCALE), and a sequence whose betas parted by 4.6
+# showed 27.3 mm at frame 0 (measured on one H100 with a generator a sequence;
+# with one generator for all sequences they parted by under 10 mm);
+# 27.3 x 5 / 4.6 = 29.7 mm
+HAND_SHAPE_STEP_BOUND_M = 3e-2
 
 # Several sequences through one loop (`eval_batch_seqs`, the batched kernels
 # #3b, #4b, #5b, #7b): chunks of HAND_SEQS / OBJ_SEQS sequences of one length
@@ -259,6 +279,7 @@ BATCH_FIT_STEPS = 500
 # are the least time the card could take, whatever its power limit
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+TF32_FLOPS = 495e12   # dense, on the tensor cores
 
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "fps": ("hotrack_tpu_torch/csrc/fps.cu", "hotrack_tpu/ops/pallas/fps.py:35"),
@@ -544,13 +565,25 @@ def _in_turns(kernel, plain, library, reps=50, slow_reps=3) -> dict:
     return out
 
 
-def _bound(n_bytes: float, n_ops: float) -> dict:
+def _bound(n_bytes: float, n_ops: float, mlp_ops: float = 0.0,
+           tensor_cores: bool = False) -> dict:
     """The least time the card could take: the larger of the bytes the
     function must move (each input read once, each output written once) over
-    the HBM rate and its float32 operations over the float32 peak."""
-    by_bytes, by_ops = 1e3 * n_bytes / HBM_BYTES_PER_S, 1e3 * n_ops / FP32_FLOPS
-    return {"bound_ms": max(by_bytes, by_ops),
-            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+    the HBM rate and its operations over the peak for their type. n_ops are
+    float32 operations; mlp_ops the SDF MLP's, which cost those operations in
+    float32 FMA or three tensor-core passes of them at the TF32 peak in 3xTF32
+    (float32-class results): an MLP kernel reports both (bound_fp32_ms,
+    bound_3xtf32_ms), and bound_ms is the one of its own arithmetic
+    (tensor_cores: 3xTF32)."""
+    by_bytes = 1e3 * n_bytes / HBM_BYTES_PER_S
+    fp32 = 1e3 * (n_ops + mlp_ops) / FP32_FLOPS
+    tc3 = 1e3 * (3.0 * mlp_ops / TF32_FLOPS + n_ops / FP32_FLOPS)
+    by_ops = tc3 if tensor_cores else fp32
+    out = {"bound_ms": max(by_bytes, by_ops),
+           "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+    if mlp_ops:
+        out.update(bound_fp32_ms=max(by_bytes, fp32), bound_3xtf32_ms=max(by_bytes, tc3))
+    return out
 
 
 def _sm_clock_hz() -> float:
@@ -586,8 +619,12 @@ def _headline(timed: list) -> dict:
 
 def _fmt(case: dict) -> str:
     lib = "none" if case["library_ms"] is None else f"{case['library_ms']:.4f} ms"
-    return (f"kernel {case['ms']:.4f} ms, plain {case['plain_ms']:.4f} ms, library "
+    line = (f"kernel {case['ms']:.4f} ms, plain {case['plain_ms']:.4f} ms, library "
             f"{lib}, bound {case['bound_ms']:.5f} ms ({case['bound_by']})")
+    if "bound_3xtf32_ms" in case:
+        line += (f" [float32 {case['bound_fp32_ms']:.5f}, 3xTF32 {case['bound_3xtf32_ms']:.5f};"
+                 f" {case['bound_ms'] / case['ms']:.3f} of the bound]")
+    return line
 
 
 def phase_kernels_fps() -> dict:
@@ -864,7 +901,8 @@ def phase_kernels_sdf_mlp() -> dict:
                                  lambda: _sdf_mlp_torch(model, pts_cf), None, reps=10)
                 case["matmul_chain_ms"] = _time_ms(lambda: _matmul_chain(model, feats), 3)
                 del feats
-                case.update(_bound(16.0 * m + 4 * packed.packed.numel(), _mlp_ops(widths, m)))
+                case.update(_bound(16.0 * m + 4 * packed.packed.numel(), 0.0,
+                                   _mlp_ops(widths, m)))
                 case["shape"] = name
                 timed.append(case)
                 line += (f"; {_fmt(case)}; matmul chain {case['matmul_chain_ms']:.4f} ms; "
@@ -874,14 +912,16 @@ def phase_kernels_sdf_mlp() -> dict:
 
 
 def phase_kernels_obj_energy() -> dict:
-    """Fused object energy kernel vs plain version on the card: every sum
-    within ENERGY_RTOL of its size (+ ENERGY_ATOL a point), and a second
-    launch bitwise equal to the first. No single PyTorch call computes the
-    function: library_ms is null."""
+    """Fused object energy kernel vs plain version and vs its 3xTF32
+    emulation (ops/tf32.py) on the card: every sum within ENERGY_RTOL of its
+    size (+ ENERGY_ATOL a point) of both, and a second launch bitwise equal
+    to the first. No single PyTorch call computes the function: library_ms
+    is null."""
     from hotrack_tpu_torch.ops import kernels
     from hotrack_tpu_torch.ops.obj_energy import (_obj_sdf_energy_torch,
                                                   fused_obj_sdf_energy, obj_rts)
     from hotrack_tpu_torch.ops.sdf_mlp import fourier_features, pack_distilled
+    from hotrack_tpu_torch.ops.tf32 import raw_sdf_mlp_3xtf32
     from hotrack_tpu_torch.pose.rotations import normalize_quat, unit_quaternion_to_matrix
     rng = np.random.RandomState(4)
     cases = [(f"object path ({p},{n})", MLP_WIDTHS, p, n, None, True)
@@ -891,8 +931,12 @@ def phase_kernels_obj_energy() -> dict:
         ("odd P and N (2047,1000)", MLP_WIDTHS, 2047, 1000, None, False),
         ("small, ragged tile (10,200)", MLP_WIDTHS, 10, 200, None, False),
         ("one candidate, one point (1,1)", MLP_WIDTHS, 1, 1, None, False),
+        ("one point each (4096,1)", MLP_WIDTHS, 4096, 1, None, False),
         ("non-geometric frequencies, narrow (33,129)", (15, 32, 48), 33, 129, [1.0, 2.5],
          False),
+        ("6 frequencies, depth 4: layers staged (7,129)", (39, 128, 128, 128, 128), 7, 129,
+         None, False),
+        ("depth 1 (5,100)", (9, 128), 5, 100, None, False),
     ]
     max_err, timed = 0.0, []
     for name, widths, p, n, freqs, is_timed in cases:
@@ -905,20 +949,25 @@ def phase_kernels_obj_energy() -> dict:
         again = fused_obj_sdf_energy(model, pcld_cf, rot, trans)
         rts = obj_rts(rot, trans).contiguous()
         want = _obj_sdf_energy_torch(model, pcld_cf, rts)
+        emu = _obj_sdf_energy_torch(model, pcld_cf, rts, 1 << 16, raw_sdf_mlp_3xtf32)
         torch.cuda.synchronize()
         if not torch.equal(got, again):
             raise AssertionError(f"[kernels] obj_sdf_energy {name}: two launches differ")
         if got.shape != (p,) or not torch.isfinite(got).all():
             raise AssertionError(f"[kernels] obj_sdf_energy {name}: shape {tuple(got.shape)}")
-        err = (got - want).abs()
+        err, emu_err = (got - want).abs(), (got - emu).abs()
         rel = float((err / want.abs().clamp(min=1e-12)).max())
+        emu_rel = float((emu_err / emu.abs().clamp(min=1e-12)).max())
         max_err = max(max_err, float(err.max()))
-        if not bool((err <= ENERGY_RTOL * want.abs() + ENERGY_ATOL * n).all()):
+        if not bool((err <= ENERGY_RTOL * want.abs() + ENERGY_ATOL * n).all()
+                    and (emu_err <= ENERGY_RTOL * emu.abs() + ENERGY_ATOL * n).all()):
             raise AssertionError(f"[kernels] obj_sdf_energy {name}: max error "
-                                 f"{float(err.max()):.3e} (relative {rel:.3e})")
+                                 f"{float(err.max()):.3e} (relative {rel:.3e}), against the "
+                                 f"3xTF32 emulation {float(emu_err.max()):.3e} ({emu_rel:.3e})")
         line = (f"[kernels] obj_sdf_energy {name}: max error {float(err.max()):.3e} of sums "
-                f"near {float(want.mean()):.3f} (relative {rel:.3e}, bound {ENERGY_RTOL}), "
-                f"relaunch bitwise equal")
+                f"near {float(want.mean()):.3f} (relative {rel:.3e}, bound {ENERGY_RTOL}); "
+                f"against the 3xTF32 emulation {float(emu_err.max()):.3e} (relative "
+                f"{emu_rel:.3e}); relaunch bitwise equal")
         if is_timed:
             packed = pack_distilled(model)
             m = p * n
@@ -931,14 +980,12 @@ def phase_kernels_obj_energy() -> dict:
             case["matmul_chain_ms"] = _time_ms(lambda: _matmul_chain(model, feats), 3)
             del feats
             ops = _mlp_ops(widths, m)
-            case.update(_bound(12.0 * n + 48.0 * p + 4.0 * p + 4 * packed.packed.numel(), ops))
-            case["tf32_bound_ms"] = 1e3 * ops / 495e12
-            case["bf16_bound_ms"] = 1e3 * ops / 989e12
+            case.update(_bound(12.0 * n + 48.0 * p + 4.0 * p + 4 * packed.tc.numel(), 0.0, ops,
+                               tensor_cores=True))
             case["shape"] = name
             timed.append(case)
             line += (f"; {_fmt(case)}; matmul chain {case['matmul_chain_ms']:.4f} ms; "
-                     f"{ops / case['ms'] / 1e9:.1f} TFLOP/s; what tensor cores would allow: "
-                     f"{case['tf32_bound_ms']:.3f} ms TF32, {case['bf16_bound_ms']:.3f} ms bf16")
+                     f"{ops / case['ms'] / 1e9:.1f} TFLOP/s of float32-class MLP")
         print(line, flush=True)
     return {"max_abs_err": max_err, **_headline(timed), "cases": timed}
 
@@ -1601,7 +1648,8 @@ def phase_kernels_hand_energy() -> dict:
                 lambda: _hand_energy_torch(model, packed_mask, frame, pts, hw), None, reps=10)
             case["matmul_chain_ms"] = _chain_ms(model, m)
             ops = _hand_ops(widths, m)
-            case.update(_bound(20.0 * m + 4 * packed.packed.numel() + packed_mask.numel(), ops))
+            case.update(_bound(20.0 * m + 4 * packed.packed.numel() + packed_mask.numel(),
+                               27.0 * m, _mlp_ops(widths, m)))
             case["shape"] = name
             timed.append(case)
             line += (f"; {_fmt(case)}; matmul chain {case['matmul_chain_ms']:.4f} ms; "
@@ -1627,6 +1675,59 @@ def _skin_candidates(rng, p: int, n_verts: int = HAND_VERTS):
                              + np.array([0, 0, 0.45], np.float32)).cuda()
     beta = torch.from_numpy(rng.randn(1, 10).astype(np.float32) * 0.3).cuda()
     return mano, pose, trans, shape_hand(mano, beta)
+
+
+def _exact_skin_inputs(rng, p: int, n: int):
+    """Skinning inputs whose vertices the kernel and skin_reference build
+    bitwise alike: no pose blend (pose_map 0), one joint a vertex (weights
+    one-hot), every joint's rotation the identity and one translation a
+    candidate. Each vertex is then ((v_shaped + t) + offset) on both sides,
+    so the sdf isolates the MLP's arithmetic: (pose_map, rt_flat, offset,
+    SkinConsts)."""
+    from hotrack_tpu_torch.ops.hand_energy_skin import SkinConsts
+    mano, _, _, shaped = _skin_candidates(rng, 1, n)
+    joint = torch.from_numpy(rng.randint(0, 16, n)).cuda()
+    weights_t = torch.nn.functional.one_hot(joint, 16).T.float().contiguous()
+    consts = SkinConsts(mano.posedirs.permute(1, 2, 0).contiguous(),
+                        shaped[0][0].T.contiguous(), weights_t)
+    k = consts.posedirs_cf.shape[1]
+    rt = torch.zeros(p, 12, 16, device="cuda")
+    rt[:, [0, 4, 8]] = 1.0
+    rt[:, 9:] = torch.from_numpy((rng.randn(p, 3, 1) * 0.02).astype(np.float32)).cuda()
+    offset = torch.from_numpy((rng.randn(p, 3) * 0.02 + [0, 0, 0.45]).astype(np.float32)).cuda()
+    return torch.zeros(p, k, device="cuda"), rt.reshape(p * 12, 16), offset, consts
+
+
+def _hand_energy_skin_emulated(rng) -> float:
+    """#7 on vertices built bitwise alike (`_exact_skin_inputs`) against the
+    plain version and its 3xTF32 emulation: sdf within TC_SDF_ATOL of both,
+    hit equal. Returns the larger error."""
+    from hotrack_tpu_torch.ops.hand_energy_skin import (_hand_energy_skin_torch,
+                                                        fused_hand_energy_skin)
+    from hotrack_tpu_torch.ops.mask_lookup import pack_mask
+    from hotrack_tpu_torch.ops.tf32 import raw_sdf_mlp_3xtf32
+    worst = 0.0
+    for widths, p in ((MLP_WIDTHS, 512), ((39, 128, 128, 128, 128), 7)):
+        model = _random_sdf(rng, widths, 0.05)
+        packed_mask = pack_mask(_seeded_mask(rng, HAND_HW))
+        frame = _seeded_frame(rng, HAND_HW)
+        args = (model, packed_mask, frame, *_exact_skin_inputs(rng, p, HAND_VERTS), HAND_HW)
+        sdf, hit = fused_hand_energy_skin(*args)
+        want_sdf, want_hit = _hand_energy_skin_torch(*args)
+        emu_sdf, _ = _hand_energy_skin_torch(*args, mlp=raw_sdf_mlp_3xtf32)
+        torch.cuda.synchronize()
+        err = float((sdf - want_sdf).abs().max())
+        emu_err = float((sdf - emu_sdf).abs().max())
+        worst = max(worst, err)
+        if err > TC_SDF_ATOL or emu_err > TC_SDF_ATOL or not torch.equal(hit, want_hit):
+            raise AssertionError(f"[kernels] hand_energy_skin on exact vertices {widths}: sdf "
+                                 f"{err:.3e} from the plain version, {emu_err:.3e} from the "
+                                 f"3xTF32 emulation (bound {TC_SDF_ATOL}), "
+                                 f"{int((hit != want_hit).sum())} hits differ")
+        print(f"[kernels] hand_energy_skin on exact vertices {widths} ({p},{HAND_VERTS}): sdf "
+              f"{err:.3e} from the plain version, {emu_err:.3e} from the 3xTF32 emulation "
+              f"(bound {TC_SDF_ATOL}); hit equal", flush=True)
+    return worst
 
 
 def phase_kernels_hand_energy_skin() -> dict:
@@ -1655,7 +1756,7 @@ def phase_kernels_hand_energy_skin() -> dict:
         ("non-geometric frequencies, narrow (6,135,778) on (1,1)", (15, 32, 48), 6, HAND_VERTS,
          NO_MASK_HW, [1.0, 2.5], False),
     ]
-    max_err, timed = 0.0, []
+    max_err, timed = _hand_energy_skin_emulated(rng), []
     for name, widths, p, n, hw, freqs, is_timed in cases:
         model = _random_sdf(rng, widths, 0.05, freqs)
         packed_mask = pack_mask(_seeded_mask(rng, hw))
@@ -1704,9 +1805,10 @@ def phase_kernels_hand_energy_skin() -> dict:
             k = pose_map.shape[1]
             ops = _hand_ops(widths, m) + (2.0 * (3 * k + 12 * 16) + 18.0) * m
             n_bytes = 4.0 * (pose_map.numel() + rt_flat.numel() + offset.numel()
-                             + sum(c.numel() for c in consts) + packed.packed.numel()) \
+                             + sum(c.numel() for c in consts) + packed.tc.numel()) \
                 + packed_mask.numel() + 8.0 * m
-            case.update(_bound(n_bytes, ops))
+            case.update(_bound(n_bytes, ops - _mlp_ops(widths, m), _mlp_ops(widths, m),
+                               tensor_cores=True))
             case["shape"] = name
             timed.append(case)
             line += (f"; {_fmt(case)}; matmul chain {case['matmul_chain_ms']:.4f} ms; "
@@ -1779,7 +1881,7 @@ def phase_kernels_sdf_mlp_batched() -> dict:
             case = _in_turns(lambda: kernels.sdf_mlp_batched_cuda(pts, packed, cf),
                              lambda: _sdf_mlp_batched_torch(models, pts_cf), None, reps=5,
                              slow_reps=2)
-            case.update(_bound(16.0 * m + 4 * packed.packed.numel(), _mlp_ops(widths, m)))
+            case.update(_bound(16.0 * m + 4 * packed.packed.numel(), 0.0, _mlp_ops(widths, m)))
             case["shape"] = name
             timed.append(case)
             line += f"; {_fmt(case)}; {_mlp_ops(widths, m) / case['ms'] / 1e9:.1f} TFLOP/s"
@@ -1834,7 +1936,8 @@ def phase_kernels_obj_energy_batched() -> dict:
                              lambda: _obj_sdf_energy_batched_torch(models, pcld, rts), None,
                              reps=5, slow_reps=2)
             ops = _mlp_ops(widths, s * p * n)
-            case.update(_bound(12.0 * s * n + 52.0 * s * p + 4 * packed.packed.numel(), ops))
+            case.update(_bound(12.0 * s * n + 52.0 * s * p + 4 * packed.tc.numel(), 0.0, ops,
+                               tensor_cores=True))
             case["shape"] = name
             timed.append(case)
             line += f"; {_fmt(case)}; {ops / case['ms'] / 1e9:.1f} TFLOP/s"
@@ -1986,9 +2089,10 @@ def phase_kernels_hand_energy_skin_batched() -> dict:
             m = s * p * n
             ops = _hand_ops(widths, m) + (2.0 * (3 * k + 12 * 16) + 18.0) * m
             n_bytes = 4.0 * (pose_map.numel() + rt_flat.numel() + offset.numel()
-                             + sum(c.numel() for c in consts) + packed.packed.numel()
+                             + sum(c.numel() for c in consts) + packed.tc.numel()
                              + frames.numel()) + masks.numel() + 8.0 * m
-            case.update(_bound(n_bytes, ops))
+            case.update(_bound(n_bytes, ops - _mlp_ops(widths, m), _mlp_ops(widths, m),
+                               tensor_cores=True))
             case["shape"] = name
             timed.append(case)
             line += f"; {_fmt(case)}; {ops / case['ms'] / 1e9:.1f} TFLOP/s"
@@ -2414,7 +2518,7 @@ def phase_hand_batched(card: str, seen: dict) -> dict:
         # frame 0 to the rounding of two runs that take the same steps; where the
         # frame-0 shape optimiser took another step (a near-tie: its betas
         # differ), to a step of the search
-        kp_bound = np.where(np.array(beta_diff) > 1e-4, HAND_STEP_BOUND_M, HAND_KP_BOUND_M)
+        kp_bound = np.where(np.array(beta_diff) > 1e-4, HAND_SHAPE_STEP_BOUND_M, HAND_KP_BOUND_M)
         ms_one = 1e3 * one["net_seconds"] / one["n_frames"]
         print(f"[hand batched] the unbatched runner on the same {HAND_SEQS} sequences and fits: "
               f"{ms_one:.3f} ms/frame ({1e3 / ms_one:.2f} frames/s) against the batched loop's "

@@ -17,24 +17,34 @@
 // the TPU: vertices padded to a lane multiple, the particle tile with its
 // role-major slab and sub-tiles, P padded by repeating particle 0.
 //
-// Bound: operations. A vertex costs the MLP's 71,168 float32 operations plus
-// 2 (3 K + 12 * 16) + 18 = 1,212 of skinning at K = 135; the inputs are
-// 1.35 KB a candidate and 1.3 MB a call, the outputs 8 bytes a vertex.
-// Precision: float32 FMA, float32 accumulation, sums in ascending k and j
-// from 0; the transform and projection as in hand_energy_core.cuh.
+// Bound: operations. A vertex costs the MLP's 71,168 operations, three
+// tensor-core passes of them in 3xTF32 at 495 TFLOP/s, plus 1,239 float32
+// operations at 67 TFLOP/s: 2 (3 K + 12 * 16) + 18 = 1,212 of skinning at
+// K = 135 and 27 of transform and projection. At 5120 x 778 vertices that is
+// 1.792 ms (4.305 ms with the MLP in float32 FMA); the inputs are 1.35 KB a
+// candidate and 1.3 MB a call, the outputs 8 bytes a vertex.
+// Precision: the skinning is float32 FMA with float32 accumulation, sums in
+// ascending k and j from 0, the transform and projection as in
+// hand_energy_core.cuh, so the vertices and the hit are what they were with
+// the float32 MLP; the MLP's hidden layers are 3xTF32 (sdf_mlp_tc.cuh).
 //
-// Design: one block of 256 threads per pair of candidates. Phase 1 builds
-// the pair's vertices into shared memory (2 x 3 x N floats): a thread takes a
+// Design: a persistent grid of one block (256 threads, 8 warps) an SM, each
+// walking the (sequence, pair of candidates) items b, b + grid, ... in
+// ascending order, with the model's weights resident in shared memory
+// (copied again only when the walk enters another sequence). Phase 1 builds
+// an item's vertices into shared memory (2 x 3 x N floats): a thread takes a
 // vertex and computes it for both candidates, so a value of posedirs or
 // weights is loaded once (through L1/L2, neighbouring threads on neighbouring
 // addresses) and used twice, and the block's two halves take alternate tiles
 // of 128 vertices. Phase 2 walks the pair's 2 N vertices as one flat list in
-// tiles of 128, so only the list's last tile is ragged (13 tiles for 2 x 778
-// vertices, where a tile per candidate and 128 vertices would need 14):
-// features, MLP and pixel lookup per tile as in hand_energy.cu. With an odd
-// P the last block has one candidate. No atomics; nothing depends on the
-// grid, so two launches agree bitwise. Sequences: the grid is (pairs, S),
-// blockIdx.y the sequence s. The per-candidate inputs and the outputs are
+// rounds of 128, 16 a warp as the mma tiles' rows, so only the list's last
+// round is ragged (13 rounds for 2 x 778 vertices): the object-frame
+// transform, the MLP on the tensor cores and the pixel lookup (a lane a
+// vertex). With an odd P the last pair has one candidate. Shared memory:
+// 197,632 bytes of weights for 21-128-128-128-1, 18,688 of vertices and 2,656
+// of per-candidate inputs at N = 778, K = 135. No atomics; nothing depends on
+// the grid or on the block that took the item, so two launches agree
+// bitwise. Sequences: the per-candidate inputs and the outputs are
 // (S, P, ...); each per-call input (posedirs, v_shaped, weights, frame, mask,
 // packed model) lies s times its own stride further on, and a stride of 0
 // shares it between the sequences (posedirs and weights always are). An
@@ -42,15 +52,17 @@
 // computes bitwise what an unbatched launch on s's inputs computes.
 
 #include "hand_energy_core.cuh"
-#include "sdf_mlp_core.cuh"
+#include "sdf_mlp_tc.cuh"
 
 namespace {
 
 using namespace hotrack;
 
-constexpr int kPair = 2;       // candidates a block
+constexpr int kPair = 2;       // candidates a block item
 constexpr int kJoints = 16;
 constexpr int kRoles = 12;     // 9 rotation entries, 3 translation entries
+constexpr int kTilePoints = 128;
+static_assert(tc::kThreads == 2 * kTilePoints, "phase 1 takes two tiles of vertices a pass");
 
 // Floats (bytes for the mask) from one sequence's per-call input to the
 // next; 0 shares the input between the sequences.
@@ -58,149 +70,170 @@ struct SeqStrides {
   long long posedirs, v_shaped, weights, frame, mask, packed;
 };
 
-// floats of shared memory beyond the MLP's: the pair's vertices, then per
+// floats of shared memory beyond the weights: the pair's vertices, then per
 // candidate pose_map (K), rt (12 x 16) and offset (3, padded to 4)
-__host__ __device__ inline int stage_floats(int k) { return round_up4(k) + kRoles * kJoints + 4; }
-inline long long skin_smem_bytes(int k, int n) {
-  return kMlpSmemBytes + static_cast<long long>(sizeof(float)) *
-      (kPair * 3LL * round_up4(n) + kPair * stage_floats(k));
+__host__ __device__ inline int stage_floats(int k) {
+  return tc::round_up4(k) + kRoles * kJoints + 4;
+}
+__host__ __device__ inline long long pair_floats(int k, int n) {
+  return kPair * 3LL * tc::round_up4(n) + kPair * stage_floats(k);
 }
 
-__global__ void __launch_bounds__(kMlpThreads, 2)
-hand_energy_skin_kernel(const float* __restrict__ pose_map, const float* __restrict__ rt,
-                        const float* __restrict__ offset, const float* __restrict__ posedirs,
-                        const float* __restrict__ v_shaped, const float* __restrict__ weights,
-                        const float* __restrict__ frame_g, const unsigned char* __restrict__ mask,
-                        const float* __restrict__ packed, float* __restrict__ sdf_out,
-                        float* __restrict__ hit_out, int p_total, int k_pose, int n, int h, int w,
-                        SeqStrides seq, MlpShape shape) {
+__global__ void __launch_bounds__(tc::kThreads, 1)
+hand_energy_skin_kernel(const float* __restrict__ pose_map_g, const float* __restrict__ rt_g,
+                        const float* __restrict__ offset_g, const float* __restrict__ posedirs_g,
+                        const float* __restrict__ v_shaped_g, const float* __restrict__ weights_g,
+                        const float* __restrict__ frame_g,
+                        const unsigned char* __restrict__ mask_g,
+                        const float* __restrict__ packed_g, float* __restrict__ sdf_g,
+                        float* __restrict__ hit_g, int p_total, int k_pose, int n, int h, int w,
+                        long long items, SeqStrides seq, tc::Shape shape, int resident) {
   extern __shared__ float4 smem4[];
-  {
-    const long long s = blockIdx.y;
-    pose_map += s * p_total * k_pose;
-    rt += s * p_total * (kRoles * kJoints);
-    offset += s * p_total * 3;
-    sdf_out += s * p_total * n;
-    hit_out += s * p_total * n;
-    posedirs += s * seq.posedirs;
-    v_shaped += s * seq.v_shaped;
-    weights += s * seq.weights;
-    frame_g += s * seq.frame;
-    mask += s * seq.mask;
-    packed += s * seq.packed;
-  }
-  float* act = reinterpret_cast<float*>(smem4);
-  float* red = act + kActFloats;
-  float* xs = red + kRedFloats;                      // [cand][coord][n4]
-  const int n4 = round_up4(n);
-  float* stage = xs + kPair * 3 * n4;                // [cand][stage_floats]
+  float* wsm = reinterpret_cast<float*>(smem4);
+  float* xs = wsm + tc::weight_smem_floats(shape, resident != 0);   // [cand][coord][n4]
+  const int n4 = tc::round_up4(n);
+  float* stage = xs + kPair * 3 * n4;                                 // [cand][stage_floats]
   const int stage_n = stage_floats(k_pose);
-  const int k4 = round_up4(k_pose);
+  const int k4 = tc::round_up4(k_pose);
+  const int pairs = (p_total + kPair - 1) / kPair;
 
-  const int p0 = blockIdx.x * kPair;
-  const int n_cand = min(kPair, p_total - p0);
   const int tid = threadIdx.x;
   const int slot = tid & (kTilePoints - 1), half = tid >> 7;
-
-  // the pair's per-candidate inputs into shared memory (zeros for a missing one)
-  for (int i = tid; i < kPair * stage_n; i += kMlpThreads) {
-    const int g = i / stage_n, j = i - g * stage_n;
-    const long long p = p0 + g;
-    float v = 0.0f;
-    if (g < n_cand) {
-      if (j < k_pose) v = __ldg(pose_map + p * k_pose + j);
-      else if (j >= k4 && j < k4 + kRoles * kJoints) v = __ldg(rt + p * (kRoles * kJoints) + (j - k4));
-      else if (j >= k4 + kRoles * kJoints && j < k4 + kRoles * kJoints + 3)
-        v = __ldg(offset + p * 3 + (j - k4 - kRoles * kJoints));
+  const int lane = tid & 31, warp = tid >> 5, g = lane >> 2, t = lane & 3;
+  long long loaded = -1;
+  for (long long item = blockIdx.x; item < items; item += gridDim.x) {
+    const long long s = item / pairs;
+    const int p0 = static_cast<int>(item - s * pairs) * kPair;
+    const int n_cand = min(kPair, p_total - p0);
+    const float* pose_map = pose_map_g + s * p_total * k_pose;
+    const float* rt = rt_g + s * p_total * (kRoles * kJoints);
+    const float* offset = offset_g + s * p_total * 3;
+    const float* posedirs = posedirs_g + s * seq.posedirs;
+    const float* v_shaped = v_shaped_g + s * seq.v_shaped;
+    const float* weights = weights_g + s * seq.weights;
+    const unsigned char* mask = mask_g + s * seq.mask;
+    const tc::Net net = tc::net_of(packed_g + s * seq.packed, shape);
+    if (resident && s != loaded) {
+      tc::load_resident(wsm, net, shape);
+      loaded = s;
     }
-    stage[i] = v;
-  }
-  __syncthreads();
+    __syncthreads();   // the previous item's phase 2 has read xs
 
-  // ---- phase 1: the pair's vertices ----
-  const float* pm0 = stage;
-  const float* pm1 = stage + stage_n;
-  for (int base = half * kTilePoints; base < n; base += 2 * kTilePoints) {
-    const int v = base + slot;
-    if (v >= n) continue;
-    float vp[kPair][3];
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      const float* pd = posedirs + static_cast<long long>(c) * k_pose * n + v;
-      float a0 = 0.0f, a1 = 0.0f;
-#pragma unroll 9
-      for (int k = 0; k < k_pose; ++k) {
-        const float d = __ldg(pd + static_cast<long long>(k) * n);
-        a0 = fmaf(d, pm0[k], a0);
-        a1 = fmaf(d, pm1[k], a1);
+    // the pair's per-candidate inputs into shared memory (zeros for a missing one)
+    for (int i = tid; i < kPair * stage_n; i += tc::kThreads) {
+      const int c = i / stage_n, j = i - c * stage_n;
+      const long long p = p0 + c;
+      float v = 0.0f;
+      if (c < n_cand) {
+        if (j < k_pose) v = __ldg(pose_map + p * k_pose + j);
+        else if (j >= k4 && j < k4 + kRoles * kJoints)
+          v = __ldg(rt + p * (kRoles * kJoints) + (j - k4));
+        else if (j >= k4 + kRoles * kJoints && j < k4 + kRoles * kJoints + 3)
+          v = __ldg(offset + p * 3 + (j - k4 - kRoles * kJoints));
       }
-      const float vs = __ldg(v_shaped + static_cast<long long>(c) * n + v);
-      vp[0][c] = __fadd_rn(a0, vs);
-      vp[1][c] = __fadd_rn(a1, vs);
+      stage[i] = v;
     }
-    float wv[kJoints];
-#pragma unroll
-    for (int j = 0; j < kJoints; ++j) wv[j] = __ldg(weights + static_cast<long long>(j) * n + v);
-#pragma unroll
-    for (int g = 0; g < kPair; ++g) {
-      const float* rg = stage + g * stage_n + k4;       // [role][joint]
-      const float* og = rg + kRoles * kJoints;
-      float s[kRoles];
-#pragma unroll
-      for (int r = 0; r < kRoles; ++r) {
-        float a = 0.0f;
-#pragma unroll
-        for (int j = 0; j < kJoints; ++j) a = fmaf(rg[r * kJoints + j], wv[j], a);
-        s[r] = a;
-      }
+    __syncthreads();
+
+    // ---- phase 1: the pair's vertices, float32 FMA ----
+    const float* pm0 = stage;
+    const float* pm1 = stage + stage_n;
+    for (int base = half * kTilePoints; base < n; base += 2 * kTilePoints) {
+      const int v = base + slot;
+      if (v >= n) continue;
+      float vp[kPair][3];
 #pragma unroll
       for (int c = 0; c < 3; ++c) {
-        float a = __fmul_rn(s[3 * c], vp[g][0]);
-        a = fmaf(s[3 * c + 1], vp[g][1], a);
-        a = fmaf(s[3 * c + 2], vp[g][2], a);
-        xs[(g * 3 + c) * n4 + v] = __fadd_rn(__fadd_rn(a, s[9 + c]), og[c]);
+        const float* pd = posedirs + static_cast<long long>(c) * k_pose * n + v;
+        float a0 = 0.0f, a1 = 0.0f;
+#pragma unroll 9
+        for (int k = 0; k < k_pose; ++k) {
+          const float d = __ldg(pd + static_cast<long long>(k) * n);
+          a0 = fmaf(d, pm0[k], a0);
+          a1 = fmaf(d, pm1[k], a1);
+        }
+        const float vs = __ldg(v_shaped + static_cast<long long>(c) * n + v);
+        vp[0][c] = __fadd_rn(a0, vs);
+        vp[1][c] = __fadd_rn(a1, vs);
+      }
+      float wv[kJoints];
+#pragma unroll
+      for (int j = 0; j < kJoints; ++j) wv[j] = __ldg(weights + static_cast<long long>(j) * n + v);
+#pragma unroll
+      for (int c2 = 0; c2 < kPair; ++c2) {
+        const float* rg = stage + c2 * stage_n + k4;       // [role][joint]
+        const float* og = rg + kRoles * kJoints;
+        float sr[kRoles];
+#pragma unroll
+        for (int r = 0; r < kRoles; ++r) {
+          float a = 0.0f;
+#pragma unroll
+          for (int j = 0; j < kJoints; ++j) a = fmaf(rg[r * kJoints + j], wv[j], a);
+          sr[r] = a;
+        }
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          float a = __fmul_rn(sr[3 * c], vp[c2][0]);
+          a = fmaf(sr[3 * c + 1], vp[c2][1], a);
+          a = fmaf(sr[3 * c + 2], vp[c2][2], a);
+          xs[(c2 * 3 + c) * n4 + v] = __fadd_rn(__fadd_rn(a, sr[9 + c]), og[c]);
+        }
       }
     }
-  }
-  __syncthreads();
-
-  // ---- phase 2: the per-vertex energy over the pair's flat vertex list ----
-  const float scale = __ldg(packed), clamp = __ldg(packed + 1);
-  const float* freqs = packed + 4;
-  const float* layers = freqs + round_up4(shape.n_freqs);
-  float frame[kFrameFloats];
-#pragma unroll
-  for (int i = 0; i < kFrameFloats; ++i) frame[i] = __ldg(frame_g + i);
-  const int total = n_cand * n;
-  const long long out_base = static_cast<long long>(p0) * n;
-  for (int base = 0; base < total; base += kTilePoints) {
-    const int i = base + slot;
-    float x = 0.0f, y = 0.0f, z = 1.0f;
-    float obj[3] = {0.0f, 0.0f, 0.0f};
-    if (i < total) {
-      const int g = i >= n ? 1 : 0;
-      const int v = i - g * n;
-      x = xs[(g * 3 + 0) * n4 + v];
-      y = xs[(g * 3 + 1) * n4 + v];
-      z = xs[(g * 3 + 2) * n4 + v];
-      scaled_object_frame(frame, scale, x, y, z, obj);
-    }
-    build_features(act, freqs, shape.n_freqs, obj[0], obj[1], obj[2]);
     __syncthreads();
-    if (half == 1 && i < total) hit_out[out_base + i] = silhouette_hit(mask, h, w, frame, x, y, z);
-    const float s = mlp_tile(act, red, layers, shape, clamp);
-    if (half == 0 && i < total) sdf_out[out_base + i] = s;
+
+    // ---- phase 2: the per-vertex energy over the pair's flat vertex list,
+    // 16 vertices a warp a round, the MLP on the tensor cores ----
+    float frame[kFrameFloats];
+#pragma unroll
+    for (int i = 0; i < kFrameFloats; ++i) frame[i] = __ldg(frame_g + s * seq.frame + i);
+    const int total = n_cand * n;
+    float* sdf_out = sdf_g + (s * p_total + p0) * static_cast<long long>(n);
+    float* hit_out = hit_g + (s * p_total + p0) * static_cast<long long>(n);
+    for (int base = 0; base < total; base += tc::kRoundPoints) {
+      const int row0 = base + warp * tc::kRows;
+      float xa[3] = {0.0f, 0.0f, 0.0f}, xb[3] = {0.0f, 0.0f, 0.0f};
+      float cam[3];
+#pragma unroll
+      for (int r = 0; r < 3; ++r) {
+        // r 0, 1: the mma rows g and g + 8; r 2: the lane's own vertex for the hit
+        const int i = row0 + (r == 2 ? lane : g + 8 * r);
+        if (i >= total || (r == 2 && lane >= tc::kRows)) continue;
+        const int c2 = i >= n ? 1 : 0;
+        const int v = i - c2 * n;
+        const float x = xs[(c2 * 3 + 0) * n4 + v], y = xs[(c2 * 3 + 1) * n4 + v],
+                    z = xs[(c2 * 3 + 2) * n4 + v];
+        if (r == 2) {
+          cam[0] = x; cam[1] = y; cam[2] = z;
+        } else {
+          float obj[3];
+          scaled_object_frame(frame, net.scale, x, y, z, obj);
+          float (&dst)[3] = r == 0 ? xa : xb;
+          dst[0] = obj[0]; dst[1] = obj[1]; dst[2] = obj[2];
+        }
+      }
+      if (lane < tc::kRows && row0 + lane < total)
+        hit_out[row0 + lane] = silhouette_hit(mask, h, w, frame, cam[0], cam[1], cam[2]);
+      const float2 sdf = tc::mlp_rows(xa, xb, net, shape, resident != 0, wsm);
+      if (t == 0) {
+        if (row0 + g < total) sdf_out[row0 + g] = sdf.x;
+        if (row0 + g + 8 < total) sdf_out[row0 + g + 8] = sdf.y;
+      }
+    }
   }
 }
 
-int g_smem_limit = 0;  // what the device lets a block of this kernel opt into
+int g_smem_limit = 0;           // what a block of this kernel may opt into
+long long g_grid_smem = -1;     // persistent_blocks' memo
+int g_grid_blocks = 0;
 
 }  // namespace
 
 extern "C" {
 
 // Opts the kernel into as much dynamic shared memory as a block may have on
-// the current device, once per process; a launch takes what its N needs.
+// the current device, once per process; a launch takes what its net and N
+// need.
 int hotrack_hand_energy_skin_init() {
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
@@ -212,35 +245,43 @@ int hotrack_hand_energy_skin_init() {
 }
 
 // pose_map (p, k), rt (p, 12, 16), offset (p, 3), posedirs (3, k, n), v_shaped (3, n),
-// weights (16, n), frame (16,), mask (h, ceil(w / 8)) uint8, packed, sdf (p, n),
-// hit (p, n), each with a leading n_seq: device pointers; seq_strides: 6 host
-// long longs, SeqStrides' fields in order; widths: n_hidden + 1 host ints.
-// Returns cudaErrorInvalidValue when the pair's vertices do not fit a block's
-// shared memory (n above about 6000).
+// weights (16, n), frame (16,), mask (h, ceil(w / 8)) uint8, packed (PackedSDF.tc),
+// sdf (p, n), hit (p, n), each with a leading n_seq: device pointers; seq_strides:
+// 6 host long longs, SeqStrides' fields in order; widths: n_hidden + 1 host ints.
+// Returns cudaErrorInvalidValue when the pair's vertices and one layer of the
+// net do not fit a block's shared memory (n above about 6000).
 int hotrack_hand_energy_skin(const void* pose_map, const void* rt, const void* offset,
                              const void* posedirs, const void* v_shaped, const void* weights,
                              const void* frame, const void* mask, const void* packed,
                              void* sdf, void* hit, int p, int k, int n, int h, int w,
                              int n_seq, const long long* seq_strides, int n_freqs,
                              int n_hidden, const int* widths, void* stream) {
-  const MlpShape shape = make_mlp_shape(n_freqs, n_hidden, widths);
-  if (mlp_shape_error(shape) || p < 1 || k < 1 || n < 1 || h < 1 || w < 1 || n_seq < 1 ||
-      n_seq > 65535)
+  const tc::Shape shape = tc::make_shape(n_freqs, n_hidden, widths);
+  if (shape.k0 == 0 || p < 1 || k < 1 || n < 1 || h < 1 || w < 1 || n_seq < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const SeqStrides seq{seq_strides[0], seq_strides[1], seq_strides[2], seq_strides[3],
                        seq_strides[4], seq_strides[5]};
-  const long long smem = skin_smem_bytes(k, n);
-  if (smem > g_smem_limit || static_cast<long long>(kPair) * n > 2147483647LL)
+  const long long other = 4LL * pair_floats(k, n);
+  const int resident = tc::resident_mode(shape, other, g_smem_limit);
+  if (resident < 0 || static_cast<long long>(kPair) * n > 2147483647LL)
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(static_cast<unsigned>((p + kPair - 1) / kPair), static_cast<unsigned>(n_seq));
-  hand_energy_skin_kernel<<<grid, kMlpThreads, static_cast<size_t>(smem),
+  const long long smem = other + 4LL * tc::weight_smem_floats(shape, resident != 0);
+  const long long items = static_cast<long long>((p + kPair - 1) / kPair) * n_seq;
+  const int blocks =
+      tc::persistent_blocks(hand_energy_skin_kernel, smem, g_grid_smem, g_grid_blocks);
+  if (blocks < 1) {
+    const cudaError_t err = cudaGetLastError();
+    return static_cast<int>(err != cudaSuccess ? err : cudaErrorUnknown);
+  }
+  const unsigned grid = static_cast<unsigned>(items < blocks ? items : blocks);
+  hand_energy_skin_kernel<<<grid, tc::kThreads, static_cast<size_t>(smem),
                             static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(pose_map), static_cast<const float*>(rt),
       static_cast<const float*>(offset), static_cast<const float*>(posedirs),
       static_cast<const float*>(v_shaped), static_cast<const float*>(weights),
       static_cast<const float*>(frame), static_cast<const unsigned char*>(mask),
       static_cast<const float*>(packed), static_cast<float*>(sdf), static_cast<float*>(hit), p,
-      k, n, h, w, seq, shape);
+      k, n, h, w, items, seq, shape, resident);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -6,109 +6,152 @@
 // _obj_impl_batched when several sequences are tracked with a model each:
 // for every (sequence and) candidate pose p
 //   out[p] = sum over n of | SDF( R_p^T x_n - R_p^T t_p ) |
-// with the distilled-SDF MLP of sdf_mlp_core.cuh. Inputs: the observed cloud
-// channels-first (3, N), and per candidate rts (P, 12) = row-major R^T then
-// R^T t (ops/obj_energy.py obj_rts). The transformed cloud (P, 3, N) and the
-// (P, N) sdf never reach device memory. Not carried over from the TPU: N
-// padded to 128 with a validity mask, P padded to the particle tile, the
-// role-major rts slab and the tile knobs; any P and any N are taken as they
-// are.
+// with the distilled-SDF MLP of sdf_mlp_tc.cuh on the tensor cores. Inputs:
+// the observed cloud channels-first (3, N), and per candidate rts (P, 12) =
+// row-major R^T then R^T t (ops/obj_energy.py obj_rts). The transformed cloud
+// (P, 3, N) and the (P, N) sdf never reach device memory. Not carried over
+// from the TPU: N padded to 128 with a validity mask, P padded to the
+// particle tile, the role-major rts slab and the tile knobs; any P and any N
+// are taken as they are.
 //
-// Bound: operations. 2048 candidates x 1024 points x 71,168 float32
-// operations = 149.2 GFLOP a launch against 12 KB of cloud, 96 KB of poses
-// and 8 KB out. Precision: float32 FMA with float32 accumulation, no tensor
-// cores; the transform is computed as ((-rt_c + r_c0 x) + r_c1 y) + r_c2 z
-// with each product and sum rounded on its own, as the plain version does.
+// Bound: operations. 2048 candidates x 1024 points x 71,168 operations =
+// 149.2 GFLOP a launch, three tensor-core passes of it in 3xTF32 at 495
+// TFLOP/s: 0.904 ms (2.228 ms in float32 FMA at 67 TFLOP/s), against 12 KB of
+// cloud, 96 KB of poses and 8 KB out. Precision: 3xTF32 with float32
+// accumulation for the hidden layers (sdf_mlp_tc.cuh); the transform is
+// float32, ((-rt_c + r_c0 x) + r_c1 y) + r_c2 z with each product and sum
+// rounded on its own, as the plain version computes it.
 //
-// Design: one block of 256 threads per candidate. It walks the cloud in tiles
-// of 128 points: transform in registers, features into shared memory, the MLP
-// on the tile, |sdf| added to the point slot's running sum (tiles in ascending
-// order). At the end the 128 slot sums are added by a fixed tree in shared
-// memory. No atomics and no dependence on the grid, so two launches agree
-// bitwise. Sequences: the grid is (P, S), blockIdx.y the sequence s; its
-// cloud, its candidates, its packed model and its output lie s times their
-// per-sequence strides further on (0 shares an input). An unbatched launch is
-// the case of one sequence: sequence s of a batched launch sums bitwise what
-// an unbatched launch on s's inputs sums.
+// Design: a persistent grid of one block (256 threads, 8 warps) an SM, each
+// walking the (sequence, candidate) items b, b + grid, ... in ascending
+// order, with the model's later layers resident in shared memory (197,632
+// bytes for 21-128-128-128-1; copied again only when the walk enters another
+// sequence). An item is its candidate's
+// cloud in rounds of 128 points, 16 a warp: the transform in registers, the
+// MLP (sdf_mlp_tc.cuh), |sdf| added to the lane's running sum (rows g, then
+// g + 8, rounds ascending). At the end the lanes' sums are added by a fixed
+// butterfly in the warp and the 8 warps' in ascending order. No atomics and
+// nothing depends on the grid or on which block took the item, so two
+// launches agree bitwise, and sequence s of a batched launch (its cloud,
+// candidates, model and output s times their per-sequence strides further on;
+// a stride of 0 shares an input) sums bitwise what an unbatched launch on s's
+// inputs sums: that launch is the case of one sequence.
 
-#include "sdf_mlp_core.cuh"
+#include "sdf_mlp_tc.cuh"
 
 namespace {
 
 using namespace hotrack;
 
-__global__ void __launch_bounds__(kMlpThreads, 2)
+__device__ __forceinline__ void transform(const float* __restrict__ pc, int n, int i,
+                                          const float (&r)[12], float scale, float (&x)[3]) {
+  x[0] = x[1] = x[2] = 0.0f;
+  if (i >= n) return;
+  const float px = __ldg(pc + i), py = __ldg(pc + n + i),
+              pz = __ldg(pc + 2 * static_cast<long long>(n) + i);
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    float v = __fadd_rn(-r[9 + c], __fmul_rn(r[3 * c], px));
+    v = __fadd_rn(v, __fmul_rn(r[3 * c + 1], py));
+    v = __fadd_rn(v, __fmul_rn(r[3 * c + 2], pz));
+    x[c] = __fmul_rn(v, scale);
+  }
+}
+
+__global__ void __launch_bounds__(tc::kThreads, 1)
 obj_energy_kernel(const float* __restrict__ pcld_cf, const float* __restrict__ rts,
-                  const float* __restrict__ packed, float* __restrict__ out, int n,
-                  long long pcld_seq, long long packed_seq, MlpShape shape) {
+                  const float* __restrict__ packed, float* __restrict__ out, int p, int n,
+                  long long items, long long pcld_seq, long long packed_seq, tc::Shape shape,
+                  int resident) {
   extern __shared__ float4 smem4[];
-  const long long cand = static_cast<long long>(blockIdx.y) * gridDim.x + blockIdx.x;
-  pcld_cf += blockIdx.y * pcld_seq;
-  packed += blockIdx.y * packed_seq;
-  float* act = reinterpret_cast<float*>(smem4);
-  float* red = act + kActFloats;
-  const float scale = __ldg(packed), clamp = __ldg(packed + 1);
-  const float* freqs = packed + 4;
-  const float* layers = freqs + round_up4(shape.n_freqs);
-
-  float r[12];
+  float* wsm = reinterpret_cast<float*>(smem4);
+  float* red = wsm + tc::weight_smem_floats(shape, resident != 0);   // one float a warp
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  long long loaded = -1;
+  for (long long item = blockIdx.x; item < items; item += gridDim.x) {
+    const long long s = item / p;
+    const tc::Net net = tc::net_of(packed + s * packed_seq, shape);
+    if (resident && s != loaded) {
+      tc::load_resident(wsm, net, shape);
+      loaded = s;
+    }
+    const float* pc = pcld_cf + s * pcld_seq;
+    float r[12];
 #pragma unroll
-  for (int i = 0; i < 12; ++i) r[i] = __ldg(rts + cand * 12 + i);
-
-  const int slot = threadIdx.x & (kTilePoints - 1);
-  float energy = 0.0f;
-  for (int base = 0; base < n; base += kTilePoints) {
-    const int i = base + slot;
-    float x[3] = {0.0f, 0.0f, 0.0f};
-    if (i < n) {
-      const float px = __ldg(pcld_cf + i), py = __ldg(pcld_cf + n + i),
-                  pz = __ldg(pcld_cf + 2 * static_cast<long long>(n) + i);
-#pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        float v = __fadd_rn(-r[9 + c], __fmul_rn(r[3 * c], px));
-        v = __fadd_rn(v, __fmul_rn(r[3 * c + 1], py));
-        v = __fadd_rn(v, __fmul_rn(r[3 * c + 2], pz));
-        x[c] = __fmul_rn(v, scale);
+    for (int i = 0; i < 12; ++i) r[i] = __ldg(rts + item * 12 + i);
+    float energy = 0.0f;
+    for (int base = 0; base < n; base += tc::kRoundPoints) {
+      const int i0 = base + warp * tc::kRows + g, i1 = i0 + 8;
+      float xa[3], xb[3];
+      transform(pc, n, i0, r, net.scale, xa);
+      transform(pc, n, i1, r, net.scale, xb);
+      const float2 sdf = tc::mlp_rows(xa, xb, net, shape, resident != 0, wsm);
+      if (t == 0) {
+        if (i0 < n) energy += fabsf(sdf.x);
+        if (i1 < n) energy += fabsf(sdf.y);
       }
     }
-    build_features(act, freqs, shape.n_freqs, x[0], x[1], x[2]);
+    energy += __shfl_xor_sync(0xffffffffu, energy, 4);
+    energy += __shfl_xor_sync(0xffffffffu, energy, 8);
+    energy += __shfl_xor_sync(0xffffffffu, energy, 16);
+    if (lane == 0) red[warp] = energy;
     __syncthreads();
-    const float s = mlp_tile(act, red, layers, shape, clamp);
-    if (threadIdx.x < kTilePoints && i < n) energy += fabsf(s);
+    if (threadIdx.x == 0) {
+      float sum = red[0];
+#pragma unroll
+      for (int w = 1; w < tc::kWarps; ++w) sum += red[w];
+      out[item] = sum;
+    }
+    __syncthreads();   // red is read before the next item writes it
   }
-  // a thread below 128 read only its own column of red in mlp_tile
-  if (threadIdx.x < kTilePoints) red[threadIdx.x] = energy;
-  __syncthreads();
-  for (int s = kTilePoints / 2; s > 0; s >>= 1) {
-    if (threadIdx.x < s) red[threadIdx.x] += red[threadIdx.x + s];
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) out[cand] = red[0];
 }
+
+int g_smem_limit = 0;           // what a block of this kernel may opt into
+long long g_grid_smem = -1;     // persistent_blocks' memo
+int g_grid_blocks = 0;
 
 }  // namespace
 
 extern "C" {
 
+// Opts the kernel into as much dynamic shared memory as a block may have on
+// the current device, once per process.
 int hotrack_obj_energy_init() {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaDeviceGetAttribute(&g_smem_limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaFuncSetAttribute(
-      obj_energy_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMlpSmemBytes));
+      obj_energy_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, g_smem_limit));
 }
 
-// pcld_cf (n_seq, 3, n), rts (n_seq, p, 12), packed, out (n_seq, p): device
-// pointers; pcld_seq, packed_seq: floats from one sequence's cloud or model to
-// the next (0: shared); widths: n_hidden + 1 host ints.
+// pcld_cf (n_seq, 3, n), rts (n_seq, p, 12), packed (PackedSDF.tc), out
+// (n_seq, p): device pointers; pcld_seq, packed_seq: floats from one
+// sequence's cloud or model to the next (0: shared); widths: n_hidden + 1
+// host ints.
 int hotrack_obj_energy(const void* pcld_cf, const void* rts, const void* packed, void* out,
                        int p, int n, int n_seq, long long pcld_seq, long long packed_seq,
                        int n_freqs, int n_hidden, const int* widths, void* stream) {
-  const MlpShape shape = make_mlp_shape(n_freqs, n_hidden, widths);
-  if (mlp_shape_error(shape) || p < 1 || n < 1 || n_seq < 1 || n_seq > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(static_cast<unsigned>(p), static_cast<unsigned>(n_seq));
-  obj_energy_kernel<<<grid, kMlpThreads, kMlpSmemBytes, static_cast<cudaStream_t>(stream)>>>(
+  const tc::Shape shape = tc::make_shape(n_freqs, n_hidden, widths);
+  if (shape.k0 == 0 || p < 1 || n < 1 || n_seq < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const long long red_bytes = 4LL * tc::kWarps;
+  const int resident = tc::resident_mode(shape, red_bytes, g_smem_limit);
+  if (resident < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const long long smem = red_bytes + 4LL * tc::weight_smem_floats(shape, resident != 0);
+  const long long items = static_cast<long long>(p) * n_seq;
+  const int blocks = tc::persistent_blocks(obj_energy_kernel, smem, g_grid_smem, g_grid_blocks);
+  if (blocks < 1) {
+    const cudaError_t err = cudaGetLastError();
+    return static_cast<int>(err != cudaSuccess ? err : cudaErrorUnknown);
+  }
+  const unsigned grid = static_cast<unsigned>(items < blocks ? items : blocks);
+  obj_energy_kernel<<<grid, tc::kThreads, static_cast<size_t>(smem),
+                      static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(pcld_cf), static_cast<const float*>(rts),
-      static_cast<const float*>(packed), static_cast<float*>(out), n, pcld_seq, packed_seq,
-      shape);
+      static_cast<const float*>(packed), static_cast<float*>(out), p, n, items, pcld_seq,
+      packed_seq, shape, resident);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,6 +1,6 @@
-// The distilled-SDF MLP for one tile of points, shared by the kernels that
-// evaluate it (sdf_mlp.cu, obj_energy.cu; the hand-energy kernels will include
-// it too).
+// The distilled-SDF MLP for one tile of points in float32 FMA, shared by
+// sdf_mlp.cu and hand_energy.cu (obj_energy.cu and hand_energy_skin.cu run
+// it on the tensor cores: sdf_mlp_tc.cuh).
 //
 // Computes what `_sdf_mlp_core` of hotrack_tpu/ops/pallas/hand_energy.py
 // computes for the TPU kernels: per point, Fourier features

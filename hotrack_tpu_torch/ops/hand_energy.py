@@ -42,7 +42,7 @@ import torch
 from . import kernels
 from .mask_lookup import (_packed_mask_lookup_torch, packed_mask_lookup_batched)
 from .sdf_mlp import (PackedSDF, _check_batch, _sdf_mlp_torch, fused_sdf_mlp_cf_batched,
-                      pack_distilled)
+                      pack_distilled, raw_sdf_mlp)
 
 
 def hand_frame(obj_rotation: torch.Tensor, obj_translation: torch.Tensor,
@@ -92,9 +92,10 @@ def object_frame(points: torch.Tensor, frame: torch.Tensor) -> torch.Tensor:
 
 @torch.no_grad()
 def _hand_energy_torch(model, packed_mask: torch.Tensor, frame: torch.Tensor,
-                       points: torch.Tensor, hw) -> tuple:
-    """Plain version: points (..., N, 3) -> (sdf (..., N), hit (..., N))."""
-    sdf = _sdf_mlp_torch(model, object_frame(points, frame))
+                       points: torch.Tensor, hw, mlp=raw_sdf_mlp) -> tuple:
+    """Plain version: points (..., N, 3) -> (sdf (..., N), hit (..., N)).
+    `mlp` as for `_sdf_mlp_torch`."""
+    sdf = _sdf_mlp_torch(model, object_frame(points, frame), mlp=mlp)
     iy, ix = pixel_coords(points, frame, hw)
     return sdf, _packed_mask_lookup_torch(packed_mask, iy, ix)
 

@@ -30,7 +30,11 @@ of an integer.
 
 A CUDA tensor launches the kernel or raises; a CPU tensor takes the plain
 version, `_hand_energy_skin_torch`, which is also the kernel's oracle.
-Bound on the card: operations (the MLP's, plus 1,212 a vertex of skinning).
+Bound on the card: operations (the MLP's, three tensor-core passes in
+3xTF32, plus 1,239 float32 operations a vertex of skinning, transform and
+projection). The kernel's MLP runs on the tensor cores in 3xTF32
+(csrc/sdf_mlp_tc.cuh, `PackedSDF.tc`), within the plain version's bounds;
+`ops/tf32.py` emulates it.
 """
 
 from __future__ import annotations
@@ -42,7 +46,7 @@ import torch
 from ..mano.model import ManoModel
 from . import kernels
 from .hand_energy import _hand_energy_torch
-from .sdf_mlp import PackedSDF, _check_batch, pack_distilled, pack_distilled_batched
+from .sdf_mlp import PackedSDF, _check_batch, pack_distilled, pack_distilled_batched, raw_sdf_mlp
 
 
 class SkinConsts(NamedTuple):
@@ -80,10 +84,12 @@ def skin_reference(pose_map: torch.Tensor, rt_flat: torch.Tensor, offset: torch.
 @torch.no_grad()
 def _hand_energy_skin_torch(model, packed_mask: torch.Tensor, frame: torch.Tensor,
                             pose_map: torch.Tensor, rt_flat: torch.Tensor,
-                            offset: torch.Tensor, consts: SkinConsts, hw) -> tuple:
-    """Plain version: `skin_reference`, then the plain per-vertex energy."""
+                            offset: torch.Tensor, consts: SkinConsts, hw,
+                            mlp=raw_sdf_mlp) -> tuple:
+    """Plain version: `skin_reference`, then the plain per-vertex energy
+    (`mlp` as for `_sdf_mlp_torch`)."""
     verts = skin_reference(pose_map, rt_flat, offset, consts)
-    return _hand_energy_torch(model, packed_mask, frame, verts, hw)
+    return _hand_energy_torch(model, packed_mask, frame, verts, hw, mlp)
 
 
 def fused_hand_energy_skin(model, packed_mask: torch.Tensor, frame: torch.Tensor,

@@ -337,18 +337,21 @@ def _seq_stride(name: str, what: str, t: torch.Tensor, shape, n_seq: int | None)
                      + f", got {tuple(t.shape)}")
 
 
-def _mlp_args(name: str, packed, like: torch.Tensor, n_seq: int | None = None):
+def _mlp_args(name: str, packed, like: torch.Tensor, n_seq: int | None = None,
+              tensor_cores: bool = False):
     """The packed model's arguments for a launch (ops/sdf_mlp.PackedSDF): its
-    frequency count, hidden depth, widths and the floats from one sequence's
-    model to the next (a stack (S, n) of `pack_distilled_batched`, or 0)."""
-    _check_f32(name, "the packed model", packed.packed)
-    if packed.packed.device != like.device:
-        raise ValueError(f"{name}: the packed model is on {packed.packed.device}, "
+    buffer (`tc`, the layout of csrc/sdf_mlp_tc.cuh, for the kernels that run
+    the MLP on the tensor cores; else `packed`), frequency count, hidden
+    depth, widths and the floats from one sequence's model to the next (a
+    stack (S, n) of `pack_distilled_batched`, or 0)."""
+    buf = packed.tc if tensor_cores else packed.packed
+    _check_f32(name, "the packed model", buf)
+    if buf.device != like.device:
+        raise ValueError(f"{name}: the packed model is on {buf.device}, "
                          f"the points on {like.device}")
-    stride = _seq_stride(name, "the packed model", packed.packed, packed.packed.shape[-1:],
-                         n_seq)
+    stride = _seq_stride(name, "the packed model", buf, buf.shape[-1:], n_seq)
     widths = (ctypes.c_int * len(packed.widths))(*packed.widths)
-    return packed.n_freqs, len(packed.widths) - 1, widths, stride
+    return buf, packed.n_freqs, len(packed.widths) - 1, widths, stride
 
 
 def _sdf_mlp(name: str, counter: str, points: torch.Tensor, packed, channels_first: bool,
@@ -374,13 +377,13 @@ def _sdf_mlp(name: str, counter: str, points: torch.Tensor, packed, channels_fir
     m = math.prod(inner) // 3
     if m < 1 or n_seq < 1:
         raise ValueError(f"empty sdf_mlp problem: {tuple(points.shape)}")
-    n_freqs, n_hidden, widths, packed_seq = _mlp_args(name, packed, points,
-                                                      n_seq if batched else None)
+    buf, n_freqs, n_hidden, widths, packed_seq = _mlp_args(name, packed, points,
+                                                           n_seq if batched else None)
     lib = _load("sdf_mlp", _bind_sdf_mlp)
     out = torch.empty((n_seq, *shape) if batched else shape, dtype=torch.float32,
                       device=points.device)
     stream = torch.cuda.current_stream(points.device).cuda_stream
-    err = lib.hotrack_sdf_mlp(points.data_ptr(), packed.packed.data_ptr(), out.data_ptr(), m,
+    err = lib.hotrack_sdf_mlp(points.data_ptr(), buf.data_ptr(), out.data_ptr(), m,
                               *strides, n_seq, 3 * m if batched else 0, packed_seq, n_freqs,
                               n_hidden, widths, stream)
     _check_status(err, f"{counter} launch (points {tuple(points.shape)}, "
@@ -421,12 +424,12 @@ def _obj_energy(name: str, counter: str, pcld_cf: torch.Tensor, rts: torch.Tenso
     pcld_seq = _seq_stride(name, "pcld_cf", pcld_cf, (3, n), n_seq if batched else None)
     if p < 1 or n < 1 or n_seq < 1:
         raise ValueError(f"empty obj_sdf_energy problem: S={n_seq} P={p} N={n}")
-    n_freqs, n_hidden, widths, packed_seq = _mlp_args(name, packed, pcld_cf,
-                                                      n_seq if batched else None)
+    buf, n_freqs, n_hidden, widths, packed_seq = _mlp_args(
+        name, packed, pcld_cf, n_seq if batched else None, tensor_cores=True)
     lib = _load("obj_energy", _bind_obj_energy)
     out = torch.empty(rts.shape[:-1], dtype=torch.float32, device=pcld_cf.device)
     stream = torch.cuda.current_stream(pcld_cf.device).cuda_stream
-    err = lib.hotrack_obj_energy(pcld_cf.data_ptr(), rts.data_ptr(), packed.packed.data_ptr(),
+    err = lib.hotrack_obj_energy(pcld_cf.data_ptr(), rts.data_ptr(), buf.data_ptr(),
                                  out.data_ptr(), p, n, n_seq, pcld_seq, packed_seq, n_freqs,
                                  n_hidden, widths, stream)
     _check_status(err, f"{counter} launch (S={n_seq}, P={p}, N={n}, widths {packed.widths})")
@@ -435,9 +438,10 @@ def _obj_energy(name: str, counter: str, pcld_cf: torch.Tensor, rts: torch.Tenso
 
 
 def obj_sdf_energy_cuda(pcld_cf: torch.Tensor, rts: torch.Tensor, packed) -> torch.Tensor:
-    """The fused object-pose energy on the card (csrc/obj_energy.cu):
-    pcld_cf (3, N), rts (P, 12) (ops/obj_energy.obj_rts), both contiguous
-    float32, and a `PackedSDF` -> (P,) sums over the cloud of |sdf|. No
+    """The fused object-pose energy on the card (csrc/obj_energy.cu, the
+    MLP on the tensor cores in 3xTF32): pcld_cf (3, N), rts (P, 12)
+    (ops/obj_energy.obj_rts), both contiguous float32, and a `PackedSDF`
+    (its `tc` layout is read) -> (P,) sums over the cloud of |sdf|. No
     atomics: two launches agree bitwise."""
     return _obj_energy("obj_sdf_energy_cuda", "obj_sdf_energy", pcld_cf, rts, packed, False)
 
@@ -546,14 +550,14 @@ def hand_energy_cuda(points: torch.Tensor, frame: torch.Tensor, mask: torch.Tens
                          "torch.no_grad() or detach the points")
     _check_frame("hand_energy_cuda", frame, points)
     h, w, _ = _check_mask("hand_energy_cuda", mask, hw, points)
-    n_freqs, n_hidden, widths, _ = _mlp_args("hand_energy_cuda", packed, points)
+    buf, n_freqs, n_hidden, widths, _ = _mlp_args("hand_energy_cuda", packed, points)
     lib = _load("hand_energy", _bind_hand_energy)
     shape = tuple(points.shape[:-1])
     sdf = torch.empty(shape, dtype=torch.float32, device=points.device)
     hit = torch.empty(shape, dtype=torch.float32, device=points.device)
     stream = torch.cuda.current_stream(points.device).cuda_stream
     err = lib.hotrack_hand_energy(points.data_ptr(), frame.data_ptr(), mask.data_ptr(),
-                                  packed.packed.data_ptr(), sdf.data_ptr(), hit.data_ptr(),
+                                  buf.data_ptr(), sdf.data_ptr(), hit.data_ptr(),
                                   points.numel() // 3, h, w, n_freqs, n_hidden, widths, stream)
     _check_status(err, f"hand_energy launch (points {tuple(points.shape)}, mask {h}x{w}, "
                        f"widths {packed.widths})")
@@ -594,7 +598,8 @@ def _hand_energy_skin(name: str, counter: str, pose_map, rt_flat, offset, posedi
         raise ValueError(f"empty {name} problem: S={n_seq} P={p} K={k} N={n}")
     strides.append(_check_frame(name, frame, pose_map, one))
     h, w, mask_seq = _check_mask(name, mask, hw, pose_map, one)
-    n_freqs, n_hidden, widths, packed_seq = _mlp_args(name, packed, pose_map, one)
+    buf, n_freqs, n_hidden, widths, packed_seq = _mlp_args(name, packed, pose_map, one,
+                                                           tensor_cores=True)
     seq_strides = (ctypes.c_longlong * 6)(*strides, mask_seq, packed_seq)
     lib = _load("hand_energy_skin", _bind_hand_energy_skin)
     sdf = torch.empty((*lead, p, n), dtype=torch.float32, device=pose_map.device)
@@ -603,7 +608,7 @@ def _hand_energy_skin(name: str, counter: str, pose_map, rt_flat, offset, posedi
     err = lib.hotrack_hand_energy_skin(
         pose_map.data_ptr(), rt_flat.data_ptr(), offset.data_ptr(), posedirs_cf.data_ptr(),
         vshaped_cf.data_ptr(), weights_t.data_ptr(), frame.data_ptr(), mask.data_ptr(),
-        packed.packed.data_ptr(), sdf.data_ptr(), hit.data_ptr(), p, k, n, h, w, n_seq,
+        buf.data_ptr(), sdf.data_ptr(), hit.data_ptr(), p, k, n, h, w, n_seq,
         seq_strides, n_freqs, n_hidden, widths, stream)
     _check_status(err, f"{counter} launch (S={n_seq}, P={p}, K={k}, N={n}, mask {h}x{w}, "
                        f"widths {packed.widths})")
@@ -616,7 +621,8 @@ def hand_energy_skin_cuda(pose_map: torch.Tensor, rt_flat: torch.Tensor,
                           vshaped_cf: torch.Tensor, weights_t: torch.Tensor,
                           frame: torch.Tensor, mask: torch.Tensor, hw, packed) -> tuple:
     """MANO skinning fused with the per-vertex hand energy on the card
-    (csrc/hand_energy_skin.cu). Per candidate: pose_map (P, K), rt_flat
+    (csrc/hand_energy_skin.cu, the MLP on the tensor cores in 3xTF32, reading
+    `PackedSDF.tc`). Per candidate: pose_map (P, K), rt_flat
     (P * 12, 16), offset (P, 3) (mano/layer.mano_skin_inputs); per call:
     posedirs_cf (3, K, N), vshaped_cf (3, N), weights_t (16, N)
     (ops/hand_energy_skin.skin_consts); frame (16,), the packed mask for

@@ -14,8 +14,11 @@ card the transformed cloud (P, 3, N) and the (P, N) sdf never reach device
 memory, and the sum over N is taken in a fixed order with no atomics: two
 launches agree bitwise.
 
-Bound on the card: operations (P * N * 71,168 float32 operations at the
-shipped net, 149.2 GFLOP at 2048 x 1024, against 116 KB of traffic).
+Bound on the card: operations (P * N * 71,168 operations at the shipped
+net, 149.2 GFLOP at 2048 x 1024, against 116 KB of traffic). The kernel runs
+the MLP's hidden layers on the tensor cores in 3xTF32 (csrc/sdf_mlp_tc.cuh,
+`PackedSDF.tc`): three passes, 0.904 ms at the TF32 peak, float32-class
+results within the plain version's bounds; `ops/tf32.py` emulates it.
 
 A CUDA tensor launches the kernel or raises; a CPU tensor takes the plain
 version, `_obj_sdf_energy_torch`, which is also the kernel's oracle.
@@ -27,7 +30,7 @@ import torch
 
 from . import kernels
 from .sdf_mlp import (PLAIN_CHUNK, PackedSDF, _check_batch, _sdf_mlp_torch, pack_distilled,
-                      pack_distilled_batched)
+                      pack_distilled_batched, raw_sdf_mlp)
 
 
 def obj_rts(rotations: torch.Tensor, translations: torch.Tensor) -> torch.Tensor:
@@ -42,10 +45,11 @@ def obj_rts(rotations: torch.Tensor, translations: torch.Tensor) -> torch.Tensor
 
 @torch.no_grad()
 def _obj_sdf_energy_torch(model, pcld_cf: torch.Tensor, rts: torch.Tensor,
-                          chunk: int = PLAIN_CHUNK) -> torch.Tensor:
+                          chunk: int = PLAIN_CHUNK, mlp=raw_sdf_mlp) -> torch.Tensor:
     """Plain version: pcld_cf (3, N), rts (P, 12) -> (P,) sums of |sdf|.
     The transform is summed as the kernels sum it, ((-rt_c + r_c0 x) + r_c1 y)
-    + r_c2 z; candidates go through `chunk` points at a time."""
+    + r_c2 z; candidates go through `chunk` points at a time. `mlp` as for
+    `_sdf_mlp_torch`."""
     p, n = rts.shape[0], pcld_cf.shape[1]
     r = rts[:, :9].reshape(p, 3, 3, 1)
     out = torch.empty(p, dtype=pcld_cf.dtype, device=pcld_cf.device)
@@ -55,7 +59,7 @@ def _obj_sdf_energy_torch(model, pcld_cf: torch.Tensor, rts: torch.Tensor,
         obj = -rts[lo:lo + step, 9:, None]                      # (p', 3, 1)
         for y in range(3):
             obj = obj + rr[:, :, y] * pcld_cf[y]                # (p', 3, N)
-        sdf = _sdf_mlp_torch(model, obj, chunk)
+        sdf = _sdf_mlp_torch(model, obj, chunk, mlp)
         out[lo:lo + step] = torch.sum(torch.abs(sdf), dim=-1)
     return out
 

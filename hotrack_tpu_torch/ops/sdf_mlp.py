@@ -20,6 +20,12 @@ Bound on the card: operations, 2 * (K0*H + H*H*(depth-1) + H) float32
 operations a point (71,168 at the shipped 21-128-128-128-1) against 16 bytes.
 The kernel computes in float32 FMA with float32 accumulation, no tensor
 cores; the plain version's matmuls are float32 too (`pin_fp32`).
+
+`pack_distilled` packs a model twice: for this kernel and the per-vertex
+hand energy (csrc/sdf_mlp_core.cuh, `PackedSDF.packed`), and for the
+kernels that run the MLP on the tensor cores in 3xTF32, the fused object
+energy and the fused skinning + hand energy (csrc/sdf_mlp_tc.cuh,
+`PackedSDF.tc`, in mma fragment order).
 """
 
 from __future__ import annotations
@@ -42,6 +48,7 @@ class PackedSDF(NamedTuple):
     packed: torch.Tensor    # (n,) float32 on the card; (S, n) for S models
     n_freqs: int
     widths: tuple           # (3 + 6F, hidden widths...)
+    tc: torch.Tensor        # the tensor-core layout (csrc/sdf_mlp_tc.cuh); (S, m) likewise
 
 
 def fourier_features(points: torch.Tensor, freqs: torch.Tensor, scale) -> torch.Tensor:
@@ -67,16 +74,18 @@ def raw_sdf_mlp(model, points: torch.Tensor) -> torch.Tensor:
 
 
 @torch.no_grad()
-def _sdf_mlp_torch(model, points_cf: torch.Tensor, chunk: int = PLAIN_CHUNK) -> torch.Tensor:
+def _sdf_mlp_torch(model, points_cf: torch.Tensor, chunk: int = PLAIN_CHUNK,
+                   mlp=raw_sdf_mlp) -> torch.Tensor:
     """Plain version: points_cf (..., 3, N) -> clamped sdf (..., N). Runs
     `chunk` points at a time, so the (points, 128) activations stay bounded
-    at the optimiser's 2M points a call."""
+    at the optimiser's 2M points a call. `mlp`: the unclamped MLP
+    (`ops/tf32.raw_sdf_mlp_3xtf32` emulates the tensor-core kernels)."""
     pts = points_cf.transpose(-1, -2)  # (..., N, 3)
     shape = pts.shape[:-1]
     flat = pts.reshape(-1, 3)
     out = torch.empty(flat.shape[0], dtype=flat.dtype, device=flat.device)
     for start in range(0, flat.shape[0], chunk):
-        sdf = raw_sdf_mlp(model, flat[start:start + chunk])
+        sdf = mlp(model, flat[start:start + chunk])
         out[start:start + chunk] = torch.clamp(sdf, -model.clamp, model.clamp)
     return out.reshape(shape)
 
@@ -122,7 +131,71 @@ def pack_distilled(model) -> PackedSDF:
         parts += [pad(w, MAX_WIDTH).reshape(-1), pad(b, MAX_WIDTH)]
     parts += [pad(model.weights[-1][:, 0], MAX_WIDTH), model.biases[-1].to(torch.float32),
               torch.zeros(3, **f32)]
-    return PackedSDF(torch.cat(parts).contiguous(), n_freqs, widths)
+    return PackedSDF(torch.cat(parts).contiguous(), n_freqs, widths, _pack_tc(model, widths))
+
+
+def _fragment_order(w: torch.Tensor) -> torch.Tensor:
+    """A layer's (K, 128) big weights, K a multiple of 8, in the order the
+    mma fragments are loaded: [k-step][n-tile pair p][lane][4], where lane
+    (g, t) = (lane // 4, lane % 4) holds, as element 2 h + kh, the weight of
+    k-slot 8 k-step + t + 4 kh and unit 16 p + 8 h + g (n-tile 2 p + h)."""
+    k = w.shape[0]
+    # (k-step, kh, t, p, h, g) -> (k-step, p, g, t, h, kh)
+    return w.reshape(k // 8, 2, 4, 8, 2, 8).permute(0, 3, 5, 2, 4, 1).reshape(-1)
+
+
+def _fragment_order_small(w: torch.Tensor) -> torch.Tensor:
+    """The same for the small halves, four n-tiles a lane's 16 bytes:
+    [k-step][n-tile quad q][lane][8], element 2 j + kh the weight of k-slot
+    8 k-step + t + 4 kh and unit 32 q + 8 j + g (n-tile 4 q + j)."""
+    k = w.shape[0]
+    # (k-step, kh, t, q, j, g) -> (k-step, q, g, t, j, kh)
+    return w.reshape(k // 8, 2, 4, 4, 4, 8).permute(0, 3, 5, 2, 4, 1).reshape(-1)
+
+
+def _tc_rows(l: int, k: int, device=None) -> torch.Tensor:
+    """For layer l's k-slots, the input rows they hold: the features as they
+    are for layer 0; after it, units 0 2 4 6 1 3 5 7 of each k-block of 8, so
+    that one layer's mma accumulators are the next one's A fragments
+    (csrc/sdf_mlp_tc.cuh). Made on `device`: no copy from the host."""
+    slot = torch.arange(k, device=device)
+    if l == 0:
+        return slot
+    j = slot % 8
+    return slot - j + (j % 4) * 2 + j // 4
+
+
+def _tc_k(l: int, widths) -> int:
+    return widths[0] + -widths[0] % 8 if l == 0 else MAX_WIDTH
+
+
+def _pack_tc(model, widths) -> torch.Tensor:
+    """The layout of csrc/sdf_mlp_tc.cuh: [scale, clamp, 0, 0], the
+    frequencies padded to a multiple of 4; per hidden layer its weights
+    (3 + 6F rows padded with zeros to a multiple of 8 for layer 0, 128 x 128
+    with the rows in `_tc_rows`' order after; 128 columns) split as the 3xTF32
+    kernels read them (`ops/tf32.weight_split`): the big halves in fragment
+    order, the small halves as fp16 in fragment order (two a float32 word),
+    then the bias padded to 128; the output layer's 128 weights, its bias,
+    0 0 0."""
+    from .tf32 import weight_split
+    f32 = dict(dtype=torch.float32, device=model.freqs.device)
+    n_freqs = widths[0] // 6
+    parts = [model.scale.reshape(1).to(torch.float32), model.clamp.reshape(1).to(torch.float32),
+             torch.zeros(2, **f32),
+             torch.nn.functional.pad(model.freqs.to(torch.float32), (0, -n_freqs % 4))]
+    for l, (w, b) in enumerate(zip(model.weights[:-1], model.biases[:-1])):
+        k = _tc_k(l, widths)
+        full = torch.zeros((k, MAX_WIDTH), **f32)
+        full[:w.shape[0], :w.shape[1]] = w
+        big, small16 = weight_split(full[_tc_rows(l, k, full.device)])
+        parts += [_fragment_order(big),
+                  _fragment_order_small(small16).contiguous().view(torch.float32),
+                  torch.nn.functional.pad(b.to(torch.float32), (0, MAX_WIDTH - b.shape[0]))]
+    wout = model.weights[-1][:, 0].to(torch.float32)
+    parts += [torch.nn.functional.pad(wout, (0, MAX_WIDTH - wout.shape[0])),
+              model.biases[-1].to(torch.float32), torch.zeros(3, **f32)]
+    return torch.cat(parts).contiguous()
 
 
 @torch.no_grad()
@@ -134,7 +207,8 @@ def pack_distilled_batched(models) -> PackedSDF:
     if not packs or any(p.widths != packs[0].widths for p in packs):
         raise ValueError(f"pack_distilled_batched takes one or more models of equal widths, "
                          f"got {[p.widths for p in packs]}")
-    return PackedSDF(torch.stack([p.packed for p in packs]), packs[0].n_freqs, packs[0].widths)
+    return PackedSDF(torch.stack([p.packed for p in packs]), packs[0].n_freqs, packs[0].widths,
+                     torch.stack([p.tc for p in packs]))
 
 
 def _check_batch(models, points: torch.Tensor) -> None:

@@ -1,0 +1,72 @@
+"""The arithmetic of the tensor-core SDF kernels (csrc/sdf_mlp_tc.cuh),
+emulated in plain PyTorch: 3xTF32.
+
+A float32 x is split as big = tf32(x), small = tf32(x - big), where tf32
+rounds to the nearest value with 10 mantissa bits (ties away from zero: the
+13 low bits of the pattern are rounded off, as the kernels' `tf32_round`
+does with integer operations). A product a * b is then taken as
+big_a big_b + big_a small_b + small_a big_b, dropping small_a small_b.
+The kernels keep a weight's small half as fp16 of small * 2^12, exact for
+every weight of normal size (`weight_split` rounds as they do). Products of
+two TF32 values are exact in float32, so this emulation sums them in float64
+and rounds each layer's sum to float32 once: it differs from the kernels
+only in the summation order and the truncation of the tensor cores' float32
+accumulators. The features, biases, ReLU, output layer and clamp are float32
+as in the plain version (ops/sdf_mlp.raw_sdf_mlp).
+
+`ops/sdf_mlp.pack_distilled` splits the weights with `weight_split`; the
+emulated MLP is used by the tests and by `chip_smoke.py` to hold the
+kernels' fragment layout tightly, and the port's paths never call it.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .sdf_mlp import fourier_features
+
+_LOW_BITS = 0x1000   # half of the 13 dropped bits' unit
+SMALL_SCALE = 4096.0  # a weight's small half is kept as fp16 of small * 2^12
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 x rounded to TF32, to nearest, ties away from zero: a float32
+    tensor whose 13 low mantissa bits are 0."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + _LOW_BITS) & -0x2000).view(torch.float32)
+
+
+def tf32_split(x: torch.Tensor) -> tuple:
+    """(big, small) with big = tf32(x), small = tf32(x - big); big + small
+    is within 2^-21 |x| of x."""
+    big = tf32_round(x)
+    return big, tf32_round(x - big)
+
+
+def weight_split(w: torch.Tensor) -> tuple:
+    """A weight's halves as the kernels keep them: (big, the fp16 word of
+    small * 2^12). big + small16 / 2^12 is `tf32_split`'s big + small wherever
+    small * 2^12 is a normal fp16 (|w| above about 2^-15)."""
+    big, small = tf32_split(w)
+    return big, (small * SMALL_SCALE).to(torch.float16)
+
+
+def _product_3xtf32(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """a (M, K) @ w (K, N), float32 operands, in 3xTF32 with exact sums of
+    the exact products, rounded to float32 once."""
+    ab, as_ = (t.double() for t in tf32_split(a))
+    wb, ws16 = weight_split(w)
+    wb, ws = wb.double(), ws16.double() / SMALL_SCALE
+    return (torch.matmul(ab, wb + ws) + torch.matmul(as_, wb)).to(torch.float32)
+
+
+def raw_sdf_mlp_3xtf32(model, points: torch.Tensor) -> torch.Tensor:
+    """`raw_sdf_mlp` with the hidden layers in 3xTF32: points (..., 3) float32
+    -> unclamped (...,)."""
+    h = fourier_features(points, model.freqs, model.scale)
+    lead = h.shape[:-1]
+    h = h.reshape(-1, h.shape[-1])
+    for w, b in zip(model.weights[:-1], model.biases[:-1]):
+        h = torch.relu(_product_3xtf32(h, w) + b)
+    out = torch.matmul(h, model.weights[-1]) + model.biases[-1]
+    return out[:, 0].reshape(lead)

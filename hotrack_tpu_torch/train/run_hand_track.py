@@ -27,9 +27,12 @@ environment variables:
 chunks of at most that many sequences of equal length, each chunk through one
 frame loop (`track/hand.track_hand_sequences_batched`), with a volume, masks
 (padded to the chunk's largest image by edge replication) and a distilled
-model a sequence; on the card the batched kernels. Every sequence is prepared
-in the unbatched runner's order, from the same generator draws, so S and 1
-track the same inputs.
+model a sequence; on the card the batched kernels. The chunks are prepared,
+tracked and released one at a time, so memory grows with the chunk, not with
+the test split. Each sequence draws its inputs (clouds, jitter, the fit)
+from a generator of its own (`sequence_generator`: the seed and the
+sequence's index), in both runners, so S and 1 track the same inputs. (The
+JAX runners draw every sequence from one key in turn.)
 """
 
 from __future__ import annotations
@@ -113,6 +116,15 @@ def load_iknet(cfg, device) -> IKNet:
                    cfg.get("IKNet_dir", cfg["experiment_dir"]))
 
 
+def sequence_generator(seed: int, seq_idx: int) -> torch.Generator:
+    """The host generator test sequence seq_idx's inputs are drawn from (its
+    clouds and jitter, its fit's draws): one a sequence, seeded from the
+    config's seed and the sequence's index, so that every sequence gets the
+    same inputs whichever chunk prepares it and in whatever order."""
+    state = np.random.SeedSequence((int(seed), int(seq_idx))).generate_state(1, np.uint64)
+    return torch.Generator().manual_seed(int(state[0]))
+
+
 def _sync(device: torch.device):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -193,8 +205,11 @@ def run_hand_tracking(cfg, save_flag: bool = False, distilled: list | None = Non
 
     loader = get_dataloader(cfg, "test")
     mano = get_mano_model(cfg.get("mano_root")).to(device)
-    # every draw on the host: the same banks, jitter and fit draws on any device
-    generator = torch.Generator().manual_seed(int(cfg.get("seed", 0)))
+    # every draw on the host: the same banks, jitter and fit draws on any
+    # device; the banks from the seed, each sequence's inputs from its own
+    # generator (sequence_generator)
+    seed = int(cfg.get("seed", 0))
+    generator = torch.Generator().manual_seed(seed)
     hj = cfg["hand_jitter_cfg"]
     handnet = load_handnet(cfg, device)
     iknet = load_iknet(cfg, device) if use_iknet else None
@@ -215,12 +230,13 @@ def run_hand_tracking(cfg, save_flag: bool = False, distilled: list | None = Non
             sdf_voxel_scale=HAND_VOXEL_SCALE, hand_energy=hand_energy)
 
     def prepare(seq_idx):
-        """Sequence seq_idx's batch and assets, drawn from the generator in
-        sequence order: (batch, metas, volume, model, masks, setup and
-        distillation seconds)."""
+        """Sequence seq_idx's batch and assets, drawn from its own generator:
+        (batch, metas, volume, model, masks, setup and distillation
+        seconds)."""
         t0 = time.perf_counter()
         raw, metas = loader[seq_idx]
-        batch = prepare_batch(mano, raw, cfg["num_points"], generator=generator,
+        seq_generator = sequence_generator(seed, seq_idx)
+        batch = prepare_batch(mano, raw, cfg["num_points"], generator=seq_generator,
                               hand_jitter_scale=hj["rand_scale"],
                               jitter_kind=hj["rand_type"],
                               sample_kind=cfg.get("point_sample", "fps"),
@@ -235,7 +251,7 @@ def run_hand_tracking(cfg, save_flag: bool = False, distilled: list | None = Non
                 if distilled is not None:
                     model = distilled_to(distilled[seq_idx], device)
                 else:
-                    model = distill_sdf_volume(volume, HAND_VOXEL_SCALE, generator)
+                    model = distill_sdf_volume(volume, HAND_VOXEL_SCALE, seq_generator)
                 _sync(device)
                 distill_s = time.perf_counter() - td
             masks = load_background_masks(cfg, metas)
@@ -286,17 +302,18 @@ def run_hand_tracking(cfg, save_flag: bool = False, distilled: list | None = Non
             record(seq_idx, result, batch, metas, model, setup_s, distill_s, net_s)
         fps_all = n_frames / max(net_time + data_time, 1e-9)
     else:
-        # every sequence prepared first, in the unbatched runner's order; then
-        # chunks of at most batch_seqs sequences of one length, in order
-        prepared = [prepare(i) for i in range(len(loader))]
-        data_time = sum(p[5] for p in prepared)
+        # chunks of at most batch_seqs sequences of one length, grouped on the
+        # raw frames alone (read on the host, read again when prepared); each
+        # chunk is prepared, tracked and released before the next, so memory
+        # grows with batch_seqs, not with the test split
         groups = {}
-        for seq_idx, p in enumerate(prepared):
-            groups.setdefault(p[0]["hand_points"].shape[0], []).append(seq_idx)
+        for seq_idx in range(len(loader)):
+            groups.setdefault(loader[seq_idx][0].hand_points.shape[0], []).append(seq_idx)
         chunks = [idxs[k:k + batch_seqs] for idxs in groups.values()
                   for k in range(0, len(idxs), batch_seqs)]
         for chunk in chunks:
-            parts = [prepared[i] for i in chunk]
+            parts = [prepare(i) for i in chunk]
+            data_time += sum(p[5] for p in parts)
             stacked = _stack_tree([p[0] for p in parts])
             opt_kwargs_seq = {}
             if use_opt:
@@ -316,6 +333,7 @@ def run_hand_tracking(cfg, save_flag: bool = False, distilled: list | None = Non
                 n_frames += batch["hand_points"].shape[0]
                 record(seq_idx, type(results)(*(x[k] for x in results)), batch, metas, model,
                        setup_s, distill_s, net_s)
+            del parts, stacked, opt_kwargs_seq, results
         # the whole wall time, as the JAX runner counts a batched run
         fps_all = n_frames / max(time.perf_counter() - t_start, 1e-9)
 

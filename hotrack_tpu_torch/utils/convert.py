@@ -248,15 +248,28 @@ def _typed(sd: dict, dtype: torch.dtype) -> dict:
             else v.to(dtype) for k, v in sd.items()}
 
 
+def checkpoint_prefix(model: nn.Module) -> str:
+    """The key prefix of `model`'s net in a composed reference checkpoint
+    (the reference trainer saves HandTrackNet under 'handnet.' and IKNet
+    under 'IKnet.')."""
+    from ..models.hand_network import HandTrackNet, IKNet
+    if isinstance(model, HandTrackNet):
+        return "handnet."
+    if isinstance(model, IKNet):
+        return "IKnet."
+    raise TypeError(f"no reference checkpoint layout for {type(model).__name__}")
+
+
 def load_reference_checkpoint(model: nn.Module, path: str) -> int:
     """Load a reference-format .pt into `model` (HandTrackNet or IKNet) with
-    strict=True; returns the stored epoch. Tracking checkpoints' 'handnet.'
-    prefix is stripped."""
+    strict=True; returns the stored epoch. A composed checkpoint's entries
+    under the model's prefix are taken ('handnet.' for HandTrackNet,
+    'IKnet.' for IKNet); a checkpoint with none of them is read as plain
+    keys, as the JAX package's loader reads it."""
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     sd = ckpt.get("model", ckpt)
-    if any(k.startswith("handnet.") for k in sd):
-        sd = {k[len("handnet."):]: v for k, v in sd.items()
-              if k.startswith("handnet.")}
+    prefix = checkpoint_prefix(model)
+    sd = {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)} or sd
     keep = any(".attn." in k for k in model.state_dict())
     model.load_state_dict(reference_to_port_state_dict(sd, keep), strict=True)
     return int(ckpt.get("epoch", 0))

@@ -36,7 +36,10 @@ from hand_energy_cases import camera_points, candidates, intrinsics, mask_of, ob
 from torch_sdf_models import model_arrays
 
 SDF_ATOL = 5e-7
-ENERGY_RTOL, ENERGY_ATOL = 2e-6, 1e-8
+# #4b and #7b run the MLP on the tensor cores in 3xTF32, whose float32 sums
+# truncate: one sdf value lay up to 1.7e-7 from the plain version's on the card
+# (the float32 FMA kernel: 1e-8 a point)
+ENERGY_RTOL, ENERGY_ATOL = 2e-6, 2.5e-7
 SKIN_SDF_ATOL = 2e-5
 PIXEL_MARGIN = 2e-3
 WIDTHS = {"shipped width": dict(widths=(21, 128, 128, 128)),

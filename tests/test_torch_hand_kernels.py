@@ -20,7 +20,12 @@ version by library products, so the vertices differ by float32 rounding
 (1e-7 m) and with them `sdf` by up to SKIN_SDF_ATOL through the random net's
 steep features, and `hit` may flip where the plain version's pixel
 coordinate lies within PIXEL_MARGIN of an integer: it is held equal
-everywhere else. Two launches of every kernel agree bitwise.
+everywhere else. The fused skinning runs the MLP on the tensor cores in
+3xTF32 (csrc/sdf_mlp_tc.cuh): on vertices that it and the plain version
+build bitwise alike, its sdf is held within TC_SDF_ATOL of the plain
+version's and of the 3xTF32 emulation's (ops/tf32.py; one value lay up to
+1.7e-7 off on the card: the tensor cores' float32 sums truncate). Two
+launches of every kernel agree bitwise.
 """
 
 import numpy as np
@@ -29,13 +34,14 @@ import torch
 
 from hotrack_tpu_torch.mano.layer import mano_forward, mano_skin_inputs, shape_hand
 from hotrack_tpu_torch.mano.model import synthetic_mano_model
-from hotrack_tpu_torch.ops import hand_energy, hand_energy_skin, kernels, mask_lookup
+from hotrack_tpu_torch.ops import hand_energy, hand_energy_skin, kernels, mask_lookup, tf32
 from hotrack_tpu_torch.utils.convert import distilled_from_numpy
 from hand_energy_cases import camera_points, candidates, intrinsics, mask_of, object_pose
 from torch_sdf_models import model_arrays
 
 SDF_ATOL = 5e-7
 SKIN_SDF_ATOL = 2e-5
+TC_SDF_ATOL = 2.5e-7
 PIXEL_MARGIN = 2e-3   # pixels
 MODELS = {
     "shipped width": dict(widths=(21, 128, 128, 128)),
@@ -203,3 +209,39 @@ def test_hand_energy_skin_kernel_matches_plain_version(cuda_device, name, hw, p,
         & ((fx_pix - torch.round(fx_pix)).abs() > PIXEL_MARGIN)
     assert torch.equal(hit[clear], want_hit[clear])
     assert float((hit != want_hit).float().mean()) <= 0.01
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("widths", [(21, 128, 128, 128), (39, 128, 128, 128, 128), (9, 128)])
+def test_hand_energy_skin_kernel_matches_its_3xtf32_emulation(cuda_device, widths):
+    """No pose blend, one joint a vertex with the identity rotation: the
+    kernel and skin_reference build every vertex as ((v_shaped + t) + offset),
+    bitwise alike, so the sdf isolates the MLP's 3xTF32 arithmetic (the depth-4
+    net's later layers do not fit shared memory: they are staged)."""
+    rng = np.random.RandomState(len(widths))
+    model = distilled_from_numpy(model_arrays(7, widths=widths), device=cuda_device)
+    mano = synthetic_mano_model().to(cuda_device)
+    shaped = shape_hand(mano, torch.zeros(1, 10, device=cuda_device))
+    p, n = 9, mano.v_template.shape[0]
+    joint = torch.from_numpy(rng.randint(0, 16, n)).to(cuda_device)
+    consts = hand_energy_skin.SkinConsts(
+        mano.posedirs.permute(1, 2, 0).contiguous(), shaped[0][0].T.contiguous(),
+        torch.nn.functional.one_hot(joint, 16).T.float().contiguous())
+    rt = torch.zeros(p, 12, 16, device=cuda_device)
+    rt[:, [0, 4, 8]] = 1.0
+    rt[:, 9:] = torch.from_numpy((rng.randn(p, 3, 1) * 0.02).astype(np.float32)).to(cuda_device)
+    offset = torch.from_numpy((rng.randn(p, 3) * 0.02 + [0, 0, 0.45]).astype(np.float32)) \
+        .to(cuda_device)
+    pose_map = torch.zeros(p, consts.posedirs_cf.shape[1], device=cuda_device)
+    hw = (480, 640)
+    args = (model, mask_lookup.pack_mask(_mask(4, hw, cuda_device)), _frame(5, hw, cuda_device),
+            pose_map, rt.reshape(p * 12, 16), offset, consts, hw)
+    verts = hand_energy_skin.skin_reference(*args[3:7])
+    assert torch.equal(verts, (consts.vshaped_cf.T + rt[:, None, 9:, 0]) + offset[:, None])
+    sdf, hit = hand_energy_skin.fused_hand_energy_skin(*args)
+    want_sdf, want_hit = hand_energy_skin._hand_energy_skin_torch(*args)
+    emu_sdf, _ = hand_energy_skin._hand_energy_skin_torch(*args, mlp=tf32.raw_sdf_mlp_3xtf32)
+    torch.cuda.synchronize()
+    assert torch.equal(hit, want_hit)
+    assert float((sdf - want_sdf).abs().max()) <= TC_SDF_ATOL
+    assert float((sdf - emu_sdf).abs().max()) <= TC_SDF_ATOL

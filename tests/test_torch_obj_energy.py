@@ -119,18 +119,20 @@ def test_library_name_changes_when_an_included_header_changes(tmp_path, monkeypa
     monkeypatch.setattr(kernels, "CSRC_DIR", csrc)
     monkeypatch.setenv("HOTRACK_KERNEL_BUILD_DIR", str(tmp_path / "build"))
     assert [p.name for p in kernels.source_files("obj_energy")] \
-        == ["obj_energy.cu", "sdf_mlp_core.cuh"]
+        == ["obj_energy.cu", "sdf_mlp_tc.cuh"]
+    assert [p.name for p in kernels.source_files("sdf_mlp")] == ["sdf_mlp.cu", "sdf_mlp_core.cuh"]
     assert [p.name for p in kernels.source_files("fps")] == ["fps.cu"]
     before = {name: kernels.library_path(name) for name in kernels.SOURCES}
     assert all(p.parent == tmp_path / "build" for p in before.values())
     assert before == {name: kernels.library_path(name) for name in kernels.SOURCES}
-    with open(csrc / "sdf_mlp_core.cuh", "a") as f:
-        f.write("// edited\n")
-    after = {name: kernels.library_path(name) for name in kernels.SOURCES}
-    for name in ("sdf_mlp", "obj_energy"):
-        assert after[name] != before[name], name
-    for name in ("fps", "gather_rows"):
-        assert after[name] == before[name], name
+    for header, users in (("sdf_mlp_core.cuh", ("sdf_mlp", "hand_energy")),
+                          ("sdf_mlp_tc.cuh", ("obj_energy", "hand_energy_skin"))):
+        with open(csrc / header, "a") as f:
+            f.write("// edited\n")
+        after = {name: kernels.library_path(name) for name in kernels.SOURCES}
+        for name in kernels.SOURCES:
+            assert (after[name] != before[name]) == (name in users), (header, name)
+        before = after
     # a header reached through another header counts too
     (csrc / "inner.cuh").write_text("#pragma once\n")
     with open(csrc / "sdf_mlp_core.cuh", "a") as f:
