@@ -30,9 +30,10 @@ sequences. Phases, each of which raises on failure:
   2. build: compile every kernel source of csrc/, one nvcc each, started
      together, and print the compiler's resource reports;
   3. kernels: each kernel against its plain PyTorch version on the card at
-     every shape the paths below give it (FPS index-exact; the row gather bitwise;
-     its scatter-add adjoint against a float64 oracle, and bitwise equal on a
-     second launch; the SDF MLP and the fused object energy within stated
+     every shape the paths below give it (FPS index-exact, with a bound of its
+     steps' latency that is independent of the design; the row gather bitwise;
+     its scatter-add adjoint against a float64 oracle, bitwise the plain version
+     in float32 on the CPU and bitwise equal on a second launch; the SDF MLP and the fused object energy within stated
      float32 bounds, the energy bitwise equal on a second launch; the mask
      lookup exact; the fused hand energy with an exact hit and its sdf within
      the MLP's bound; the fused skinning + energy within stated bounds, its
@@ -42,7 +43,9 @@ sequences. Phases, each of which raises on failure:
      with a model, mask, shape and object pose a sequence that differ, each
      sequence within the unbatched kernel's bounds of the batched plain
      version and bitwise an unbatched launch on its own inputs, a second
-     batched launch bitwise the first;
+     batched launch bitwise the first; then the host microseconds a call of
+     index_points at the tracking path's shapes, on the kernel and as one
+     torch.gather, in turns;
   4. tracking path: launch counters reset, one tracked sequence on the card
      after a warm-up one, counters read; the same entry on the CPU (plain
      versions) must pick the same frame-0 FPS indices and keypoints within
@@ -593,12 +596,51 @@ def _sm_clock_hz() -> float:
     return 1e6 * float(out.stdout.strip().splitlines()[0])
 
 
+# Latencies for the FPS bound, in SM cycles, measured by scripts/warp_latency.py
+# (the least of 7 launches of 4096 dependent rounds) on an NVIDIA H100 80GB
+# HBM3 at 700 W: a dependent float32 add or multiply (half a round of
+# __fadd_rn after __fmul_rn: 8.63), an add then a min, a round of a butterfly
+# argmax of (value, index) with ties to the lower index (two shuffles, a
+# compare, two selects), one redux.sync, and a round between 2 warps through
+# shared memory (a store, a barrier, a load: the least of 2-16 warps)
+FP32_CYCLES = 8.63 / 2
+ADD_MIN_CYCLES = 10.44
+SHUFFLE_ROUND_CYCLES, REDUX_CYCLES, SHARED_ROUND_CYCLES = 41.74, 44.26, 46.57
+LANES_PER_SM = 128        # float32 operations an SM issues a cycle (4 schedulers x 32)
+WARP_MAX_POINTS = 32 * 63  # 4 registers a point within a lane's 255
+
+
 def _fps_latency_bound_ms(n: int, npoint: int, clock_hz: float) -> float:
-    """FPS is a chain of npoint - 1 dependent steps inside one block, so the
-    bytes and operations of `_bound` say little: a step cannot be shorter than
-    its chain of dependent operations. With assumed latencies of 30 cycles
-    for a shared-memory load or a barrier, 25 for a warp shuffle and 4 for a
-    dependent float32 operation, a step of csrc/fps.cu is at least:
+    """The least time of FPS's npoint - 1 dependent steps on one cloud, whatever
+    the kernel's design: a step cannot be shorter than
+      3 * FP32_CYCLES + ADD_MIN_CYCLES
+                            one point's distance and minimum (sub, mul, add, add,
+                            min: 5 dependent float32 operations)
+    plus a reduction of the N candidates to the first maximal index, the
+    cheaper of one warp's
+      5 * SHUFFLE_ROUND_CYCLES   five butterfly rounds of (value, index)
+      2 * REDUX_CYCLES           two redux.sync: the largest value, then the
+                                 lowest index of the lanes that hold it
+    plus the cheaper of
+      10 * ceil(N / 32)     one warp holds the cloud (N <= WARP_MAX_POINTS): the
+                            issue slots of N points' 10 operations on one of
+                            the SM's schedulers
+      SHARED_ROUND_CYCLES + 10 * N / LANES_PER_SM
+                            several warps on one SM: a shared-memory round, and
+                            the issue slots on all four schedulers."""
+    one_warp = 10 * -(-n // 32) if n <= WARP_MAX_POINTS else math.inf
+    warps = SHARED_ROUND_CYCLES + 10 * n / LANES_PER_SM
+    reduction = min(5 * SHUFFLE_ROUND_CYCLES, 2 * REDUX_CYCLES)
+    cycles = 3 * FP32_CYCLES + ADD_MIN_CYCLES + reduction + min(one_warp, warps)
+    return 1e3 * (npoint - 1) * cycles / clock_hz
+
+
+def _fps_shared_design_bound_ms(n: int, npoint: int, clock_hz: float) -> float:
+    """The bound of the earlier csrc/fps.cu design (one block a cloud of 256 or
+    512 threads, the cloud in shared memory, two reductions and a barrier a
+    step), printed beside the design-independent bound for comparison with
+    earlier records. With 30 cycles for a shared-memory load or a barrier, 25 for a
+    warp shuffle and 4 for a dependent float32 operation, a step is at least:
       30              the picked point's coordinates from shared memory
       30 + 6 * 4      a point's loads, then sub, mul, add, add, min, compare
       14 * p * w      scheduler slots of the pass: 14 operations a point, p points
@@ -606,7 +648,7 @@ def _fps_latency_bound_ms(n: int, npoint: int, clock_hz: float) -> float:
       5 * (25 + 8)    the warp's shuffle reduction of (value, index)
       30              the barrier
       30 + 5 * 33     every warp reads the slots and reduces them."""
-    threads = 256 if n <= 1024 else 512  # csrc/fps.cu: hotrack_fps
+    threads = 256 if n <= 1024 else 512
     cycles = 30 + 54 + 14 * -(-n // threads) * (threads // 128) + 165 + 30 + 195
     return 1e3 * (npoint - 1) * cycles / clock_hz
 
@@ -647,10 +689,16 @@ def phase_kernels_fps() -> dict:
     cases += [
         ("tie-heavy grid (1,512,3)->256",
          torch.from_numpy(_grid_cloud(rng, 1, 512)).to(dev), 256, None, False),
+        ("tie-heavy grid (4,2560,3)->512",
+         torch.from_numpy(_grid_cloud(rng, 4, 2560)).to(dev), 512, None, False),
         ("masked, point 0 invalid (4,2560,3)->512", cloud(4, 2560), 512,
          torch.from_numpy(np.concatenate([np.zeros((4, 1), bool),
                                           rng.rand(4, 2559) < 0.5], 1)).to(dev), False),
     ]
+    # the two kernels' boundary: one warp a cloud up to 1024 points, a block above
+    cases += [(f"boundary ({b},{n},3)->256" + " masked" * masked, cloud(b, n), 256,
+               torch.from_numpy(rng.rand(b, n) < 0.7).to(dev) if masked else None, False)
+              for n in (1024, 1025) for b, masked in ((4, False), (4, True))]
     max_err, timed = 0, []
     for name, xyz, npoint, mask, is_timed in cases:
         got = kernels.fps_cuda(xyz, npoint, mask)
@@ -671,10 +719,12 @@ def phase_kernels_fps() -> dict:
             case.update(_bound(b * n * (12 + (mask is not None)) + b * npoint * 4,
                                10.0 * b * n * (npoint - 1)))
             case["latency_bound_ms"] = _fps_latency_bound_ms(n, npoint, clock_hz)
+            case["shared_design_bound_ms"] = _fps_shared_design_bound_ms(n, npoint, clock_hz)
             case["shape"] = name
             timed.append(case)
             line += (f"; {_fmt(case)}; latency bound {case['latency_bound_ms']:.4f} ms "
-                     f"at {clock_hz / 1e6:.0f} MHz")
+                     f"({case['latency_bound_ms'] / case['ms']:.3f} of it; the shared-memory design's "
+                     f"bound {case['shared_design_bound_ms']:.4f} ms) at {clock_hz / 1e6:.0f} MHz")
         print(line, flush=True)
     return {"max_abs_err": max_err, **timed[0], "cases": timed}
 
@@ -744,8 +794,9 @@ def phase_kernels_scatter() -> dict:
     S / N terms) at rtol 1e-6, atol 1e-5; duplicate-heavy sets (7 distinct
     rows, so hundreds of float32 terms per row) within the bound of a
     sequential float32 sum, (terms * sum|x| + |result|) * 2^-24; a second
-    launch bitwise equal to the first. Library call: one index_add_ over the
-    flattened rows, which is not deterministic."""
+    launch bitwise equal to the first; and bitwise the plain version in
+    float32 on the CPU, which adds in the kernel's order. Library call: one
+    index_add_ over the flattened rows, which is not deterministic."""
     from hotrack_tpu_torch.ops import kernels
     from hotrack_tpu_torch.ops.pointops import _scatter_rows_add_torch as plain
     rng = np.random.RandomState(2)
@@ -771,9 +822,15 @@ def phase_kernels_scatter() -> dict:
             if not ok:
                 raise AssertionError(f"[kernels] scatter_rows_add {name} {kind}: max error "
                                      f"{float(err.max()):.3e} is outside the bound")
+            # the kernel and the plain version in float32 on the CPU both add in
+            # ascending s, one term after another: bitwise
+            if not torch.equal(got.cpu(), plain(dout.cpu(), idx.cpu(), n)):
+                raise AssertionError(f"[kernels] scatter_rows_add {name} {kind}: differs from "
+                                     f"the plain version in float32 on the CPU")
             max_err = max(max_err, float(err.max()))
             line = (f"[kernels] scatter_rows_add {name} ({b},{s},{c})->({b},{n},{c}) {kind}: "
-                    f"max error {float(err.max()):.3e}, relaunch bitwise equal")
+                    f"max error {float(err.max()):.3e}, relaunch bitwise equal, bitwise the "
+                    f"CPU float32 plain version")
             if name in TIMED_SHAPES and b == BATCH and hi is None:
                 flat = (idx + torch.arange(b, device=idx.device)[:, None] * n).reshape(-1)
                 rows = dout.reshape(b * s, c)
@@ -787,21 +844,85 @@ def phase_kernels_scatter() -> dict:
                 timed.append(case)
                 line += "; " + _fmt(case)
             print(line, flush=True)
-    # bf16: float32 accumulation, one rounding at the end
-    dout, idx = _rows_case(rng, 4, 300, 64, 300, torch.bfloat16, hi=40)
-    got = kernels.scatter_rows_add_cuda(dout, idx, 50)
-    want = plain(dout.double(), idx, 50, torch.float64)
+    # bf16: float32 accumulation, one rounding at the end, also where the
+    # positions take more than one of the kernel's chunks (sa2's S = 4096)
+    for b, n, c, s, hi in ((4, 50, 64, 300, 40), (BATCH, 256, 64, 4096, None)):
+        dout, idx = _rows_case(rng, b, s, c, s, torch.bfloat16, hi=hi or n)
+        got = kernels.scatter_rows_add_cuda(dout, idx, n)
+        again = kernels.scatter_rows_add_cuda(dout, idx, n)
+        want = plain(dout.double(), idx, n, torch.float64)
+        torch.cuda.synchronize()
+        tag = f"[kernels] scatter_rows_add bf16 ({b},{s},{c})->({b},{n},{c})"
+        if not bool(((got.double() - want).abs() <= 2.0 ** -8 * want.abs() + 1e-4).all()):
+            raise AssertionError(f"{tag} is outside one bf16 rounding")
+        if not torch.equal(got, again):
+            raise AssertionError(f"{tag}: two launches differ")
+        if not torch.equal(got.cpu(), plain(dout.cpu(), idx.cpu(), n)):
+            raise AssertionError(f"{tag} differs from the plain version on the CPU")
+        print(f"{tag}: within one rounding of the float64 sum, relaunch bitwise equal, bitwise "
+              f"the CPU plain version", flush=True)
+    # indices outside [0, n) are skipped; a dout view 4 bytes off a 16-byte
+    # boundary takes the kernel's 4-byte units
+    store = torch.from_numpy(rng.randn(1 + 2 * 300 * 8).astype(np.float32)).cuda()
+    dout = store[1:].view(2, 300, 8)
+    idx = torch.from_numpy(rng.randint(-3, 23, (2, 300))).cuda()
+    got = kernels.scatter_rows_add_cuda(dout, idx, 20)
+    keep = ((idx >= 0) & (idx < 20)).cpu()
+    want = plain(dout.cpu() * keep[..., None], idx.cpu().clamp(0, 19), 20)
     torch.cuda.synchronize()
-    if not bool(((got.double() - want).abs() <= 2.0 ** -8 * want.abs() + 1e-4).all()):
-        raise AssertionError("[kernels] scatter_rows_add bf16 is outside one bf16 rounding")
-    print("[kernels] scatter_rows_add bf16: within one rounding of the float64 sum",
-          flush=True)
+    if not torch.equal(got.cpu(), want):
+        raise AssertionError("[kernels] scatter_rows_add: out-of-range indices or a misaligned "
+                             "view differ from the CPU plain version")
+    print("[kernels] scatter_rows_add out-of-range indices, misaligned view (2,300,8)->(2,20,8): "
+          "bitwise the CPU plain version", flush=True)
     # torch.sort(stable=True) decides kNN / 3-NN ties by index: confirm on the card
     d = torch.from_numpy(np.repeat(rng.rand(4, 8, 16).astype(np.float32), 4, -1)).cuda()
     if not torch.equal(torch.sort(d, dim=-1, stable=True).indices.cpu(),
                        torch.sort(d.cpu(), dim=-1, stable=True).indices):
         raise AssertionError("[kernels] torch.sort(stable=True) is not stable on the card")
     return {"max_abs_err": max_err, **_headline(timed), "cases": timed}
+
+
+def _index_points_library(points, idx):
+    """index_points as one torch.gather: the yardstick, used nowhere in the port."""
+    b, _, c = points.shape
+    flat = idx.reshape(b, -1).long()
+    return torch.gather(points, 1, flat[..., None].expand(-1, -1, c)).reshape(*idx.shape, c)
+
+
+def phase_index_points_host(turns: int = 4, rounds: int = 100) -> dict:
+    """What one index_points call costs the host on the tracking path: the 11
+    shapes of a HandTrackNet forward at batch 1 (FORWARD_GATHERS), under
+    inference mode as the trackers run them, on the kernel and as one
+    torch.gather, in turns (kernel, gather, gather, kernel, ...), `rounds`
+    passes over the 11 a turn, launched without waiting for the card."""
+    from hotrack_tpu_torch.ops.pointops import index_points
+    rng = np.random.RandomState(5)
+    calls = [(torch.from_numpy(rng.randn(1, n, c).astype(np.float32)).cuda(),
+              torch.from_numpy(rng.randint(0, n, (1, s))).cuda())
+             for _, n, c, s in FORWARD_GATHERS]
+    us = {"kernel": [], "torch.gather": []}
+    with torch.inference_mode():
+        for turn in range(turns):
+            order = ("kernel", "torch.gather") if turn % 2 == 0 else ("torch.gather", "kernel")
+            for which in order:
+                fn = index_points if which == "kernel" else _index_points_library
+                for pts, idx in calls:
+                    fn(pts, idx)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(rounds):
+                    for pts, idx in calls:
+                        fn(pts, idx)
+                us[which].append(1e6 * (time.perf_counter() - t0) / (rounds * len(calls)))
+                torch.cuda.synchronize()
+    out = {"kernel_us": us["kernel"], "gather_us": us["torch.gather"],
+           "ratio": float(np.median(us["kernel"]) / np.median(us["torch.gather"]))}
+    print(f"[host] index_points us a call, inference mode, tracking shapes (batch 1), in "
+          f"turns: kernel {[round(x, 2) for x in out['kernel_us']]}, torch.gather "
+          f"{[round(x, 2) for x in out['gather_us']]}; kernel / gather {out['ratio']:.3f}",
+          flush=True)
+    return out
 
 
 def _random_sdf(rng, widths, clamp=0.05, freqs=None, device="cuda"):
@@ -2748,6 +2869,7 @@ def main() -> int:
                "obj_sdf_energy_batched": phase_kernels_obj_energy_batched(),
                "packed_mask_lookup_batched": phase_kernels_mask_lookup_batched(),
                "hand_energy_skin_batched": phase_kernels_hand_energy_skin_batched()}
+    numbers["gather_rows"]["host_us"] = phase_index_points_host()
     seen = {name: set() for name in KERNELS}
     by_path = {"tracking": phase_tracking_path(card, seen),
                "train": phase_train_path(card, seen),

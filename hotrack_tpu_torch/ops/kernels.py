@@ -128,7 +128,11 @@ def build_all() -> dict[str, Path]:
 
 
 def _load(name: str, bind) -> ctypes.CDLL:
-    """Build (if needed), load and bind csrc/<name>.cu once per process."""
+    """Build (if needed), load and bind csrc/<name>.cu once per process. A
+    loaded library is a dictionary lookup; the lock is taken only to load."""
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
     with _lock:
         lib = _libs.get(name)
         if lib is None:
@@ -138,14 +142,24 @@ def _load(name: str, bind) -> ctypes.CDLL:
     return lib
 
 
+# The row kernels' wrappers read the current device with
+# `torch._C._cuda_getDevice()` and the raw handle of its current stream with
+# `torch._C._cuda_getCurrentRawStream(device)`: what
+# `torch.cuda.current_stream(device).cuda_stream` gives (it follows
+# `torch.cuda.stream(...)`), without building a Stream object, as PyTorch's
+# own generated code reads it. A CPU-only build of torch has neither; the
+# wrappers reach them only with a CUDA tensor in hand.
+
+
 def _bind_fps(lib: ctypes.CDLL) -> None:
     # pointers and the stream as c_void_p: a plain int would be cut to 32 bits
     lib.hotrack_fps.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
         ctypes.c_void_p]
     lib.hotrack_fps.restype = ctypes.c_int
     lib.hotrack_fps_init.restype = ctypes.c_int
-    # shared memory above 48 KB (clouds above 3072 points), opted in once for
-    # the device current at load: the port runs on one card per process
+    # the SM count, and shared memory above 48 KB for clouds above 8192
+    # points, read and opted in once for the device current at load: the port
+    # runs on one card per process
     _check_status(lib.hotrack_fps_init(), "fps set-up")
 
 
@@ -153,8 +167,10 @@ def _bind_gather_rows(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.hotrack_gather_rows.argtypes = [p, p, p, ctypes.c_longlong, i, i, i, i, p]
     lib.hotrack_gather_rows.restype = i
-    lib.hotrack_scatter_rows_add.argtypes = [p, p, p, i, i, i, i, i, i, p]
+    lib.hotrack_scatter_rows_add.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
     lib.hotrack_scatter_rows_add.restype = i
+    lib.hotrack_scatter_rows_add_scratch.argtypes = [i] * 5
+    lib.hotrack_scatter_rows_add_scratch.restype = ctypes.c_longlong
 
 
 def _bind_sdf_mlp(lib: ctypes.CDLL) -> None:
@@ -211,64 +227,70 @@ def fps_cuda(xyz: torch.Tensor, npoint: int,
     """Farthest point sampling on the card (csrc/fps.cu).
 
     xyz (B, N, 3) float32 contiguous tensor on the current CUDA device,
-    N <= 14336 (the cloud is held in one block's shared memory; the launch
-    returns CUDA error 1, invalid value, above that); valid_mask (B, N) bool
-    or uint8 on the same device, or None -> idx (B, npoint) int32."""
-    if not xyz.is_cuda or xyz.device.index != torch.cuda.current_device():
+    N <= 14336 (csrc/fps.cu kMaxPoints: the launch returns CUDA error 1,
+    invalid value, above that, and this raises); valid_mask (B, N) bool or
+    uint8 on the same device, or None -> idx (B, npoint) int32. The kernel
+    chooses its launch layout from N."""
+    if not xyz.is_cuda or xyz.get_device() != torch._C._cuda_getDevice():
         raise ValueError(f"fps_cuda takes a CUDA tensor on the current device, "
                          f"got one on {xyz.device}")
-    if xyz.dtype != torch.float32 or xyz.dim() != 3 or xyz.shape[-1] != 3:
+    shape = xyz.shape
+    if xyz.dtype != torch.float32 or len(shape) != 3 or shape[2] != 3:
         raise ValueError(f"xyz must be (B, N, 3) float32, got "
-                         f"{tuple(xyz.shape)} {xyz.dtype}")
+                         f"{tuple(shape)} {xyz.dtype}")
     if not xyz.is_contiguous():
         raise ValueError("xyz must be contiguous")
-    b, n, _ = xyz.shape
+    b, n, _ = shape
     if npoint < 1 or n < 1 or b < 1:
         raise ValueError(f"empty FPS problem: B={b} N={n} npoint={npoint}")
     lib = _load("fps", _bind_fps)
     mask_ptr = None
     if valid_mask is not None:
-        if valid_mask.device != xyz.device:
+        if valid_mask.get_device() != xyz.get_device():
             raise ValueError("valid_mask must be on the device of xyz")
         if valid_mask.dtype not in (torch.bool, torch.uint8):
             raise ValueError(f"valid_mask must be bool or uint8, got "
                              f"{valid_mask.dtype}")
-        if tuple(valid_mask.shape) != (b, n) or not valid_mask.is_contiguous():
+        if valid_mask.shape != shape[:2] or not valid_mask.is_contiguous():
             raise ValueError(f"valid_mask must be contiguous (B, N) = {(b, n)}, "
                              f"got {tuple(valid_mask.shape)}")
         mask_ptr = valid_mask.data_ptr()
     out = torch.empty((b, npoint), dtype=torch.int32, device=xyz.device)
-    stream = torch.cuda.current_stream(xyz.device).cuda_stream
-    err = lib.hotrack_fps(xyz.data_ptr(), mask_ptr, out.data_ptr(),
-                          b, n, npoint, stream)
-    _check_status(err, f"fps launch (B={b}, N={n}, npoint={npoint})")
+    err = lib.hotrack_fps(xyz.data_ptr(), mask_ptr, out.data_ptr(), b, n, npoint,
+                          torch._C._cuda_getCurrentRawStream(xyz.get_device()))
+    if err:
+        _check_status(err, f"fps launch (B={b}, N={n}, npoint={npoint})")
     launch_counts["fps"] += 1
     return out
 
 
 _ROW_DTYPES = (torch.float32, torch.bfloat16)
+_IDX_DTYPES = (torch.int32, torch.int64)
 
 
-def _check_rows(name: str, t: torch.Tensor, flat_idx: torch.Tensor) -> None:
+def _check_rows(name: str, t: torch.Tensor, flat_idx: torch.Tensor) -> tuple:
     """The checks the two row kernels share: `t` (B, *, C) f32 or bf16 and
-    flat_idx (B, S) int32 or int64, both contiguous on the current card."""
-    if not t.is_cuda or t.device.index != torch.cuda.current_device():
+    flat_idx (B, S) int32 or int64, both contiguous on the current card.
+    Returns (t's shape, S, the device index)."""
+    shape, ishape = t.shape, flat_idx.shape
+    dev = t.get_device() if t.is_cuda else -1
+    if dev < 0 or dev != torch._C._cuda_getDevice():
         raise ValueError(f"{name} takes a CUDA tensor on the current device, "
                          f"got one on {t.device}")
-    if t.dtype not in _ROW_DTYPES or t.dim() != 3:
+    if t.dtype not in _ROW_DTYPES or len(shape) != 3:
         raise ValueError(f"{name} takes a (B, rows, C) float32 or bfloat16 "
-                         f"tensor, got {tuple(t.shape)} {t.dtype}")
-    if flat_idx.device != t.device or flat_idx.dim() != 2 or \
-            flat_idx.shape[0] != t.shape[0] or \
-            flat_idx.dtype not in (torch.int32, torch.int64):
+                         f"tensor, got {tuple(shape)} {t.dtype}")
+    if flat_idx.get_device() != dev or len(ishape) != 2 or ishape[0] != shape[0] or \
+            flat_idx.dtype not in _IDX_DTYPES:
         raise ValueError(f"{name} takes (B, S) int32 or int64 indices on the "
-                         f"tensor's device, got {tuple(flat_idx.shape)} "
+                         f"tensor's device, got {tuple(ishape)} "
                          f"{flat_idx.dtype} on {flat_idx.device}")
-    if not t.is_contiguous() or not flat_idx.is_contiguous():
+    if not (t.is_contiguous() and flat_idx.is_contiguous()):
         raise ValueError(f"{name} takes contiguous tensors")
-    if min(*t.shape, flat_idx.shape[1]) < 1:
-        raise ValueError(f"empty {name} problem: {tuple(t.shape)} by "
-                         f"{tuple(flat_idx.shape)}")
+    if min(*shape, ishape[1]) < 1:
+        raise ValueError(f"empty {name} problem: {tuple(shape)} by "
+                         f"{tuple(ishape)}")
+    return shape, ishape[1], dev
 
 
 def gather_rows_cuda(points: torch.Tensor, flat_idx: torch.Tensor) -> torch.Tensor:
@@ -276,16 +298,15 @@ def gather_rows_cuda(points: torch.Tensor, flat_idx: torch.Tensor) -> torch.Tens
     bf16, flat_idx (B, S) int32 or int64 -> (B, S, C), bitwise the selected
     rows. An index outside [0, N) gives a zero row (the TPU kernel's rule for
     its -1 padding) and reads nothing outside the tensor."""
-    _check_rows("gather_rows_cuda", points, flat_idx)
-    b, n, c = points.shape
-    s = flat_idx.shape[1]
+    (b, n, c), s, dev = _check_rows("gather_rows_cuda", points, flat_idx)
     lib = _load("gather_rows", _bind_gather_rows)
     out = torch.empty((b, s, c), dtype=points.dtype, device=points.device)
-    stream = torch.cuda.current_stream(points.device).cuda_stream
     err = lib.hotrack_gather_rows(
         points.data_ptr(), flat_idx.data_ptr(), out.data_ptr(), b * s, s, n,
-        c * points.element_size(), int(flat_idx.dtype == torch.int64), stream)
-    _check_status(err, f"gather_rows launch (B={b}, N={n}, C={c}, S={s})")
+        c * points.element_size(), flat_idx.dtype == torch.int64,
+        torch._C._cuda_getCurrentRawStream(dev))
+    if err:
+        _check_status(err, f"gather_rows launch (B={b}, N={n}, C={c}, S={s})")
     launch_counts["gather_rows"] += 1
     return out
 
@@ -295,21 +316,28 @@ def scatter_rows_add_cuda(dout: torch.Tensor, flat_idx: torch.Tensor,
     """The row gather's adjoint on the card: dout (B, S, C) f32 or bf16,
     flat_idx (B, S) -> dsrc (B, n, C) of dout's dtype, with
     dsrc[b, i] = sum of dout[b, s] over idx[b, s] == i. The sum is f32, taken
-    in ascending s with no atomics, so two launches agree bitwise; rows that
-    no index selects are exactly 0; indices outside [0, n) are skipped."""
-    _check_rows("scatter_rows_add_cuda", dout, flat_idx)
-    b, s, c = dout.shape
-    if flat_idx.shape[1] != s or n < 1:
+    in ascending s, one term after another, with no atomics: two launches
+    agree bitwise, and so does the plain version in float32 on the CPU; rows
+    that no index selects are exactly 0; indices outside [0, n) are
+    skipped."""
+    (b, s, c), s_idx, dev = _check_rows("scatter_rows_add_cuda", dout, flat_idx)
+    if s_idx != s or n < 1:
         raise ValueError(f"scatter_rows_add_cuda: dout {tuple(dout.shape)} "
                          f"against indices {tuple(flat_idx.shape)}, n={n}")
     lib = _load("gather_rows", _bind_gather_rows)
     dsrc = torch.empty((b, n, c), dtype=dout.dtype, device=dout.device)
-    stream = torch.cuda.current_stream(dout.device).cuda_stream
+    bf16 = dout.dtype == torch.bfloat16
+    partial = None  # bf16 above one chunk of positions: the float32 sum between chunks
+    if bf16:
+        floats = lib.hotrack_scatter_rows_add_scratch(b, s, n, c, 1)
+        if floats:
+            partial = torch.empty(floats, dtype=torch.float32, device=dout.device)
     err = lib.hotrack_scatter_rows_add(
-        dout.data_ptr(), flat_idx.data_ptr(), dsrc.data_ptr(), b, s, n, c,
-        int(dout.dtype == torch.bfloat16), int(flat_idx.dtype == torch.int64),
-        stream)
-    _check_status(err, f"scatter_rows_add launch (B={b}, N={n}, C={c}, S={s})")
+        dout.data_ptr(), flat_idx.data_ptr(), dsrc.data_ptr(),
+        None if partial is None else partial.data_ptr(), b, s, n, c, bf16,
+        flat_idx.dtype == torch.int64, torch._C._cuda_getCurrentRawStream(dev))
+    if err:
+        _check_status(err, f"scatter_rows_add launch (B={b}, N={n}, C={c}, S={s})")
     launch_counts["scatter_rows_add"] += 1
     return dsrc
 

@@ -94,15 +94,23 @@ class _GatherRows(torch.autograd.Function):
 def index_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """points (B, N, C), idx (B, S) or (B, S1, .., Sk) -> (B, *idx, C).
     Differentiable in `points`. A CUDA tensor (float32 or bfloat16) runs the
-    hand-written kernels; a CPU tensor the plain versions."""
-    if points.device.type not in ("cuda", "cpu"):
+    hand-written kernels; a CPU tensor the plain versions. Where no gradient
+    is recorded (inference mode, no_grad, or `points` needs none) the gather
+    is launched directly, without the autograd Function."""
+    if not points.is_cuda and points.device.type != "cpu":
         raise ValueError(f"no row gather for device {points.device}")
-    b, _, c = points.shape
-    flat = idx.reshape(b, -1)
+    shape = points.shape
+    flat = idx.reshape(shape[0], -1)
     if flat.dtype not in (torch.int32, torch.int64):
         flat = flat.long()
-    out = _GatherRows.apply(points, flat.contiguous())
-    return out.reshape(*idx.shape, c)
+    flat = flat.contiguous()
+    if points.requires_grad and torch.is_grad_enabled():
+        out = _GatherRows.apply(points, flat)
+    elif points.is_cuda:
+        out = kernels.gather_rows_cuda(points.contiguous(), flat)
+    else:
+        out = _gather_rows_torch(points, flat)
+    return out.reshape(*idx.shape, shape[-1])
 
 
 def gather_operation(feature: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
