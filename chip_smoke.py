@@ -33,8 +33,12 @@ sequences. Phases, each of which raises on failure:
      every shape the paths below give it (FPS index-exact, with a bound of its
      steps' latency that is independent of the design; the row gather bitwise;
      its scatter-add adjoint against a float64 oracle, bitwise the plain version
-     in float32 on the CPU and bitwise equal on a second launch; the SDF MLP and the fused object energy within stated
-     float32 bounds, the energy bitwise equal on a second launch; the mask
+     in float32 on the CPU and bitwise equal on a second launch; the SDF MLP
+     (3xTF32 through wgmma) within TC_SDF_ATOL a value of its plain version
+     and of the 3xTF32 emulation, with its compiler report, its share of the
+     3xTF32 bound and its TFLOP/s beside the matmul chain's time; the fused
+     object energy within stated float32 bounds; both bitwise equal on a
+     second launch; the mask
      lookup exact; the fused hand energy with an exact hit and its sdf within
      the MLP's bound; the fused skinning + energy within stated bounds, its
      flipped pixels counted; each of the three bitwise equal on a second
@@ -167,20 +171,22 @@ OBJ_PARTICLES, OBJ_ITERATIONS = 2048, 10
 OBJ_SHORT_FRAMES = 20         # composed and volume routes, against the fused one
 OBJ_CPU_FRAMES = 2            # card against CPU
 MLP_WIDTHS = (21, 128, 128, 128)   # 3 frequencies, hidden 128, depth 3
-# Kernel against plain version on the card, both float32: the kernel sums a
-# unit's 128 products in ascending order with FMA, cuBLAS in its own order.
-# One sdf value (|sdf| <= 0.05 after the clamp, activations of order 1); the
-# card showed 4.1e-08:
+# Kernel against plain version on the card, both float32: the fused hand
+# energy (#6) sums a unit's 128 products in ascending order with FMA, cuBLAS
+# in its own order. One sdf value (|sdf| <= 0.05 after the clamp,
+# activations of order 1); the card showed 4.1e-08:
 SDF_ATOL = 5e-7
-# The kernels that run the MLP on the tensor cores in 3xTF32 (#4, #4b, #7,
-# #7b; csrc/sdf_mlp_tc.cuh) round otherwise than float32 FMA: the tensor
-# cores truncate their float32 sums, so one sdf value lay up to 1.64e-7 from
-# the plain version's (#4 on 4096 single points) and 1.68e-7 (#7 on 398,336
+# The kernels that run the MLP on the tensor cores in 3xTF32 (#3, #3b through
+# wgmma, csrc/sdf_mlp_wgmma.cuh; #4, #4b, #7, #7b through mma.sync,
+# csrc/sdf_mlp_tc.cuh) round otherwise than float32 FMA: the tensor cores
+# truncate their float32 sums, so one sdf value lay up to 1.64e-7 from the
+# plain version's (#4 on 4096 single points) and 1.68e-7 (#7 on 398,336
 # vertices built bitwise alike), and 1.53e-7 from the exact-sum 3xTF32
 # emulation (ops/tf32.py), on the card (the float32 FMA kernel: 4.1e-08 from
-# the plain version). TC_SDF_ATOL holds one such value; for #7 against the
-# emulation it is the tight hold, where the plain version's vertices carry
-# their own rounding (SKIN_SDF_ATOL).
+# the plain version); #3 sums a layer's big and small products in two
+# chains and showed 1.34e-7 at depth 8 (one chain: 3.4e-7). TC_SDF_ATOL holds
+# one such value; for #7 against the emulation it is the tight hold, where
+# the plain version's vertices carry their own rounding (SKIN_SDF_ATOL).
 TC_SDF_ATOL = 2.5e-7
 # a sum of N |sdf| values, relative to the sum's size (the card showed
 # 2.2e-07 for the float32 FMA kernel, 1.64e-06 for the 3xTF32 one at the
@@ -965,26 +971,75 @@ def _matmul_chain(model, feats, chunk=1 << 18):
                 h = torch.relu_(h)
 
 
-def phase_kernels_sdf_mlp() -> dict:
-    """SDF MLP kernel vs plain version on the card, |diff| <= SDF_ATOL a value
-    (with the clamp at 0.05 and, so that no value hides behind it, at 1e3
-    with the bound scaled to the values). No single PyTorch call computes
-    the function: library_ms is null, and the matmul chain's time is printed
-    as a yardstick."""
+def _ptxas_report(name: str) -> list:
+    """The compiler's resource lines for csrc/<name>.cu's kernels: registers,
+    shared memory, spills, and any wgmma serialisation it reported."""
     from hotrack_tpu_torch.ops import kernels
-    from hotrack_tpu_torch.ops.sdf_mlp import (_sdf_mlp_torch, fourier_features,
-                                               fused_sdf_mlp, fused_sdf_mlp_cf,
+    with open(str(kernels.build(name)) + ".log") as f:
+        return [ln.strip() for ln in f.read().splitlines()
+                if any(k in ln for k in ("registers", "spill", "wgmma", "rror"))]
+
+
+def _sdf_checks(tag: str, got, again, want, emu, scale: float = 1.0) -> float:
+    """A 3xTF32 SDF kernel's values against the plain version and the 3xTF32
+    emulation, each within TC_SDF_ATOL a value (times `scale` where the clamp
+    lets values grow past 0.05), and a second launch bitwise the first.
+    Returns the larger error."""
+    if got.shape != want.shape or not torch.isfinite(got).all():
+        raise AssertionError(f"[kernels] {tag}: shape {tuple(got.shape)} or non-finite values")
+    if not torch.equal(got, again):
+        raise AssertionError(f"[kernels] {tag}: two launches differ")
+    err, emu_err = float((got - want).abs().max()), float((got - emu).abs().max())
+    if max(err, emu_err) > TC_SDF_ATOL * scale:
+        raise AssertionError(f"[kernels] {tag}: max error {err:.3e}, against the 3xTF32 "
+                             f"emulation {emu_err:.3e} > {TC_SDF_ATOL * scale:.3e}")
+    return max(err, emu_err)
+
+
+def _sdf_timed(case: dict, widths, m: int) -> str:
+    """The timed case's bound (3xTF32: the kernel's arithmetic) and rate."""
+    ops = _mlp_ops(widths, m)
+    case["tflops"] = ops / case["ms"] / 1e9
+    line = f"; {_fmt(case)}; {case['tflops']:.1f} TFLOP/s of float32-class MLP"
+    if "matmul_chain_ms" in case:
+        line += f"; matmul chain {case['matmul_chain_ms']:.4f} ms"
+    return line
+
+
+def _chain_feats(model, pts_cf, m: int):
+    """Ready features for the matmul-chain yardstick: the first 2^18 points'
+    repeated up to m."""
+    from hotrack_tpu_torch.ops.sdf_mlp import fourier_features
+    feats = fourier_features(pts_cf.transpose(-1, -2).reshape(-1, 3)[:1 << 18],
+                             model.freqs, model.scale)
+    return feats.repeat(-(-m // feats.shape[0]), 1)[:m].contiguous()
+
+
+def phase_kernels_sdf_mlp() -> dict:
+    """SDF MLP kernel vs plain version and vs its 3xTF32 emulation on the
+    card, |diff| <= TC_SDF_ATOL a value (with the clamp at 0.05 and, so that
+    no value hides behind it, at 1e3 with the bound scaled to the values), a
+    second launch bitwise the first. No single PyTorch call computes the
+    function: library_ms is null, and the matmul chain's time is printed as a
+    yardstick."""
+    from hotrack_tpu_torch.ops import kernels
+    from hotrack_tpu_torch.ops.sdf_mlp import (_sdf_mlp_torch, fused_sdf_mlp, fused_sdf_mlp_cf,
                                                pack_distilled)
+    from hotrack_tpu_torch.ops.tf32 import raw_sdf_mlp_3xtf32
+    print("[kernels] sdf_mlp ptxas: " + " | ".join(_ptxas_report("sdf_mlp")), flush=True)
     rng = np.random.RandomState(3)
     cases = [((f"object path, composed route {shape}" if cf else
                f"hand path, separate route {shape}"), MLP_WIDTHS, shape, cf, None, True)
              for shape, cf in SDF_MLP_SHAPES]
     cases += [
         ("config's 256 points (2048,3,256)", MLP_WIDTHS, (OBJ_PARTICLES, 3, 256), True, None, True),
-        ("channels-last, ragged tile (37,3)", MLP_WIDTHS, (37, 3), False, None, False),
+        ("channels-last, ragged round (37,3)", MLP_WIDTHS, (37, 3), False, None, False),
         ("channels-last batch (4,300,3)", MLP_WIDTHS, (4, 300, 3), False, None, False),
+        *[(f"about a round ({m},3)", MLP_WIDTHS, (m, 3), False, None, False)
+          for m in (63, 64, 65, 127, 129)],
         ("6 frequencies, depth 4 (3,3,1000)", (39, 128, 128, 128, 128), (3, 3, 1000), True,
          None, False),
+        ("depth 8 at width 128 (2,3,700)", (21,) + (128,) * 8, (2, 3, 700), True, None, False),
         ("non-geometric frequencies, narrow (5,3,129)", (15, 32, 48), (5, 3, 129), True,
          [1.0, 2.5], False),
         ("depth 1 (2,3,64)", (9, 128), (2, 3, 64), True, None, False),
@@ -994,40 +1049,34 @@ def phase_kernels_sdf_mlp() -> dict:
         for clamp in (0.05, 1e3):
             model = _random_sdf(rng, widths, clamp, freqs)
             pts = torch.from_numpy((rng.randn(*shape) * 0.08).astype(np.float32)).cuda()
+            pts_cf = pts if cf else pts.transpose(-1, -2)
             fn = fused_sdf_mlp_cf if cf else fused_sdf_mlp
-            got = fn(model, pts)
-            want = _sdf_mlp_torch(model, pts if cf else pts.transpose(-1, -2))
+            got, again = fn(model, pts), fn(model, pts)
+            want = _sdf_mlp_torch(model, pts_cf)
+            emu = _sdf_mlp_torch(model, pts_cf, mlp=raw_sdf_mlp_3xtf32)
             torch.cuda.synchronize()
-            if got.shape != want.shape or not torch.isfinite(got).all():
-                raise AssertionError(f"[kernels] sdf_mlp {name}: shape {tuple(got.shape)}")
-            err = float((got - want).abs().max())
-            bound = SDF_ATOL * max(1.0, float(want.abs().max()) / 0.05)
+            scale = max(1.0, float(want.abs().max()) / 0.05)
+            err = _sdf_checks(f"sdf_mlp {name} clamp {clamp}", got, again, want, emu, scale)
+            line = (f"[kernels] sdf_mlp {name} clamp {clamp}: max error {err:.3e} against the "
+                    f"plain version and the 3xTF32 emulation (bound {TC_SDF_ATOL * scale:.1e}, "
+                    f"largest |value| {float(want.abs().max()):.3f}")
             if clamp == 0.05:
                 max_err = max(max_err, err)
-                clamped = float((want.abs() >= clamp).float().mean())
-            if err > bound:
-                raise AssertionError(f"[kernels] sdf_mlp {name} clamp {clamp}: max error "
-                                     f"{err:.3e} > {bound:.3e}")
-            line = (f"[kernels] sdf_mlp {name} clamp {clamp}: max error {err:.3e} (bound "
-                    f"{bound:.1e}, largest |value| {float(want.abs().max()):.3f}"
-                    + (f", {100 * clamped:.0f}% at the clamp)" if clamp == 0.05 else ")"))
+                line += f", {100 * float((want.abs() >= clamp).float().mean()):.0f}% at the clamp"
+            line += "); relaunch bitwise equal"
             if is_timed and clamp == 0.05:
                 packed = pack_distilled(model)
                 m = pts.numel() // 3
-                pts_cf = pts if cf else pts.transpose(-1, -2)
-                feats = fourier_features(pts_cf.transpose(-1, -2).reshape(-1, 3)[:1 << 18],
-                                         model.freqs, model.scale)
-                feats = feats.repeat(-(-m // feats.shape[0]), 1)[:m].contiguous()
+                feats = _chain_feats(model, pts_cf, m)
                 case = _in_turns(lambda: kernels.sdf_mlp_cuda(pts, packed, cf),
                                  lambda: _sdf_mlp_torch(model, pts_cf), None, reps=10)
                 case["matmul_chain_ms"] = _time_ms(lambda: _matmul_chain(model, feats), 3)
                 del feats
-                case.update(_bound(16.0 * m + 4 * packed.packed.numel(), 0.0,
-                                   _mlp_ops(widths, m)))
+                case.update(_bound(16.0 * m + 4 * packed.packed.numel(), 0.0, _mlp_ops(widths, m),
+                                   tensor_cores=True))
                 case["shape"] = name
                 timed.append(case)
-                line += (f"; {_fmt(case)}; matmul chain {case['matmul_chain_ms']:.4f} ms; "
-                         f"{_mlp_ops(widths, m) / case['ms'] / 1e9:.1f} TFLOP/s")
+                line += _sdf_timed(case, widths, m)
             print(line, flush=True)
     return {"max_abs_err": max_err, **_headline(timed), "cases": timed}
 
@@ -1961,22 +2010,28 @@ def _seq_checks(tag: str, got, again, ones, others=()) -> None:
 
 
 def phase_kernels_sdf_mlp_batched() -> dict:
-    """#3b against its batched plain version on the card: |diff| <= SDF_ATOL
-    a value, a model a sequence (each differs); each sequence bitwise an
-    unbatched launch on its inputs; a second launch bitwise the first. No
-    single PyTorch call computes the function: library_ms is null."""
+    """#3b against its batched plain version and its 3xTF32 emulation on the
+    card: |diff| <= TC_SDF_ATOL a value, a model a sequence (each differs);
+    each sequence bitwise an unbatched launch on its inputs; a second launch
+    bitwise the first; one model for all (a stride of 0) bitwise the
+    unbatched launches too. No single PyTorch call computes the function:
+    library_ms is null, and the matmul chain's time is printed as a
+    yardstick."""
     from hotrack_tpu_torch.ops import kernels
-    from hotrack_tpu_torch.ops.sdf_mlp import (_sdf_mlp_batched_torch, pack_distilled,
-                                               pack_distilled_batched)
+    from hotrack_tpu_torch.ops.sdf_mlp import (_sdf_mlp_batched_torch, _sdf_mlp_torch,
+                                               pack_distilled, pack_distilled_batched)
+    from hotrack_tpu_torch.ops.tf32 import raw_sdf_mlp_3xtf32
     rng = np.random.RandomState(21)
     route = {(OBJ_PARTICLES, True): "object composed", (HAND_PARTICLES, True): "hand fused",
              (HAND_PARTICLES, False): "hand separate"}
     cases = [(f"{route[shape[1], cf]} route {shape}", MLP_WIDTHS, shape, cf, None, True)
              for shape, cf in SDF_MLP_BATCHED_SHAPES]
-    cases += [("S=3, ragged tile (3,37,3,129)", MLP_WIDTHS, (3, 37, 3, 129), True, None, False),
+    cases += [("S=3, ragged round (3,37,3,129)", MLP_WIDTHS, (3, 37, 3, 129), True, None, False),
               ("S=3 channels-last (3,5,77,3)", MLP_WIDTHS, (3, 5, 77, 3), False, None, False),
               ("narrow, non-geometric frequencies (2,4,3,100)", (15, 32, 48), (2, 4, 3, 100),
-               True, [1.0, 2.5], False)]
+               True, [1.0, 2.5], False),
+              ("6 frequencies, depth 4 (2,3,3,300)", (39, 128, 128, 128, 128), (2, 3, 3, 300),
+               True, None, False)]
     max_err, timed = 0.0, []
     for name, widths, shape, cf, freqs, is_timed in cases:
         models = [_random_sdf(rng, widths, 0.05, freqs) for _ in range(shape[0])]
@@ -1986,26 +2041,36 @@ def phase_kernels_sdf_mlp_batched() -> dict:
         got = kernels.sdf_mlp_batched_cuda(pts, packed, cf)
         again = kernels.sdf_mlp_batched_cuda(pts, packed, cf)
         want = _sdf_mlp_batched_torch(models, pts_cf)
+        emu = torch.stack([_sdf_mlp_torch(m, p, mlp=raw_sdf_mlp_3xtf32)
+                           for m, p in zip(models, pts_cf)])
         ones = [kernels.sdf_mlp_cuda(pts[i].contiguous(), pack_distilled(m), cf)
                 for i, m in enumerate(models)]
         other = kernels.sdf_mlp_cuda(pts[1].contiguous(), pack_distilled(models[0]), cf)
+        shared = kernels.sdf_mlp_batched_cuda(pts, pack_distilled(models[0]), cf)
         torch.cuda.synchronize()
         _seq_checks(f"sdf_mlp_batched {name}", got, again, ones, [(1, other)])
-        err = float((got - want).abs().max())
+        if not torch.equal(shared[1], other):
+            raise AssertionError(f"[kernels] sdf_mlp_batched {name}: one model for all is not "
+                                 f"bitwise the unbatched launch")
+        err = _sdf_checks(f"sdf_mlp_batched {name}", got, again, want, emu)
         max_err = max(max_err, err)
-        if got.shape != want.shape or err > SDF_ATOL:
-            raise AssertionError(f"[kernels] sdf_mlp_batched {name}: max error {err:.3e}")
-        line = (f"[kernels] sdf_mlp_batched {name}: max error {err:.3e} (bound {SDF_ATOL}); "
-                f"each sequence bitwise an unbatched launch; relaunch bitwise equal")
+        line = (f"[kernels] sdf_mlp_batched {name}: max error {err:.3e} against the plain "
+                f"version and the 3xTF32 emulation (bound {TC_SDF_ATOL}); each sequence bitwise "
+                f"an unbatched launch, one model for all too; relaunch bitwise equal")
+        del want, emu, ones, shared
         if is_timed:
             m = pts.numel() // 3
+            feats = _chain_feats(models[0], pts_cf, m)
             case = _in_turns(lambda: kernels.sdf_mlp_batched_cuda(pts, packed, cf),
                              lambda: _sdf_mlp_batched_torch(models, pts_cf), None, reps=5,
                              slow_reps=2)
-            case.update(_bound(16.0 * m + 4 * packed.packed.numel(), 0.0, _mlp_ops(widths, m)))
+            case["matmul_chain_ms"] = _time_ms(lambda: _matmul_chain(models[0], feats), 2)
+            del feats
+            case.update(_bound(16.0 * m + 4 * packed.packed.numel(), 0.0, _mlp_ops(widths, m),
+                               tensor_cores=True))
             case["shape"] = name
             timed.append(case)
-            line += f"; {_fmt(case)}; {_mlp_ops(widths, m) / case['ms'] / 1e9:.1f} TFLOP/s"
+            line += _sdf_timed(case, widths, m)
         print(line, flush=True)
     return {"max_abs_err": max_err, **_headline(timed), "cases": timed}
 

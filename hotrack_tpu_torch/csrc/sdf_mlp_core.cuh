@@ -1,6 +1,7 @@
-// The distilled-SDF MLP for one tile of points in float32 FMA, shared by
-// sdf_mlp.cu and hand_energy.cu (obj_energy.cu and hand_energy_skin.cu run
-// it on the tensor cores: sdf_mlp_tc.cuh).
+// The distilled-SDF MLP for one tile of points in float32 FMA, for
+// hand_energy.cu (#6) alone (obj_energy.cu and hand_energy_skin.cu run it on
+// the tensor cores through mma.sync, sdf_mlp_tc.cuh; sdf_mlp.cu through wgmma,
+// sdf_mlp_wgmma.cuh).
 //
 // Computes what `_sdf_mlp_core` of hotrack_tpu/ops/pallas/hand_energy.py
 // computes for the TPU kernels: per point, Fourier features

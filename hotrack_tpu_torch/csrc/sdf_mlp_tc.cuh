@@ -1,7 +1,9 @@
 // The distilled-SDF MLP on Hopper's tensor cores at float32-class precision
-// (3xTF32), for the kernels whose work is almost all MLP: obj_energy.cu
-// (#4, #4b) and hand_energy_skin.cu (#7, #7b). sdf_mlp.cu and hand_energy.cu
-// keep the float32 FMA core of sdf_mlp_core.cuh.
+// (3xTF32) through mma.sync, for obj_energy.cu (#4, #4b) and
+// hand_energy_skin.cu (#7, #7b). sdf_mlp.cu (#3, #3b) runs the same
+// arithmetic through wgmma (sdf_mlp_wgmma.cuh, which takes this header's
+// rounding and shape check); hand_energy.cu (#6) alone keeps the
+// float32 FMA core of sdf_mlp_core.cuh.
 //
 // Computes what `_sdf_mlp_core` of hotrack_tpu/ops/pallas/hand_energy.py
 // computes for the TPU kernels: per point, Fourier features
@@ -28,16 +30,15 @@
 // 2048 x 1024 points, against 2.228 ms for the same work in float32 FMA at 67
 // TFLOP/s), plus the output layer in float32.
 //
-// Instruction: mma.sync.aligned.m16n8k8 .tf32 with float32 accumulators, not
-// wgmma. wgmma reads its B operand (the weights) only from shared memory,
-// K-major for .tf32, with both halves of every weight as 32-bit words:
-// 287,776 bytes for the shipped net, above a block's 232,448, so the layers
-// would have to stream through a ring of tiles behind mbarriers. mma.sync
-// takes B from registers, so a weight's small half can sit in shared memory
-// as fp16 and the whole net stays resident (below), and the activations never
-// leave the registers. The price: mma.sync does not reach the tensor cores'
-// full rate on Hopper (wgmma does), so these kernels stay well above the
-// 3xTF32 bound (PERF.md).
+// Instruction: mma.sync.aligned.m16n8k8 .tf32 with float32 accumulators.
+// mma.sync takes B from registers, so a weight's small half can sit in shared
+// memory as fp16 and the whole net stays resident (below), and the
+// activations never leave the registers. The price: mma.sync does not reach
+// the tensor cores' full rate on Hopper (wgmma does), so these kernels stay
+// well above the 3xTF32 bound (PERF.md). wgmma reads B only from shared
+// memory, K-major for .tf32, both halves of every weight as 32-bit words:
+// 287,776 bytes for the shipped net, above a block's 232,448, so
+// sdf_mlp_wgmma.cuh streams part of them through a ring of tiles.
 //
 // Design, for one block of kThreads = 256 threads (8 warps):
 // - Weights: big halves as float32 words (their low 13 bits 0), small halves

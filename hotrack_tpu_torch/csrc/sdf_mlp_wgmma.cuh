@@ -1,0 +1,500 @@
+// The distilled-SDF MLP on Hopper's warpgroup tensor-core instruction
+// (wgmma) at float32-class precision (3xTF32), for sdf_mlp.cu (#3, #3b).
+// obj_energy.cu and hand_energy_skin.cu (#4, #7) run the mma.sync core of
+// sdf_mlp_tc.cuh; hand_energy.cu (#6) the float32 FMA core of
+// sdf_mlp_core.cuh.
+//
+// Computes what sdf_mlp_tc.cuh computes: per point, Fourier features
+// s*x | sin(f*s*x) | cos(f*s*x) (axis-major, frequency-minor; sincosf of the
+// float32 product, sinf's and cosf's arithmetic), Dense + ReLU hidden layers
+// whose products are 3xTF32 (every operand split as big = tf32(x), small =
+// tf32(x - big), rounded to nearest with ties away from zero by
+// tc::tf32_round; small*small dropped), then the 128 -> 1 output layer and the
+// clamp in float32 FMA. The sums differ from sdf_mlp_tc.cuh's: a layer's
+// big*big products go into one float32 accumulator chain (dm) and its
+// small*big and big*small products into another (dc), added once in float32
+// before the bias. The tensor cores truncate as they accumulate, so the chain
+// that carries the layer's size now truncates 16 times a layer, not 48 (the
+// small products' chain is 2^-11 of its size): one sdf value lay up to
+// 1.34e-7 from the plain version's on the card at depth 8 (2.1e-7 and 3.4e-7
+// with one chain at the shipped width and at depth 8), inside TC_SDF_ATOL.
+//
+// Bound: operations, 3 x 2 x (K0 H + H H (depth - 1)) tensor-core operations
+// a point at TF32's 495 TFLOP/s (0.904 ms for 2048 x 1024 points of
+// 21-128-128-128-1). mma.sync tops out at 302-323 TFLOP/s on the H100
+// (scripts/mma_sync_rate.py); only wgmma reaches the tensor cores' full rate.
+//
+// Instruction: wgmma.mma_async.m64n128k8.f32.tf32.tf32, A (the activations)
+// from registers, B (the weights) from shared memory through a matrix
+// descriptor. A layer's 128 outputs are one n = 128 tile, 64 points one
+// warpgroup's M. Per warp (16 of the 64 rows), the A fragment of a k-step has
+// the layout of mma.sync.m16n8k8's (lane (g, t) = (lane / 4, lane % 4): a0 row
+// g col t, a1 row g + 8 col t, a2 row g col t + 4, a3 row g + 8 col t + 4) and
+// the accumulator that of the m16n8 C fragment, n-tile j in d[4 j .. 4 j + 3]
+// (d0 d1 row g cols 8 j + 2 t, + 1; d2 d3 row g + 8). So one layer's
+// outputs are the next layer's A fragments with no data movement, given the
+// next layer's rows in _tc_rows' order (ops/sdf_mlp.py), as in
+// sdf_mlp_tc.cuh. Layer 0's rows are ordered so that a lane's k-slots t and
+// t + 4 are one angle's sine and cosine (_wg_rows): one sincosf a lane a row
+// a k-step, where sinf and cosf apart cost 0.3 ms a launch at (2048, 3, 1024).
+//
+// Weights: B is K-major for .tf32 and both halves of a weight are 32-bit
+// words (big, and small as a TF32 float32; wgmma has no fp16 B beside a tf32
+// A), 8 bytes a weight: 286,720 bytes of tiles for 21-128-128-128-1, above a
+// block's 232,448 bytes of shared memory. The packer (ops/sdf_mlp.py
+// _pack_wg, PackedSDF.wg) writes every tile in device memory already as its
+// shared-memory image: a tile is one k-step's half of a layer, 8 k-slots x 128
+// units x 4 bytes = 4096 bytes, the 16 x 2 core matrices of 8 units x 16 bytes
+// (units 8 nb .. 8 nb + 7, k-slots 4 kb .. 4 kb + 3) at nb * kSbo + kb * kLbo,
+// no swizzle, and the tiles in the order the kernel consumes them: layer by
+// layer, k-step by k-step, big then small. The first `pinned` tiles stay in
+// shared memory while the block works on one sequence's model; the rest
+// stream through a ring of kRing tile slots, each copied by a 1-D bulk copy
+// (cp.async.bulk ... mbarrier::complete_tx) onto the slot's "full" mbarrier
+// and released by the 8 consumer warps on its "empty" one. No tensor map.
+//
+// L2 traffic, reckoned before the design was fixed. Streaming every tile for
+// every 128-point round would move 286,720 bytes x 16,384 rounds = 4.70 GB
+// from L2 a launch at (2048, 3, 1024) (5.2 TB/s at the 0.904 ms bound: of the
+// order of what L2 gives). With 48 of the 70 tiles pinned (196,608 bytes,
+// beside a ring of 8 slots, 32,768 bytes) 22 stream: 90,112 bytes a round,
+// 1.48 GB a launch (1.63 TB/s at the bound; 1.04 TB/s at the 1.42 ms the
+// kernel takes), 11.2 GB at (4, 5120, 3, 778). Pinning costs 196,608 bytes a
+// block a sequence.
+//
+// Design, for one block of kThreads = 384 threads an SM on a persistent grid:
+// warps 0-3 and 4-7 are two consumer warpgroups at 232 registers a thread,
+// warps 8-11 the producer's warpgroup at 40 (setmaxnreg; ptxas gives a
+// kernel with wgmma registers by whole warpgroups, so 288 threads got 168 and
+// spilled); warp 8 copies, warps 9-11 only meet the block's barriers. A work
+// item is a round of 128 consecutive points of one sequence, 64 a consumer
+// warpgroup, 16 a warp; the block walks items b, b + grid, ... in ascending
+// order (a round never spans two sequences), each round's points read during
+// the round before. Entering another sequence, the whole block meets at a
+// barrier and the producer copies the new model's pinned tiles onto the
+// "pinned" mbarrier. Per round a consumer warpgroup runs layer 0 a k-step at a
+// time, the next k-step's features computed while the products run, and each
+// later layer as 16 k-steps: split the k-step's A fragments from the kept
+// outputs of the layer before (two sets in turns), wait for a streamed tile,
+// fence, issue three wgmmas (small*big and big*small into dc, big*big into
+// dm), commit the group; once the next group is issued the one before is done
+// and its ring slots go back. Every wgmma follows an explicit fence after any
+// code that branches by thread (ptxas otherwise inserts its own and
+// serialises the products), and the ring's slot arithmetic is by a
+// compile-time kRing (a runtime divisor cost 20% of the time). Registers: 64
+// + 64 accumulators, 64 kept outputs and 16 A words a thread.
+// A point's value depends on its inputs and its model only, so two launches
+// agree bitwise, and sequence s of a batched launch (its points, model and
+// output s times their per-sequence strides further on) computes bitwise what
+// an unbatched launch on s's inputs computes.
+//
+// Packed parameters (float32 words, every part a multiple of 4 of them),
+// built by hotrack_tpu_torch/ops/sdf_mlp.py _pack_wg (PackedSDF.wg):
+//   [0] scale  [1] clamp  [2..3] 0
+//   freqs, padded with 0 to a multiple of 4
+//   biases, 128 a hidden layer (0 past its width)
+//   output layer: weights [128], bias, 0 0 0
+//   tiles, 1024 words each: layer 0's ks0 = (3F + 6) / 4 k-steps (a k-step's
+//   k-slots t and t + 4 hold the sine and cosine of angle 4 ks + t, then the 3
+//   coordinates, then zero rows: _wg_rows), then 16 k-steps a later layer
+//   (128 rows in _tc_rows' order); a k-step's big tile, then its small tile
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "sdf_mlp_tc.cuh"
+
+namespace hotrack {
+namespace wg {
+
+constexpr int kConsumerWarps = 8;                 // two warpgroups
+constexpr int kThreads = 32 * kConsumerWarps + 128;   // and the producer's warpgroup
+constexpr int kProducerWarp = kConsumerWarps;     // the one that copies
+constexpr int kConsumerRegs = 232;                // setmaxnreg: 2 x 128 x 232 + 128 x 40
+constexpr int kProducerRegs = 40;                 //   = 64,512 of the SM's 65,536
+constexpr int kRows = 64;                         // points a warpgroup a round: wgmma's M
+constexpr int kRoundPoints = 2 * kRows;
+constexpr int kUnits = 128;
+constexpr int kMaxKSteps = kUnits / 8;
+constexpr int kTileFloats = 8 * kUnits;           // one k-step's half of a layer
+constexpr int kTileBytes = 4 * kTileFloats;
+constexpr int kRing = 8;                          // slots of streamed tiles
+constexpr uint32_t kLbo = 128;                    // from k-slots 0-3 to 4-7 (bytes)
+constexpr uint32_t kSbo = 256;                    // from units 8 nb to 8 nb + 8 (bytes)
+
+struct Shape {
+  int n_freqs;
+  int n_hidden;
+  int ks0;      // layer 0's k-steps: 3F angles and 3 coordinates, 4 a k-step
+  int tiles;    // 2 (ks0 + 16 (n_hidden - 1))
+};
+
+// The shape of a model the launcher was given, or tiles = 0 when the kernel
+// does not take it: 1 to 8 hidden layers, no layer wider than 128.
+inline Shape make_shape(int n_freqs, int n_hidden, const int* widths) {
+  Shape s{n_freqs, n_hidden, 0, 0};
+  const tc::Shape t = tc::make_shape(n_freqs, n_hidden, widths);
+  if (t.k0 == 0) return s;
+  s.ks0 = (3 * n_freqs + 6) / 4;
+  s.tiles = 2 * (s.ks0 + kMaxKSteps * (n_hidden - 1));
+  return s;
+}
+
+__host__ __device__ inline int header_floats(const Shape& s) {
+  return 4 + tc::round_up4(s.n_freqs);
+}
+__host__ __device__ inline int tiles_offset(const Shape& s) {
+  return header_floats(s) + kUnits * s.n_hidden + kUnits + 4;
+}
+// Bytes of the mbarriers: full and empty a ring slot, one for the pinned tiles.
+__host__ __device__ inline int barrier_bytes(int ring) { return (8 * (2 * ring + 1) + 15) & ~15; }
+
+// How many tiles stay pinned and how many slots the ring has, for `limit`
+// bytes of shared memory a block: every tile when they all fit, else a ring
+// of kRing and as many as fit beside it (at least layer 0's). pinned < 0: no
+// room.
+inline void plan(const Shape& s, long long limit, int& pinned, int& ring) {
+  ring = 0;
+  pinned = s.tiles;
+  if (static_cast<long long>(s.tiles) * kTileBytes + barrier_bytes(0) <= limit) return;
+  ring = kRing;
+  const long long fit = (limit - static_cast<long long>(kRing) * kTileBytes -
+                         barrier_bytes(kRing)) / kTileBytes;
+  pinned = fit >= 2 * s.ks0 ? static_cast<int>(fit) : -1;
+}
+inline long long smem_bytes(int pinned, int ring) {
+  return static_cast<long long>(pinned + ring) * kTileBytes + barrier_bytes(ring);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// Returns once the phase of the given parity has completed (the spin loop
+// stays inside the asm).
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n}\n" ::"r"(bar), "r"(parity)
+      : "memory");
+}
+
+// An arrival on bar by the threads where arrive is not 0, without a branch.
+__device__ __forceinline__ void mbar_arrive_if(uint32_t bar, int arrive) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %1, 0;\n"
+      "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n" ::"r"(bar), "r"(arrive)
+      : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// bytes from device memory to shared memory, completing on bar's tx count.
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// The descriptor of the B tile at shared address addr: no swizzle, core
+// matrices kLbo apart along K and kSbo apart along N.
+__device__ __forceinline__ uint64_t tile_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(kLbo >> 4) << 16) | (static_cast<uint64_t>(kSbo >> 4) << 32);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keep the compiler from moving reads or writes of the accumulators, or the
+// computation of A fragments, across the asynchronous products.
+__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_a(uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int k = 0; k < N; ++k)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[k][i])::"memory");
+}
+
+// d (the warpgroup's 64 x 128 float32 sums, 64 a thread in the accumulator
+// layout above) = A (its 64 x 8 fragment, 4 TF32 words a thread) * B (the
+// 8 x 128 tile that desc describes) + (scale_d ? d : 0). Asynchronous: d and
+// a are not touched again before wait_group says the group is done.
+__device__ __forceinline__ void wgmma_tf32(float (&d)[64], const uint32_t (&a)[4], uint64_t desc,
+                                           int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+// A k-step's A fragment halves: big = tf32(x), small = tf32(x - big).
+__device__ __forceinline__ void split(uint32_t& big, uint32_t& small, float x) {
+  big = tc::tf32_round(x);
+  small = tc::tf32_round(__fsub_rn(x, __uint_as_float(big)));
+}
+
+// Where the block's tiles are, and how far its walk through the streamed
+// ones has gone (the same count in every consumer thread).
+struct Tiles {
+  uint32_t pinned_base, ring_base, full, empty;
+  int pinned;
+  uint32_t next;   // streamed tiles acquired so far
+};
+
+// The shared address of tile t of the round, once it is there (a streamed
+// tile waits for its slot's copy; the pinned ones landed when the block
+// entered the sequence); slot: its ring slot, or -1 for a pinned tile.
+__device__ __forceinline__ uint32_t acquire(Tiles& w, int t, int& slot) {
+  const int streamed = t >= w.pinned;   // then the ring has kRing slots
+  const uint32_t n = w.next, sl = n % kRing;
+  w.next += streamed;
+  slot = streamed ? static_cast<int>(sl) : -1;
+  if (streamed) mbar_wait(w.full + 8 * sl, (n / kRing) & 1);
+  return streamed ? w.ring_base + sl * kTileBytes
+                  : w.pinned_base + static_cast<uint32_t>(t) * kTileBytes;
+}
+
+// Lane 0 of each consumer warp gives a ring slot back (nothing for -1).
+__device__ __forceinline__ void release(const Tiles& w, int slot) {
+  mbar_arrive_if(w.empty + 8 * max(slot, 0), slot >= 0 && (threadIdx.x & 31) == 0);
+}
+
+// Layer 0's A fragments of k-step ks, in the row order of
+// ops/sdf_mlp.py _wg_rows: lane (g, t) takes angle j = 4 ks + t of rows g
+// (xa) and g + 8 (xb), its sine as k-slot t and its cosine as k-slot t + 4
+// (one sincosf, sinf's and cosf's arithmetic); past the 3F angles, the three
+// coordinates as k-slots t, and zeros.
+__device__ __forceinline__ void first_fragments(uint32_t (&ab)[1][4], uint32_t (&as_)[1][4],
+                                                const float (&xa)[3], const float (&xb)[3],
+                                                const float* __restrict__ freqs, const Shape& s,
+                                                int ks) {
+  const int j = 4 * ks + (threadIdx.x & 3), angles = 3 * s.n_freqs;
+  float a[4] = {0.0f, 0.0f, 0.0f, 0.0f};   // rows g, g + 8 at k-slot t; the same at t + 4
+  if (j < angles) {
+    const int axis = j / s.n_freqs;
+    const float f = __ldg(freqs + (j - axis * s.n_freqs));
+    sincosf(__fmul_rn(tc::pick3(xa, axis), f), &a[0], &a[2]);
+    sincosf(__fmul_rn(tc::pick3(xb, axis), f), &a[1], &a[3]);
+  } else if (j < angles + 3) {
+    a[0] = tc::pick3(xa, j - angles);
+    a[1] = tc::pick3(xb, j - angles);
+  }
+  __syncwarp();   // the features branch by lane
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split(ab[0][i], as_[0][i], a[i]);
+}
+
+// Layer 0's products of k-step ks on fragments ab / as_ (its tiles are
+// pinned): big*big into dm, small*big + big*small into dc; meanwhile the
+// fragments of k-step ks + 1 are computed into nb / ns.
+__device__ __forceinline__ void first_step(float (&dm)[64], float (&dc)[64], uint32_t (&ab)[1][4],
+                                           uint32_t (&as_)[1][4], uint32_t (&nb)[1][4],
+                                           uint32_t (&ns)[1][4], const float (&xa)[3],
+                                           const float (&xb)[3], const float* __restrict__ freqs,
+                                           const Shape& s, const Tiles& w, int ks) {
+  fence_a(ab);
+  fence_a(as_);
+  fence_acc(dm);
+  fence_acc(dc);
+  wgmma_fence();
+  const uint32_t at = w.pinned_base + static_cast<uint32_t>(2 * ks) * kTileBytes;
+  const uint64_t big = tile_desc(at), small = tile_desc(at + kTileBytes);
+  wgmma_tf32(dc, as_[0], big, ks > 0);
+  wgmma_tf32(dc, ab[0], small, 1);
+  wgmma_tf32(dm, ab[0], big, ks > 0);
+  wgmma_commit();
+  first_fragments(nb, ns, xa, xb, freqs, s, ks + 1);
+  wgmma_wait<0>();
+  fence_acc(dm);
+  fence_acc(dc);
+  fence_a(ab);   // the products read ab and as_ until here
+  fence_a(as_);
+}
+
+// Layer 0 for the warpgroup, one k-step at a time, the next k-step's
+// features computed while the products of this one run (two sets of
+// fragments, taken in turns); dm and dc are overwritten.
+__device__ __forceinline__ void first_layer(float (&dm)[64], float (&dc)[64],
+                                            const float (&xa)[3], const float (&xb)[3],
+                                            const float* __restrict__ freqs, const Shape& s,
+                                            const Tiles& w) {
+  uint32_t ab[1][4], as_[1][4], nb[1][4], ns[1][4];
+  first_fragments(ab, as_, xa, xb, freqs, s, 0);
+  for (int ks = 0; ks < s.ks0; ks += 2) {
+    first_step(dm, dc, ab, as_, nb, ns, xa, xb, freqs, s, w, ks);
+    if (ks + 1 == s.ks0) break;
+    first_step(dm, dc, nb, ns, ab, as_, xa, xb, freqs, s, w, ks + 1);
+  }
+}
+
+// A later layer's products for the warpgroup: act holds the previous
+// layer's outputs (bias and ReLU applied) in accumulator order, which is this
+// layer's A-fragment order (_tc_rows' order): units 8 ks + 2 t and + 1 of
+// rows g and g + 8 are k-slots t and t + 4 of k-step ks. Each k-step's
+// fragments are split while the one before runs (two sets, in turns), its
+// products go into dm (big*big) and dc (small*big + big*small), a group a
+// k-step; once the next is issued, the one before is done and its ring slots
+// go back. dm and dc are overwritten.
+__device__ __forceinline__ void hidden_layer(float (&dm)[64], float (&dc)[64],
+                                             const float (&act)[64], int first_tile, Tiles& w) {
+  uint32_t ab[2][1][4], as_[2][1][4];
+  int held_b = -1, held_s = -1;   // the previous k-step's ring slots
+#pragma unroll
+  for (int ks = 0; ks < kMaxKSteps; ++ks) {
+    uint32_t (&b)[1][4] = ab[ks & 1];
+    uint32_t (&sm)[1][4] = as_[ks & 1];
+    split(b[0][0], sm[0][0], act[4 * ks]);
+    split(b[0][1], sm[0][1], act[4 * ks + 2]);
+    split(b[0][2], sm[0][2], act[4 * ks + 1]);
+    split(b[0][3], sm[0][3], act[4 * ks + 3]);
+    int slot_b, slot_s;
+    const uint64_t big = tile_desc(acquire(w, first_tile + 2 * ks, slot_b));
+    const uint64_t small = tile_desc(acquire(w, first_tile + 2 * ks + 1, slot_s));
+    // the waits above branch by thread: the products after them need their
+    // own fence, or the compiler inserts one and serialises them
+    fence_a(b);
+    fence_a(sm);
+    fence_acc(dm);
+    fence_acc(dc);
+    wgmma_fence();
+    wgmma_tf32(dc, sm[0], big, ks > 0);
+    wgmma_tf32(dc, b[0], small, 1);
+    wgmma_tf32(dm, b[0], big, ks > 0);
+    wgmma_commit();
+    wgmma_wait<1>();
+    if (ks > 0) {   // the previous k-step's fragments were read until here
+      fence_a(ab[(ks - 1) & 1]);
+      fence_a(as_[(ks - 1) & 1]);
+    }
+    release(w, held_b);
+    release(w, held_s);
+    held_b = slot_b;
+    held_s = slot_s;
+  }
+  wgmma_wait<0>();
+  fence_acc(dm);
+  fence_acc(dc);
+  fence_a(ab[1]);
+  fence_a(as_[1]);
+  release(w, held_b);
+  release(w, held_s);
+}
+
+// A layer's outputs from its two sums: ReLU((dm + dc) + bias) in accumulator
+// order (units 8 j + 2 t and + 1 of rows g and g + 8).
+__device__ __forceinline__ void bias_relu(float (&act)[64], const float (&dm)[64],
+                                          const float (&dc)[64], const float* __restrict__ bias,
+                                          int t) {
+#pragma unroll
+  for (int j = 0; j < kMaxKSteps; ++j) {
+    const float2 b = __ldg(reinterpret_cast<const float2*>(bias + 8 * j + 2 * t));
+    act[4 * j] = fmaxf(__fadd_rn(dm[4 * j], dc[4 * j]) + b.x, 0.0f);
+    act[4 * j + 1] = fmaxf(__fadd_rn(dm[4 * j + 1], dc[4 * j + 1]) + b.y, 0.0f);
+    act[4 * j + 2] = fmaxf(__fadd_rn(dm[4 * j + 2], dc[4 * j + 2]) + b.x, 0.0f);
+    act[4 * j + 3] = fmaxf(__fadd_rn(dm[4 * j + 3], dc[4 * j + 3]) + b.y, 0.0f);
+  }
+}
+
+// The model's parts in device memory.
+struct Net {
+  float scale, clamp;
+  const float* freqs;
+  const float* bias;    // 128 a hidden layer
+  const float* wout;    // output weights [128], then the bias
+  const float* tiles;
+};
+
+__device__ __forceinline__ Net net_of(const float* __restrict__ packed, const Shape& s) {
+  Net n;
+  n.scale = __ldg(packed);
+  n.clamp = __ldg(packed + 1);
+  n.freqs = packed + 4;
+  n.bias = packed + header_floats(s);
+  n.wout = n.bias + kUnits * s.n_hidden;
+  n.tiles = packed + tiles_offset(s);
+  return n;
+}
+
+// The clamped sdf of the warp's rows g (xa, scaled coordinates) and g + 8
+// (xb), returned to every lane of the row's four. Every thread of the
+// consumer warpgroup calls it.
+__device__ __forceinline__ float2 mlp_rows(const float (&xa)[3], const float (&xb)[3],
+                                           const Net& net, const Shape& s, Tiles& w) {
+  const int t = threadIdx.x & 3;
+  float dm[64], dc[64], act[64];
+  first_layer(dm, dc, xa, xb, net.freqs, s, w);
+  for (int l = 1; l < s.n_hidden; ++l) {
+    bias_relu(act, dm, dc, net.bias + kUnits * (l - 1), t);
+    hidden_layer(dm, dc, act, 2 * (s.ks0 + kMaxKSteps * (l - 1)), w);
+  }
+  bias_relu(act, dm, dc, net.bias + kUnits * (s.n_hidden - 1), t);
+  float p0 = 0.0f, p1 = 0.0f;
+#pragma unroll
+  for (int j = 0; j < kMaxKSteps; ++j) {
+    const float2 wo = __ldg(reinterpret_cast<const float2*>(net.wout + 8 * j + 2 * t));
+    p0 = fmaf(act[4 * j], wo.x, p0);
+    p0 = fmaf(act[4 * j + 1], wo.y, p0);
+    p1 = fmaf(act[4 * j + 2], wo.x, p1);
+    p1 = fmaf(act[4 * j + 3], wo.y, p1);
+  }
+  p0 += __shfl_xor_sync(0xffffffffu, p0, 1);
+  p1 += __shfl_xor_sync(0xffffffffu, p1, 1);
+  p0 += __shfl_xor_sync(0xffffffffu, p0, 2);
+  p1 += __shfl_xor_sync(0xffffffffu, p1, 2);
+  const float b = __ldg(net.wout + kUnits);
+  return make_float2(fminf(fmaxf(p0 + b, -net.clamp), net.clamp),
+                     fminf(fmaxf(p1 + b, -net.clamp), net.clamp));
+}
+
+}  // namespace wg
+}  // namespace hotrack

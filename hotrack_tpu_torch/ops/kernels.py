@@ -179,7 +179,8 @@ def _bind_sdf_mlp(lib: ctypes.CDLL) -> None:
                                     ctypes.POINTER(ctypes.c_int), p]
     lib.hotrack_sdf_mlp.restype = i
     lib.hotrack_sdf_mlp_init.restype = i
-    # 72 KB of dynamic shared memory, opted in once for the current device
+    # as much dynamic shared memory as a block may have, opted in once for the
+    # current device
     _check_status(lib.hotrack_sdf_mlp_init(), "sdf_mlp set-up")
 
 
@@ -366,13 +367,14 @@ def _seq_stride(name: str, what: str, t: torch.Tensor, shape, n_seq: int | None)
 
 
 def _mlp_args(name: str, packed, like: torch.Tensor, n_seq: int | None = None,
-              tensor_cores: bool = False):
+              layout: str = "packed"):
     """The packed model's arguments for a launch (ops/sdf_mlp.PackedSDF): its
-    buffer (`tc`, the layout of csrc/sdf_mlp_tc.cuh, for the kernels that run
-    the MLP on the tensor cores; else `packed`), frequency count, hidden
-    depth, widths and the floats from one sequence's model to the next (a
-    stack (S, n) of `pack_distilled_batched`, or 0)."""
-    buf = packed.tc if tensor_cores else packed.packed
+    buffer in `layout` (`packed`: csrc/sdf_mlp_core.cuh's; `tc`: the mma.sync
+    tensor-core kernels' of csrc/sdf_mlp_tc.cuh; `wg`: the wgmma kernel's of
+    csrc/sdf_mlp_wgmma.cuh), frequency count, hidden depth, widths and the
+    floats from one sequence's model to the next (a stack (S, n) of
+    `pack_distilled_batched`, or 0)."""
+    buf = getattr(packed, layout)
     _check_f32(name, "the packed model", buf)
     if buf.device != like.device:
         raise ValueError(f"{name}: the packed model is on {buf.device}, "
@@ -405,8 +407,8 @@ def _sdf_mlp(name: str, counter: str, points: torch.Tensor, packed, channels_fir
     m = math.prod(inner) // 3
     if m < 1 or n_seq < 1:
         raise ValueError(f"empty sdf_mlp problem: {tuple(points.shape)}")
-    buf, n_freqs, n_hidden, widths, packed_seq = _mlp_args(name, packed, points,
-                                                           n_seq if batched else None)
+    buf, n_freqs, n_hidden, widths, packed_seq = _mlp_args(
+        name, packed, points, n_seq if batched else None, layout="wg")
     lib = _load("sdf_mlp", _bind_sdf_mlp)
     out = torch.empty((n_seq, *shape) if batched else shape, dtype=torch.float32,
                       device=points.device)
@@ -421,10 +423,11 @@ def _sdf_mlp(name: str, counter: str, points: torch.Tensor, packed, channels_fir
 
 
 def sdf_mlp_cuda(points: torch.Tensor, packed, channels_first: bool) -> torch.Tensor:
-    """The distilled-SDF MLP on the card (csrc/sdf_mlp.cu): points
-    (..., 3, N) (channels_first) or (..., 3), contiguous float32, and a
-    `PackedSDF` on the same device -> clamped sdf (..., N) or (...,).
-    Gradient-free."""
+    """The distilled-SDF MLP on the card (csrc/sdf_mlp.cu, the hidden layers
+    on the tensor cores in 3xTF32 through wgmma): points (..., 3, N)
+    (channels_first) or (..., 3), contiguous float32, and a `PackedSDF` on the
+    same device (its `wg` layout is read) -> clamped sdf (..., N) or (...,).
+    Gradient-free; two launches agree bitwise."""
     return _sdf_mlp("sdf_mlp_cuda", "sdf_mlp", points, packed, channels_first, False)
 
 
@@ -453,7 +456,7 @@ def _obj_energy(name: str, counter: str, pcld_cf: torch.Tensor, rts: torch.Tenso
     if p < 1 or n < 1 or n_seq < 1:
         raise ValueError(f"empty obj_sdf_energy problem: S={n_seq} P={p} N={n}")
     buf, n_freqs, n_hidden, widths, packed_seq = _mlp_args(
-        name, packed, pcld_cf, n_seq if batched else None, tensor_cores=True)
+        name, packed, pcld_cf, n_seq if batched else None, layout="tc")
     lib = _load("obj_energy", _bind_obj_energy)
     out = torch.empty(rts.shape[:-1], dtype=torch.float32, device=pcld_cf.device)
     stream = torch.cuda.current_stream(pcld_cf.device).cuda_stream
@@ -627,7 +630,7 @@ def _hand_energy_skin(name: str, counter: str, pose_map, rt_flat, offset, posedi
     strides.append(_check_frame(name, frame, pose_map, one))
     h, w, mask_seq = _check_mask(name, mask, hw, pose_map, one)
     buf, n_freqs, n_hidden, widths, packed_seq = _mlp_args(name, packed, pose_map, one,
-                                                           tensor_cores=True)
+                                                           layout="tc")
     seq_strides = (ctypes.c_longlong * 6)(*strides, mask_seq, packed_seq)
     lib = _load("hand_energy_skin", _bind_hand_energy_skin)
     sdf = torch.empty((*lead, p, n), dtype=torch.float32, device=pose_map.device)

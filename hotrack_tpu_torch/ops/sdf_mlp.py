@@ -16,16 +16,20 @@ version, `_sdf_mlp_torch`, which is also the kernel's oracle. `model` is any
 object with the fields of `sdf.distill.DistilledSDF`: weights ((in, h),
 (h, h), ..., (h, 1)), biases, freqs (F,), scale (), clamp ().
 
-Bound on the card: operations, 2 * (K0*H + H*H*(depth-1) + H) float32
-operations a point (71,168 at the shipped 21-128-128-128-1) against 16 bytes.
-The kernel computes in float32 FMA with float32 accumulation, no tensor
-cores; the plain version's matmuls are float32 too (`pin_fp32`).
+Bound on the card: operations, 2 * (K0*H + H*H*(depth-1) + H) operations a
+point (71,168 at the shipped 21-128-128-128-1) against 16 bytes. The kernel
+runs the hidden layers on the tensor cores in 3xTF32 (three TF32 passes, the
+float32 sums of the tensor cores; `ops/tf32.raw_sdf_mlp_3xtf32` emulates the
+arithmetic), the output layer and the clamp in float32; the plain version's
+matmuls are float32 (`pin_fp32`).
 
-`pack_distilled` packs a model twice: for this kernel and the per-vertex
-hand energy (csrc/sdf_mlp_core.cuh, `PackedSDF.packed`), and for the
-kernels that run the MLP on the tensor cores in 3xTF32, the fused object
-energy and the fused skinning + hand energy (csrc/sdf_mlp_tc.cuh,
-`PackedSDF.tc`, in mma fragment order).
+`pack_distilled` packs a model three times: for the per-vertex hand energy
+(csrc/sdf_mlp_core.cuh, float32 FMA, `PackedSDF.packed`); for the kernels
+that run the MLP on the tensor cores in 3xTF32 through mma.sync, the fused
+object energy and the fused skinning + hand energy (csrc/sdf_mlp_tc.cuh,
+`PackedSDF.tc`, in mma fragment order); and for this kernel, which runs it
+in 3xTF32 through wgmma (csrc/sdf_mlp_wgmma.cuh, `PackedSDF.wg`, tiles in
+their shared-memory image).
 """
 
 from __future__ import annotations
@@ -48,7 +52,8 @@ class PackedSDF(NamedTuple):
     packed: torch.Tensor    # (n,) float32 on the card; (S, n) for S models
     n_freqs: int
     widths: tuple           # (3 + 6F, hidden widths...)
-    tc: torch.Tensor        # the tensor-core layout (csrc/sdf_mlp_tc.cuh); (S, m) likewise
+    tc: torch.Tensor        # the mma.sync tensor-core layout (csrc/sdf_mlp_tc.cuh); (S, m)
+    wg: torch.Tensor        # the wgmma layout (csrc/sdf_mlp_wgmma.cuh); (S, k) likewise
 
 
 def fourier_features(points: torch.Tensor, freqs: torch.Tensor, scale) -> torch.Tensor:
@@ -131,7 +136,8 @@ def pack_distilled(model) -> PackedSDF:
         parts += [pad(w, MAX_WIDTH).reshape(-1), pad(b, MAX_WIDTH)]
     parts += [pad(model.weights[-1][:, 0], MAX_WIDTH), model.biases[-1].to(torch.float32),
               torch.zeros(3, **f32)]
-    return PackedSDF(torch.cat(parts).contiguous(), n_freqs, widths, _pack_tc(model, widths))
+    return PackedSDF(torch.cat(parts).contiguous(), n_freqs, widths, _pack_tc(model, widths),
+                     _pack_wg(model, widths))
 
 
 def _fragment_order(w: torch.Tensor) -> torch.Tensor:
@@ -198,6 +204,59 @@ def _pack_tc(model, widths) -> torch.Tensor:
     return torch.cat(parts).contiguous()
 
 
+def _wg_tiles(w: torch.Tensor) -> torch.Tensor:
+    """A layer's (K, 128) weight halves, K a multiple of 8, as the wgmma
+    kernel's shared-memory tiles, one a k-step: [k-step][nb][kb][r][c], the
+    weight of k-slot 8 k-step + 4 kb + c and unit 8 nb + r; core matrix
+    (nb, kb) of a tile lies nb * 256 + kb * 128 bytes in (csrc/sdf_mlp_wgmma.cuh
+    kSbo, kLbo)."""
+    k = w.shape[0]
+    # (k-step, kb, c, nb, r) -> (k-step, nb, kb, r, c)
+    return w.reshape(k // 8, 2, 4, 16, 8).permute(0, 3, 1, 4, 2).reshape(k // 8, -1)
+
+
+def _wg_rows(l: int, widths, device=None) -> torch.Tensor:
+    """For layer l's k-slots in the wgmma kernel, the input rows they hold, -1
+    for a zero row. Layer 0 pairs each angle's sine and cosine in one lane:
+    with A = 3F angles (features 3 + j and 3 + A + j), k-slot t of k-step ks
+    holds the sine of angle 4 ks + t and k-slot t + 4 its cosine; past the
+    angles, k-slots t hold the 3 coordinates and the rest are 0 (ks0 = (A + 6)
+    // 4 k-steps). Later layers: `_tc_rows`' order."""
+    if l:
+        return _tc_rows(l, MAX_WIDTH, device)
+    angles = 3 * (widths[0] // 6)
+    slot = torch.arange(8 * ((angles + 6) // 4), device=device)
+    j = 4 * (slot // 8) + slot % 4
+    cos = slot % 8 >= 4
+    rows = torch.where(cos, 3 + angles + j, 3 + j)
+    rows = torch.where(j >= angles, torch.where(cos | (j >= angles + 3), -1, j - angles), rows)
+    return rows
+
+
+def _pack_wg(model, widths) -> torch.Tensor:
+    """The layout of csrc/sdf_mlp_wgmma.cuh: [scale, clamp, 0, 0], the
+    frequencies padded to a multiple of 4, every hidden layer's bias padded
+    to 128, the output layer's 128 weights, its bias, 0 0 0; then the tiles in
+    the order the kernel consumes them: per hidden layer (its rows in
+    `_wg_rows`' order; 128 columns) and k-step, the big halves' tile, then the
+    small halves' (both TF32 values as float32 words, `ops/tf32.tf32_split`)."""
+    from .tf32 import tf32_split
+    f32 = dict(dtype=torch.float32, device=model.freqs.device)
+    n_freqs = widths[0] // 6
+    pad = lambda t, n: torch.nn.functional.pad(t.to(torch.float32), (0, n - t.shape[-1]))  # noqa: E731
+    parts = [model.scale.reshape(1).to(torch.float32), model.clamp.reshape(1).to(torch.float32),
+             torch.zeros(2, **f32), pad(model.freqs, n_freqs + -n_freqs % 4)]
+    parts += [pad(b, MAX_WIDTH) for b in model.biases[:-1]]
+    parts += [pad(model.weights[-1][:, 0], MAX_WIDTH), model.biases[-1].to(torch.float32),
+              torch.zeros(3, **f32)]
+    for l, w in enumerate(model.weights[:-1]):
+        full = torch.zeros((MAX_WIDTH + 1, MAX_WIDTH), **f32)   # the last row stays 0
+        full[:w.shape[0], :w.shape[1]] = w
+        big, small = tf32_split(full[_wg_rows(l, widths, full.device)])
+        parts.append(torch.stack([_wg_tiles(big), _wg_tiles(small)], 1).reshape(-1))
+    return torch.cat(parts).contiguous()
+
+
 @torch.no_grad()
 def pack_distilled_batched(models) -> PackedSDF:
     """S models as one PackedSDF with packed (S, n), for the batched
@@ -208,7 +267,7 @@ def pack_distilled_batched(models) -> PackedSDF:
         raise ValueError(f"pack_distilled_batched takes one or more models of equal widths, "
                          f"got {[p.widths for p in packs]}")
     return PackedSDF(torch.stack([p.packed for p in packs]), packs[0].n_freqs, packs[0].widths,
-                     torch.stack([p.tc for p in packs]))
+                     torch.stack([p.tc for p in packs]), torch.stack([p.wg for p in packs]))
 
 
 def _check_batch(models, points: torch.Tensor) -> None:

@@ -1,18 +1,22 @@
-"""The arithmetic of the tensor-core SDF kernels (csrc/sdf_mlp_tc.cuh),
-emulated in plain PyTorch: 3xTF32.
+"""The arithmetic of the tensor-core SDF kernels (csrc/sdf_mlp_tc.cuh through
+mma.sync, csrc/sdf_mlp_wgmma.cuh through wgmma), emulated in plain PyTorch:
+3xTF32.
 
 A float32 x is split as big = tf32(x), small = tf32(x - big), where tf32
 rounds to the nearest value with 10 mantissa bits (ties away from zero: the
 13 low bits of the pattern are rounded off, as the kernels' `tf32_round`
 does with integer operations). A product a * b is then taken as
 big_a big_b + big_a small_b + small_a big_b, dropping small_a small_b.
-The kernels keep a weight's small half as fp16 of small * 2^12, exact for
-every weight of normal size (`weight_split` rounds as they do). Products of
-two TF32 values are exact in float32, so this emulation sums them in float64
-and rounds each layer's sum to float32 once: it differs from the kernels
-only in the summation order and the truncation of the tensor cores' float32
-accumulators. The features, biases, ReLU, output layer and clamp are float32
-as in the plain version (ops/sdf_mlp.raw_sdf_mlp).
+The mma.sync kernels keep a weight's small half as fp16 of small * 2^12,
+exact for every weight of normal size (`weight_split` rounds as they do);
+the wgmma kernel keeps it as a TF32 float32, which differs only for weights
+below about 2^-14, by at most 2^-37. Products of two TF32 values are exact
+in float32, so this emulation sums them in float64 and rounds each layer's
+sum to float32 once: it differs from the kernels only in the summation order
+and the truncation of the tensor cores' float32 accumulators (the wgmma
+kernel sums a layer's big*big products and its small ones in two
+accumulators, added once). The features, biases, ReLU, output layer and
+clamp are float32 as in the plain version (ops/sdf_mlp.raw_sdf_mlp).
 
 `ops/sdf_mlp.pack_distilled` splits the weights with `weight_split`; the
 emulated MLP is used by the tests and by `chip_smoke.py` to hold the

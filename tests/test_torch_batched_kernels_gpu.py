@@ -13,8 +13,8 @@ card and no JAX:
     python -m pytest tests/test_torch_batched_kernels_gpu.py -m gpu -q
 
 What is held, for every kernel: each sequence against the batched plain
-version at the unbatched kernel's tolerances (SDF MLP 5e-7 a value, object
-energy 2e-6 of a sum, mask lookup exact, skinning sdf 2e-5 and hit wherever
+version at the unbatched kernel's tolerances (SDF MLP 2.5e-7 a value against
+it and against the 3xTF32 emulation, object energy 2e-6 of a sum, mask lookup exact, skinning sdf 2e-5 and hit wherever
 the pixel is 2e-3 pixels clear of an integer); each sequence bitwise equal
 to an unbatched launch on its own inputs (one kernel body serves both); a
 second batched launch bitwise equal to the first. The per-sequence inputs
@@ -29,17 +29,17 @@ import torch
 from hotrack_tpu_torch.mano.layer import mano_skin_inputs, shape_hand
 from hotrack_tpu_torch.mano.model import synthetic_mano_model
 from hotrack_tpu_torch.ops import (hand_energy, hand_energy_skin, kernels, mask_lookup,
-                                   obj_energy, sdf_mlp)
+                                   obj_energy, sdf_mlp, tf32)
 from hotrack_tpu_torch.pose.rotations import normalize_quat, unit_quaternion_to_matrix
 from hotrack_tpu_torch.utils.convert import distilled_from_numpy
 from hand_energy_cases import camera_points, candidates, intrinsics, mask_of, object_pose
 from torch_sdf_models import model_arrays
 
-SDF_ATOL = 5e-7
-# #4b and #7b run the MLP on the tensor cores in 3xTF32, whose float32 sums
-# truncate: one sdf value lay up to 1.7e-7 from the plain version's on the card
-# (the float32 FMA kernel: 1e-8 a point)
-ENERGY_RTOL, ENERGY_ATOL = 2e-6, 2.5e-7
+# #3b, #4b and #7b run the MLP on the tensor cores in 3xTF32, whose float32
+# sums truncate: one sdf value lay up to 1.7e-7 from the plain version's on the
+# card (the float32 FMA kernel: 4.1e-8 a value, 1e-8 a point of an energy)
+TC_SDF_ATOL = 2.5e-7
+ENERGY_RTOL, ENERGY_ATOL = 2e-6, TC_SDF_ATOL
 SKIN_SDF_ATOL = 2e-5
 PIXEL_MARGIN = 2e-3
 WIDTHS = {"shipped width": dict(widths=(21, 128, 128, 128)),
@@ -80,9 +80,13 @@ def test_sdf_mlp_batched_kernel(cuda_device, name, shape, cf):
     torch.cuda.synchronize()
     assert kernels.launch_counts["sdf_mlp_batched"] == before + 2
     assert torch.equal(got, again)
-    want = sdf_mlp._sdf_mlp_batched_torch(models, pts if cf else pts.transpose(-1, -2))
+    pts_cf = pts if cf else pts.transpose(-1, -2)
+    want = sdf_mlp._sdf_mlp_batched_torch(models, pts_cf)
+    emu = torch.stack([sdf_mlp._sdf_mlp_torch(m, p, mlp=tf32.raw_sdf_mlp_3xtf32)
+                       for m, p in zip(models, pts_cf)])
     assert got.shape == want.shape and bool(torch.isfinite(got).all())
-    assert float((got - want).abs().max()) <= SDF_ATOL
+    assert float((got - want).abs().max()) <= TC_SDF_ATOL
+    assert float((got - emu).abs().max()) <= TC_SDF_ATOL
     for i, model in enumerate(models):
         one = kernels.sdf_mlp_cuda(pts[i].contiguous(), sdf_mlp.pack_distilled(model), cf)
         assert torch.equal(got[i], one)

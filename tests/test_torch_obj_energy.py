@@ -120,13 +120,16 @@ def test_library_name_changes_when_an_included_header_changes(tmp_path, monkeypa
     monkeypatch.setenv("HOTRACK_KERNEL_BUILD_DIR", str(tmp_path / "build"))
     assert [p.name for p in kernels.source_files("obj_energy")] \
         == ["obj_energy.cu", "sdf_mlp_tc.cuh"]
-    assert [p.name for p in kernels.source_files("sdf_mlp")] == ["sdf_mlp.cu", "sdf_mlp_core.cuh"]
+    # sdf_mlp.cu reaches sdf_mlp_tc.cuh through sdf_mlp_wgmma.cuh
+    assert [p.name for p in kernels.source_files("sdf_mlp")] \
+        == ["sdf_mlp.cu", "sdf_mlp_wgmma.cuh", "sdf_mlp_tc.cuh"]
     assert [p.name for p in kernels.source_files("fps")] == ["fps.cu"]
     before = {name: kernels.library_path(name) for name in kernels.SOURCES}
     assert all(p.parent == tmp_path / "build" for p in before.values())
     assert before == {name: kernels.library_path(name) for name in kernels.SOURCES}
-    for header, users in (("sdf_mlp_core.cuh", ("sdf_mlp", "hand_energy")),
-                          ("sdf_mlp_tc.cuh", ("obj_energy", "hand_energy_skin"))):
+    for header, users in (("sdf_mlp_core.cuh", ("hand_energy",)),
+                          ("sdf_mlp_wgmma.cuh", ("sdf_mlp",)),
+                          ("sdf_mlp_tc.cuh", ("sdf_mlp", "obj_energy", "hand_energy_skin"))):
         with open(csrc / header, "a") as f:
             f.write("// edited\n")
         after = {name: kernels.library_path(name) for name in kernels.SOURCES}
@@ -135,7 +138,7 @@ def test_library_name_changes_when_an_included_header_changes(tmp_path, monkeypa
         before = after
     # a header reached through another header counts too
     (csrc / "inner.cuh").write_text("#pragma once\n")
-    with open(csrc / "sdf_mlp_core.cuh", "a") as f:
+    with open(csrc / "sdf_mlp_tc.cuh", "a") as f:
         f.write('#include "inner.cuh"\n')
     nested = kernels.library_path("sdf_mlp")
     assert [p.name for p in kernels.source_files("sdf_mlp")][-1] == "inner.cuh"

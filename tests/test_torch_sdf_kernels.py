@@ -10,15 +10,17 @@ card and no JAX:
 
     python -m pytest tests/test_torch_sdf_kernels.py -m gpu -q
 
-Tolerances, both sides float32: 5e-7 on a value (|sdf| <= 0.05; the kernel
-adds a unit's products in ascending order with FMA, the library in its own
-order). The energy kernel runs the MLP on the tensor cores in 3xTF32
-(csrc/sdf_mlp_tc.cuh), whose float32 sums truncate: ENERGY_RTOL of a sum of
-N |sdf| values plus ENERGY_ATOL a point (one value lay up to 1.7e-7 from the
-plain version's on the card, where the float32 FMA kernel had 1e-8 a point),
-against the plain version and against the 3xTF32 emulation of ops/tf32.py;
-two launches of the energy kernel bitwise equal (a fixed summation order, no
-atomics).
+Tolerances, both sides float32. Both kernels run the MLP's hidden layers on
+the tensor cores in 3xTF32 (the SDF MLP through wgmma, csrc/sdf_mlp_wgmma.cuh;
+the energy through mma.sync, csrc/sdf_mlp_tc.cuh; the float32 FMA core of
+csrc/sdf_mlp_core.cuh serves the fused hand energy alone), whose float32 sums
+truncate: one value within TC_SDF_ATOL (|sdf| <= 0.05; one lay up to 1.34e-7
+from the plain version's on the card at depth 8, where the float32 FMA kernel
+had 4.1e-8), against the plain version and against the 3xTF32 emulation of
+ops/tf32.py, whose exact sums would show a layout error at the size of a
+weight; a sum of N |sdf| values within ENERGY_RTOL of its size plus
+ENERGY_ATOL a point; two launches of either kernel bitwise equal (a fixed
+summation order, no atomics).
 """
 
 import numpy as np
@@ -49,6 +51,20 @@ def _model(name, device):
     return distilled_from_numpy(model_arrays(1, **MODELS[name]), device=device)
 
 
+TC_SDF_ATOL = 2.5e-7   # one sdf value of a 3xTF32 kernel (chip_smoke.py's bound)
+
+
+def _sdf_holds(model, pts, cf, got):
+    """got against the plain version and the 3xTF32 emulation, within
+    TC_SDF_ATOL a value."""
+    pts_cf = pts if cf else pts.transpose(-1, -2)
+    want = sdf_mlp._sdf_mlp_torch(model, pts_cf)
+    emu = sdf_mlp._sdf_mlp_torch(model, pts_cf, mlp=tf32.raw_sdf_mlp_3xtf32)
+    assert got.shape == want.shape and bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) <= TC_SDF_ATOL
+    assert float((got - emu).abs().max()) <= TC_SDF_ATOL
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", sorted(MODELS))
 @pytest.mark.parametrize("shape,cf", [((2048, 3, 256), True), ((37, 3), False),
@@ -58,12 +74,46 @@ def test_sdf_mlp_kernel_matches_plain_version(cuda_device, name, shape, cf):
     pts = torch.from_numpy((np.random.RandomState(2).randn(*shape) * 0.08)
                            .astype(np.float32)).to(cuda_device)
     before = kernels.launch_counts["sdf_mlp"]
-    got = (sdf_mlp.fused_sdf_mlp_cf if cf else sdf_mlp.fused_sdf_mlp)(model, pts)
+    fn = sdf_mlp.fused_sdf_mlp_cf if cf else sdf_mlp.fused_sdf_mlp
+    got = fn(model, pts)
+    again = fn(model, pts)
     torch.cuda.synchronize()
-    assert kernels.launch_counts["sdf_mlp"] == before + 1
-    want = sdf_mlp._sdf_mlp_torch(model, pts if cf else pts.transpose(-1, -2))
-    assert got.shape == want.shape and bool(torch.isfinite(got).all())
-    assert float((got - want).abs().max()) <= 5e-7
+    assert kernels.launch_counts["sdf_mlp"] == before + 2
+    assert torch.equal(got, again)
+    _sdf_holds(model, pts, cf, got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 63, 64, 65, 127, 128, 129, 1000])
+@pytest.mark.parametrize("cf", [True, False])
+def test_sdf_mlp_kernel_ragged_counts_around_a_round(cuda_device, m, cf):
+    """A round is 128 points: counts about it and about half of it, in both
+    layouts; the ragged round stores nothing past m."""
+    model = _model("shipped width", cuda_device)
+    shape = (2, 3, m) if cf else (2, m, 3)
+    pts = torch.from_numpy((np.random.RandomState(m).randn(*shape) * 0.08)
+                           .astype(np.float32)).to(cuda_device)
+    fn = sdf_mlp.fused_sdf_mlp_cf if cf else sdf_mlp.fused_sdf_mlp
+    got = fn(model, pts)
+    torch.cuda.synchronize()
+    _sdf_holds(model, pts, cf, got)
+    # each batch row alone gives the same values: no point reads another's
+    for b in range(2):
+        assert torch.equal(fn(model, pts[b:b + 1].contiguous())[0], got[b])
+
+
+@pytest.mark.gpu
+def test_sdf_mlp_kernel_depth_8_at_width_128(cuda_device):
+    """The deepest net the kernels take, whose later layers do not all fit
+    in a block's shared memory at once."""
+    model = distilled_from_numpy(model_arrays(5, widths=(21,) + (128,) * 8), device=cuda_device)
+    pts = torch.from_numpy((np.random.RandomState(6).randn(5, 3, 300) * 0.08)
+                           .astype(np.float32)).to(cuda_device)
+    got = sdf_mlp.fused_sdf_mlp_cf(model, pts)
+    again = sdf_mlp.fused_sdf_mlp_cf(model, pts)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    _sdf_holds(model, pts, True, got)
 
 
 @pytest.mark.gpu
