@@ -39,8 +39,12 @@ sequences. Phases, each of which raises on failure:
      3xTF32 bound and its TFLOP/s beside the matmul chain's time; the fused
      object energy within stated float32 bounds; both bitwise equal on a
      second launch; the mask
-     lookup exact; the fused hand energy with an exact hit and its sdf within
-     the MLP's bound; the fused skinning + energy within stated bounds, its
+     lookup exact; the fused hand energy (the SDF MLP's wgmma core) with an
+     exact hit and its sdf within TC_SDF_ATOL of its plain version and of the
+     emulation, sdf bitwise the SDF MLP kernel on the object-frame points and
+     hit bitwise the mask lookup at the pixels, timed beside the SDF MLP
+     kernel at the same points, its compiler report free of spills and
+     serialised wgmmas; the fused skinning + energy within stated bounds, its
      flipped pixels counted; each of the three bitwise equal on a second
      launch), timed in turns with the plain version and, where one PyTorch
      call computes the same function, that call; the four batched kernels
@@ -171,18 +175,15 @@ OBJ_PARTICLES, OBJ_ITERATIONS = 2048, 10
 OBJ_SHORT_FRAMES = 20         # composed and volume routes, against the fused one
 OBJ_CPU_FRAMES = 2            # card against CPU
 MLP_WIDTHS = (21, 128, 128, 128)   # 3 frequencies, hidden 128, depth 3
-# Kernel against plain version on the card, both float32: the fused hand
-# energy (#6) sums a unit's 128 products in ascending order with FMA, cuBLAS
-# in its own order. One sdf value (|sdf| <= 0.05 after the clamp,
-# activations of order 1); the card showed 4.1e-08:
-SDF_ATOL = 5e-7
-# The kernels that run the MLP on the tensor cores in 3xTF32 (#3, #3b through
-# wgmma, csrc/sdf_mlp_wgmma.cuh; #4, #4b, #7, #7b through mma.sync,
-# csrc/sdf_mlp_tc.cuh) round otherwise than float32 FMA: the tensor cores
+# Kernel against plain version on the card, one sdf value (|sdf| <= 0.05
+# after the clamp, activations of order 1). Every MLP kernel runs it on the
+# tensor cores in 3xTF32 (#3, #3b, #6 through wgmma, csrc/sdf_mlp_wgmma.cuh;
+# #4, #4b, #7, #7b through mma.sync, csrc/sdf_mlp_tc.cuh), which rounds
+# otherwise than float32 FMA: the tensor cores
 # truncate their float32 sums, so one sdf value lay up to 1.64e-7 from the
 # plain version's (#4 on 4096 single points) and 1.68e-7 (#7 on 398,336
 # vertices built bitwise alike), and 1.53e-7 from the exact-sum 3xTF32
-# emulation (ops/tf32.py), on the card (the float32 FMA kernel: 4.1e-08 from
+# emulation (ops/tf32.py), on the card (a float32 FMA kernel: 4.1e-08 from
 # the plain version); #3 sums a layer's big and small products in two
 # chains and showed 1.34e-7 at depth 8 (one chain: 3.4e-7). TC_SDF_ATOL holds
 # one such value; for #7 against the emulation it is the tight hold, where
@@ -201,8 +202,8 @@ ENERGY_RTOL, ENERGY_ATOL = 2e-6, TC_SDF_ATOL
 # the kernel in its own fixed order; the CPU's sinf and cosf are not the
 # card's). An energy is 500 x the mean of 1024 |sdf| values, and near the
 # optimum those are about 1 mm, so the roundings, which do not shrink with
-# the sdf, are held absolutely: OPEN_SDF_ATOL_M on the mean |sdf|, a fifth of
-# what one value may differ by (SDF_ATOL; a mean averages errors of either
+# the sdf, are held absolutely: OPEN_SDF_ATOL_M on the mean |sdf|, two fifths
+# of what one value may differ by (TC_SDF_ATOL; a mean averages errors of either
 # sign). The card showed 1.6e-08 m between the routes and 2.9e-08 m against
 # the CPU, beside a smallest mean of about 1e-3 m. The pose after the
 # frame's 10 iterations is not continuous in the energies: a candidate
@@ -248,10 +249,12 @@ PIXEL_MARGIN = 2e-3
 FLIP_SHARE_BOUND = 1e-3
 # Energies of iteration 0 across the pose optimiser's routes, from the same
 # start. One flipped pixel moves a candidate's energy by HAND_FLIP = sil_loss
-# / 778. Between fused and separate the pixels are the same and the sdf
-# differs by the MLP's bound: HAND_E_ATOL. The skin route's vertices differ
-# from mano_forward's by rounding, so a candidate may carry a few flips (on a
-# random mask about one candidate in ten has one): each candidate within
+# / 778. Between fused and separate the pixels are the same and the sdf can
+# differ by the object frame's rounding (a matrix product on the separate
+# route, ordered sums in #6) through the same MLP: HAND_E_ATOL. The skin
+# route's vertices differ from mano_forward's by rounding, so a candidate may
+# carry a few flips (on a random mask about one candidate in ten has one):
+# each candidate within
 # HAND_E_ATOL + HAND_MAX_FLIPS x HAND_FLIP, and at most HAND_FLIPPED_SHARE of
 # them beyond HAND_E_ATOL. The volume route asks another SDF (the nearest
 # voxel of a 3 mm grid, off by up to a voxel's half diagonal of 2.6 mm, where
@@ -1072,7 +1075,7 @@ def phase_kernels_sdf_mlp() -> dict:
                                  lambda: _sdf_mlp_torch(model, pts_cf), None, reps=10)
                 case["matmul_chain_ms"] = _time_ms(lambda: _matmul_chain(model, feats), 3)
                 del feats
-                case.update(_bound(16.0 * m + 4 * packed.packed.numel(), 0.0, _mlp_ops(widths, m),
+                case.update(_bound(16.0 * m + 4 * packed.wg.numel(), 0.0, _mlp_ops(widths, m),
                                    tensor_cores=True))
                 case["shape"] = name
                 timed.append(case)
@@ -1762,21 +1765,42 @@ def _chain_ms(model, m: int) -> float:
     return _time_ms(lambda: _matmul_chain(model, feats), 3)
 
 
+def _ptxas_clean(name: str) -> list:
+    """The compiler's report for csrc/<name>.cu, which must show no spill and
+    no wgmma serialised (C7520 / C7513) and no setmaxnreg ignored (C7508)."""
+    report = _ptxas_report(name)
+    bad = [ln for ln in report if any(code in ln for code in ("C7520", "C7513", "C7508"))
+           or any(int(n) for n in re.findall(r"(\d+) bytes spill", ln))]
+    if bad:
+        raise AssertionError(f"[kernels] {name} ptxas: {bad}")
+    return report
+
+
 def phase_kernels_hand_energy() -> dict:
-    """Fused hand energy kernel vs plain version on the card: hit exact, sdf
-    within SDF_ATOL, a second launch bitwise equal. No single PyTorch call
-    computes the function: library_ms is null."""
+    """Fused hand energy kernel (#6, the MLP of #3 through wgmma) vs plain
+    version on the card: hit exact, sdf within TC_SDF_ATOL a value of the
+    plain version and of the 3xTF32 emulation, sdf bitwise #3 on
+    object_frame(points, frame) and hit bitwise #5 at pixel_coords(points,
+    frame, hw), a second launch bitwise the first; the compiler's report
+    clean. Timed in turns with the plain version and with #3 at the same
+    shape. No single PyTorch call computes the function: library_ms is null,
+    and the matmul chain's time is printed as a yardstick."""
     from hotrack_tpu_torch.ops import kernels
     from hotrack_tpu_torch.ops.hand_energy import (_hand_energy_torch, fused_hand_energy,
-                                                   pixel_coords)
-    from hotrack_tpu_torch.ops.mask_lookup import pack_mask
-    from hotrack_tpu_torch.ops.sdf_mlp import pack_distilled
+                                                   object_frame, pixel_coords)
+    from hotrack_tpu_torch.ops.mask_lookup import pack_mask, packed_mask_lookup
+    from hotrack_tpu_torch.ops.sdf_mlp import fused_sdf_mlp_cf, pack_distilled
+    from hotrack_tpu_torch.ops.tf32 import raw_sdf_mlp_3xtf32
+    ptxas = _ptxas_clean("hand_energy")
+    print("[kernels] hand_energy ptxas: " + " | ".join(ptxas), flush=True)
     rng = np.random.RandomState(7)
     cases = [(f"hand path {shape} on {hw}", MLP_WIDTHS, shape[:-1], hw, None, hw == HAND_HW)
              for shape, hw in HAND_ENERGY_SHAPES]
     cases += [
         ("odd P, small N (37,10) on (37,53)", MLP_WIDTHS, (37, 10), (37, 53), None, False),
         ("one vertex (1,1) on (1,1)", MLP_WIDTHS, (1, 1), NO_MASK_HW, None, False),
+        *[(f"about a round (1,{n}) on (37,53)", MLP_WIDTHS, (1, n), (37, 53), None, False)
+          for n in (127, 129)],
         ("6 frequencies, depth 4 (33,778) on (480,640)", (39, 128, 128, 128, 128),
          (33, HAND_VERTS), HAND_HW, None, False),
         ("non-geometric frequencies, narrow (5,129) on (480,640)", (15, 32, 48), (5, 129),
@@ -1785,45 +1809,59 @@ def phase_kernels_hand_energy() -> dict:
     max_err, timed = 0.0, []
     for name, widths, shape, hw, freqs, is_timed in cases:
         model = _random_sdf(rng, widths, 0.05, freqs)
+        packed = pack_distilled(model)
         packed_mask = pack_mask(_seeded_mask(rng, hw))
         frame = _seeded_frame(rng, hw)
         pts = _camera_points(rng, shape)
-        sdf, hit = fused_hand_energy(model, packed_mask, frame, pts, hw)
-        sdf2, hit2 = fused_hand_energy(model, packed_mask, frame, pts, hw)
+        sdf, hit = fused_hand_energy(model, packed_mask, frame, pts, hw, packed)
+        sdf2, hit2 = fused_hand_energy(model, packed_mask, frame, pts, hw, packed)
         want_sdf, want_hit = _hand_energy_torch(model, packed_mask, frame, pts, hw)
-        torch.cuda.synchronize()
-        if not (torch.equal(sdf, sdf2) and torch.equal(hit, hit2)):
-            raise AssertionError(f"[kernels] hand_energy {name}: two launches differ")
-        if sdf.shape != tuple(shape) or hit.shape != sdf.shape or not torch.isfinite(sdf).all():
-            raise AssertionError(f"[kernels] hand_energy {name}: shape {tuple(sdf.shape)}")
-        wrong = int((hit != want_hit).sum())
-        err = float((sdf - want_sdf).abs().max())
-        max_err = max(max_err, err)
-        if wrong or err > SDF_ATOL:
-            raise AssertionError(f"[kernels] hand_energy {name}: {wrong} hits differ, sdf max "
-                                 f"error {err:.3e} > {SDF_ATOL}")
+        emu_sdf, _ = _hand_energy_torch(model, packed_mask, frame, pts, hw,
+                                        mlp=raw_sdf_mlp_3xtf32)
         iy, ix = pixel_coords(pts, frame, hw)
+        sdf3 = fused_sdf_mlp_cf(model, object_frame(pts, frame), packed)
+        hit5 = packed_mask_lookup(packed_mask, iy, ix, hw)
+        torch.cuda.synchronize()
+        err = _sdf_checks(f"hand_energy {name}", sdf, sdf2, want_sdf, emu_sdf)
+        max_err = max(max_err, err)
+        if hit.shape != sdf.shape or not torch.equal(hit, hit2):
+            raise AssertionError(f"[kernels] hand_energy {name}: hit {tuple(hit.shape)}, "
+                                 f"relaunch equal {torch.equal(hit, hit2)}")
+        wrong = int((hit != want_hit).sum())
+        if wrong or not (torch.equal(sdf, sdf3) and torch.equal(hit, hit5)):
+            raise AssertionError(f"[kernels] hand_energy {name}: {wrong} hits differ from the "
+                                 f"plain version; sdf bitwise #3 on the object frame "
+                                 f"{torch.equal(sdf, sdf3)}, hit bitwise #5 at the pixels "
+                                 f"{torch.equal(hit, hit5)}")
         edges = [int((iy == 0).sum()), int((iy == hw[0] - 1).sum()), int((ix == 0).sum()),
                  int((ix == hw[1] - 1).sum())]
         if shape[-1] == HAND_VERTS and hw == HAND_HW and min(edges) == 0:
             raise AssertionError(f"[kernels] hand_energy {name}: no pixel clips on an edge")
         line = (f"[kernels] hand_energy {name}: hit exact ({float(hit.mean()):.3f} set; pixels "
-                f"clipped at top/bottom/left/right {edges}), sdf max error {err:.3e} (bound "
-                f"{SDF_ATOL}), relaunch bitwise equal")
+                f"clipped at top/bottom/left/right {edges}), sdf max error {err:.3e} against "
+                f"the plain version and the 3xTF32 emulation (bound {TC_SDF_ATOL}); sdf bitwise "
+                f"#3 on the object frame, hit bitwise #5 at the pixels; relaunch bitwise equal")
         if is_timed:
-            packed = pack_distilled(model)
             m = pts.numel() // 3
-            case = _in_turns(
-                lambda: kernels.hand_energy_cuda(pts, frame, packed_mask, hw, packed),
-                lambda: _hand_energy_torch(model, packed_mask, frame, pts, hw), None, reps=10)
-            case["matmul_chain_ms"] = _chain_ms(model, m)
-            ops = _hand_ops(widths, m)
-            case.update(_bound(20.0 * m + 4 * packed.packed.numel() + packed_mask.numel(),
-                               27.0 * m, _mlp_ops(widths, m)))
+            obj_cl = object_frame(pts, frame).transpose(-1, -2).contiguous()
+            # in turns: plain, #6, #3, #3, #6, plain (#3 on the same points'
+            # object frame, channels-last as the separate route gives it)
+            fns = [lambda: _hand_energy_torch(model, packed_mask, frame, pts, hw),
+                   lambda: kernels.hand_energy_cuda(pts, frame, packed_mask, hw, packed),
+                   lambda: kernels.sdf_mlp_cuda(obj_cl, packed, False)]
+            t = [_time_ms(fn, 3 if i in (0, 5) else 10) for i, fn in enumerate(fns + fns[::-1])]
+            case = {"ms": (t[1] + t[4]) / 2, "plain_ms": (t[0] + t[5]) / 2, "library_ms": None,
+                    "sdf_mlp_ms": (t[2] + t[3]) / 2,
+                    "matmul_chain_ms": _chain_ms(model, m)}
+            del obj_cl
+            case.update(_bound(20.0 * m + 4 * packed.wg.numel() + packed_mask.numel(),
+                               27.0 * m, _mlp_ops(widths, m), tensor_cores=True))
+            case["tflops"] = _hand_ops(widths, m) / case["ms"] / 1e9
             case["shape"] = name
             timed.append(case)
-            line += (f"; {_fmt(case)}; matmul chain {case['matmul_chain_ms']:.4f} ms; "
-                     f"{ops / case['ms'] / 1e9:.1f} TFLOP/s")
+            line += (f"; {_fmt(case)}; {case['tflops']:.1f} TFLOP/s; #3 at the same points "
+                     f"{case['sdf_mlp_ms']:.4f} ms ({case['ms'] / case['sdf_mlp_ms']:.3f}x); "
+                     f"matmul chain {case['matmul_chain_ms']:.4f} ms")
         print(line, flush=True)
     return {"max_abs_err": max_err, **_headline(timed), "cases": timed}
 
@@ -2066,7 +2104,7 @@ def phase_kernels_sdf_mlp_batched() -> dict:
                              slow_reps=2)
             case["matmul_chain_ms"] = _time_ms(lambda: _matmul_chain(models[0], feats), 2)
             del feats
-            case.update(_bound(16.0 * m + 4 * packed.packed.numel(), 0.0, _mlp_ops(widths, m),
+            case.update(_bound(16.0 * m + 4 * packed.wg.numel(), 0.0, _mlp_ops(widths, m),
                                tensor_cores=True))
             case["shape"] = name
             timed.append(case)

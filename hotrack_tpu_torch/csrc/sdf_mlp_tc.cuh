@@ -1,17 +1,15 @@
 // The distilled-SDF MLP on Hopper's tensor cores at float32-class precision
 // (3xTF32) through mma.sync, for obj_energy.cu (#4, #4b) and
-// hand_energy_skin.cu (#7, #7b). sdf_mlp.cu (#3, #3b) runs the same
-// arithmetic through wgmma (sdf_mlp_wgmma.cuh, which takes this header's
-// rounding and shape check); hand_energy.cu (#6) alone keeps the
-// float32 FMA core of sdf_mlp_core.cuh.
+// hand_energy_skin.cu (#7, #7b). sdf_mlp.cu (#3, #3b) and hand_energy.cu
+// (#6) run the same arithmetic through wgmma (sdf_mlp_wgmma.cuh, which takes
+// this header's rounding and shape check).
 //
 // Computes what `_sdf_mlp_core` of hotrack_tpu/ops/pallas/hand_energy.py
 // computes for the TPU kernels: per point, Fourier features
 //   s*x | sin(f*s*x) axis-major, frequency-minor | cos likewise   (3 + 6F)
 // each sine and cosine sinf / cosf of the float32 product f * (s * x), as
-// sdf_mlp_core.cuh's build_features and the plain PyTorch version compute
-// them; then Dense + ReLU hidden layers, a Dense layer to one value, and a
-// clamp to [-clamp, clamp].
+// the plain PyTorch version computes them; then Dense + ReLU hidden layers,
+// a Dense layer to one value, and a clamp to [-clamp, clamp].
 //
 // Precision: 3xTF32. Every operand x of a hidden-layer product is split as
 // big = tf32(x), small = tf32(x - big) (round to nearest, ties away from 0,

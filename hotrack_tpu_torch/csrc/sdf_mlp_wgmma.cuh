@@ -1,8 +1,9 @@
 // The distilled-SDF MLP on Hopper's warpgroup tensor-core instruction
-// (wgmma) at float32-class precision (3xTF32), for sdf_mlp.cu (#3, #3b).
-// obj_energy.cu and hand_energy_skin.cu (#4, #7) run the mma.sync core of
-// sdf_mlp_tc.cuh; hand_energy.cu (#6) the float32 FMA core of
-// sdf_mlp_core.cuh.
+// (wgmma) at float32-class precision (3xTF32), and the persistent walk of
+// 128-point rounds around it, for sdf_mlp.cu (#3, #3b) and hand_energy.cu
+// (#6): the two kernels differ only in how a point is read and how a round is
+// stored (`walk` below). obj_energy.cu and hand_energy_skin.cu (#4, #7) run
+// the mma.sync core of sdf_mlp_tc.cuh.
 //
 // Computes what sdf_mlp_tc.cuh computes: per point, Fourier features
 // s*x | sin(f*s*x) | cos(f*s*x) (axis-major, frequency-minor; sincosf of the
@@ -66,11 +67,13 @@
 // warps 0-3 and 4-7 are two consumer warpgroups at 232 registers a thread,
 // warps 8-11 the producer's warpgroup at 40 (setmaxnreg; ptxas gives a
 // kernel with wgmma registers by whole warpgroups, so 288 threads got 168 and
-// spilled); warp 8 copies, warps 9-11 only meet the block's barriers. A work
-// item is a round of 128 consecutive points of one sequence, 64 a consumer
-// warpgroup, 16 a warp; the block walks items b, b + grid, ... in ascending
-// order (a round never spans two sequences), each round's points read during
-// the round before. Entering another sequence, the whole block meets at a
+// spilled); warp 8 copies, warps 9-11 meet the block's barriers and do the
+// kernel's side work for each item (`aside`: #6's silhouette hits, off the
+// consumers' path; nothing for #3). A work item is a round of 128 consecutive
+// points of one sequence, 64 a consumer warpgroup, 16 a warp; the block
+// walks items b, b + grid, ... in ascending order (a round never spans two
+// sequences), each round's points read during the round before. Entering
+// another sequence, the whole block meets at a
 // barrier and the producer copies the new model's pinned tiles onto the
 // "pinned" mbarrier. Per round a consumer warpgroup runs layer 0 a k-step at a
 // time, the next k-step's features computed while the products run, and each
@@ -112,6 +115,7 @@ namespace wg {
 constexpr int kConsumerWarps = 8;                 // two warpgroups
 constexpr int kThreads = 32 * kConsumerWarps + 128;   // and the producer's warpgroup
 constexpr int kProducerWarp = kConsumerWarps;     // the one that copies
+constexpr int kAsideThreads = kThreads - 32 * (kProducerWarp + 1);   // warps 9-11: `aside`
 constexpr int kConsumerRegs = 232;                // setmaxnreg: 2 x 128 x 232 + 128 x 40
 constexpr int kProducerRegs = 40;                 //   = 64,512 of the SM's 65,536
 constexpr int kRows = 64;                         // points a warpgroup a round: wgmma's M
@@ -494,6 +498,163 @@ __device__ __forceinline__ float2 mlp_rows(const float (&xa)[3], const float (&x
   const float b = __ldg(net.wout + kUnits);
   return make_float2(fminf(fmaxf(p0 + b, -net.clamp), net.clamp),
                      fminf(fmaxf(p1 + b, -net.clamp), net.clamp));
+}
+
+// The persistent walk of a kernel on this core, for one block of kThreads
+// threads with `smem` holding smem_bytes(pinned, ring) bytes: items = rounds x
+// sequences, item i is round i % rounds of sequence i / rounds, whose model
+// lies s * packed_seq floats into `packed` (wg layout). A Job says how the
+// kernel reads a point and stores a round:
+//   long long m                       points a sequence;
+//   load(s, row, raw[3])              the point's raw values, issued a round
+//                                     ahead (anything finite past m);
+//   place(s, raw, scale, x[3])        the MLP's scaled input, when its round
+//                                     starts (no loads in flight behind it);
+//   store(s, row, sdf)                the clamped sdf of a row < m, by lane
+//                                     row % 16 of the warp that holds it;
+//   aside(s, round, t)                warps 9-11's work for the item, thread
+//                                     t of kAsideThreads, beside the copies.
+// A point's value depends on its raw values and its model only.
+template <class Job>
+__device__ __forceinline__ void walk(const Job& job, unsigned char* smem,
+                                     const float* __restrict__ packed, long long packed_seq,
+                                     long long rounds, long long items, const Shape& shape,
+                                     int pinned, int ring) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  Tiles w;
+  w.pinned_base = smem_addr(smem);
+  w.ring_base = w.pinned_base + static_cast<uint32_t>(pinned) * kTileBytes;
+  w.full = w.ring_base + static_cast<uint32_t>(ring) * kTileBytes;
+  w.empty = w.full + 8 * ring;
+  w.pinned = pinned;
+  w.next = 0;
+  const uint32_t pin = w.empty + 8 * ring;   // the pinned tiles' copy
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < ring; ++i) {
+      mbar_init(w.full + 8 * i, 1);
+      mbar_init(w.empty + 8 * i, kConsumerWarps);
+    }
+    mbar_init(pin, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  long long loaded = -1;
+  if (warp >= kConsumerWarps) {   // the producer's warpgroup
+    setmaxnreg_dec<kProducerRegs>();
+    const bool copies = warp == kProducerWarp;   // the other three do the job's aside
+    for (long long item = blockIdx.x; item < items; item += gridDim.x) {
+      const long long s = item / rounds;
+      const float* tiles = net_of(packed + s * packed_seq, shape).tiles;
+      if (s != loaded) {   // the consumers are done with the previous model's tiles
+        __syncthreads();
+        loaded = s;
+        if (copies) {
+          if (lane == 0) mbar_expect_tx(pin, static_cast<uint32_t>(pinned) * kTileBytes);
+          __syncwarp();
+          for (int t = lane; t < pinned; t += 32)
+            bulk_copy(w.pinned_base + static_cast<uint32_t>(t) * kTileBytes,
+                      tiles + static_cast<long long>(t) * kTileFloats, kTileBytes, pin);
+        }
+      }
+      if (!copies) {
+        job.aside(s, item - s * rounds, static_cast<int>(threadIdx.x) - 32 * (kProducerWarp + 1));
+        continue;
+      }
+      for (int t = pinned; t < shape.tiles; ++t) {
+        const uint32_t n = w.next++;   // streaming, the ring has kRing slots
+        const uint32_t slot = n % kRing;
+        mbar_wait(w.empty + 8 * slot, ((n / kRing) & 1) ^ 1);
+        if (lane == 0) {
+          mbar_expect_tx(w.full + 8 * slot, kTileBytes);
+          bulk_copy(w.ring_base + slot * kTileBytes,
+                    tiles + static_cast<long long>(t) * kTileFloats, kTileBytes,
+                    w.full + 8 * slot);
+        }
+        __syncwarp();
+      }
+    }
+    return;
+  }
+
+  setmaxnreg_inc<kConsumerRegs>();
+  const int g = lane >> 2;
+  uint32_t reloads = 0;
+  // the rows' points of the walk's next item are read a round ahead
+  float na[3], nb[3];
+  const auto fetch = [&](long long item) {
+    const long long s = item / rounds;
+    const long long row = (item - s * rounds) * kRoundPoints + warp * 16 + g;
+    job.load(s, row, na);
+    job.load(s, row + 8, nb);
+  };
+  if (blockIdx.x < items) fetch(blockIdx.x);
+  for (long long item = blockIdx.x; item < items; item += gridDim.x) {
+    const long long s = item / rounds;
+    const Net net = net_of(packed + s * packed_seq, shape);
+    if (s != loaded) {
+      __syncthreads();
+      mbar_wait(pin, reloads++ & 1);
+      loaded = s;
+    }
+    float xa[3], xb[3];
+    job.place(s, na, net.scale, xa);
+    job.place(s, nb, net.scale, xb);
+    if (item + gridDim.x < items) fetch(item + gridDim.x);
+    const float2 sdf = mlp_rows(xa, xb, net, shape, w);
+    // lane l < 16 stores the warp's row l, which lanes 4 (l % 8) .. + 3 hold
+    const long long base = (item - s * rounds) * kRoundPoints + warp * 16;
+    const float lo = __shfl_sync(0xffffffffu, sdf.x, 4 * (lane & 7));
+    const float hi = __shfl_sync(0xffffffffu, sdf.y, 4 * (lane & 7));
+    if (lane < 16 && base + lane < job.m) job.store(s, base + lane, lane < 8 ? lo : hi);
+  }
+}
+
+// Host side of a launch on this core.
+
+// Opts `kernel` into as much dynamic shared memory as a block may have on the
+// current device (into `limit`).
+template <class Kernel>
+inline cudaError_t opt_in(Kernel* kernel, int& limit) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, limit);
+}
+
+// A kernel's persistent grid: blocks that fit at once, remembered for the
+// shared-memory size they were counted at.
+struct Grid {
+  long long smem = -1;
+  int blocks = 0;
+};
+
+// Pinned tiles, ring slots, shared memory and grid for `items` rounds of a
+// model of `shape` within `limit` bytes a block.
+template <class Kernel>
+inline cudaError_t plan_launch(Kernel* kernel, const Shape& shape, int limit, long long items,
+                               Grid& grid_of, int& pinned, int& ring, long long& smem,
+                               unsigned& grid) {
+  plan(shape, limit, pinned, ring);
+  if (pinned < 0) return cudaErrorInvalidValue;
+  smem = smem_bytes(pinned, ring);
+  if (smem != grid_of.smem) {
+    int device = 0, sms = 0, per_sm = 0;
+    cudaError_t err = cudaGetDevice(&device);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads,
+                                                          static_cast<size_t>(smem));
+    if (err != cudaSuccess) return err;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    grid_of.smem = smem;
+    grid_of.blocks = sms * per_sm;
+  }
+  grid = static_cast<unsigned>(items < grid_of.blocks ? items : grid_of.blocks);
+  return cudaSuccess;
 }
 
 }  // namespace wg

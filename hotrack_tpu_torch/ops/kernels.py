@@ -205,6 +205,8 @@ def _bind_hand_energy(lib: ctypes.CDLL) -> None:
                                         ctypes.POINTER(ctypes.c_int), p]
     lib.hotrack_hand_energy.restype = i
     lib.hotrack_hand_energy_init.restype = i
+    # as much dynamic shared memory as a block may have (csrc/sdf_mlp_wgmma.cuh
+    # plan), opted in once for the current device
     _check_status(lib.hotrack_hand_energy_init(), "hand_energy set-up")
 
 
@@ -366,14 +368,12 @@ def _seq_stride(name: str, what: str, t: torch.Tensor, shape, n_seq: int | None)
                      + f", got {tuple(t.shape)}")
 
 
-def _mlp_args(name: str, packed, like: torch.Tensor, n_seq: int | None = None,
-              layout: str = "packed"):
+def _mlp_args(name: str, packed, like: torch.Tensor, n_seq: int | None, layout: str):
     """The packed model's arguments for a launch (ops/sdf_mlp.PackedSDF): its
-    buffer in `layout` (`packed`: csrc/sdf_mlp_core.cuh's; `tc`: the mma.sync
-    tensor-core kernels' of csrc/sdf_mlp_tc.cuh; `wg`: the wgmma kernel's of
-    csrc/sdf_mlp_wgmma.cuh), frequency count, hidden depth, widths and the
-    floats from one sequence's model to the next (a stack (S, n) of
-    `pack_distilled_batched`, or 0)."""
+    buffer in `layout` (`tc`: the mma.sync kernels' of csrc/sdf_mlp_tc.cuh;
+    `wg`: the wgmma kernels' of csrc/sdf_mlp_wgmma.cuh), frequency count,
+    hidden depth, widths and the floats from one sequence's model to the next
+    (a stack (S, n) of `pack_distilled_batched`, or 0)."""
     buf = getattr(packed, layout)
     _check_f32(name, "the packed model", buf)
     if buf.device != like.device:
@@ -434,7 +434,7 @@ def sdf_mlp_cuda(points: torch.Tensor, packed, channels_first: bool) -> torch.Te
 def sdf_mlp_batched_cuda(points: torch.Tensor, packed, channels_first: bool) -> torch.Tensor:
     """The SDF MLP with a model a sequence, in one launch (csrc/sdf_mlp.cu):
     points (S, ..., 3, N) (channels_first) or (S, ..., 3), contiguous float32,
-    and a `PackedSDF` of S models (packed (S, n), `pack_distilled_batched`) or
+    and a `PackedSDF` of S models (buffers (S, n), `pack_distilled_batched`) or
     of one model for all -> sdf (S, ..., N) or (S, ...). Sequence s is bitwise
     `sdf_mlp_cuda` on its points and model. Gradient-free."""
     return _sdf_mlp("sdf_mlp_batched_cuda", "sdf_mlp_batched", points, packed, channels_first,
@@ -569,10 +569,14 @@ def _check_frame(name: str, frame: torch.Tensor, like: torch.Tensor,
 
 def hand_energy_cuda(points: torch.Tensor, frame: torch.Tensor, mask: torch.Tensor,
                      hw, packed) -> tuple:
-    """The fused per-vertex hand energy on the card (csrc/hand_energy.cu):
+    """The fused per-vertex hand energy on the card (csrc/hand_energy.cu, the
+    MLP of `sdf_mlp_cuda` on the tensor cores in 3xTF32 through wgmma):
     points (..., 3) contiguous float32 camera-frame vertices, frame (16,)
     from `hand_frame`, the packed mask for image size hw and a `PackedSDF`
-    -> (sdf (...), hit (...)) float32. Gradient-free."""
+    (its `wg` layout is read) -> (sdf (...), hit (...)) float32. `sdf` is
+    bitwise `sdf_mlp_cuda` on `object_frame(points, frame)`, `hit` bitwise
+    `packed_mask_lookup_cuda` at `pixel_coords(points, frame, hw)`; two
+    launches agree bitwise. Gradient-free."""
     _check_f32("hand_energy_cuda", "points", points)
     if points.dim() < 1 or points.shape[-1] != 3 or points.numel() < 3:
         raise ValueError(f"points must be a non-empty (..., 3), got {tuple(points.shape)}")
@@ -581,7 +585,8 @@ def hand_energy_cuda(points: torch.Tensor, frame: torch.Tensor, mask: torch.Tens
                          "torch.no_grad() or detach the points")
     _check_frame("hand_energy_cuda", frame, points)
     h, w, _ = _check_mask("hand_energy_cuda", mask, hw, points)
-    buf, n_freqs, n_hidden, widths, _ = _mlp_args("hand_energy_cuda", packed, points)
+    buf, n_freqs, n_hidden, widths, _ = _mlp_args("hand_energy_cuda", packed, points, None,
+                                                  layout="wg")
     lib = _load("hand_energy", _bind_hand_energy)
     shape = tuple(points.shape[:-1])
     sdf = torch.empty(shape, dtype=torch.float32, device=points.device)

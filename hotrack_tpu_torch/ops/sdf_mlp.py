@@ -23,13 +23,12 @@ float32 sums of the tensor cores; `ops/tf32.raw_sdf_mlp_3xtf32` emulates the
 arithmetic), the output layer and the clamp in float32; the plain version's
 matmuls are float32 (`pin_fp32`).
 
-`pack_distilled` packs a model three times: for the per-vertex hand energy
-(csrc/sdf_mlp_core.cuh, float32 FMA, `PackedSDF.packed`); for the kernels
-that run the MLP on the tensor cores in 3xTF32 through mma.sync, the fused
-object energy and the fused skinning + hand energy (csrc/sdf_mlp_tc.cuh,
-`PackedSDF.tc`, in mma fragment order); and for this kernel, which runs it
-in 3xTF32 through wgmma (csrc/sdf_mlp_wgmma.cuh, `PackedSDF.wg`, tiles in
-their shared-memory image).
+`pack_distilled` packs a model twice: for the kernels that run the MLP on
+the tensor cores in 3xTF32 through mma.sync, the fused object energy and the
+fused skinning + hand energy (csrc/sdf_mlp_tc.cuh, `PackedSDF.tc`, in mma
+fragment order); and for those that run it in 3xTF32 through wgmma, this
+kernel and the fused per-vertex hand energy (csrc/sdf_mlp_wgmma.cuh,
+`PackedSDF.wg`, tiles in their shared-memory image).
 """
 
 from __future__ import annotations
@@ -40,20 +39,19 @@ import torch
 
 from . import kernels
 
-MAX_WIDTH = 128   # widest layer the kernels take (csrc/sdf_mlp_core.cuh)
+MAX_WIDTH = 128   # widest layer the kernels take (csrc/sdf_mlp_tc.cuh kUnits)
 MAX_HIDDEN = 8
 PLAIN_CHUNK = 1 << 18  # points per pass of the plain version: 128 MiB an activation
 
 
 class PackedSDF(NamedTuple):
-    """A model's parameters as the kernels read them: one float32 buffer and
-    the layer widths (see csrc/sdf_mlp_core.cuh for the layout)."""
+    """A model's parameters as the kernels read them: the layer widths and
+    one float32 buffer a core (each header describes its layout)."""
 
-    packed: torch.Tensor    # (n,) float32 on the card; (S, n) for S models
     n_freqs: int
     widths: tuple           # (3 + 6F, hidden widths...)
-    tc: torch.Tensor        # the mma.sync tensor-core layout (csrc/sdf_mlp_tc.cuh); (S, m)
-    wg: torch.Tensor        # the wgmma layout (csrc/sdf_mlp_wgmma.cuh); (S, k) likewise
+    tc: torch.Tensor        # the mma.sync layout (csrc/sdf_mlp_tc.cuh), (m,); (S, m) for S models
+    wg: torch.Tensor        # the wgmma layout (csrc/sdf_mlp_wgmma.cuh), (k,); (S, k) likewise
 
 
 def fourier_features(points: torch.Tensor, freqs: torch.Tensor, scale) -> torch.Tensor:
@@ -116,28 +114,12 @@ def check_model(model) -> tuple:
 
 @torch.no_grad()
 def pack_distilled(model) -> PackedSDF:
-    """The model as one float32 buffer on its device, in the layout of
-    csrc/sdf_mlp_core.cuh: [scale, clamp, 0, 0], the frequencies padded to a
-    multiple of 4, each hidden layer's weights (in, out) with the outputs
-    padded to 128 columns and then its bias padded to 128, the output layer's
-    weights padded to 128, its bias, 0 0 0. Weights keep their (in, out)
-    layout: no transpose. Built without a host synchronise; pack once per
-    sequence and hand it to every call."""
+    """The model as the kernels read it, on its device: `tc` for the mma.sync
+    kernels (`_pack_tc`), `wg` for the wgmma ones (`_pack_wg`). Built
+    without a host synchronise; pack once per sequence and hand it to every
+    call."""
     widths = check_model(model)
-    f32 = dict(dtype=torch.float32, device=model.freqs.device)
-
-    def pad(t, n):
-        return torch.nn.functional.pad(t.to(torch.float32), (0, n - t.shape[-1]))
-
-    n_freqs = widths[0] // 6
-    parts = [model.scale.reshape(1).to(torch.float32), model.clamp.reshape(1).to(torch.float32),
-             torch.zeros(2, **f32), pad(model.freqs, (n_freqs + 3) // 4 * 4)]
-    for w, b in zip(model.weights[:-1], model.biases[:-1]):
-        parts += [pad(w, MAX_WIDTH).reshape(-1), pad(b, MAX_WIDTH)]
-    parts += [pad(model.weights[-1][:, 0], MAX_WIDTH), model.biases[-1].to(torch.float32),
-              torch.zeros(3, **f32)]
-    return PackedSDF(torch.cat(parts).contiguous(), n_freqs, widths, _pack_tc(model, widths),
-                     _pack_wg(model, widths))
+    return PackedSDF(widths[0] // 6, widths, _pack_tc(model, widths), _pack_wg(model, widths))
 
 
 def _fragment_order(w: torch.Tensor) -> torch.Tensor:
@@ -259,15 +241,15 @@ def _pack_wg(model, widths) -> torch.Tensor:
 
 @torch.no_grad()
 def pack_distilled_batched(models) -> PackedSDF:
-    """S models as one PackedSDF with packed (S, n), for the batched
+    """S models as one PackedSDF with buffers (S, n), for the batched
     kernels. Raises unless every model has the same widths and frequency
     count, as stacking them in the JAX package would."""
     packs = [pack_distilled(m) for m in models]
     if not packs or any(p.widths != packs[0].widths for p in packs):
         raise ValueError(f"pack_distilled_batched takes one or more models of equal widths, "
                          f"got {[p.widths for p in packs]}")
-    return PackedSDF(torch.stack([p.packed for p in packs]), packs[0].n_freqs, packs[0].widths,
-                     torch.stack([p.tc for p in packs]), torch.stack([p.wg for p in packs]))
+    return PackedSDF(packs[0].n_freqs, packs[0].widths, torch.stack([p.tc for p in packs]),
+                     torch.stack([p.wg for p in packs]))
 
 
 def _check_batch(models, points: torch.Tensor) -> None:

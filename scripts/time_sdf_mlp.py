@@ -22,6 +22,9 @@ The phases raise on any failed check:
 
 --atol holds a value to another bound than chip_smoke.py's TC_SDF_ATOL, for an
 earlier kernel held to its own (the float32 FMA kernel was held to 5e-7).
+--digest adds a SHA-256 of the kernel's outputs on seeded inputs at each
+path shape (and of #3b's unless --unbatched-only): two checkouts whose
+digests agree compute bitwise alike.
 
 Prints the phases' lines, then one JSON line of their numbers with the
 checkout, the compiler's resource report and the card's name and power
@@ -48,12 +51,40 @@ def _chip_smoke():
     return module
 
 
+def _digests(smoke, batched: bool) -> dict:
+    """SHA-256 of the SDF MLP kernel's outputs (float32 bytes) on seeded
+    models and points at the paths' shapes."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from hotrack_tpu_torch.ops import kernels
+    from hotrack_tpu_torch.ops.sdf_mlp import pack_distilled, pack_distilled_batched
+    rng = np.random.RandomState(11)
+    cases = [(shape, cf, None) for shape, cf in smoke.SDF_MLP_SHAPES]
+    cases += [((smoke.OBJ_PARTICLES, 3, 256), True, None), ((37, 3), False, None)]
+    if batched:
+        cases += [(shape, cf, shape[0]) for shape, cf in smoke.SDF_MLP_BATCHED_SHAPES]
+    out = {}
+    for shape, cf, n_seq in cases:
+        models = [smoke._random_sdf(rng, smoke.MLP_WIDTHS) for _ in range(n_seq or 1)]
+        pts = torch.from_numpy((rng.randn(*shape) * 0.08).astype(np.float32)).cuda()
+        if n_seq:
+            got = kernels.sdf_mlp_batched_cuda(pts, pack_distilled_batched(models), cf)
+        else:
+            got = kernels.sdf_mlp_cuda(pts, pack_distilled(models[0]), cf)
+        out[str(shape)] = hashlib.sha256(got.cpu().numpy().tobytes()).hexdigest()[:16]
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--repo", default=str(HERE))
     ap.add_argument("--out", default=None)
     ap.add_argument("--unbatched-only", action="store_true")
     ap.add_argument("--atol", type=float, default=None)
+    ap.add_argument("--digest", action="store_true")
     args = ap.parse_args()
     repo = os.path.abspath(args.repo)
     sys.path.insert(0, repo)
@@ -70,6 +101,9 @@ def main() -> int:
             "atol": smoke.TC_SDF_ATOL, "sdf_mlp": smoke.phase_kernels_sdf_mlp(), "card": card}
     if not args.unbatched_only:
         line["sdf_mlp_batched"] = smoke.phase_kernels_sdf_mlp_batched()
+    if args.digest:
+        line["digests"] = _digests(smoke, not args.unbatched_only)
+        print(f"[digest] {line['digests']}", flush=True)
     print(json.dumps(line), flush=True)
     if args.out:
         with open(args.out, "a") as f:

@@ -119,41 +119,6 @@ def test_distilled_model_round_trips_through_numpy():
     assert moved.weights[0].dtype == torch.float64 and moved.scale.dtype == torch.float64
 
 
-def _unpack_and_eval(packed: sdf_mlp.PackedSDF, pts: np.ndarray) -> np.ndarray:
-    """The MLP read back out of the packed buffer, offset by offset as
-    csrc/sdf_mlp_core.cuh documents it, in float64 numpy."""
-    buf = packed.packed.numpy().astype(np.float64)
-    scale, clamp = buf[0], buf[1]
-    assert buf[2] == buf[3] == 0.0
-    f_pad = (packed.n_freqs + 3) // 4 * 4
-    freqs = buf[4:4 + packed.n_freqs]
-    assert np.all(buf[4 + packed.n_freqs:4 + f_pad] == 0.0)
-    off = 4 + f_pad
-    x = pts.astype(np.float64) * scale
-    ang = x[:, :, None] * freqs
-    h = np.concatenate([x, np.sin(ang).reshape(len(x), -1), np.cos(ang).reshape(len(x), -1)], 1)
-    for k in packed.widths[:-1]:
-        w = buf[off:off + k * 128].reshape(k, 128)
-        b = buf[off + k * 128:off + (k + 1) * 128]
-        off += (k + 1) * 128
-        h = np.maximum(h[:, :k] @ w + b, 0.0)
-    wout, bout = buf[off:off + 128], buf[off + 128]
-    assert off + 132 == buf.shape[0] and off % 4 == 0
-    return np.clip(h @ wout + bout, -clamp, clamp)
-
-
-@pytest.mark.parametrize("widths,freqs", [((21, 128, 128, 128), None), ((15, 32, 48), [1.0, 2.5]),
-                                          ((9, 128), None)])
-def test_packed_layout_is_the_one_the_kernels_read(widths, freqs):
-    _, tmodel = random_model(8, widths=widths, freqs=freqs)
-    packed = sdf_mlp.pack_distilled(tmodel)
-    assert packed.widths == widths and packed.packed.dtype == torch.float32
-    assert packed.packed.numel() % 4 == 0
-    pts = (np.random.RandomState(9).randn(64, 3) * 0.08).astype(np.float32)
-    want = distill.eval_distilled_sdf(tmodel, torch.from_numpy(pts)).numpy()
-    np.testing.assert_allclose(_unpack_and_eval(packed, pts), want, atol=2e-6, rtol=0)
-
-
 def test_models_the_kernels_do_not_take_raise():
     _, wide = random_model(10, widths=(21, 160, 32))
     with pytest.raises(ValueError, match="128 wide"):

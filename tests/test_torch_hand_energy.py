@@ -6,7 +6,10 @@ version and the Pallas kernel in interpret mode.
 
 Tolerances. `sdf`: 3e-5, the JAX package's own bound between its routes (its
 kernel builds the higher Fourier octaves by the double-angle recurrence,
-about 1e-6 off sinf / cosf, through a random net's steep first layer).
+about 1e-6 off sinf / cosf, through a random net's steep first layer); the
+same against the plain version run with the 3xTF32 emulation of the card's
+kernel (ops/tf32.raw_sdf_mlp_3xtf32), whose own difference from the float32
+plain version is held on the card at 2.5e-7 a value.
 `hit`: exact wherever the pixel coordinate, computed in float64, is at least
 1e-3 pixels from an integer (float32 rounding of (a / z) f + c at 640 pixels
 is 6e-5, and XLA may contract the multiply-add); the share of other points
@@ -22,7 +25,7 @@ import torch
 from hand_energy_cases import camera_points, intrinsics, mask_of, object_pose, pixel_margin
 from hotrack_tpu.ops.pallas import hand_energy as jax_hand_energy
 from hotrack_tpu.ops.pallas import mask_lookup as jax_mask_lookup
-from hotrack_tpu_torch.ops import hand_energy, mask_lookup, sdf_mlp
+from hotrack_tpu_torch.ops import hand_energy, mask_lookup, sdf_mlp, tf32
 from torch_sdf_models import random_model
 
 SDF_ATOL = 3e-5
@@ -60,6 +63,32 @@ def test_plain_version_matches_the_pallas_kernel(hw, shape):
     np.testing.assert_array_equal(hit.numpy()[clear], np.asarray(want_hit)[clear])
     if hw != (1, 1):
         assert 0.2 < float(hit.mean()) < 0.8
+
+
+@pytest.mark.parametrize("widths,hw,shape", [((21, 128, 128, 128), (64, 80), (2, 70)),
+                                             ((39, 32, 48, 32), (37, 53), (3, 45)),
+                                             ((9, 128), (1, 1), (130,))])
+def test_emulated_3xtf32_version_matches_the_pallas_kernel(widths, hw, shape):
+    """The card's arithmetic (`_hand_energy_torch` with the 3xTF32 MLP)
+    against the JAX package's `_fused_impl` in interpret mode: the shipped
+    width, 6 frequencies at depth 3 over narrow layers, depth 1 over a ragged
+    128-vertex round."""
+    case = _case(hw, shape, seed=len(widths) + hw[0])
+    jmodel, tmodel = random_model(9, widths=widths)
+    frame = hand_energy.hand_frame(torch.from_numpy(case["rot"]), torch.from_numpy(case["trans"]),
+                                   *(float(v) for v in case["intr"]))
+    packed = mask_lookup.pack_mask(torch.from_numpy(case["mask"]))
+    pts = torch.from_numpy(case["pts"]) if len(shape) > 1 else torch.from_numpy(case["pts"])[None]
+    sdf, hit = hand_energy._hand_energy_torch(tmodel, packed, frame, pts, hw,
+                                              mlp=tf32.raw_sdf_mlp_3xtf32)
+    want_sdf, want_hit = jax_hand_energy.fused_hand_energy(
+        jmodel, jax_mask_lookup.pack_mask(jnp.asarray(case["mask"])), jnp.asarray(case["rot"]),
+        jnp.asarray(case["trans"]), *(jnp.float32(v) for v in case["intr"]),
+        jnp.asarray(np.swapaxes(pts.numpy(), -1, -2)), hw, interpret=True)
+    assert 0.02 < np.mean(np.abs(np.asarray(want_sdf)) >= 0.05) < 0.98   # the clamp is exercised
+    np.testing.assert_allclose(sdf.numpy(), np.asarray(want_sdf), atol=SDF_ATOL, rtol=0)
+    clear = pixel_margin(pts.numpy(), *case["intr"]) > MARGIN
+    np.testing.assert_array_equal(hit.numpy()[clear], np.asarray(want_hit)[clear])
 
 
 def test_plain_version_equals_its_separate_pieces_exactly():

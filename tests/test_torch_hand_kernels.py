@@ -12,9 +12,14 @@ card and no JAX:
 
     python -m pytest tests/test_torch_hand_kernels.py -m gpu -q
 
-Tolerances, both sides float32. The lookup: exact. The fused energy: `hit`
-exact (the kernel rounds every step of the projection as eager PyTorch
-does), `sdf` within 5e-7 (the MLP's sums in another order). The fused
+Tolerances, both sides float32. The lookup: exact. The fused energy runs the
+SDF MLP kernel's wgmma core (3xTF32, csrc/sdf_mlp_wgmma.cuh): `hit` exact
+(the kernel rounds every step of the projection as eager PyTorch does) and
+bitwise the lookup kernel at `pixel_coords`; `sdf` bitwise the SDF MLP
+kernel on `object_frame` (the same rounding of every step of the transform)
+and within TC_SDF_ATOL of the plain version's and of the 3xTF32 emulation's
+(the tensor cores' float32 sums truncate); its compiler report shows no
+spill and no serialised wgmma. The fused
 skinning: the kernel sums a vertex in ascending order with FMA, the plain
 version by library products, so the vertices differ by float32 rounding
 (1e-7 m) and with them `sdf` by up to SKIN_SDF_ATOL through the random net's
@@ -28,18 +33,20 @@ version's and of the 3xTF32 emulation's (ops/tf32.py; one value lay up to
 launches of every kernel agree bitwise.
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
 
 from hotrack_tpu_torch.mano.layer import mano_forward, mano_skin_inputs, shape_hand
 from hotrack_tpu_torch.mano.model import synthetic_mano_model
-from hotrack_tpu_torch.ops import hand_energy, hand_energy_skin, kernels, mask_lookup, tf32
+from hotrack_tpu_torch.ops import (hand_energy, hand_energy_skin, kernels, mask_lookup, sdf_mlp,
+                                   tf32)
 from hotrack_tpu_torch.utils.convert import distilled_from_numpy
 from hand_energy_cases import camera_points, candidates, intrinsics, mask_of, object_pose
 from torch_sdf_models import model_arrays
 
-SDF_ATOL = 5e-7
 SKIN_SDF_ATOL = 2e-5
 TC_SDF_ATOL = 2.5e-7
 PIXEL_MARGIN = 2e-3   # pixels
@@ -126,15 +133,31 @@ def test_hand_energy_kernel_matches_plain_version(cuda_device, name, hw, shape):
     assert kernels.launch_counts["hand_energy"] == before + 2
     assert torch.equal(sdf, sdf2) and torch.equal(hit, hit2)
     want_sdf, want_hit = hand_energy._hand_energy_torch(model, packed_mask, frame, pts, hw)
+    emu_sdf, _ = hand_energy._hand_energy_torch(model, packed_mask, frame, pts, hw,
+                                                mlp=tf32.raw_sdf_mlp_3xtf32)
     assert sdf.shape == want_sdf.shape == pts.shape[:-1] and hit.shape == sdf.shape
     assert bool(torch.isfinite(sdf).all())
     assert torch.equal(hit, want_hit)
-    assert float((sdf - want_sdf).abs().max()) <= SDF_ATOL
+    assert float((sdf - want_sdf).abs().max()) <= TC_SDF_ATOL
+    assert float((sdf - emu_sdf).abs().max()) <= TC_SDF_ATOL
+    # bitwise the SDF MLP kernel (#3) and the mask lookup kernel (#5) composed
+    iy, ix = hand_energy.pixel_coords(pts, frame, hw)
+    assert torch.equal(sdf, sdf_mlp.fused_sdf_mlp_cf(model, hand_energy.object_frame(pts, frame)))
+    assert torch.equal(hit, mask_lookup.packed_mask_lookup(packed_mask, iy, ix, hw))
     if hw == (480, 640) and shape == (64, 778):
-        iy, ix = hand_energy.pixel_coords(pts, frame, hw)
         for idx, hi in ((iy, hw[0] - 1), (ix, hw[1] - 1)):  # the clip is exercised
             assert int((idx == 0).sum()) > 0 and int((idx == hi).sum()) > 0
         assert 0.2 < float(hit.mean()) < 0.8
+
+
+@pytest.mark.gpu
+def test_hand_energy_kernel_compiles_without_spills_or_serialised_wgmma(cuda_device):
+    """ptxas's report beside the library: no spill, no wgmma serialised
+    (C7520 / C7513) and no setmaxnreg ignored (C7508)."""
+    log = open(str(kernels.build("hand_energy")) + ".log").read()
+    assert "registers" in log
+    assert not any(code in log for code in ("C7520", "C7513", "C7508")), log
+    assert not any(int(n) for n in re.findall(r"(\d+) bytes spill", log)), log
 
 
 @pytest.mark.gpu

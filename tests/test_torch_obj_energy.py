@@ -124,12 +124,18 @@ def test_library_name_changes_when_an_included_header_changes(tmp_path, monkeypa
     assert [p.name for p in kernels.source_files("sdf_mlp")] \
         == ["sdf_mlp.cu", "sdf_mlp_wgmma.cuh", "sdf_mlp_tc.cuh"]
     assert [p.name for p in kernels.source_files("fps")] == ["fps.cu"]
+    # the fused hand energy runs the SDF MLP's wgmma core; the float32 FMA core is gone
+    assert [p.name for p in kernels.source_files("hand_energy")] \
+        == ["hand_energy.cu", "hand_energy_core.cuh", "sdf_mlp_wgmma.cuh", "sdf_mlp_tc.cuh"]
+    assert not (csrc / "sdf_mlp_core.cuh").exists()
     before = {name: kernels.library_path(name) for name in kernels.SOURCES}
     assert all(p.parent == tmp_path / "build" for p in before.values())
     assert before == {name: kernels.library_path(name) for name in kernels.SOURCES}
-    for header, users in (("sdf_mlp_core.cuh", ("hand_energy",)),
-                          ("sdf_mlp_wgmma.cuh", ("sdf_mlp",)),
-                          ("sdf_mlp_tc.cuh", ("sdf_mlp", "obj_energy", "hand_energy_skin"))):
+    for header, users in (("hand_energy_core.cuh",
+                           ("mask_lookup", "hand_energy", "hand_energy_skin")),
+                          ("sdf_mlp_wgmma.cuh", ("sdf_mlp", "hand_energy")),
+                          ("sdf_mlp_tc.cuh", ("sdf_mlp", "obj_energy", "hand_energy",
+                                              "hand_energy_skin"))):
         with open(csrc / header, "a") as f:
             f.write("// edited\n")
         after = {name: kernels.library_path(name) for name in kernels.SOURCES}

@@ -12,10 +12,9 @@ card and no JAX:
 
 Tolerances, both sides float32. Both kernels run the MLP's hidden layers on
 the tensor cores in 3xTF32 (the SDF MLP through wgmma, csrc/sdf_mlp_wgmma.cuh;
-the energy through mma.sync, csrc/sdf_mlp_tc.cuh; the float32 FMA core of
-csrc/sdf_mlp_core.cuh serves the fused hand energy alone), whose float32 sums
+the energy through mma.sync, csrc/sdf_mlp_tc.cuh), whose float32 sums
 truncate: one value within TC_SDF_ATOL (|sdf| <= 0.05; one lay up to 1.34e-7
-from the plain version's on the card at depth 8, where the float32 FMA kernel
+from the plain version's on the card at depth 8, where a float32 FMA kernel
 had 4.1e-8), against the plain version and against the 3xTF32 emulation of
 ops/tf32.py, whose exact sums would show a layout error at the size of a
 weight; a sum of N |sdf| values within ENERGY_RTOL of its size plus

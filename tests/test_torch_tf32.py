@@ -15,7 +15,7 @@ from hotrack_tpu.sdf import distill as jdistill
 from hotrack_tpu_torch.ops import sdf_mlp, tf32
 from torch_sdf_models import random_model
 
-SDF_ATOL = 5e-7   # chip_smoke.py's bound for one sdf value, kernel against plain version
+SDF_ATOL = 5e-7   # one sdf value: the 3xTF32 arithmetic against float32 or the JAX MLP
 WIDTHS = [((21, 128, 128, 128), None), ((15, 32, 48), [1.0, 2.5]), ((9, 128), None),
           ((39, 128, 128, 128, 128), None)]
 
