@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py
 
-Drives the port's four main paths on `cuda`, and two of them with several
-sequences through one loop. Two run HandTrackNet at the
+Drives the port's four main paths on `cuda`, two of them with several
+sequences through one loop, the shipped HO3D and DexYCB configs on trees in
+those datasets' layouts, and online serving. Two run HandTrackNet at the
 shipped width (512 points, 384-d features, pointnet2_camera_shallow1.yml)
 with seeded random weights: sequence tracking through the `python -m
 hotrack_tpu_torch.test` entry (the 100-frame synthetic SimGrasp sequence of
@@ -99,9 +100,29 @@ sequences. Phases, each of which raises on failure:
      composed (#3b) routes, held against it closed loop (the tracker's
      accuracy) and open loop (every frame again from the batched run's pose:
      the batched optimiser bitwise, the unbatched one to float32 rounding);
- 11. the shapes the kernels' wrappers were given on those paths, noted while
+ 11. real-data layouts: HO3D and DexYCB trees written by data/real_trees.py
+     (480 x 640 depth z-buffered from the synthetic generator's hand and an
+     object, HO3D's two-channel depth PNGs and 240 x 320 seg PNGs, meta
+     pickles, calibration, splits; the shipped 8 x 512 DeepSDF decoder,
+     seeded, shaped into that object and saved in the reference layout); the
+     native library bitwise its numpy version on the decode and within
+     NATIVE_RTOL on the back-projection, on this machine's host;
+     objopt_test_HO3D through `test_main` (2048 x 1024 x 10 on the fused
+     kernel: launches, a translation error below the jittered
+     initialisation's and a rotation error within REAL_ROT_BOUND_DEG on every
+     frame, two frames against the CPU open loop) writes the pose pickles that
+     handopt_test_HO3D reads (5 launches of #7 a frame against the seg masks;
+     the poses read back bitwise); handtracknet_test_HO3D under `--profile`
+     (the trace must name the FPS and gather kernels), handiknet_test_HO3D
+     and handtracknet_test_DexYCB;
+ 12. serving: `HandTracker` (IKNet, the frame-0 shape optimiser, the pose
+     optimiser on the skin route, seeded 480 x 640 masks) and `ObjTracker`
+     (fused route) stepped frame by frame bitwise the offline trackers,
+     `serve` at depths 1 and 2 and `serve_combined` bitwise the steps, with
+     the ms/frame of each;
+ 13. the shapes the kernels' wrappers were given on those paths, noted while
      they ran, must be exactly the shapes phase 3 checked;
- 12. neither JAX nor the JAX package (hotrack_tpu) may have been imported.
+ 14. neither JAX nor the JAX package (hotrack_tpu) may have been imported.
 
 The line before the last is a JSON object describing the kernels; the last
 is {"ok": true, "device": {...}}. Exits non-zero, with no result line, when
@@ -286,6 +307,33 @@ HAND_SHAPE_STEP_BOUND_M = 3e-2
 HAND_SEQS, HAND_BATCH_FRAMES, HAND_BATCH_SHORT = 4, 20, 5
 OBJ_SEQS, OBJ_BATCH_FRAMES = 4, 10
 BATCH_FIT_STEPS = 500
+
+# The real-data layouts (phase 11): the shipped HO3D and DexYCB configs on
+# trees written by data/real_trees.py. objopt_test_HO3D tracks as many frames
+# as the object path's shorter runs, the hand configs and DexYCB as many as
+# the hand path's, so that the kernels see shapes phase 3 holds already; the
+# decoder is the shipped 8 x 512 DeepSDF one, seeded.
+REAL_OBJ_CONFIG, REAL_HAND_CONFIG = "objopt_test_HO3D.yml", "handopt_test_HO3D.yml"
+REAL_OBJ_FRAMES, REAL_HAND_FRAMES = OBJ_SHORT_FRAMES, HAND_SHORT_FRAMES
+DECODER_SEED = 0
+# The decoder's object is a random field's closed level set: a blob (80 x 61 x
+# 56 mm for this seed) whose rotation the cloud pins down less than a box's.
+# Held: every frame's translation error below the jittered initialisation's,
+# and every frame's rotation error within the 10deg10cm criterion's 10 deg (a
+# debugging run on the card tracked 45.5 mm of initial offset down to 2.8-4.0 mm
+# and 1.4-5.6 deg, from 0.3 deg of initial rotation jitter).
+REAL_ROT_BOUND_DEG = 10.0
+# Card against CPU open loop on this fit: a mean of 1024 |sdf| values, each
+# within TC_SDF_ATOL of the plain version's (the tensor cores' truncated sums
+# all err low, so the mean may keep the whole of it). The card showed 1.03e-7
+# to 1.14e-7 m on the decoder's fit, over OPEN_SDF_ATOL_M, which holds the
+# box's fit (2.9e-8 there) and stays as it is.
+REAL_OPEN_SDF_ATOL_M = TC_SDF_ATOL
+# the native library's float32 back-projection against the float64 numpy
+# version: two roundings (a product and a quotient) a coordinate
+NATIVE_RTOL = 2 * float(np.finfo(np.float32).eps)
+# online serving (phase 12): frames of each tracker
+SERVE_FRAMES = HAND_SHORT_FRAMES
 
 # the card's published peaks (NVIDIA H100 SXM data sheet): the bounds below
 # are the least time the card could take, whatever its power limit
@@ -1496,9 +1544,10 @@ def _open_loop(seq: dict, bank: np.ndarray, fit, frames: int, device: str, energ
 
 
 def _hold_open_loop(tag: str, seq: dict, bank, fit, frames: int, device: str,
-                    energy: str, tight_share: float = OPEN_TIGHT_SHARE) -> None:
+                    energy: str, tight_share: float = OPEN_TIGHT_SHARE,
+                    sdf_atol: float = OPEN_SDF_ATOL_M) -> None:
     """The card's fused route against (`device`, `energy`), frame by frame
-    from the same start."""
+    from the same start; the mean |sdf| within `sdf_atol`."""
     e_ref, p_ref = _open_loop(seq, bank, fit, frames, "cuda", "fused")
     # the reference is the main run once more: bitwise, as no sum on its way
     # depends on the launch
@@ -1513,13 +1562,13 @@ def _hold_open_loop(tag: str, seq: dict, bank, fit, frames: int, device: str,
     print(f"[object] {tag}, open loop over {frames} frames (the fused route again: bitwise "
           f"the same poses): the candidates' mean |sdf| of iteration 0 (smallest "
           f"{e_ref.min() / 500.0:.3e} m) differs by at most {e_gap.max():.3e} m (bound "
-          f"{OPEN_SDF_ATOL_M} m); pose gap after the frame: rotation "
+          f"{sdf_atol} m); pose gap after the frame: rotation "
           f"{np.array2string(rot, precision=2)} deg, translation "
           f"{np.array2string(1e3 * trans, precision=2)} mm; {int(tight.sum())} of {frames} "
           f"frames within {OPEN_TIGHT_ROT_DEG} deg / {1e3 * OPEN_TIGHT_TRANS_M} mm (at least "
           f"{tight_share:.0%} must be), all within {OPEN_ROT_BOUND_DEG} deg / "
           f"{1e3 * OPEN_TRANS_BOUND_M} mm", flush=True)
-    if e_gap.max() > OPEN_SDF_ATOL_M or tight.mean() < tight_share \
+    if e_gap.max() > sdf_atol or tight.mean() < tight_share \
             or rot.max() > OPEN_ROT_BOUND_DEG or trans.max() > OPEN_TRANS_BOUND_M:
         raise AssertionError(f"[object] {tag}: open-loop energies or poses differ beyond "
                              f"the bound")
@@ -1673,7 +1722,7 @@ def phase_object_path(card: str, seen: dict) -> dict:
         _hold_closed_loop("card vs CPU (plain versions), same fit", c_rot, c_trans)
         _hold_open_loop("card vs CPU (plain versions), same fit", few, few["particles"], fit,
                         OBJ_CPU_FRAMES, "cpu", "fused", tight_share=1.0 / OBJ_CPU_FRAMES)
-        return {"object": launches, "object_composed": l_comp}
+        return {"object": launches, "object_composed": l_comp}, fit
     finally:
         for root in roots.values():
             shutil.rmtree(root, ignore_errors=True)
@@ -2950,6 +2999,346 @@ def phase_object_batched(card: str, seen: dict) -> dict:
         shutil.rmtree(root, ignore_errors=True)
 
 
+# --------------------------------------------------------------------------
+# the real-data layouts (HO3D, DexYCB) and online serving
+
+def _real_run(tag: str, config: str, seen: dict, *extra):
+    """One run of a shipped config through `test_main` on the card, on the
+    data under HOTRACK_DATA_ROOT. Returns (mean metrics, stats, launches)."""
+    from hotrack_tpu_torch.ops import kernels
+    from hotrack_tpu_torch.train.cli import test_main
+    kernels.reset_launch_counts()
+    with noting_shapes(seen):
+        avg, stats = test_main(["--config", config, "--device", "cuda", *extra])
+    torch.cuda.synchronize()
+    launches = dict(kernels.launch_counts)
+    if not all(math.isfinite(v) for v in avg.values()):
+        raise AssertionError(f"[{tag}] {config}: non-finite metrics {avg}")
+    for seq in stats["sequences"]:
+        for key in ("pred_kp", "rotation", "translation"):
+            if key in seq and not np.isfinite(seq[key]).all():
+                raise AssertionError(f"[{tag}] {config}: non-finite {key}")
+    return avg, stats, launches
+
+
+def _ho3d_split(base: str, frames: int) -> None:
+    """The test split: the tree's sequence, its first `frames` frames."""
+    np.save(os.path.join(base, "splits", "finalv2_test_bottle.npy"),
+            {"ABF10": {0: list(range(frames))}})
+
+
+def _hold_native_on_host(base: str) -> None:
+    """The native library against its numpy versions on this machine's host,
+    on one HO3D frame: the decode bitwise, the back-projection within
+    NATIVE_RTOL of each coordinate with the same points (the numpy version
+    given the intrinsics rounded to float32, as the library takes them)."""
+    from hotrack_tpu_torch import native
+    from hotrack_tpu_torch.data.ho3d import DEPTH_SCALE, read_seg_mask
+    from hotrack_tpu_torch.data.image import imread
+    from hotrack_tpu_torch.data.real_trees import INTRINSICS as k
+    img = imread(os.path.join(base, "train", "ABF10", "depth", "0000.png"))
+    depth = native.decode_ho3d_depth(img, DEPTH_SCALE)
+    if not np.array_equal(depth, native.decode_ho3d_depth_numpy(img, DEPTH_SCALE)):
+        raise AssertionError("[native] the depth decode differs from its numpy version")
+    mask = (read_seg_mask(os.path.join(base, "train", "ABF10", "seg", "0000.png"))[..., 0]
+            == 255).astype(np.uint8)
+    # the numpy version takes the intrinsics as the library does, in float32
+    intrinsics = [float(np.float32(k[key])) for key in ("fx", "fy", "cx", "cy")]
+    got = native.backproject_filter(depth, mask, 1, *intrinsics, -1.0, -1.0)
+    want = native.backproject_filter_numpy(depth, mask, 1, *intrinsics, -1.0, -1.0)
+    gap = np.abs(got - want) / np.maximum(np.abs(want), 1e-30)
+    print(f"[native] {native.library_path().name} on this host: decode bitwise its numpy "
+          f"version; back-projection of {len(got)} hand points within {gap.max():.3e} of the "
+          f"float64 numpy version, relative (bound {NATIVE_RTOL:.3e})", flush=True)
+    if got.shape != want.shape or gap.max() > NATIVE_RTOL:
+        raise AssertionError("[native] the back-projection differs from its numpy version")
+
+
+def _trace_kernels(trace_dir: str) -> set:
+    """The names of the device kernels in the Chrome trace under trace_dir."""
+    (name,) = os.listdir(trace_dir)
+    with open(os.path.join(trace_dir, name)) as f:
+        events = json.load(f)["traceEvents"]
+    return {e.get("name", "") for e in events if e.get("cat") == "kernel"}
+
+
+def phase_real_paths(card: str, seen: dict) -> dict:
+    """The shipped HO3D and DexYCB configs through `test_main` on trees in
+    their layouts (data/real_trees.py): objopt_test_HO3D at its operating
+    point writes the predicted-pose pickles that handopt_test_HO3D reads;
+    then handtracknet_test_HO3D (under --profile), handiknet_test_HO3D and
+    handtracknet_test_DexYCB. The DeepSDF decoder is the shipped 8 x 512
+    one, seeded and shaped into an object (real_trees.decoder_object)."""
+    from hotrack_tpu_torch.data.ho3d import HO3DDataset
+    from hotrack_tpu_torch.data.real_trees import write_dexycb_tree, write_ho3d_tree
+    from hotrack_tpu_torch.pose.metrics import rot_diff_degree
+    from hotrack_tpu_torch.sdf.assets import build_decoder
+    from hotrack_tpu_torch.train.cli import load_config
+    from hotrack_tpu_torch.train.run_hand_track import build_iknet
+    from hotrack_tpu_torch.utils.convert import save_reference_checkpoint
+    root = tempfile.mkdtemp(prefix="hotrack_smoke_real_")
+    os.environ["HOTRACK_DATA_ROOT"] = root
+    try:
+        t0 = time.perf_counter()
+        specs = load_config(["--config", REAL_OBJ_CONFIG])["opt"]["NetworkSpecs"]
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(DECODER_SEED)
+            decoder = build_decoder(specs).eval().cuda()
+        latent = (torch.randn(256, generator=torch.Generator().manual_seed(DECODER_SEED))
+                  * 0.01).cuda()
+        tree = write_ho3d_tree(root, REAL_OBJ_FRAMES, decoder=decoder, latent=latent)
+        hand_cfg = load_config(["--config", REAL_HAND_CONFIG])
+        _write_checkpoint(hand_cfg)
+        save_reference_checkpoint(build_iknet(hand_cfg, "cpu"),
+                                  os.path.join(hand_cfg["IKNet_dir"], "ckpt", "model_0001.pt"))
+        write_dexycb_tree(root, REAL_HAND_FRAMES)
+        extent = tree["object"].max(0) - tree["object"].min(0)
+        print(f"[real] HO3D tree ({REAL_OBJ_FRAMES} frames of 480 x 640, the shipped 8 x 512 "
+              f"DeepSDF decoder seeded and shaped into an object of {len(tree['object'])} "
+              f"surface points, extent {np.array2string(1e3 * extent, precision=1)} mm) and "
+              f"DexYCB tree ({REAL_HAND_FRAMES} frames) written in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        _hold_native_on_host(tree["basepath"])
+
+        # objopt: 2048 particles x 1024 points x 10 iterations, the fused kernel
+        avg, stats, launches = _real_run("real", REAL_OBJ_CONFIG, seen, "--save")
+        seq = dict(stats["sequences"][0], particles=stats["particles"])
+        frames = stats["n_frames"]
+        if launches["obj_sdf_energy"] != OBJ_ITERATIONS * frames or launches["sdf_mlp"] \
+                or frames != REAL_OBJ_FRAMES:
+            raise AssertionError(f"[real] objopt on {frames} frames launched {launches}")
+        _require_launches("real", launches, {"fps": PER_PREPARE, "gather_rows": PER_PREPARE})
+        gt0 = torch.from_numpy(seq["gt_rotation"][0])
+        init_r = float(rot_diff_degree(gt0, torch.from_numpy(seq["init_rotation"]), 1))
+        init_t = float(np.linalg.norm(seq["init_translation"] - seq["gt_translation"][0]))
+        ms_obj = 1e3 * stats["net_seconds"] / frames
+        print(f"[real] cuda, objopt_test_HO3D: {frames} frames of {OBJ_PARTICLES} particles x "
+              f"{OBJ_NUM_POINTS} points x {OBJ_ITERATIONS} iterations, tracking {ms_obj:.3f} "
+              f"ms/frame; set-up {seq['setup_seconds']:.2f} s of which distillation "
+              f"{seq['distill_seconds']:.2f} s (the 201^3 volume baked from the decoder); "
+              f"launches {launches}; jittered init {init_r:.3f} deg / {1e3 * init_t:.2f} mm -> "
+              f"mean {seq['rdiff'].mean():.3f} deg / {1e3 * seq['tdiff'].mean():.2f} mm, worst "
+              f"{seq['rdiff'].max():.3f} deg / {1e3 * seq['tdiff'].max():.2f} mm | {card}",
+              flush=True)
+        if not (seq["tdiff"].max() < init_t and seq["rdiff"].max() < REAL_ROT_BOUND_DEG):
+            raise AssertionError("[real] the HO3D object's translation error did not fall "
+                                 "below the jittered initialisation's, or its rotation error "
+                                 f"passed {REAL_ROT_BOUND_DEG} deg")
+        _hold_open_loop("HO3D objopt, card vs CPU (plain versions), same fit", seq,
+                        seq["particles"], seq["distilled"], OBJ_CPU_FRAMES, "cpu", "fused",
+                        tight_share=1.0 / OBJ_CPU_FRAMES, sdf_atol=REAL_OPEN_SDF_ATOL_M)
+        by_path = {"ho3d_objopt": launches}
+
+        # handopt on the first frames, through the object poses just written
+        _ho3d_split(tree["basepath"], REAL_HAND_FRAMES)
+        avg, stats, launches = _real_run("real", REAL_HAND_CONFIG, seen, "--save")
+        frames = stats["n_frames"]
+        expect = {"fps": PER_PREPARE + FPS_PER_FORWARD * (frames + 1),
+                  "gather_rows": PER_PREPARE + GATHERS_PER_FORWARD * (frames + 1),
+                  "hand_energy_skin": HAND_ITERATIONS * frames}
+        if {k: v for k, v in launches.items() if v} != expect or frames != REAL_HAND_FRAMES:
+            raise AssertionError(f"[real] handopt launched {launches}, expected {expect}")
+        cfg = load_config(["--config", REAL_HAND_CONFIG])
+        read = HO3DDataset(dict(cfg, num_points=HAND_NUM_POINTS), "test")[3][0]
+        if not np.array_equal(read.pred_obj_rotation, seq["rotation"][3]):
+            raise AssertionError("[real] handopt did not read objopt's pose of frame 3")
+        hseq = stats["sequences"][0]
+        print(f"[real] cuda, handopt_test_HO3D (use_pred_obj_pose: objopt's poses, read back "
+              f"bitwise): {frames} frames at {HAND_NUM_POINTS} points, {HAND_PARTICLES} particles "
+              f"x {HAND_VERTS} vertices x {HAND_ITERATIONS} iterations against {HAND_HW} masks; "
+              f"tracking {1e3 * stats['net_seconds'] / frames:.3f} ms/frame (the frame-0 shape "
+              f"optimiser included); set-up {hseq['setup_seconds']:.2f} s of which "
+              f"distillation {hseq['distill_seconds']:.2f} s; launches {launches}; metrics "
+              f"{avg} | {card}", flush=True)
+        by_path["ho3d_handopt"] = launches
+
+        trace_dir = tempfile.mkdtemp(prefix="hotrack_smoke_trace_")
+        avg, stats, launches = _real_run("real", "handtracknet_test_HO3D.yml", seen,
+                                         "--profile", trace_dir)
+        names = _trace_kernels(trace_dir)
+        found = {k for k in ("fps_kernel", "gather_rows_kernel") if any(k in n for n in names)}
+        print(f"[real] cuda, handtracknet_test_HO3D under --profile: {stats['n_frames']} frames; "
+              f"the trace names {len(names)} kernels, ours among them: "
+              f"{sorted(n for n in names if 'fps_kernel' in n or 'gather_rows' in n)}",
+              flush=True)
+        if found != {"fps_kernel", "gather_rows_kernel"}:
+            raise AssertionError(f"[real] the --profile trace names no kernel of the path: "
+                                 f"{sorted(names)[:20]}")
+        shutil.rmtree(trace_dir, ignore_errors=True)
+        by_path["ho3d_handtracknet"] = launches
+        for tag, config, forwards in (("ho3d_handiknet", "handiknet_test_HO3D.yml", 1),
+                                      ("dexycb_handtracknet", "handtracknet_test_DexYCB.yml", 0)):
+            avg, stats, launches = _real_run("real", config, seen)
+            n = stats["n_frames"] + forwards
+            _require_launches("real", launches, {"fps": PER_PREPARE + FPS_PER_FORWARD * n,
+                                                 "gather_rows": PER_PREPARE
+                                                 + GATHERS_PER_FORWARD * n})
+            print(f"[real] cuda, {config}: {stats['n_frames']} frames, "
+                  f"{1e3 * stats['net_seconds'] / stats['n_frames']:.3f} ms/frame; launches "
+                  f"{ {k: v for k, v in launches.items() if v} }; metrics {avg}", flush=True)
+            by_path[tag] = launches
+        return by_path
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _ms(fn) -> tuple:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, 1e3 * (time.perf_counter() - t0)
+
+
+def _same(tag: str, got, want) -> None:
+    for key, value in want.items():
+        a = got[key] if isinstance(got[key], np.ndarray) else got[key].cpu().numpy()
+        b = value if isinstance(value, np.ndarray) else value.cpu().numpy()
+        if not np.array_equal(a, b):
+            raise AssertionError(f"[serve] {tag}: {key} is not bitwise the reference")
+
+
+def phase_serving(card: str, seen: dict, hand_fit, obj_fit) -> dict:
+    """`track/stream.py` on the card at the hand path's operating point (IKNet,
+    the frame-0 shape optimiser and the pose optimiser on the skin route, with
+    seeded 480 x 640 masks) and the object path's (fused route): the trackers
+    stepped frame by frame against the offline trackers, serve at depths 1 and
+    2 and serve_combined against the steps, all bitwise; ms/frame of each."""
+    from hotrack_tpu_torch.data import get_dataloader, prepare_batch
+    from hotrack_tpu_torch.mano.model import get_mano_model
+    from hotrack_tpu_torch.ops import kernels
+    from hotrack_tpu_torch.opt import load_contact_zones, presample_particles
+    from hotrack_tpu_torch.sdf.distill import distilled_to
+    from hotrack_tpu_torch.track import (HandTracker, ObjTracker, serve_combined,
+                                         track_hand_sequence, track_obj_sequence)
+    from hotrack_tpu_torch.train.cli import load_config
+    from hotrack_tpu_torch.train.run_hand_track import (HAND_VOXEL_SCALE, load_handnet,
+                                                        load_iknet)
+    t = SERVE_FRAMES
+    hand_root, obj_root = _hand_dataset(t), _obj_dataset(t)
+    try:
+        os.environ["HOTRACK_DATA_ROOT"] = hand_root
+        cfg = load_config(_hand_argv())
+        mano = get_mano_model(cfg.get("mano_root")).to("cuda")
+        gen = torch.Generator().manual_seed(21)
+        with noting_shapes(seen):
+            batch = prepare_batch(mano, get_dataloader(cfg, "test")[0][0], HAND_NUM_POINTS,
+                                  generator=gen, hand_jitter_scale=0.01, device="cuda")
+        masks = torch.from_numpy(np.random.RandomState(22).rand(t, *HAND_HW) > 0.5).cuda()
+        hand_kwargs = dict(
+            iknet=load_iknet(cfg, "cuda"), use_opt=True, shape_mode=1,
+            shape_particles=presample_particles(HAND_PARTICLES, 10, gen, device="cuda"),
+            pose_particles=presample_particles(HAND_PARTICLES, 16, gen, device="cuda"),
+            zones=load_contact_zones(device="cuda"), energy_weight=HAND_WEIGHTS,
+            sdf_voxel_scale=HAND_VOXEL_SCALE, distilled=distilled_to(hand_fit, "cuda"))
+        handnet = load_handnet(cfg, "cuda")
+        hand_frames = [{"hand_points": batch["hand_points"][f], "background_mask": masks[f],
+                        "obj_rotation": batch["gt_obj_pose"]["rotation"][f],
+                        "obj_translation": batch["gt_obj_pose"]["translation"][f],
+                        "projection": batch["projection"][f]} for f in range(t)]
+
+        os.environ["HOTRACK_DATA_ROOT"] = obj_root
+        ocfg = load_config(["--config", OBJ_CONFIG, "--device", "cuda", "--num_points",
+                            str(OBJ_NUM_POINTS)])
+        oj = ocfg["obj_jitter_cfg"]
+        with noting_shapes(seen):
+            obatch = prepare_batch(mano, get_dataloader(ocfg, "test")[0][0], OBJ_NUM_POINTS,
+                                   generator=gen, obj_jitter={
+                                       "rotation": float(np.deg2rad(oj["r"])),
+                                       "translation": oj["t"], "scale": oj["s"]},
+                                   obj_jitter_kind=oj["type"], device="cuda")
+        clouds = obatch["obj_points"]
+        r0 = obatch["jittered_obj_pose"]["rotation"][0]
+        t0 = obatch["jittered_obj_pose"]["translation"][0]
+        bank = presample_particles(OBJ_PARTICLES, 6, gen, device="cuda")
+        ofit = distilled_to(obj_fit, "cuda")
+
+        by_path, ms = {}, {}
+        with noting_shapes(seen):
+            offline, ms["hand offline"] = _ms(lambda: track_hand_sequence(
+                handnet, mano, batch, background_masks=masks, **hand_kwargs))
+            tracker = HandTracker(handnet, mano, **hand_kwargs)
+
+            def hand_state():
+                return tracker.init_state(batch["hand_points"][0], batch["jittered_hand_kp"][0])
+
+            def stepped():
+                state, outs = hand_state(), []
+                for frame in hand_frames:
+                    state, out = tracker.step(state, **frame)
+                    outs.append(out)
+                return outs
+
+            steps, ms["hand step"] = _ms(stepped)
+            _same("HandTracker.step against track_hand_sequence",
+                  {k: torch.stack([o[k] for o in steps]) for k in ("pred_kp", "MANO_theta")},
+                  {"pred_kp": offline.pred_kp, "MANO_theta": offline.mano_theta})
+            for depth in (1, 2):
+                kernels.reset_launch_counts()
+                got, ms[f"hand serve depth {depth}"] = _ms(lambda: list(tracker.serve(
+                    hand_state(), hand_frames, fetch=("pred_kp", "MANO_theta"), depth=depth)))
+                by_path[f"serve_hand_depth{depth}"] = dict(kernels.launch_counts)
+                for g, s in zip(got, steps):
+                    _same(f"hand serve(depth={depth}) against the steps", g,
+                          {k: s[k] for k in ("pred_kp", "MANO_theta")})
+            if by_path["serve_hand_depth1"]["hand_energy_skin"] != HAND_ITERATIONS * t:
+                raise AssertionError(f"[serve] hand serving launched {by_path['serve_hand_depth1']}")
+
+            offline_o, ms["object offline"] = _ms(lambda: track_obj_sequence(
+                None, bank, clouds, r0, t0, distilled=ofit, obj_energy="fused"))
+            otracker = ObjTracker(None, bank, distilled=ofit, obj_energy="fused")
+
+            def obj_stepped():
+                state, outs = otracker.init_state(r0, t0), []
+                for pts in clouds:
+                    state, out = otracker.step(state, pts)
+                    outs.append(out)
+                return outs
+
+            osteps, ms["object step"] = _ms(obj_stepped)
+            _same("ObjTracker.step against track_obj_sequence",
+                  {k: torch.stack([o[k] for o in osteps]) for k in ("rotation", "translation")},
+                  {"rotation": offline_o.rotation, "translation": offline_o.translation})
+            for depth in (1, 2):
+                kernels.reset_launch_counts()
+                got, ms[f"object serve depth {depth}"] = _ms(lambda: list(otracker.serve(
+                    otracker.init_state(r0, t0), list(clouds), depth=depth)))
+                by_path[f"serve_obj_depth{depth}"] = dict(kernels.launch_counts)
+                for g, s in zip(got, osteps):
+                    _same(f"object serve(depth={depth}) against the steps", g,
+                          {k: s[k] for k in ("rotation", "translation")})
+            if by_path["serve_obj_depth1"]["obj_sdf_energy"] != OBJ_ITERATIONS * t:
+                raise AssertionError(f"[serve] object serving launched {by_path['serve_obj_depth1']}")
+
+            def both_stepped():
+                h, o, outs = hand_state(), otracker.init_state(r0, t0), []
+                for frame, pts in zip(hand_frames, clouds):
+                    h, h_out = tracker.step(h, **frame)
+                    o, o_out = otracker.step(o, pts)
+                    outs.append({"pred_kp": h_out["pred_kp"], "obj_rotation": o_out["rotation"],
+                                 "obj_translation": o_out["translation"]})
+                return outs
+
+            both, ms["combined step"] = _ms(both_stepped)
+            kernels.reset_launch_counts()
+            got, ms["combined serve depth 1"] = _ms(lambda: list(serve_combined(
+                tracker, otracker, hand_state(), otracker.init_state(r0, t0),
+                [{**frame, "obj_points": pts} for frame, pts in zip(hand_frames, clouds)])))
+            by_path["serve_combined"] = dict(kernels.launch_counts)
+            for g, s in zip(got, both):
+                _same("serve_combined against stepping both trackers", g, s)
+        per_frame = {k: round(v / t, 3) for k, v in ms.items()}
+        print(f"[serve] cuda, {t} frames: hand (IKNet + shape optimiser + pose optimiser, skin "
+              f"route, {HAND_PARTICLES} particles, {HAND_HW} masks) and object ({OBJ_PARTICLES} "
+              f"particles x {OBJ_NUM_POINTS} points x {OBJ_ITERATIONS} iterations, fused); the "
+              f"trackers stepped bitwise the offline trackers, serve at depths 1 and 2 and "
+              f"serve_combined bitwise the steps; ms/frame {per_frame} | {card}", flush=True)
+        return by_path
+    finally:
+        for root in (hand_root, obj_root):
+            shutil.rmtree(root, ignore_errors=True)
+
+
 def check_no_jax() -> None:
     bad = sorted(m for m in sys.modules if m in ("jax", "hotrack_tpu")
                  or m.startswith(("jax.", "jaxlib", "flax", "optax", "hotrack_tpu.")))
@@ -2959,8 +3348,17 @@ def check_no_jax() -> None:
 
 def main() -> int:
     t0 = time.perf_counter()
+    took = {}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        took[name] = round(time.perf_counter() - t, 1)
+        return out
+
     card = phase_device()
-    phase_build()
+    timed("build", phase_build)
+    t_kernels = time.perf_counter()
     numbers = {"fps": phase_kernels_fps(), "gather_rows": phase_kernels_gather(),
                "scatter_rows_add": phase_kernels_scatter(),
                "sdf_mlp": phase_kernels_sdf_mlp(),
@@ -2973,15 +3371,19 @@ def main() -> int:
                "packed_mask_lookup_batched": phase_kernels_mask_lookup_batched(),
                "hand_energy_skin_batched": phase_kernels_hand_energy_skin_batched()}
     numbers["gather_rows"]["host_us"] = phase_index_points_host()
+    took["kernels"] = round(time.perf_counter() - t_kernels, 1)
     seen = {name: set() for name in KERNELS}
-    by_path = {"tracking": phase_tracking_path(card, seen),
-               "train": phase_train_path(card, seen),
-               **phase_object_path(card, seen)}
-    handopt_launches, fit = phase_hand_optimiser(card, seen)
+    by_path = {"tracking": timed("tracking", phase_tracking_path, card, seen),
+               "train": timed("train", phase_train_path, card, seen)}
+    object_launches, obj_fit = timed("object", phase_object_path, card, seen)
+    by_path.update(object_launches)
+    handopt_launches, fit = timed("handopt", phase_hand_optimiser, card, seen)
     by_path.update({f"handopt_{route}": counts for route, counts in handopt_launches.items()})
-    by_path.update(phase_hand_path(card, seen, fit))
-    by_path.update(phase_hand_batched(card, seen))
-    by_path.update(phase_object_batched(card, seen))
+    by_path.update(timed("hand", phase_hand_path, card, seen, fit))
+    by_path.update(timed("hand_batched", phase_hand_batched, card, seen))
+    by_path.update(timed("object_batched", phase_object_batched, card, seen))
+    by_path.update(timed("real", phase_real_paths, card, seen))
+    by_path.update(timed("serving", phase_serving, card, seen, fit, obj_fit))
     # the path whose count stands for the kernel in the result line
     main_path = {"fps": "train", "gather_rows": "train", "scatter_rows_add": "train",
                  "sdf_mlp": "object_composed", "obj_sdf_energy": "object",
@@ -2992,7 +3394,7 @@ def main() -> int:
                  "hand_energy_skin_batched": "hand_batched"}
     check_seen_shapes(seen)
     check_no_jax()
-    print(f"[done] {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"[done] {time.perf_counter() - t0:.1f} s; seconds by phase {took}", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": source, "replaces": replaces,

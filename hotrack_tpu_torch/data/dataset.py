@@ -151,9 +151,12 @@ def get_dataset(cfg, mode: str):
     if name == "SimGrasp":
         from .simgrasp import SimGraspDataset
         return SimGraspDataset(cfg, mode)
-    if name in ("HO3D", "DexYCB"):
-        raise NotImplementedError(
-            f"the {name} reader is not ported yet (ROADMAP.md, queue 1)")
+    if name == "HO3D":
+        from .ho3d import HO3DDataset
+        return HO3DDataset(cfg, mode)
+    if name == "DexYCB":
+        from .dexycb import DexYCBDataset
+        return DexYCBDataset(cfg, mode)
     raise NotImplementedError(name)
 
 

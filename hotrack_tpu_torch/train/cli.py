@@ -4,7 +4,8 @@ hotrack_tpu/train/cli.py).
     python -m hotrack_tpu_torch.train --config handtracknet_train_SimGrasp.yml \
         [--device cuda|cpu] [--epochs N] [--key/subkey value ...]
     python -m hotrack_tpu_torch.test --config handtracknet_test_SimGrasp.yml \
-        [--device cuda|cpu] [--save] [--key/subkey value ...]
+        [--device cuda|cpu] [--save] [--debug] [--debug_save] [--profile DIR] \
+        [--key/subkey value ...]
 
 Overrides address nested config keys by '/'-path, as in the JAX package. The
 device defaults to `cuda`; without a card that raises, it does not carry on
@@ -14,13 +15,17 @@ evaluation (`track: False`), HandTrackNet sequence tracking (`track: hand`),
 the full hand pipeline with IKNet and the MANO shape and pose optimisers
 (`track: hand_IKNet`, see run_hand_track.py for its keys `sdf_query` and
 `hand_energy`) or object tracking by the SDF particle optimiser (`track:
-obj_opt`, see run_obj_track.py for `sdf_query` and `obj_energy`).
+obj_opt`, see run_obj_track.py for `sdf_query` and `obj_energy`). `--debug`
+and `--debug_save` draw a figure a tracked hand frame (utils/vis.py);
+`--profile DIR` writes a torch.profiler trace of the whole evaluation into
+DIR.
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
+import os
 import time
 from os.path import join as pjoin
 
@@ -40,7 +45,14 @@ def build_arg_parser(name: str) -> argparse.ArgumentParser:
                    help="torch device to run on (default cuda)")
     p.add_argument("--save", action="store_true", default=None,
                    help="dump per-sequence trajectory pickles")
+    p.add_argument("--debug", action="store_true", default=None,
+                   help="show a figure a tracked frame (needs matplotlib)")
+    p.add_argument("--debug_save", action="store_true", default=None,
+                   help="save a figure a tracked frame under <experiment_dir>/debug")
     p.add_argument("--epochs", type=int, default=None, help="override total_epoch")
+    p.add_argument("--profile", type=str, default=None, metavar="DIR",
+                   help="write a torch.profiler trace (CPU and CUDA activities) of the "
+                        "whole evaluation into DIR, as a Chrome trace")
     return p
 
 
@@ -184,7 +196,24 @@ def _tb_add(writer, key, value, step):
 def test_main(argv=None):
     cfg = load_config(argv)
     save_flag = bool(cfg.pop("save", False))
+    profile_dir = cfg.pop("profile", None)
     pin_fp32()
+    if not profile_dir:
+        return _evaluate(cfg, save_flag)
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.device(cfg["device"]).type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=activities) as prof:
+        out = _evaluate(cfg, save_flag)
+        _sync(torch.device(cfg["device"]))
+    os.makedirs(profile_dir, exist_ok=True)
+    path = pjoin(profile_dir, f"test_{time.strftime('%Y%m%d_%H%M%S')}_{os.getpid()}.json")
+    prof.export_chrome_trace(path)
+    print(f"profiler trace written to {path}")
+    return out
+
+
+def _evaluate(cfg, save_flag: bool):
     track = cfg.get("track")
     if not track:
         return _test_single_frame(cfg)

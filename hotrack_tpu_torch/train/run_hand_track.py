@@ -23,6 +23,10 @@ environment variables:
   in one kernel, `mano_forward` and the fused energy kernel, or the SDF MLP
   and the mask lookup as kernels of their own.
 
+`debug` / `debug_save` (--debug, --debug_save) draw a figure a frame of
+every tracked sequence (`_debug_visualize`, utils/vis.py); matplotlib is
+needed only then.
+
 `eval_batch_seqs` > 1 (JAX `_run_batched`) tracks the test sequences in
 chunks of at most that many sequences of equal length, each chunk through one
 frame loop (`track/hand.track_hand_sequences_batched`), with a volume, masks
@@ -47,6 +51,8 @@ import numpy as np
 import torch
 
 from ..data import get_dataloader, prepare_batch
+from ..data.ho3d import read_seg_mask
+from ..data.image import imread
 from ..mano.model import get_mano_model
 from ..models.hand_network import HandTrackNet, IKNet
 from ..opt import load_contact_zones, presample_particles
@@ -134,8 +140,7 @@ def load_background_masks(cfg, metas) -> np.ndarray:
     """The per-frame background silhouette masks of one sequence, (T, H, W)
     bool, True = background pixel, read once per sequence. A dataset that
     ships no masks (the synthetic SimGrasp set) gives the (T, 1, 1) all-False
-    stack: no silhouette term. OpenCV is imported only where an image file
-    is read."""
+    stack: no silhouette term. The PNG files are read by data/image.py."""
     ds = cfg["data_cfg"]["dataset_name"]
     root = cfg["data_cfg"]["basepath"]
 
@@ -143,16 +148,13 @@ def load_background_masks(cfg, metas) -> np.ndarray:
     for meta in metas:
         fname = meta["file_name"]
         if ds == "HO3D":
-            import cv2
             seq, fid = fname.split("/")
-            img = cv2.imread(pjoin(root, f"train/{seq}/seg/{fid}.png"))
-            img = cv2.resize(img, (640, 480), interpolation=cv2.INTER_NEAREST)
+            img = read_seg_mask(pjoin(root, f"train/{seq}/seg/{fid}.png"))
             masks.append(img.sum(axis=-1) == 0)
         elif ds == "SimGrasp":
             path = pjoin(root, "masks/%s/seq/%s.png" % (meta["category"], fname))
             if os.path.exists(path):
-                import cv2
-                masks.append(cv2.imread(path).sum(axis=-1) == 0)
+                masks.append(imread(path).sum(axis=-1) == 0)
             else:
                 masks.append(np.zeros((1, 1), bool))
         elif ds == "DexYCB":
@@ -188,9 +190,6 @@ def run_hand_tracking(cfg, save_flag: bool = False, distilled: list | None = Non
     track = cfg["track"]
     if track not in TRACK_ROUTES:
         raise ValueError(f"run_hand_tracking takes track in {TRACK_ROUTES}, got {track!r}")
-    if cfg.get("debug") or cfg.get("debug_save"):
-        raise NotImplementedError(
-            "debug / debug_save figures wait for utils/vis.py: ROADMAP.md, queue 1, slice 5")
     device = torch.device(cfg.get("device", "cuda"))
     use_iknet = track == "hand_IKNet"
     use_opt = bool(cfg.get("use_optimization", False)) and use_iknet
@@ -278,6 +277,8 @@ def run_hand_tracking(cfg, save_flag: bool = False, distilled: list | None = Non
         print(f"seq {seq_idx}: {({k: round(v, 5) for k, v in means.items()})}")
         if save_flag:
             _save_sequence(cfg, metas, result, batch, metrics, use_iknet)
+        if cfg.get("debug") or cfg.get("debug_save"):
+            _debug_visualize(cfg, metas, result, batch)
 
     track_kwargs = dict(iknet=iknet, use_opt=use_opt, shape_mode=shape_mode, **banks,
                         **opt_kwargs)
@@ -365,6 +366,27 @@ def _pad_edge(masks: list) -> np.ndarray:
     w = max(m.shape[2] for m in masks)
     return np.stack([np.pad(m, ((0, 0), (0, h - m.shape[1]), (0, w - m.shape[2])), mode="edge")
                      for m in masks])
+
+
+def _debug_visualize(cfg, metas, result, batch):
+    """A figure a frame for --debug / --debug_save: the cloud under the
+    tracker's initial, predicted and ground-truth skeletons, saved under
+    <experiment_dir>/debug with --debug_save (shown with --debug alone).
+    The initial keypoints of frame i > 0 are frame i - 1's prediction moved
+    by the change of the cloud's mean, as the tracker re-centres them."""
+    from ..utils.vis import hand_vis
+    points = batch["hand_points"].cpu().numpy()
+    pred = result.pred_kp.cpu().numpy()
+    gt = batch["gt_hand_kp"].cpu().numpy()
+    means = points.mean(axis=1)  # (T, 3)
+    init = np.concatenate([batch["jittered_hand_kp"][:1].cpu().numpy(),
+                           pred[:-1] - means[:-1, None, :] + means[1:, None, :]], axis=0)
+    folder = pjoin(cfg["experiment_dir"], "debug")
+    save = bool(cfg.get("debug_save"))
+    for i in range(pred.shape[0]):
+        hand_vis(points[i], init[i], pred[i], gt[i],
+                 show_fig=bool(cfg.get("debug")) and not save, save_fig=save,
+                 save_folder=folder, save_name=str(metas[i]["file_name"]))
 
 
 def _save_sequence(cfg, metas, result, batch, metrics, use_iknet: bool = False):

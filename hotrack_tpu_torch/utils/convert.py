@@ -260,18 +260,23 @@ def checkpoint_prefix(model: nn.Module) -> str:
     raise TypeError(f"no reference checkpoint layout for {type(model).__name__}")
 
 
-def load_reference_checkpoint(model: nn.Module, path: str) -> int:
-    """Load a reference-format .pt into `model` (HandTrackNet or IKNet) with
-    strict=True; returns the stored epoch. A composed checkpoint's entries
-    under the model's prefix are taken ('handnet.' for HandTrackNet,
-    'IKnet.' for IKNet); a checkpoint with none of them is read as plain
-    keys, as the JAX package's loader reads it."""
-    ckpt = torch.load(path, map_location="cpu", weights_only=True)
-    sd = ckpt.get("model", ckpt)
+def load_reference_state(model: nn.Module, sd: dict) -> None:
+    """Load a reference-format state dict into `model` (HandTrackNet or
+    IKNet) with strict=True. A composed checkpoint's entries under the
+    model's prefix are taken ('handnet.' for HandTrackNet, 'IKnet.' for
+    IKNet); a state dict with none of them is read as plain keys, as the JAX
+    package's loader reads it."""
     prefix = checkpoint_prefix(model)
     sd = {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)} or sd
     keep = any(".attn." in k for k in model.state_dict())
     model.load_state_dict(reference_to_port_state_dict(sd, keep), strict=True)
+
+
+def load_reference_checkpoint(model: nn.Module, path: str) -> int:
+    """Load a reference-format .pt into `model` (`load_reference_state`);
+    returns the stored epoch."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    load_reference_state(model, ckpt.get("model", ckpt))
     return int(ckpt.get("epoch", 0))
 
 

@@ -41,3 +41,18 @@ def log_loss_summary(loss_dict: dict, cnt: int, log_fn) -> None:
                 log_fn(f"{k}/{kk}", vv / max(cnt, 1))
         else:
             log_fn(k, v / max(cnt, 1))
+
+
+def dump_csv(path: str, rows: dict, per_instance_keys=None) -> None:
+    """A CSV of per-instance values: rows maps a column's name to its list or
+    array (shorter columns leave their cells empty)."""
+    import csv
+
+    keys = list(per_instance_keys or rows.keys())
+    cols = {k: np.asarray(rows[k]).reshape(-1) for k in keys}
+    n = max(len(v) for v in cols.values())
+    with open(path, "w", newline="") as f:
+        writer = csv.writer(f)
+        writer.writerow(keys)
+        for i in range(n):
+            writer.writerow([cols[k][i] if i < len(cols[k]) else "" for k in keys])

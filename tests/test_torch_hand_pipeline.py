@@ -311,8 +311,10 @@ def test_cli_refuses_what_is_not_ported_and_checks_its_keys(runner):
     avg, stats = cli.test_main([*argv, "--eval_batch_seqs", "2"])
     assert stats["n_frames"] == 3 and stats["sequences"][0]["pred_kp"].shape == (3, 21, 3)
     assert all(np.isfinite(v) for v in avg.values())
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        cli.test_main([*argv, "--debug_save", "1"])
+    # --debug_save is ported too: a figure a tracked frame (tests/test_torch_vis.py)
+    cli.test_main([*argv, "--debug_save"])
+    cfg = cli.load_config(argv)
+    assert len(os.listdir(os.path.join(cfg["experiment_dir"], "debug"))) == 3
     with pytest.raises(ValueError, match="hand_energy"):
         cli.test_main([*argv, "--hand_energy", "xla"])
     with pytest.raises(ValueError, match="sdf_query"):
