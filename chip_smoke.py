@@ -5,7 +5,8 @@
 
 Drives the port's four main paths on `cuda`, two of them with several
 sequences through one loop, the shipped HO3D and DexYCB configs on trees in
-those datasets' layouts, and online serving. Two run HandTrackNet at the
+those datasets' layouts (with online shape refinement), online serving, and
+the library modules no entry calls. Two run HandTrackNet at the
 shipped width (512 points, 384-d features, pointnet2_camera_shallow1.yml)
 with seeded random weights: sequence tracking through the `python -m
 hotrack_tpu_torch.test` entry (the 100-frame synthetic SimGrasp sequence of
@@ -32,7 +33,9 @@ sequences. Phases, each of which raises on failure:
      together, and print the compiler's resource reports;
   3. kernels: each kernel against its plain PyTorch version on the card at
      every shape the paths below give it (FPS index-exact, with a bound of its
-     steps' latency that is independent of the design; the row gather bitwise;
+     steps' latency that is independent of the design, at both of its layout
+     boundaries and above the shared copy's limit, where the cloud stays in
+     device memory; the row gather bitwise;
      its scatter-add adjoint against a float64 oracle, bitwise the plain version
      in float32 on the CPU and bitwise equal on a second launch; the SDF MLP
      (3xTF32 through wgmma) within TC_SDF_ATOL a value of its plain version
@@ -104,25 +107,36 @@ sequences. Phases, each of which raises on failure:
      (480 x 640 depth z-buffered from the synthetic generator's hand and an
      object, HO3D's two-channel depth PNGs and 240 x 320 seg PNGs, meta
      pickles, calibration, splits; the shipped 8 x 512 DeepSDF decoder,
-     seeded, shaped into that object and saved in the reference layout); the
-     native library bitwise its numpy version on the decode and within
-     NATIVE_RTOL on the back-projection, on this machine's host;
+     seeded, shaped into that object and saved in the reference layout, with
+     its gt and reconstruction meshes at REAL_MESH_RES^3; the HO3D tree is
+     written before phase 3, which holds FPS at the reconstruction's vertex
+     count); the native library bitwise its numpy version on the decode and
+     within NATIVE_RTOL on the back-projection, on this machine's host;
      objopt_test_HO3D through `test_main` (2048 x 1024 x 10 on the fused
      kernel: launches, a translation error below the jittered
      initialisation's and a rotation error within REAL_ROT_BOUND_DEG on every
-     frame, two frames against the CPU open loop) writes the pose pickles that
-     handopt_test_HO3D reads (5 launches of #7 a frame against the seg masks;
-     the poses read back bitwise); handtracknet_test_HO3D under `--profile`
-     (the trace must name the FPS and gather kernels), handiknet_test_HO3D
-     and handtracknet_test_DexYCB;
- 12. serving: `HandTracker` (IKNet, the frame-0 shape optimiser, the pose
+     frame, two frames against the CPU open loop; both chamfer distances,
+     FPS's global-memory kernel at the mesh's shape) writes the pose pickles
+     that handopt_test_HO3D reads (5 launches of #7 a frame against the seg
+     masks; the poses read back bitwise); handtracknet_test_HO3D under
+     `--profile` (the trace must name the FPS and gather kernels),
+     handiknet_test_HO3D and handtracknet_test_DexYCB;
+ 12. online shape update: objopt_test_HO3D with `--opt/updateobjshape True`,
+     SHAPE_FRAMES frames (one latent update and one re-bake of the volume):
+     the latent moved, the refined mesh written and read back, every frame's
+     translation error below the jittered initialisation's; ms/frame and the
+     seconds of the update, the re-bake and the mesh export;
+ 13. serving: `HandTracker` (IKNet, the frame-0 shape optimiser, the pose
      optimiser on the skin route, seeded 480 x 640 masks) and `ObjTracker`
      (fused route) stepped frame by frame bitwise the offline trackers,
      `serve` at depths 1 and 2 and `serve_combined` bitwise the steps, with
      the ms/frame of each;
- 13. the shapes the kernels' wrappers were given on those paths, noted while
+ 14. library code no entry calls: PointNet2Encoder and a point-transformer
+     down / up stack, eval mode, on the card (FPS and gather launches
+     required) against the CPU within LIBRARY_ATOL;
+ 15. the shapes the kernels' wrappers were given on those paths, noted while
      they ran, must be exactly the shapes phase 3 checked;
- 14. neither JAX nor the JAX package (hotrack_tpu) may have been imported.
+ 16. neither JAX nor the JAX package (hotrack_tpu) may have been imported.
 
 The line before the last is a JSON object describing the kernels; the last
 is {"ok": true, "device": {...}}. Exits non-zero, with no result line, when
@@ -329,10 +343,25 @@ REAL_ROT_BOUND_DEG = 10.0
 # to 1.14e-7 m on the decoder's fit, over OPEN_SDF_ATOL_M, which holds the
 # box's fit (2.9e-8 there) and stays as it is.
 REAL_OPEN_SDF_ATOL_M = TC_SDF_ATOL
+# The tree's gt and reconstruction meshes: marching tetrahedra of the
+# decoder's field over [-1, 1]^3 at this resolution, so that the
+# reconstruction has more vertices than FPS's shared-memory kernels take
+# (csrc/fps.cu kMaxPoints) and the object runner's chamfer evaluation runs
+# FPS's global-memory path on the card.
+REAL_MESH_RES = 96
+CHAMFER_SAMPLES = 2048
+CHAMFER_KEYS = ("mean/raw_obj_chamfer(mm)", "mean/pred_obj_chamfer(mm)")
 # the native library's float32 back-projection against the float64 numpy
 # version: two roundings (a product and a quotient) a coordinate
 NATIVE_RTOL = 2 * float(np.finfo(np.float32).eps)
-# online serving (phase 12): frames of each tracker
+# online shape update (`--opt/updateobjshape True`): one update and one
+# re-bake in 10 frames (track_obj_with_shape_update's update_every)
+SHAPE_FRAMES = 10
+# the library modules no entry calls, card against CPU in eval mode: float32
+# products and sums in two devices' orders on activations of order 1, the
+# same FPS, ball-query and kNN picks (printed)
+LIBRARY_ATOL = 1e-4
+# online serving (phase 13): frames of each tracker
 SERVE_FRAMES = HAND_SHORT_FRAMES
 
 # the card's published peaks (NVIDIA H100 SXM data sheet): the bounds below
@@ -411,6 +440,19 @@ FPS_SHAPES = [("prepare_batch", b, RAW_POINTS, 512, True) for b in PREPARE_BATCH
        for b in OBJ_PREPARE_BATCHES] \
     + [(name, b, n, npoint, False) for b in MODEL_BATCHES
        for name, n, npoint in (("sa1", 512, 256), ("sa2", 256, 128))]
+# the library check (phase 13): PointNet2Encoder at the tracking path's shapes
+# (its sa1 and sa2 are HandTrackNet's, batch 1) and a point-transformer
+# stack on 512 points: a down block to 128 centres and an up block back, 16
+# neighbours, 64 channels (residual blocks of 16)
+PT_POINTS, PT_NPOINT, PT_NSAMPLE, PT_DIM = 512, 128, 16, 64
+PT_MID = PT_DIM // 4
+FPS_SHAPES += [("point transformer", 1, PT_POINTS, PT_NPOINT, False)]
+GATHER_SHAPES += [
+    ("pt down centres", 1, PT_POINTS, 3, PT_NPOINT),
+    ("pt down group xyz", 1, PT_POINTS, 3, PT_NPOINT * PT_NSAMPLE),
+    ("pt down k/v", 1, PT_NPOINT, PT_MID, PT_NPOINT * PT_NSAMPLE),
+    ("pt up 3-nn", 1, PT_NPOINT, PT_DIM, PT_POINTS * 3),
+    ("pt up k/v", 1, PT_POINTS, PT_MID, PT_POINTS * PT_NSAMPLE)]
 TIMED_FPS_BATCHES = (NUM_FRAMES, 1, BATCH)
 TIMED_SHAPES = ("q feats k=64", "sa2 group feats")  # the two largest outputs, at BATCH
 # what the object path gives the two SDF kernels: the composed route's
@@ -726,6 +768,14 @@ def _fmt(case: dict) -> str:
     return line
 
 
+def _fps_shared_max() -> int:
+    """The largest cloud of FPS's shared-memory kernels: csrc/fps.cu's
+    kMaxPoints, read from the source that defines it."""
+    from hotrack_tpu_torch.ops import kernels
+    src = (kernels.CSRC_DIR / "fps.cu").read_text()
+    return int(re.search(r"constexpr int kMaxPoints = (\d+);", src).group(1))
+
+
 def phase_kernels_fps() -> dict:
     """FPS kernel vs plain version on the card. Tolerance: index-exact.
     No single PyTorch call computes FPS, so there is no library time."""
@@ -733,6 +783,12 @@ def phase_kernels_fps() -> dict:
     from hotrack_tpu_torch.ops.pointops import _farthest_point_sample_torch as plain
     rng = np.random.RandomState(0)
     dev = torch.device("cuda")
+    shared_max = _fps_shared_max()
+    lib = kernels._load("fps", kernels._bind_fps)
+    if lib.hotrack_fps_scratch(1, shared_max) or \
+            lib.hotrack_fps_scratch(1, shared_max + 1) != shared_max + 1:
+        raise AssertionError(f"[kernels] the built FPS library's global-memory path does "
+                             f"not start above kMaxPoints = {shared_max}")
 
     def cloud(b, n):
         return torch.from_numpy((rng.randn(b, n, 3) * 0.05).astype(np.float32)).to(dev)
@@ -756,6 +812,13 @@ def phase_kernels_fps() -> dict:
     cases += [(f"boundary ({b},{n},3)->256" + " masked" * masked, cloud(b, n), 256,
                torch.from_numpy(rng.rand(b, n) < 0.7).to(dev) if masked else None, False)
               for n in (1024, 1025) for b, masked in ((4, False), (4, True))]
+    # the shared copy's limit: the block kernel up to kMaxPoints points, the
+    # global-memory kernel above (timed, as the chamfer mesh's shape in the list)
+    cases += [(f"boundary ({b},{n},3)->256" + " masked" * masked, cloud(b, n), 256,
+               torch.from_numpy(rng.rand(b, n) < 0.7).to(dev) if masked else None, True)
+              for n in (shared_max, shared_max + 1) for b, masked in ((4, False), (4, True))]
+    cases.append(("tie-heavy grid (2,16384,3)->512",
+                  torch.from_numpy(_grid_cloud(rng, 2, 16384)).to(dev), 512, None, True))
     max_err, timed = 0, []
     for name, xyz, npoint, mask, is_timed in cases:
         got = kernels.fps_cuda(xyz, npoint, mask)
@@ -3062,124 +3125,255 @@ def _trace_kernels(trace_dir: str) -> set:
     return {e.get("name", "") for e in events if e.get("cat") == "kernel"}
 
 
-def phase_real_paths(card: str, seen: dict) -> dict:
+def real_tree() -> dict:
+    """The HO3D tree of phases 11 and 12 (data/real_trees.py), written before
+    the kernels phase: its reconstruction mesh's vertex count is a shape FPS
+    is held at there. The DeepSDF decoder is the shipped 8 x 512 one, seeded
+    and shaped into an object (real_trees.decoder_object); its gt and
+    reconstruction meshes are marching-tetrahedra meshes at REAL_MESH_RES^3.
+    Returns {'root', 'tree', 'latent' (the seeded code, on the CPU),
+    'fps_shape' (the chamfer evaluation's FPS: B, N, npoint, masked)}."""
+    from hotrack_tpu_torch.data.real_trees import write_ho3d_tree
+    from hotrack_tpu_torch.sdf.assets import build_decoder
+    from hotrack_tpu_torch.train.cli import load_config
+    root = tempfile.mkdtemp(prefix="hotrack_smoke_real_")
+    os.environ["HOTRACK_DATA_ROOT"] = root
+    t0 = time.perf_counter()
+    specs = load_config(["--config", REAL_OBJ_CONFIG])["opt"]["NetworkSpecs"]
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(DECODER_SEED)
+        decoder = build_decoder(specs).eval().cuda()
+    latent = (torch.randn(256, generator=torch.Generator().manual_seed(DECODER_SEED))
+              * 0.01).cuda()
+    tree = write_ho3d_tree(root, REAL_OBJ_FRAMES, decoder=decoder, latent=latent,
+                           mesh_res=REAL_MESH_RES)
+    verts, faces = tree["mesh"]
+    extent = tree["object"].max(0) - tree["object"].min(0)
+    print(f"[real] HO3D tree ({REAL_OBJ_FRAMES} frames of 480 x 640, the shipped 8 x 512 "
+          f"DeepSDF decoder seeded and shaped into an object of {len(tree['object'])} "
+          f"surface points, extent {np.array2string(1e3 * extent, precision=1)} mm; its "
+          f"meshes at {REAL_MESH_RES}^3: {len(verts)} vertices, {len(faces)} faces) written "
+          f"in {time.perf_counter() - t0:.1f} s", flush=True)
+    if len(verts) <= _fps_shared_max():
+        raise AssertionError(f"[real] the reconstruction has {len(verts)} vertices: the "
+                             f"chamfer evaluation's FPS would not reach the global-memory "
+                             f"kernel above {_fps_shared_max()}")
+    fps_shape = (1, len(verts), CHAMFER_SAMPLES, False)
+    FPS_SHAPES.append(("chamfer reconstruction mesh", *fps_shape))
+    return {"root": root, "tree": tree, "latent": latent.cpu(), "fps_shape": fps_shape}
+
+
+def phase_real_paths(card: str, seen: dict, real: dict) -> dict:
     """The shipped HO3D and DexYCB configs through `test_main` on trees in
     their layouts (data/real_trees.py): objopt_test_HO3D at its operating
-    point writes the predicted-pose pickles that handopt_test_HO3D reads;
-    then handtracknet_test_HO3D (under --profile), handiknet_test_HO3D and
-    handtracknet_test_DexYCB. The DeepSDF decoder is the shipped 8 x 512
-    one, seeded and shaped into an object (real_trees.decoder_object)."""
+    point (with the chamfer distances of the tree's meshes, FPS's global-memory
+    kernel on the reconstruction's vertices) writes the predicted-pose
+    pickles that handopt_test_HO3D reads; then handtracknet_test_HO3D (under
+    --profile), handiknet_test_HO3D and handtracknet_test_DexYCB."""
     from hotrack_tpu_torch.data.ho3d import HO3DDataset
-    from hotrack_tpu_torch.data.real_trees import write_dexycb_tree, write_ho3d_tree
+    from hotrack_tpu_torch.data.real_trees import write_dexycb_tree
     from hotrack_tpu_torch.pose.metrics import rot_diff_degree
-    from hotrack_tpu_torch.sdf.assets import build_decoder
     from hotrack_tpu_torch.train.cli import load_config
     from hotrack_tpu_torch.train.run_hand_track import build_iknet
     from hotrack_tpu_torch.utils.convert import save_reference_checkpoint
-    root = tempfile.mkdtemp(prefix="hotrack_smoke_real_")
+    root, tree = real["root"], real["tree"]
     os.environ["HOTRACK_DATA_ROOT"] = root
-    try:
-        t0 = time.perf_counter()
-        specs = load_config(["--config", REAL_OBJ_CONFIG])["opt"]["NetworkSpecs"]
-        with torch.random.fork_rng(devices=[]):
-            torch.manual_seed(DECODER_SEED)
-            decoder = build_decoder(specs).eval().cuda()
-        latent = (torch.randn(256, generator=torch.Generator().manual_seed(DECODER_SEED))
-                  * 0.01).cuda()
-        tree = write_ho3d_tree(root, REAL_OBJ_FRAMES, decoder=decoder, latent=latent)
-        hand_cfg = load_config(["--config", REAL_HAND_CONFIG])
-        _write_checkpoint(hand_cfg)
-        save_reference_checkpoint(build_iknet(hand_cfg, "cpu"),
-                                  os.path.join(hand_cfg["IKNet_dir"], "ckpt", "model_0001.pt"))
-        write_dexycb_tree(root, REAL_HAND_FRAMES)
-        extent = tree["object"].max(0) - tree["object"].min(0)
-        print(f"[real] HO3D tree ({REAL_OBJ_FRAMES} frames of 480 x 640, the shipped 8 x 512 "
-              f"DeepSDF decoder seeded and shaped into an object of {len(tree['object'])} "
-              f"surface points, extent {np.array2string(1e3 * extent, precision=1)} mm) and "
-              f"DexYCB tree ({REAL_HAND_FRAMES} frames) written in "
-              f"{time.perf_counter() - t0:.1f} s", flush=True)
-        _hold_native_on_host(tree["basepath"])
+    hand_cfg = load_config(["--config", REAL_HAND_CONFIG])
+    _write_checkpoint(hand_cfg)
+    save_reference_checkpoint(build_iknet(hand_cfg, "cpu"),
+                              os.path.join(hand_cfg["IKNet_dir"], "ckpt", "model_0001.pt"))
+    write_dexycb_tree(root, REAL_HAND_FRAMES)
+    _hold_native_on_host(tree["basepath"])
 
-        # objopt: 2048 particles x 1024 points x 10 iterations, the fused kernel
-        avg, stats, launches = _real_run("real", REAL_OBJ_CONFIG, seen, "--save")
-        seq = dict(stats["sequences"][0], particles=stats["particles"])
-        frames = stats["n_frames"]
-        if launches["obj_sdf_energy"] != OBJ_ITERATIONS * frames or launches["sdf_mlp"] \
-                or frames != REAL_OBJ_FRAMES:
-            raise AssertionError(f"[real] objopt on {frames} frames launched {launches}")
-        _require_launches("real", launches, {"fps": PER_PREPARE, "gather_rows": PER_PREPARE})
-        gt0 = torch.from_numpy(seq["gt_rotation"][0])
-        init_r = float(rot_diff_degree(gt0, torch.from_numpy(seq["init_rotation"]), 1))
-        init_t = float(np.linalg.norm(seq["init_translation"] - seq["gt_translation"][0]))
-        ms_obj = 1e3 * stats["net_seconds"] / frames
-        print(f"[real] cuda, objopt_test_HO3D: {frames} frames of {OBJ_PARTICLES} particles x "
-              f"{OBJ_NUM_POINTS} points x {OBJ_ITERATIONS} iterations, tracking {ms_obj:.3f} "
-              f"ms/frame; set-up {seq['setup_seconds']:.2f} s of which distillation "
-              f"{seq['distill_seconds']:.2f} s (the 201^3 volume baked from the decoder); "
-              f"launches {launches}; jittered init {init_r:.3f} deg / {1e3 * init_t:.2f} mm -> "
-              f"mean {seq['rdiff'].mean():.3f} deg / {1e3 * seq['tdiff'].mean():.2f} mm, worst "
-              f"{seq['rdiff'].max():.3f} deg / {1e3 * seq['tdiff'].max():.2f} mm | {card}",
-              flush=True)
-        if not (seq["tdiff"].max() < init_t and seq["rdiff"].max() < REAL_ROT_BOUND_DEG):
-            raise AssertionError("[real] the HO3D object's translation error did not fall "
-                                 "below the jittered initialisation's, or its rotation error "
-                                 f"passed {REAL_ROT_BOUND_DEG} deg")
-        _hold_open_loop("HO3D objopt, card vs CPU (plain versions), same fit", seq,
-                        seq["particles"], seq["distilled"], OBJ_CPU_FRAMES, "cpu", "fused",
-                        tight_share=1.0 / OBJ_CPU_FRAMES, sdf_atol=REAL_OPEN_SDF_ATOL_M)
-        by_path = {"ho3d_objopt": launches}
+    # objopt: 2048 particles x 1024 points x 10 iterations, the fused kernel
+    # (its FPS shapes noted apart: the chamfer mesh's must be among them)
+    local = {name: set() for name in KERNELS}
+    avg, stats, launches = _real_run("real", REAL_OBJ_CONFIG, local, "--save")
+    for name, shapes in local.items():
+        seen[name] |= shapes
+    seq = dict(stats["sequences"][0], particles=stats["particles"])
+    frames = stats["n_frames"]
+    if launches["obj_sdf_energy"] != OBJ_ITERATIONS * frames or launches["sdf_mlp"] \
+            or frames != REAL_OBJ_FRAMES:
+        raise AssertionError(f"[real] objopt on {frames} frames launched {launches}")
+    _require_launches("real", launches, {"gather_rows": PER_PREPARE})
+    chamfer = {k: avg.get(k) for k in CHAMFER_KEYS}
+    if launches["fps"] != PER_PREPARE + 1 or real["fps_shape"] not in local["fps"] \
+            or not all(v is not None and math.isfinite(v) for v in chamfer.values()):
+        raise AssertionError(f"[real] objopt: FPS at {sorted(local['fps'])} "
+                             f"({launches['fps']} launches), chamfer {chamfer}: expected "
+                             f"the chamfer evaluation's FPS at {real['fps_shape']}")
+    print(f"[real] cuda, objopt_test_HO3D chamfer to the gt mesh: {chamfer} (FPS of "
+          f"{real['fps_shape'][1]} reconstruction vertices to {CHAMFER_SAMPLES} on the "
+          f"global-memory kernel)", flush=True)
+    gt0 = torch.from_numpy(seq["gt_rotation"][0])
+    init_r = float(rot_diff_degree(gt0, torch.from_numpy(seq["init_rotation"]), 1))
+    init_t = float(np.linalg.norm(seq["init_translation"] - seq["gt_translation"][0]))
+    ms_obj = 1e3 * stats["net_seconds"] / frames
+    print(f"[real] cuda, objopt_test_HO3D: {frames} frames of {OBJ_PARTICLES} particles x "
+          f"{OBJ_NUM_POINTS} points x {OBJ_ITERATIONS} iterations, tracking {ms_obj:.3f} "
+          f"ms/frame; set-up {seq['setup_seconds']:.2f} s of which distillation "
+          f"{seq['distill_seconds']:.2f} s (the 201^3 volume baked from the decoder); "
+          f"launches {launches}; jittered init {init_r:.3f} deg / {1e3 * init_t:.2f} mm -> "
+          f"mean {seq['rdiff'].mean():.3f} deg / {1e3 * seq['tdiff'].mean():.2f} mm, worst "
+          f"{seq['rdiff'].max():.3f} deg / {1e3 * seq['tdiff'].max():.2f} mm | {card}",
+          flush=True)
+    if not (seq["tdiff"].max() < init_t and seq["rdiff"].max() < REAL_ROT_BOUND_DEG):
+        raise AssertionError("[real] the HO3D object's translation error did not fall "
+                             "below the jittered initialisation's, or its rotation error "
+                             f"passed {REAL_ROT_BOUND_DEG} deg")
+    _hold_open_loop("HO3D objopt, card vs CPU (plain versions), same fit", seq,
+                    seq["particles"], seq["distilled"], OBJ_CPU_FRAMES, "cpu", "fused",
+                    tight_share=1.0 / OBJ_CPU_FRAMES, sdf_atol=REAL_OPEN_SDF_ATOL_M)
+    by_path = {"ho3d_objopt": launches}
 
-        # handopt on the first frames, through the object poses just written
-        _ho3d_split(tree["basepath"], REAL_HAND_FRAMES)
-        avg, stats, launches = _real_run("real", REAL_HAND_CONFIG, seen, "--save")
-        frames = stats["n_frames"]
-        expect = {"fps": PER_PREPARE + FPS_PER_FORWARD * (frames + 1),
-                  "gather_rows": PER_PREPARE + GATHERS_PER_FORWARD * (frames + 1),
-                  "hand_energy_skin": HAND_ITERATIONS * frames}
-        if {k: v for k, v in launches.items() if v} != expect or frames != REAL_HAND_FRAMES:
-            raise AssertionError(f"[real] handopt launched {launches}, expected {expect}")
-        cfg = load_config(["--config", REAL_HAND_CONFIG])
-        read = HO3DDataset(dict(cfg, num_points=HAND_NUM_POINTS), "test")[3][0]
-        if not np.array_equal(read.pred_obj_rotation, seq["rotation"][3]):
-            raise AssertionError("[real] handopt did not read objopt's pose of frame 3")
-        hseq = stats["sequences"][0]
-        print(f"[real] cuda, handopt_test_HO3D (use_pred_obj_pose: objopt's poses, read back "
-              f"bitwise): {frames} frames at {HAND_NUM_POINTS} points, {HAND_PARTICLES} particles "
-              f"x {HAND_VERTS} vertices x {HAND_ITERATIONS} iterations against {HAND_HW} masks; "
-              f"tracking {1e3 * stats['net_seconds'] / frames:.3f} ms/frame (the frame-0 shape "
-              f"optimiser included); set-up {hseq['setup_seconds']:.2f} s of which "
-              f"distillation {hseq['distill_seconds']:.2f} s; launches {launches}; metrics "
-              f"{avg} | {card}", flush=True)
-        by_path["ho3d_handopt"] = launches
+    # handopt on the first frames, through the object poses just written
+    _ho3d_split(tree["basepath"], REAL_HAND_FRAMES)
+    avg, stats, launches = _real_run("real", REAL_HAND_CONFIG, seen, "--save")
+    frames = stats["n_frames"]
+    expect = {"fps": PER_PREPARE + FPS_PER_FORWARD * (frames + 1),
+              "gather_rows": PER_PREPARE + GATHERS_PER_FORWARD * (frames + 1),
+              "hand_energy_skin": HAND_ITERATIONS * frames}
+    if {k: v for k, v in launches.items() if v} != expect or frames != REAL_HAND_FRAMES:
+        raise AssertionError(f"[real] handopt launched {launches}, expected {expect}")
+    cfg = load_config(["--config", REAL_HAND_CONFIG])
+    read = HO3DDataset(dict(cfg, num_points=HAND_NUM_POINTS), "test")[3][0]
+    if not np.array_equal(read.pred_obj_rotation, seq["rotation"][3]):
+        raise AssertionError("[real] handopt did not read objopt's pose of frame 3")
+    hseq = stats["sequences"][0]
+    print(f"[real] cuda, handopt_test_HO3D (use_pred_obj_pose: objopt's poses, read back "
+          f"bitwise): {frames} frames at {HAND_NUM_POINTS} points, {HAND_PARTICLES} particles "
+          f"x {HAND_VERTS} vertices x {HAND_ITERATIONS} iterations against {HAND_HW} masks; "
+          f"tracking {1e3 * stats['net_seconds'] / frames:.3f} ms/frame (the frame-0 shape "
+          f"optimiser included); set-up {hseq['setup_seconds']:.2f} s of which "
+          f"distillation {hseq['distill_seconds']:.2f} s; launches {launches}; metrics "
+          f"{avg} | {card}", flush=True)
+    by_path["ho3d_handopt"] = launches
 
-        trace_dir = tempfile.mkdtemp(prefix="hotrack_smoke_trace_")
-        avg, stats, launches = _real_run("real", "handtracknet_test_HO3D.yml", seen,
-                                         "--profile", trace_dir)
-        names = _trace_kernels(trace_dir)
-        found = {k for k in ("fps_kernel", "gather_rows_kernel") if any(k in n for n in names)}
-        print(f"[real] cuda, handtracknet_test_HO3D under --profile: {stats['n_frames']} frames; "
-              f"the trace names {len(names)} kernels, ours among them: "
-              f"{sorted(n for n in names if 'fps_kernel' in n or 'gather_rows' in n)}",
-              flush=True)
-        if found != {"fps_kernel", "gather_rows_kernel"}:
-            raise AssertionError(f"[real] the --profile trace names no kernel of the path: "
-                                 f"{sorted(names)[:20]}")
-        shutil.rmtree(trace_dir, ignore_errors=True)
-        by_path["ho3d_handtracknet"] = launches
-        for tag, config, forwards in (("ho3d_handiknet", "handiknet_test_HO3D.yml", 1),
-                                      ("dexycb_handtracknet", "handtracknet_test_DexYCB.yml", 0)):
-            avg, stats, launches = _real_run("real", config, seen)
-            n = stats["n_frames"] + forwards
-            _require_launches("real", launches, {"fps": PER_PREPARE + FPS_PER_FORWARD * n,
-                                                 "gather_rows": PER_PREPARE
-                                                 + GATHERS_PER_FORWARD * n})
-            print(f"[real] cuda, {config}: {stats['n_frames']} frames, "
-                  f"{1e3 * stats['net_seconds'] / stats['n_frames']:.3f} ms/frame; launches "
-                  f"{ {k: v for k, v in launches.items() if v} }; metrics {avg}", flush=True)
-            by_path[tag] = launches
-        return by_path
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+    trace_dir = tempfile.mkdtemp(prefix="hotrack_smoke_trace_")
+    avg, stats, launches = _real_run("real", "handtracknet_test_HO3D.yml", seen,
+                                     "--profile", trace_dir)
+    names = _trace_kernels(trace_dir)
+    found = {k for k in ("fps_kernel", "gather_rows_kernel") if any(k in n for n in names)}
+    print(f"[real] cuda, handtracknet_test_HO3D under --profile: {stats['n_frames']} frames; "
+          f"the trace names {len(names)} kernels, ours among them: "
+          f"{sorted(n for n in names if 'fps_kernel' in n or 'gather_rows' in n)}",
+          flush=True)
+    if found != {"fps_kernel", "gather_rows_kernel"}:
+        raise AssertionError(f"[real] the --profile trace names no kernel of the path: "
+                             f"{sorted(names)[:20]}")
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    by_path["ho3d_handtracknet"] = launches
+    for tag, config, forwards in (("ho3d_handiknet", "handiknet_test_HO3D.yml", 1),
+                                  ("dexycb_handtracknet", "handtracknet_test_DexYCB.yml", 0)):
+        avg, stats, launches = _real_run("real", config, seen)
+        n = stats["n_frames"] + forwards
+        _require_launches("real", launches, {"fps": PER_PREPARE + FPS_PER_FORWARD * n,
+                                             "gather_rows": PER_PREPARE
+                                             + GATHERS_PER_FORWARD * n})
+        print(f"[real] cuda, {config}: {stats['n_frames']} frames, "
+              f"{1e3 * stats['net_seconds'] / stats['n_frames']:.3f} ms/frame; launches "
+              f"{ {k: v for k, v in launches.items() if v} }; metrics {avg}", flush=True)
+        by_path[tag] = launches
+    return by_path
+
+
+def phase_shape_update(card: str, seen: dict, real: dict) -> dict:
+    """objopt_test_HO3D with `--opt/updateobjshape True` through `test_main`
+    on the real tree, SHAPE_FRAMES frames: the volume route on a volume
+    re-baked from the refined latent, one update and one re-bake, the refined
+    mesh written and read back; the latent moved and every frame's
+    translation error below the jittered initialisation's."""
+    from hotrack_tpu_torch.sdf.mesh import load_mesh
+    os.environ["HOTRACK_DATA_ROOT"] = real["root"]
+    _ho3d_split(real["tree"]["basepath"], SHAPE_FRAMES)
+    avg, stats, launches = _real_run("shape", REAL_OBJ_CONFIG, seen, "--opt/updateobjshape",
+                                     "True")
+    seq, frames = stats["sequences"][0], stats["n_frames"]
+    expect = {"fps": PER_PREPARE + 1, "gather_rows": PER_PREPARE}
+    if {k: v for k, v in launches.items() if v} != expect or frames != SHAPE_FRAMES:
+        raise AssertionError(f"[shape] {frames} frames launched {launches}, expected {expect}")
+    moved = float((seq["latent"] - real["latent"]).abs().max())
+    verts, faces = load_mesh(seq["updated_mesh"]) if seq["updated_mesh"] else ((), ())
+    init_t = float(np.linalg.norm(seq["init_translation"] - seq["gt_translation"][0]))
+    chamfer = {k: avg.get(k) for k in CHAMFER_KEYS}
+    extra = sum(seq["bake_seconds"] + seq["update_seconds"] + seq["rebake_seconds"]) \
+        + seq["export_seconds"]
+    print(f"[shape] cuda, objopt_test_HO3D --opt/updateobjshape True: {frames} frames of "
+          f"{OBJ_PARTICLES} particles x {OBJ_NUM_POINTS} points x {OBJ_ITERATIONS} iterations "
+          f"on the re-baked volume, {1e3 * stats['net_seconds'] / frames:.3f} ms/frame with the "
+          f"bakes, the update and the mesh export, {1e3 * (stats['net_seconds'] - extra) / frames:.3f} "
+          f"without; set-up {seq['setup_seconds']:.2f} s; "
+          f"first bake {seq['bake_seconds']} s, update {seq['update_seconds']} s, re-bake "
+          f"{seq['rebake_seconds']} s, mesh "
+          f"export {seq['export_seconds']:.2f} s ({len(verts)} vertices, {len(faces)} faces); "
+          f"latent moved by {moved:.4e}; jittered init {1e3 * init_t:.2f} mm -> mean "
+          f"{1e3 * seq['tdiff'].mean():.2f} mm, worst {1e3 * seq['tdiff'].max():.2f} mm; "
+          f"chamfer {chamfer}; launches {launches} | {card}", flush=True)
+    if seq["sdf_query"] != "volume" or len(seq["update_seconds"]) != 1 \
+            or len(seq["rebake_seconds"]) != 1 or not moved > 1e-4:
+        raise AssertionError("[shape] expected one latent update and one re-bake on the "
+                             "volume route")
+    if not seq["updated_mesh"].endswith("_update.ply") or not len(verts) \
+            or faces.max() >= len(verts):
+        raise AssertionError(f"[shape] the refined mesh {seq['updated_mesh']} does not read back")
+    if not (seq["tdiff"].max() < init_t and all(v is not None and math.isfinite(v)
+                                               for v in chamfer.values())):
+        raise AssertionError("[shape] a translation error did not fall below the jittered "
+                             "initialisation's, or the chamfer distances are missing")
+    return {"ho3d_shape_update": launches}
+
+
+def phase_library(card: str, seen: dict) -> dict:
+    """PointNet2Encoder (the tracking config's backbone, batch 1, 512 points)
+    and a point-transformer down / up stack on 512 points, eval mode, seeded
+    weights and running statistics: on the card (FPS and the row gathers on
+    the kernels) against the same modules on the CPU (plain versions),
+    within LIBRARY_ATOL; the centres FPS picks are bitwise alike."""
+    from hotrack_tpu_torch.nn import PointNet2Encoder
+    from hotrack_tpu_torch.nn.point_transformer import (PointTransformerDownBlock,
+                                                        PointTransformerUpBlock)
+    from hotrack_tpu_torch.ops import kernels
+    from hotrack_tpu_torch.train.cli import load_config
+    net_cfg = load_config(["--config", CONFIG])["pointnet"]["camera"]
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(31)
+        mods = [PointNet2Encoder(net_cfg, 128),
+                PointTransformerDownBlock(PT_NPOINT, PT_NSAMPLE, PT_DIM),
+                PointTransformerUpBlock(PT_NSAMPLE, PT_DIM, PT_DIM)]
+        for mod in (m for module in mods for m in module.modules()):
+            if isinstance(mod, torch.nn.BatchNorm1d):
+                mod.running_mean.uniform_(-0.1, 0.1)
+                mod.running_var.uniform_(0.5, 1.5)
+    rng = np.random.RandomState(32)
+    xyz = torch.from_numpy((rng.randn(1, PT_POINTS, 3) * 0.05).astype(np.float32))
+    feats = torch.from_numpy(rng.randn(1, PT_POINTS, PT_DIM).astype(np.float32))
+
+    def run(device):
+        enc, down, up = (m.eval().to(device) for m in mods)
+        x, f = xyz.to(device), feats.to(device)
+        with torch.no_grad():
+            code = enc(x)
+            x2, f2 = down(x)
+            out = up(x2, x, f2, f)
+        return [t.cpu() for t in (code, x2, f2, out)]
+
+    kernels.reset_launch_counts()
+    with noting_shapes(seen):
+        got = run("cuda")
+    torch.cuda.synchronize()
+    launches = dict(kernels.launch_counts)
+    want = run("cpu")
+    gaps = [float((a - b).abs().max()) for a, b in zip(got, want)]
+    print(f"[library] cuda vs cpu, eval mode: PointNet2Encoder (1,{PT_POINTS},3) -> "
+          f"{tuple(got[0].shape)}, point-transformer down ({PT_NPOINT} centres, {PT_NSAMPLE} "
+          f"neighbours) and up ({PT_DIM} channels): max |diff| encoder {gaps[0]:.3e}, centres "
+          f"{gaps[1]:.3e}, down {gaps[2]:.3e}, up {gaps[3]:.3e} (bound {LIBRARY_ATOL:.0e}); "
+          f"launches { {k: v for k, v in launches.items() if v} } | {card}", flush=True)
+    _require_launches("library", launches, {"fps": 3, "gather_rows": 7})
+    if gaps[1] != 0.0 or max(gaps) > LIBRARY_ATOL:
+        raise AssertionError("[library] the card differs from the CPU")
+    return {"library": launches}
 
 
 def _ms(fn) -> tuple:
@@ -3358,6 +3552,14 @@ def main() -> int:
 
     card = phase_device()
     timed("build", phase_build)
+    real = timed("real_tree", real_tree)
+    try:
+        return _phases(card, real, t0, took, timed)
+    finally:
+        shutil.rmtree(real["root"], ignore_errors=True)
+
+
+def _phases(card, real, t0, took, timed) -> int:
     t_kernels = time.perf_counter()
     numbers = {"fps": phase_kernels_fps(), "gather_rows": phase_kernels_gather(),
                "scatter_rows_add": phase_kernels_scatter(),
@@ -3382,8 +3584,10 @@ def main() -> int:
     by_path.update(timed("hand", phase_hand_path, card, seen, fit))
     by_path.update(timed("hand_batched", phase_hand_batched, card, seen))
     by_path.update(timed("object_batched", phase_object_batched, card, seen))
-    by_path.update(timed("real", phase_real_paths, card, seen))
+    by_path.update(timed("real", phase_real_paths, card, seen, real))
+    by_path.update(timed("shape_update", phase_shape_update, card, seen, real))
     by_path.update(timed("serving", phase_serving, card, seen, fit, obj_fit))
+    by_path.update(timed("library", phase_library, card, seen))
     # the path whose count stands for the kernel in the result line
     main_path = {"fps": "train", "gather_rows": "train", "scatter_rows_add": "train",
                  "sdf_mlp": "object_composed", "obj_sdf_energy": "object",

@@ -7,7 +7,8 @@ the layout. A tracking graph's checkpoint holds HandTrackNet under
 `handnet.` and IKNet under `IKnet.`; the tracking runners read each net from
 its own directory (`<experiment_dir>/ckpt`, `<IKNet_dir>/ckpt`).
 
-Split a composed checkpoint into the two directories:
+Split a composed checkpoint into the two directories (or put a single net's
+file with plain keys, as a single net's training writes it, into its own):
 
     python -m hotrack_tpu_torch.convert --ckpt <composed.pt> \
         --config handopt_test_HO3D.yml [--experiment_dir OUT] [--IKNet_dir OUT_IK] \
@@ -34,12 +35,16 @@ from os.path import join as pjoin
 import torch
 
 PREFIXES = {"handnet": "handnet.", "iknet": "IKnet."}
+# a file with neither prefix holds one net with plain keys, as a single
+# net's training writes it; its keys say which net (the JAX loader's rule)
+PLAIN_MARKS = {"handnet": "bhand.", "iknet": "linear."}
 
 
 def _parse(argv):
     p = argparse.ArgumentParser("convert")
     p.add_argument("--ckpt", type=str, default=None,
-                   help="a composed handnet./IKnet. checkpoint to split")
+                   help="a composed handnet./IKnet. checkpoint to split, or one "
+                        "net's with plain keys")
     p.add_argument("--export", type=str, default=None, metavar="OUT_PT",
                    help="compose the checkpoints of --experiment_dir (HandTrackNet) and "
                         "--IKNet_dir (IKNet) into this file")
@@ -77,7 +82,9 @@ def _check_loads(cfg: dict, name: str, state: dict, what: str) -> None:
 def split(ckpt: str, cfg: dict, experiment_dir: str, iknet_dir: str,
           epoch: int | None = None) -> list:
     """Write each net of a composed checkpoint into <dir>/ckpt/model_%04d.pt
-    of its directory, with plain keys. Returns the paths written."""
+    of its directory, with plain keys. A file without either prefix is one
+    net's with plain keys: HandTrackNet's where a key starts with `bhand.`,
+    IKNet's where one starts with `linear.`. Returns the paths written."""
     raw = torch.load(ckpt, map_location="cpu", weights_only=True)
     state = raw.get("model", raw)
     epoch = int(raw.get("epoch", 0)) if epoch is None else int(epoch)
@@ -85,6 +92,8 @@ def split(ckpt: str, cfg: dict, experiment_dir: str, iknet_dir: str,
     for name, out_dir in (("handnet", experiment_dir), ("iknet", iknet_dir)):
         prefix = PREFIXES[name]
         part = {k[len(prefix):]: v for k, v in state.items() if k.startswith(prefix)}
+        if not part and any(k.startswith(PLAIN_MARKS[name]) for k in state):
+            part = state  # a single net's file with plain keys
         if not part:
             continue
         _check_loads(cfg, name, part, f"{ckpt}'s {prefix} entries")

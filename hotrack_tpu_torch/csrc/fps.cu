@@ -33,6 +33,14 @@
 //     (key, index) to a double-buffered slot; after the step's one barrier
 //     every warp reduces the slots itself, the same way, so no second
 //     barrier is needed, and loads the winner from the shared copy.
+//   - N > kMaxPoints (a reconstructed mesh's vertices): the float4 copy no
+//     longer fits in shared memory, so one block of kGlobalThreads a cloud
+//     reads the cloud from device memory and keeps the running minima in a
+//     scratch buffer there (the wrapper allocates it), both through L2 after
+//     the first step; thread t walks points t, t + T, ... in ascending order,
+//     and the block reduces as above. Simple, not fast: a step moves 20 bytes
+//     a point through one SM's share of L2 (a cluster of blocks with the
+//     cloud in distributed shared memory is the faster design).
 //
 // Both kernels declare one block an SM in __launch_bounds__: without it the
 // compiler kept the registers of a step to two temporaries and issued one
@@ -60,6 +68,7 @@ constexpr int kBlockThreads = 512;     // the block kernel's most threads a clou
 constexpr int kRegisterPoints = 8192;  // 16 a thread in registers at 512 threads
 constexpr int kMaxPoints = 14336;      // the float4 copy within a block's shared memory
 constexpr int kCloudsPerBlock = 4;     // warps (clouds) a block of the warp kernel, at most
+constexpr int kGlobalThreads = 1024;   // the global-memory kernel's threads a cloud
 
 // A candidate of a thread, warp or block: the larger value wins, then the
 // lower index.
@@ -258,6 +267,66 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
   }
 }
 
+// One block a cloud of any size: the cloud and the running minima (`dist`,
+// (B, N) float32 scratch) stay in device memory. Thread t owns points
+// t + T k and is the only thread that reads or writes their minima, so the
+// minima need no barrier; the step's one barrier is the reduction's.
+__global__ void __launch_bounds__(kGlobalThreads, 1)
+    fps_kernel_global(const float* __restrict__ xyz, const uint8_t* __restrict__ mask,
+                      float* __restrict__ dist, int* __restrict__ out, int n, int npoint) {
+  __shared__ unsigned slot_key[2][kGlobalThreads / 32];
+  __shared__ int slot_i[2][kGlobalThreads / 32];
+
+  const int row = blockIdx.x;
+  const float* p = xyz + static_cast<size_t>(row) * n * 3;
+  const uint8_t* m = mask == nullptr ? nullptr : mask + static_cast<size_t>(row) * n;
+  float* d = dist + static_cast<size_t>(row) * n;
+  int* o = out + static_cast<size_t>(row) * npoint;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int threads = blockDim.x, nwarps = threads >> 5;
+
+  for (int i = tid; i < n; i += threads) {
+    d[i] = (m == nullptr || m[i] != 0) ? 1e10f : -1.0f;  // invalid points stay at -1
+  }
+  float cx = p[0], cy = p[1], cz = p[2];
+  if (tid == 0) o[0] = 0;
+  for (int it = 1; it < npoint; ++it) {
+    // every thread owns at least one point (n > threads): its first one
+    // replaces the -inf, and a strict '>' in ascending order keeps the
+    // lowest of its indices at a tie
+    float bv = -INFINITY;
+    int bi = tid;
+    for (int i = tid; i < n; i += threads) {
+      const float dx = __fsub_rn(p[3 * i], cx);
+      const float dy = __fsub_rn(p[3 * i + 1], cy);
+      const float dz = __fsub_rn(p[3 * i + 2], cz);
+      const float di = fminf(d[i], __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
+                                             __fmul_rn(dz, dz)));
+      d[i] = di;
+      const bool better = di > bv;
+      bv = better ? di : bv;
+      bi = better ? i : bi;
+    }
+    unsigned top;
+    const int wi = warp_winner(order_key(bv), bi, top);
+    const int buf = it & 1;
+    if (lane == 0) {
+      slot_key[buf][warp] = top;
+      slot_i[buf][warp] = wi;
+    }
+    __syncthreads();
+    // as in fps_kernel_block: every warp reduces the slots itself
+    const bool has = lane < nwarps;
+    unsigned stop;
+    const int far = warp_winner(has ? slot_key[buf][lane] : 0u, has ? slot_i[buf][lane] : INT_MAX,
+                                stop);
+    cx = p[3 * far];
+    cy = p[3 * far + 1];
+    cz = p[3 * far + 2];
+    if (tid == 0) o[it] = far;
+  }
+}
+
 template <int P>
 void launch_warp(const float* xyz, const uint8_t* mask, int* out, int b, int n, int npoint,
                  int clouds_per_block, cudaStream_t stream) {
@@ -309,21 +378,31 @@ int hotrack_fps_init() {
   return static_cast<int>(err);
 }
 
+// The float32 scratch values hotrack_fps needs for B clouds of N points:
+// the running minima of the global-memory kernel above kMaxPoints, else 0.
+long long hotrack_fps_scratch(int b, int n) {
+  return n > kMaxPoints ? static_cast<long long>(b) * n : 0;
+}
+
 // Launches FPS on `stream`; returns the cudaError_t of the launch (0 on
-// success; cudaErrorInvalidValue for an empty problem or N above
-// kMaxPoints). Does not synchronise. `mask` may be null (all valid). The
-// layout: up to kWarpPoints points, one warp a cloud with the fewest
-// power-of-two points a lane; above, one block a cloud with 4, 8 or 16
-// points a thread in registers (the fewest that keep the block within
+// success; cudaErrorInvalidValue for an empty problem, or above kMaxPoints
+// without scratch). Does not synchronise. `mask` may be null (all valid);
+// `scratch` holds hotrack_fps_scratch(b, n) floats (null where that is 0).
+// The layout: up to kWarpPoints points, one warp a cloud with the fewest
+// power-of-two points a lane; up to kMaxPoints, one block a cloud with 4, 8
+// or 16 points a thread in registers (the fewest that keep the block within
 // kBlockThreads), or above kRegisterPoints 32 a thread with the coordinates
-// in the shared copy. Point k of thread t is t + k * threads.
-int hotrack_fps(const float* xyz, const uint8_t* mask, int* out, int b, int n, int npoint,
-                void* stream) {
-  if (b <= 0 || n <= 0 || npoint <= 0 || n > kMaxPoints) {
+// in the shared copy; above, one block of kGlobalThreads a cloud in device
+// memory. Point k of thread t is t + k * threads.
+int hotrack_fps(const float* xyz, const uint8_t* mask, float* scratch, int* out, int b, int n,
+                int npoint, void* stream) {
+  if (b <= 0 || n <= 0 || npoint <= 0 || (n > kMaxPoints && scratch == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (n <= kWarpPoints) {
+  if (n > kMaxPoints) {
+    fps_kernel_global<<<b, kGlobalThreads, 0, st>>>(xyz, mask, scratch, out, n, npoint);
+  } else if (n <= kWarpPoints) {
     // enough clouds a block that the grid still covers the SMs, at most 4
     const int per_block = b <= g_sms ? 1 : min(kCloudsPerBlock, (b + g_sms - 1) / g_sms);
     if (n <= 32) launch_warp<1>(xyz, mask, out, b, n, npoint, per_block, st);

@@ -25,7 +25,12 @@ the object's surface, and its last layer is rescaled and shifted so that
 the field is zero there with a unit gradient. The decoder is saved in the
 reference layout (`module.`-prefixed `model_state_dict`) with its
 normalisation, the predicted latent codes and YCB/CatPose2InsPose.npy, at
-the paths sdf/assets.load_obj_for_opt resolves. PNG files are written by
+the paths sdf/assets.load_obj_for_opt resolves. So are the object's meshes,
+which the object runner's chamfer evaluation reads: the gt mesh
+(YCB/models/<object>/textured_simple.obj, category frame, metres) and the
+reconstruction of each sequence's first frame (a PLY in the instance frame),
+both the marching-tetrahedra mesh of the decoder's object at `mesh_res`^3
+(the DexYCB tree's box: its 12 triangles). PNG files are written by
 data/image.py; nothing here needs OpenCV, Pillow or JAX.
 """
 
@@ -42,6 +47,7 @@ from scipy.spatial.transform import Rotation
 
 from ..mano.layer import mano_forward
 from ..mano.model import ManoModel, synthetic_mano_model
+from ..sdf.mesh import create_mesh, write_ply
 from .ho3d import DEPTH_SCALE, KP_REORDER
 from .image import write_png
 from .synthetic import generate_sequence
@@ -60,6 +66,7 @@ FLIP = np.diag([1.0, -1.0, -1.0])   # the camera frame <-> HO3D's annotation fra
 
 
 HAND_COPIES = 6      # jittered copies of each MANO vertex in the hand's cloud
+BOX_HALF = (0.035, 0.05, 0.025)   # the synthetic generator's box, half extents
 
 
 def scene(mano: ManoModel, num_frames: int, seed: int) -> list:
@@ -91,7 +98,7 @@ def scene(mano: ManoModel, num_frames: int, seed: int) -> list:
 
 def box_surface(rng, n: int = 20000) -> np.ndarray:
     """Points on the synthetic generator's box, its own frame."""
-    half = np.array([0.035, 0.05, 0.025])
+    half = np.array(BOX_HALF)
     pts = rng.uniform(-1, 1, (n, 3)) * half
     face = rng.randint(0, 3, n)
     pts[np.arange(n), face] = rng.choice([-1.0, 1.0], n) * half[face]
@@ -133,6 +140,7 @@ def render(parts, splat: int = 1):
 
 OBJECT_SIZE_M = 0.08        # the object's largest extent
 GRID, FINE_GRID = 41, 64     # the field's samples: the cube, then the object's box
+MESH_RES = 48                # the meshes' grid over [-1, 1]^3 (create_mesh)
 
 
 def _field(decoder, latent, xyz, chunk: int = 1 << 16) -> np.ndarray:
@@ -242,28 +250,60 @@ def save_decoder(path: str, decoder) -> str:
     return path
 
 
+def write_obj(path: str, verts: np.ndarray, faces: np.ndarray) -> str:
+    """A Wavefront OBJ of vertices and triangles (1-based indices)."""
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        f.writelines(f"v {x:.6f} {y:.6f} {z:.6f}\n" for x, y, z in verts)
+        f.writelines(f"f {a + 1} {b + 1} {c + 1}\n" for a, b, c in faces)
+    return path
+
+
+def write_meshes(gt_path: str, recon_path: str, ins_verts: np.ndarray, faces: np.ndarray,
+                 normalization: dict) -> None:
+    """The gt mesh (OBJ, the category frame: v / scale - offset) and the
+    reconstruction (PLY, the instance frame) of one mesh."""
+    cat_verts = ins_verts / normalization["scale"] - normalization["offset"]
+    write_obj(gt_path, cat_verts, faces)
+    os.makedirs(os.path.dirname(recon_path), exist_ok=True)
+    write_ply(recon_path, ins_verts, faces)
+
+
+def box_mesh(half) -> tuple:
+    """The 8 corners and 12 outward triangles of a box."""
+    corners = np.array([[(i >> 0) & 1, (i >> 1) & 1, (i >> 2) & 1] for i in range(8)],
+                       np.float64) * 2.0 - 1.0
+    faces = np.array([[0, 2, 1], [1, 2, 3], [4, 5, 6], [5, 7, 6], [0, 1, 4], [1, 5, 4],
+                      [2, 6, 3], [3, 6, 7], [0, 4, 2], [2, 4, 6], [1, 3, 5], [3, 7, 5]])
+    return corners * np.asarray(half), faces
+
+
 # --------------------------------------------------------------------------
 # HO3D
 
 def write_ho3d_tree(root: str, num_frames: int, seqs=("ABF10",), decoder=None,
-                    latent=None) -> dict:
+                    latent=None, mesh_res: int = MESH_RES) -> dict:
     """Write <root>/HO3D (one segment a sequence, frames 0 .. num_frames-1)
     and, with a decoder, its SDF assets under <root>/SimGrasp, <root>/YCB
-    and <root>/HO3D/SDF. A sequence whose name's second-last character is a
-    digit reads its intrinsics from calibration/, the others from the
-    annotation's camMat. Without a decoder the object is the synthetic box
-    (scale 1). Returns {'basepath', 'normalization', 'object' (the category
-    frame's surface points), 'frames' {seq: the scene}}."""
+    and <root>/HO3D/SDF, with the object's meshes at mesh_res^3. A sequence
+    whose name's second-last character is a digit reads its intrinsics from
+    calibration/, the others from the annotation's camMat. Without a decoder
+    the object is the synthetic box (scale 1) and no mesh is written.
+    Returns {'basepath', 'normalization', 'object' (the category frame's
+    surface points), 'frames' {seq: the scene}, 'mesh' (the reconstruction's
+    (verts, faces), or None)}."""
     mano = synthetic_mano_model()
     obj_name = HO3D_OBJECT
     base = pjoin(root, "HO3D")
     k = INTRINSICS
     cam_mat = np.array([[k["fx"], 0, k["cx"]], [0, k["fy"], k["cy"]], [0, 0, 1]])
     rng = np.random.RandomState(0)
+    mesh = None
     if decoder is not None:
         normalization, obj_surface = decoder_object(decoder, latent)
         save_decoder(pjoin(root, "SimGrasp/SDF/examples/bottle_sim/ModelParameters/2000.pth"),
                      decoder)
+        mesh = create_mesh(decoder, latent, n=mesh_res)
     else:
         normalization = {"offset": np.zeros(3, np.float32), "scale": np.array([2.0], np.float32)}
         obj_surface = box_surface(rng)
@@ -311,6 +351,10 @@ def write_ho3d_tree(root: str, num_frames: int, seqs=("ABF10",), decoder=None,
                 code = pjoin(base, "SDF/2000/Codes/pred", f"{seq}_{name}.pth")
                 os.makedirs(os.path.dirname(code), exist_ok=True)
                 torch.save(latent.detach().cpu().reshape(1, -1), code)
+            if mesh is not None and fid == 0:
+                write_meshes(pjoin(root, f"YCB/models/{obj_name}/textured_simple.obj"),
+                             pjoin(base, "SDF/2000/Meshes/pred", f"{seq}_{name}.ply"),
+                             *mesh, normalization)
         if seq[-2].isnumeric():
             calib = pjoin(base, "calibration", seq[:-1], "calibration")
             os.makedirs(calib, exist_ok=True)
@@ -320,7 +364,7 @@ def write_ho3d_tree(root: str, num_frames: int, seqs=("ABF10",), decoder=None,
     os.makedirs(pjoin(base, "splits"), exist_ok=True)
     np.save(pjoin(base, "splits", "finalv2_test_bottle.npy"), split)
     return {"basepath": base, "normalization": normalization, "object": obj_surface,
-            "frames": scenes}
+            "frames": scenes, "mesh": mesh}
 
 
 # --------------------------------------------------------------------------
@@ -328,8 +372,9 @@ def write_ho3d_tree(root: str, num_frames: int, seqs=("ABF10",), decoder=None,
 
 def write_dexycb_tree(root: str, num_frames: int) -> dict:
     """Write <root>/DexYCB with one sequence of num_frames frames (the
-    synthetic box as the grasped object) and the object's normalisation
-    under <root>/YCB. Returns {'basepath', 'sequence', 'frames'}."""
+    synthetic box as the grasped object), the object's normalisation and gt
+    mesh under <root>/YCB and its reconstruction for the first frame.
+    Returns {'basepath', 'sequence', 'frames'}."""
     from .dexycb import YCB_CLASSES
     mano = synthetic_mano_model()
     base = pjoin(root, "DexYCB")
@@ -369,8 +414,14 @@ def write_dexycb_tree(root: str, num_frames: int) -> dict:
     os.makedirs(pjoin(base, "splits"), exist_ok=True)
     np.save(pjoin(base, "splits", "test_bottle.npy"),
             {seq: ["%06d.jpg" % i for i in range(num_frames)]})
-    norm_dir = pjoin(root, "YCB/SDF/NormalizationParameters", YCB_CLASSES[DEXYCB_OBJECT_ID])
+    obj_name = YCB_CLASSES[DEXYCB_OBJECT_ID]
+    normalization = {"offset": np.zeros(3, np.float32), "scale": np.array([2.0], np.float32)}
+    norm_dir = pjoin(root, "YCB/SDF/NormalizationParameters", obj_name)
     os.makedirs(norm_dir, exist_ok=True)
-    np.savez(pjoin(norm_dir, "textured_simple.npz"), offset=np.zeros(3, np.float32),
-             scale=np.array([2.0], np.float32))
+    np.savez(pjoin(norm_dir, "textured_simple.npz"), **normalization)
+    verts, faces = box_mesh(BOX_HALF)
+    write_meshes(pjoin(root, f"YCB/models/{obj_name}/textured_simple.obj"),
+                 pjoin(base, "SDF/2000/Meshes/pred",
+                       f"{obj_name}_{seq.replace('+', '_')}_{0:06d}.ply"),
+                 verts * normalization["scale"], faces, normalization)
     return {"basepath": base, "sequence": seq, "frames": frames}

@@ -1,6 +1,6 @@
 """Hand-frame canonicalisation utilities.
 
-Port of hotrack_tpu/models/hand_utils.py (the part the ported slices use).
+Port of hotrack_tpu/models/hand_utils.py.
 canonicalize/decanonicalize are channels-last: points (B, N, 3).
 """
 
@@ -13,6 +13,7 @@ import torch
 
 from ..mano.model import PALM_KP_IDS
 from ..pose.procrustes import solve_rot_and_trans, solve_rot_and_trans_fast
+from ..pose.rotations import matrix_to_rotvec, noisy_rot_matrix, unit_draw
 
 
 class CanonPose(NamedTuple):
@@ -115,3 +116,28 @@ def kp2bone_lengths(kp: torch.Tensor) -> torch.Tensor:
     """Lengths of the 20 real bones: kp (..., 21, 3) -> (..., 20)."""
     bones = kp[..., 1:, :] - kp[..., list(KP_PARENT)[1:], :]
     return torch.linalg.norm(bones, dim=-1)
+
+
+def jitter_hand_mano(rot_mat: torch.Tensor, theta: torch.Tensor, trans: torch.Tensor,
+                     beta: torch.Tensor, cfg: dict, generator: torch.Generator | None = None,
+                     draws: dict | None = None):
+    """Jitter full MANO parameters: the global rotation by noise of
+    cfg['global_rotation'] rad, the translation and beta by normal noise of
+    cfg['global_translation'] and cfg['beta'], the 15 joints' axis-angles
+    by per-axis stds cfg['x'], cfg['y'], cfg['z']. Returns (noisy_mano (48,),
+    trans (3,), beta (10,)). Drawn in that order from the generator, or from
+    `draws`: {'rotation': (angle, quaternion) unit draws, 'trans', 'beta',
+    'theta': standard normals of those shapes}."""
+    draws = draws or {}
+    noisy_aa = matrix_to_rotvec(noisy_rot_matrix(rot_mat, cfg["global_rotation"],
+                                                 generator=generator,
+                                                 draws=draws.get("rotation")))
+    new_trans = trans + unit_draw(trans.shape, "normal", trans, generator,
+                                  draws.get("trans")) * cfg["global_translation"]
+    new_beta = beta + unit_draw(beta.shape, "normal", beta, generator,
+                                draws.get("beta")) * cfg["beta"]
+    scale = torch.tensor([cfg["x"], cfg["y"], cfg["z"]], dtype=theta.dtype,
+                         device=theta.device).repeat(15)
+    new_theta = theta + unit_draw(theta.shape, "normal", theta, generator,
+                                  draws.get("theta")) * scale
+    return torch.cat([noisy_aa, new_theta], -1), new_trans, new_beta

@@ -1,4 +1,4 @@
-from .backbones import PointNet2Msg
+from .backbones import PointNet2Encoder, PointNet2Msg
 from .blocks import RearrangeModule, position_embedding_sine
 from .pointnet2 import (
     FeaturePropagation,
@@ -6,8 +6,18 @@ from .pointnet2 import (
     SetAbstractionAtCenters,
     SetAbstractionMsg,
 )
+from .point_transformer import (
+    PointTransformerDownBlock,
+    PointTransformerLayer,
+    PointTransformerResBlock,
+    PointTransformerTransitionDown,
+    PointTransformerTransitionUp,
+    PointTransformerUpBlock,
+)
 from .transformer import AttnModule, TransT
 
-__all__ = ["PointNet2Msg", "RearrangeModule", "position_embedding_sine",
+__all__ = ["PointNet2Encoder", "PointNet2Msg", "RearrangeModule", "position_embedding_sine",
            "FeaturePropagation", "SetAbstractionAll", "SetAbstractionAtCenters",
-           "SetAbstractionMsg", "AttnModule", "TransT"]
+           "SetAbstractionMsg", "PointTransformerDownBlock", "PointTransformerLayer",
+           "PointTransformerResBlock", "PointTransformerTransitionDown",
+           "PointTransformerTransitionUp", "PointTransformerUpBlock", "AttnModule", "TransT"]

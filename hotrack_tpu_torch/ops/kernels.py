@@ -153,9 +153,11 @@ def _load(name: str, bind) -> ctypes.CDLL:
 
 def _bind_fps(lib: ctypes.CDLL) -> None:
     # pointers and the stream as c_void_p: a plain int would be cut to 32 bits
-    lib.hotrack_fps.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
+    lib.hotrack_fps.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
         ctypes.c_void_p]
     lib.hotrack_fps.restype = ctypes.c_int
+    lib.hotrack_fps_scratch.argtypes = [ctypes.c_int] * 2
+    lib.hotrack_fps_scratch.restype = ctypes.c_longlong
     lib.hotrack_fps_init.restype = ctypes.c_int
     # the SM count, and shared memory above 48 KB for clouds above 8192
     # points, read and opted in once for the device current at load: the port
@@ -229,11 +231,11 @@ def fps_cuda(xyz: torch.Tensor, npoint: int,
              valid_mask: torch.Tensor | None = None) -> torch.Tensor:
     """Farthest point sampling on the card (csrc/fps.cu).
 
-    xyz (B, N, 3) float32 contiguous tensor on the current CUDA device,
-    N <= 14336 (csrc/fps.cu kMaxPoints: the launch returns CUDA error 1,
-    invalid value, above that, and this raises); valid_mask (B, N) bool or
-    uint8 on the same device, or None -> idx (B, npoint) int32. The kernel
-    chooses its launch layout from N."""
+    xyz (B, N, 3) float32 contiguous tensor on the current CUDA device, any
+    N; valid_mask (B, N) bool or uint8 on the same device, or None -> idx
+    (B, npoint) int32. The kernel chooses its launch layout from N: above
+    14336 points (csrc/fps.cu kMaxPoints) the cloud stays in device memory,
+    with a (B, N) float32 scratch for the running minima allocated here."""
     if not xyz.is_cuda or xyz.get_device() != torch._C._cuda_getDevice():
         raise ValueError(f"fps_cuda takes a CUDA tensor on the current device, "
                          f"got one on {xyz.device}")
@@ -259,8 +261,11 @@ def fps_cuda(xyz: torch.Tensor, npoint: int,
                              f"got {tuple(valid_mask.shape)}")
         mask_ptr = valid_mask.data_ptr()
     out = torch.empty((b, npoint), dtype=torch.int32, device=xyz.device)
-    err = lib.hotrack_fps(xyz.data_ptr(), mask_ptr, out.data_ptr(), b, n, npoint,
-                          torch._C._cuda_getCurrentRawStream(xyz.get_device()))
+    floats = lib.hotrack_fps_scratch(b, n)
+    scratch = torch.empty(floats, dtype=torch.float32, device=xyz.device) if floats else None
+    err = lib.hotrack_fps(xyz.data_ptr(), mask_ptr,
+                          None if scratch is None else scratch.data_ptr(), out.data_ptr(),
+                          b, n, npoint, torch._C._cuda_getCurrentRawStream(xyz.get_device()))
     if err:
         _check_status(err, f"fps launch (B={b}, N={n}, npoint={npoint})")
     launch_counts["fps"] += 1

@@ -7,6 +7,7 @@ from .particle import (
 )
 from .obj_pose import OBJ_SPEC, optimize_obj_pose
 from .hand_shape import SHAPE_SPEC, kp2length, optimize_hand_shape
+from .shape_update import estimate_normals, merge_observations, update_shape
 from .hand_pose import (
     POSE_SPEC,
     ContactZones,
@@ -20,5 +21,5 @@ __all__ = [
     "quat_extend", "run_particle_opt", "OBJ_SPEC", "optimize_obj_pose",
     "SHAPE_SPEC", "kp2length", "optimize_hand_shape", "POSE_SPEC",
     "ContactZones", "load_contact_zones", "optimize_hand_pose",
-    "world2point2d",
+    "world2point2d", "estimate_normals", "merge_observations", "update_shape",
 ]

@@ -1,4 +1,4 @@
-"""Rotation-representation conversions (the part the ported slices use).
+"""Rotation-representation conversions.
 
 Port of hotrack_tpu/pose/rotations.py: quaternions are (w, x, y, z);
 `matrix_to_unit_quaternion` uses the trace branch only, like the reference.
@@ -25,6 +25,16 @@ def quat_multiply(q: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
     w = w1 * w2 - torch.sum(v1 * v2, dim=-1, keepdim=True)
     v = w1 * v2 + w2 * v1 + torch.linalg.cross(v1, v2, dim=-1)
     return torch.cat([w, v], dim=-1)
+
+
+def quat_conjugate(q: torch.Tensor) -> torch.Tensor:
+    return torch.cat([q[..., :1], -q[..., 1:]], dim=-1)
+
+
+def quat_rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Rotate vectors v (.., 3) by unit quaternions q (.., 4)."""
+    qv = torch.cat([torch.zeros_like(v[..., :1]), v], dim=-1)
+    return quat_multiply(quat_multiply(q, qv), quat_conjugate(q))[..., 1:]
 
 
 def unit_quaternion_to_matrix(q: torch.Tensor) -> torch.Tensor:
@@ -74,6 +84,10 @@ def quater_to_axis_theta(q: torch.Tensor):
 
 def axis_theta_to_matrix(axis: torch.Tensor, theta: torch.Tensor) -> torch.Tensor:
     return unit_quaternion_to_matrix(axis_theta_to_quater(axis, theta))
+
+
+def matrix_to_axis_theta(m: torch.Tensor):
+    return quater_to_axis_theta(matrix_to_unit_quaternion(m))
 
 
 def rotvec_to_axis_theta(rotvec: torch.Tensor):
@@ -139,6 +153,46 @@ def compute_rotation_matrix_from_ortho6d(poses: torch.Tensor) -> torch.Tensor:
     z = normalize_vector(torch.linalg.cross(x, poses[..., 3:6], dim=-1))
     y = torch.linalg.cross(z, x, dim=-1)
     return torch.stack([x, y, z], dim=-1)
+
+
+def rotvec_to_euler(rotvec: torch.Tensor) -> torch.Tensor:
+    """Rotation vector -> (heading, attitude, bank) euler angles, with the
+    gimbal-lock branches beyond +-0.998."""
+    axis, theta = rotvec_to_axis_theta(rotvec)
+    x, y, z = axis[..., 0], axis[..., 1], axis[..., 2]
+    s, c = torch.sin(theta), torch.cos(theta)
+    t = 1.0 - c
+    lock = x * y * t + z * s
+    heading_l = 2.0 * torch.arctan2(x * torch.sin(theta / 2.0), torch.cos(theta / 2.0))
+    half_pi = torch.full_like(heading_l, torch.pi / 2.0)
+    zero = torch.zeros_like(heading_l)
+    euler_n = torch.stack([heading_l, half_pi, zero], dim=-1)
+    euler_s = torch.stack([-heading_l, -half_pi, zero], dim=-1)
+    heading = torch.arctan2(y * s - x * z * t, 1.0 - (y * y + z * z) * t)
+    attitude = torch.arcsin(torch.clamp(lock, -1.0, 1.0))
+    bank = torch.arctan2(x * s - y * z * t, 1.0 - (x * x + z * z) * t)
+    euler = torch.stack([heading, attitude, bank], dim=-1)
+    return torch.where((lock > 0.998)[..., None], euler_n,
+                       torch.where((lock < -0.998)[..., None], euler_s, euler))
+
+
+def euler_to_rotvec(euler: torch.Tensor) -> torch.Tensor:
+    """(heading, attitude, bank) euler angles -> rotation vector."""
+    heading, attitude, bank = euler[..., 0], euler[..., 1], euler[..., 2]
+    c1, s1 = torch.cos(heading / 2.0), torch.sin(heading / 2.0)
+    c2, s2 = torch.cos(attitude / 2.0), torch.sin(attitude / 2.0)
+    c3, s3 = torch.cos(bank / 2.0), torch.sin(bank / 2.0)
+    w = c1 * c2 * c3 - s1 * s2 * s3
+    xyz = torch.stack([c1 * c2 * s3 + s1 * s2 * c3, s1 * c2 * c3 + c1 * s2 * s3,
+                       c1 * s2 * c3 - s1 * c2 * s3], dim=-1)
+    angle = 2.0 * torch.arccos(torch.clamp(w, -1.0, 1.0))
+    norm = torch.linalg.norm(xyz, dim=-1, keepdim=True)
+    degenerate = (norm < 1e-8).to(euler.dtype)
+    axis = xyz / torch.maximum(norm, degenerate)
+    unit_x = torch.zeros_like(axis)
+    unit_x[..., 0] = 1.0
+    axis = degenerate * unit_x + (1.0 - degenerate) * axis
+    return axis * angle[..., None]
 
 
 def compute_rotation_matrix_from_3d(vec: torch.Tensor) -> torch.Tensor:
@@ -208,3 +262,10 @@ def noisy_rot_matrix(matrix: torch.Tensor, rad, kind: str = "normal",
     quat = matrix_to_unit_quaternion(matrix)
     return unit_quaternion_to_matrix(
         jitter_quaternion(quat, theta[..., None], generator, d_quat))
+
+
+def rotate_around_point(points: torch.Tensor, rotation: torch.Tensor,
+                        pivot: torch.Tensor) -> torch.Tensor:
+    """Rotate point sets (.., N, 3) by (.., 3, 3) about pivots (.., 3)."""
+    pivot = pivot[..., None, :]
+    return torch.matmul(points - pivot, rotation.transpose(-1, -2)) + pivot

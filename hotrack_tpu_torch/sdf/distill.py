@@ -76,13 +76,16 @@ def eval_distilled_sdf_cf(model: DistilledSDF, points_cf: torch.Tensor,
 def near_surface_indices(flat: torch.Tensor, clamp: float, u: torch.Tensor) -> torch.Tensor:
     """Inverse-CDF draw of voxels with |sdf| < 0.98 clamp (every other voxel
     keeps a weight of 1e-6): flat (V^3,) clamped sdf, u uniform in [0, 1) ->
-    flat voxel indices. The cumulative sum is float32, as in the JAX package;
-    its rounding differs between frameworks, so draws agree exactly only on
-    small volumes."""
-    near_w = (torch.abs(flat) < clamp * 0.98).to(torch.float32) + 1e-6
+    flat voxel indices on flat's device. The cumulative sum is float32, as in
+    the JAX package; its rounding differs between frameworks, so draws agree
+    exactly only on small volumes. It is taken on the host: a float32 scan on
+    the card adds in an order that changes from run to run (2.98e-7 apart on
+    a 201^3 volume, on an H100), which moved the draws, and so the fit,
+    between two runs of one seed."""
+    near_w = (torch.abs(flat) < clamp * 0.98).to(torch.float32).cpu() + 1e-6
     near_cdf = torch.cumsum(near_w / torch.sum(near_w), dim=0)
-    idx = torch.searchsorted(near_cdf, u.to(near_cdf.dtype))  # first cdf >= u
-    return torch.clamp(idx, 0, flat.shape[0] - 1)
+    idx = torch.searchsorted(near_cdf, u.cpu().to(near_cdf.dtype))  # first cdf >= u
+    return torch.clamp(idx, 0, flat.shape[0] - 1).to(flat.device)
 
 
 def distill_sdf_volume(volume: torch.Tensor, voxel_scale: float,

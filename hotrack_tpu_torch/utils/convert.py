@@ -23,7 +23,10 @@ the packages as a dict of numpy arrays ({'weights', 'biases', 'freqs',
 'scale', 'clamp'}: the fields of either package's `DistilledSDF`); weights
 are (in, out) in both, so nothing is transposed.
 `sdf_decoder_state_dict_from_flax` turns the JAX package's `SDFDecoder`
-params into the port's decoder state dict.
+params into the port's decoder state dict; `pointnet2_encoder_state_dict_from_flax`
+and `point_transformer_state_dict_from_flax` do the same for the library
+modules that no entry calls (nn/backbones.PointNet2Encoder, the six classes
+of nn/point_transformer.py).
 """
 
 from __future__ import annotations
@@ -335,3 +338,64 @@ def sdf_decoder_state_dict_from_flax(params: dict,
             else:
                 sd[f"{layer}.{names[key]}"] = torch.tensor(a, dtype=dtype)
     return sd
+
+
+def _linear(sd: dict, prefix: str, leaf: dict) -> None:
+    sd[prefix + ".weight"] = _w(leaf["kernel"], "linear")
+    if "bias" in leaf:
+        sd[prefix + ".bias"] = np.asarray(leaf["bias"])
+
+
+def _as_tensors(sd: dict, dtype: torch.dtype) -> dict:
+    return {k: torch.tensor(np.asarray(v), dtype=torch.int64 if k.endswith(
+        "num_batches_tracked") else dtype) for k, v in sd.items()}
+
+
+def pointnet2_encoder_state_dict_from_flax(params: dict, batch_stats: dict,
+                                           dtype: torch.dtype = torch.float32) -> dict:
+    """The JAX package's `PointNet2Encoder` variables (sa1, sa2, sa3, then
+    Dense_0 / BatchNorm_0 and Dense_1 / BatchNorm_1) -> the port's module
+    state dict (fc1 / bn1, fc2 / bn2)."""
+    sd = {}
+    for name in ("sa1", "sa2"):
+        p, s = params[name], batch_stats[name]
+        for i in range(sum(1 for k in p if k.startswith("SharedMLP_"))):
+            _put_shared_mlp(sd, f"{name}.conv_blocks.{i}", f"{name}.bn_blocks.{i}",
+                            p[f"SharedMLP_{i}"], s[f"SharedMLP_{i}"], "linear")
+    _put_plain(sd, "sa3", params["sa3"], batch_stats["sa3"], "linear")
+    for j, (fc, bn) in enumerate((("fc1", "bn1"), ("fc2", "bn2"))):
+        _linear(sd, fc, params[f"Dense_{j}"])
+        _put_bn(sd, bn, params[f"BatchNorm_{j}"], batch_stats[f"BatchNorm_{j}"])
+    return _as_tensors(sd, dtype)
+
+
+def _put_point_transformer(sd: dict, prefix: str, p: dict, s: dict) -> None:
+    """One flax module of nn/point_transformer.py, by the names it holds."""
+    pre = prefix + "." if prefix else ""
+    if "PointTransformerTransitionDown_0" in p or "PointTransformerTransitionUp_0" in p:
+        kind = "Down" if "PointTransformerTransitionDown_0" in p else "Up"
+        name = f"PointTransformerTransition{kind}_0"
+        _put_point_transformer(sd, pre + "transition", p[name], s.get(name, {}))
+        for i in range(sum(1 for k in p if k.startswith("PointTransformerResBlock_"))):
+            _put_point_transformer(sd, f"{pre}blocks.{i}", p[f"PointTransformerResBlock_{i}"],
+                                   {})
+    elif "PointTransformerLayer_0" in p:          # a residual block
+        _linear(sd, pre + "linear_down", p["Dense_0"])
+        _put_point_transformer(sd, pre + "transformer", p["PointTransformerLayer_0"], {})
+        _linear(sd, pre + "linear_up", p["Dense_1"])
+    elif "SharedMLP_0" in p:                      # a transition down or up
+        _put_shared_mlp(sd, pre + "mlp_convs", pre + "mlp_bns", p["SharedMLP_0"],
+                        s["SharedMLP_0"], "linear")
+    else:                                         # a transformer layer
+        for name, leaf in (("to_qkv", "Dense_0"), ("attn_mlp1", "Dense_1"),
+                           ("attn_mlp2", "Dense_2")):
+            _linear(sd, pre + name, p[leaf])
+
+
+def point_transformer_state_dict_from_flax(params: dict, batch_stats: dict | None = None,
+                                           dtype: torch.dtype = torch.float32) -> dict:
+    """The variables of any of the JAX package's six PointTransformer modules
+    -> the state dict of the port's module of the same class."""
+    sd = {}
+    _put_point_transformer(sd, "", params, batch_stats or {})
+    return _as_tensors(sd, dtype)

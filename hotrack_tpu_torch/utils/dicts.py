@@ -1,7 +1,9 @@
-"""Loss-dict algebra and logging helpers (the port's own copy of
+"""Loss-dict algebra, logging helpers and a timer (the port's own copy of
 hotrack_tpu/utils/dicts.py, on tensors)."""
 
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
@@ -19,6 +21,10 @@ def cvt_numpy(x):
     return x
 
 
+def detach_dict(d):
+    return cvt_numpy(d)
+
+
 def add_dict(total: dict, new: dict) -> None:
     """Accumulate scalar entries recursively (arrays by their mean)."""
     for k, v in new.items():
@@ -26,6 +32,12 @@ def add_dict(total: dict, new: dict) -> None:
             add_dict(total.setdefault(k, {}), v)
         else:
             total[k] = total.get(k, 0.0) + float(np.mean(cvt_numpy(v)))
+
+
+def merge_dict(store: dict, new: dict) -> None:
+    """Append entries into per-key lists."""
+    for k, v in new.items():
+        store.setdefault(k, []).append(v)
 
 
 def divide_dict(total: dict, n: int) -> dict:
@@ -56,3 +68,23 @@ def dump_csv(path: str, rows: dict, per_instance_keys=None) -> None:
         writer.writerow(keys)
         for i in range(n):
             writer.writerow([cols[k][i] if i < len(cols[k]) else "" for k in keys])
+
+
+class Timer:
+    """Wall-clock segment timer: `tick(name)` returns the seconds since the
+    last tick (and prints them under a name); off, it returns 0."""
+
+    def __init__(self, on: bool = True):
+        self.on = on
+        if on:
+            self.last = time.time()
+
+    def tick(self, name: str = "") -> float:
+        if not self.on:
+            return 0.0
+        now = time.time()
+        dt = now - self.last
+        self.last = now
+        if name:
+            print(f"[timer] {name}: {dt:.4f}s")
+        return dt

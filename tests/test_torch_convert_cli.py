@@ -95,6 +95,32 @@ def test_split_gives_the_jax_exporters_single_files(files, tmp_path):
     load_iknet(cfg, "cpu")
 
 
+@pytest.mark.parametrize("name,net", [("hand", "handnet"), ("ik", "iknet")])
+def test_split_takes_a_single_nets_plain_file(files, tmp_path, name, net):
+    """A single net's file with plain keys goes where the JAX loader routes
+    it (`bhand.` keys to HandTrackNet, `linear.` keys to IKNet), bitwise."""
+    from hotrack_tpu.utils.torch_convert import load_reference_checkpoint as jax_load
+    routed = jax_load(files[name], files["cfg"]["pointnet"]["camera"], 48)
+    assert set(routed) == {net}
+    dirs = {"handnet": tmp_path / "hand", "iknet": tmp_path / "ik"}
+    written = convert.main(_argv("--ckpt", files[name], "--experiment_dir",
+                                 str(dirs["handnet"]), "--IKNet_dir", str(dirs["iknet"])))
+    assert written == [str(dirs[net] / "ckpt" / "model_0007.pt")]
+    _same_file(written[0], files[name])
+    cfg = dict(files["cfg"], experiment_dir=str(dirs["handnet"]), IKNet_dir=str(dirs["iknet"]))
+    (load_handnet if net == "handnet" else load_iknet)(cfg, "cpu")
+
+
+def test_split_refuses_a_file_of_neither_net(files, tmp_path):
+    state = torch.load(files["ik"], weights_only=True)
+    state["model"] = {"other." + k: v for k, v in state["model"].items()}
+    path = str(tmp_path / "other.pt")
+    torch.save(state, path)
+    with pytest.raises(SystemExit, match="no handnet. or IKnet. entries"):
+        convert.main(_argv("--ckpt", path, "--experiment_dir", str(tmp_path / "h"),
+                           "--IKNet_dir", str(tmp_path / "i")))
+
+
 def test_compose_gives_the_jax_exporters_composed_file(files, tmp_path):
     for name in ("hand", "ik"):
         os.makedirs(tmp_path / name / "ckpt")

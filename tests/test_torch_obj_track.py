@@ -234,8 +234,12 @@ def test_test_main_distilled_routes_on_the_cpu(small_runner, energy):
 
 
 def test_config_keys_are_checked_and_shape_update_names_its_slice(small_runner):
-    with pytest.raises(NotImplementedError, match="slice 3b"):
-        cli.test_main([*small_runner, "--opt/updateobjshape", "True"])
+    # the synthetic set has no DeepSDF decoder: with updateobjshape the
+    # sequence tracks without refinement, as in the JAX runner
+    avg, stats = cli.test_main([*small_runner, "--opt/updateobjshape", "True"])
+    seq = stats["sequences"][0]
+    assert seq["sdf_query"] == "volume" and "latent" not in seq
+    assert set(avg) == {"mean/tdiff_0", "mean/rdiff_0", "mean/5deg5cm_0", "mean/10deg10cm_0"}
     with pytest.raises(ValueError, match="sdf_query"):
         cli.test_main([*small_runner, "--sdf_query", "nearest"])
     with pytest.raises(ValueError, match="obj_energy"):
@@ -259,6 +263,9 @@ runpy.run_module("hotrack_tpu_torch.test", run_name="__main__")
 import hotrack_tpu_torch.opt.obj_pose, hotrack_tpu_torch.sdf.decoder, hotrack_tpu_torch.sdf.assets
 import hotrack_tpu_torch.ops.obj_energy, hotrack_tpu_torch.ops.sdf_mlp
 import hotrack_tpu_torch.pose.part_dof
+import hotrack_tpu_torch.sdf.mesh, hotrack_tpu_torch.opt.shape_update, hotrack_tpu_torch.pose.bbox
+import hotrack_tpu_torch.pose.pose_fit, hotrack_tpu_torch.models.losses
+import hotrack_tpu_torch.nn.point_transformer
 bad = sorted(m for m in sys.modules if m in ("jax", "hotrack_tpu")
              or m.startswith(("jax.", "jaxlib", "flax", "optax", "hotrack_tpu.")))
 assert not bad, bad

@@ -212,5 +212,39 @@ def test_fps_kernel_large_cloud_and_capacity(cuda_device):
     want = tops._farthest_point_sample_torch(xyz, 64)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
-    with pytest.raises(RuntimeError, match="CUDA error"):
-        kernels.fps_cuda(torch.zeros((1, 14337, 3), device=cuda_device), 8)
+    # above the shared copy's 14336 points the cloud stays in device memory
+    kernels.reset_launch_counts()
+    xyz = torch.from_numpy(rng.randn(2, 14337, 3).astype(np.float32)).to(cuda_device)
+    got = kernels.fps_cuda(xyz, 64)
+    assert kernels.launch_counts["fps"] == 1
+    assert torch.equal(got, tops._farthest_point_sample_torch(xyz, 64))
+
+
+# the large clouds of the global-memory path (csrc/fps.cu above kMaxPoints):
+# the boundary, masked, a tie-heavy grid, and a reconstructed mesh's size
+LARGE_SHAPES = [(4, 14336, 256, False), (4, 14337, 256, False), (4, 14336, 256, True),
+                (4, 14337, 256, True), (1, 40000, 2048, False)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", LARGE_SHAPES, ids=lambda s: "x".join(map(str, s[:3]))
+                         + "m" * s[3])
+def test_fps_kernel_large_clouds(cuda_device, shape):
+    b, n, npoint, masked = shape
+    rng = np.random.RandomState(n + masked)
+    xyz = torch.from_numpy(rng.randn(b, n, 3).astype(np.float32)).to(cuda_device)
+    mask = torch.from_numpy(rng.rand(b, n) > 0.4).to(cuda_device) if masked else None
+    got = kernels.fps_cuda(xyz, npoint, mask)
+    want = tops._farthest_point_sample_torch(xyz, npoint, mask)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_fps_kernel_large_tie_heavy_cloud(cuda_device):
+    rng = np.random.RandomState(17)
+    xyz = torch.from_numpy(_grid_cloud(rng, 2, 16384)).to(cuda_device)
+    got = kernels.fps_cuda(xyz, 300)
+    want = tops._farthest_point_sample_torch(xyz, 300)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)

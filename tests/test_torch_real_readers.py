@@ -24,6 +24,17 @@ the five HO3D / DexYCB configs through the port's test entry.
   metrics, and pickles with the JAX runners' keys and dtypes. Sizes are cut
   (volumes, particle banks, distillation, nets) as the other runner tests
   cut them.
+- The chamfer evaluation (both trees carry the gt and reconstruction
+  meshes): the port's `_chamfer_eval` against the JAX runner's on the same
+  config, tree, poses and batch, with more than 2048 reconstruction
+  vertices, so that FPS picks them (index-exact on both sides, so the
+  distances differ only by float32 sums: CHAMFER_RTOL); None where the JAX
+  runner gives None. objopt_test_HO3D with `--opt/updateobjshape True`
+  through the port's test entry at the cut sizes (the refined mesh at
+  UPDATED_MESH_RES 24): the latent moves, `*_update.ply` reads back, the
+  chamfer keys join the metrics. The same run of the JAX runner would bake
+  201^3 and mesh 128^3 through the JAX decoder, beyond this file's budget:
+  the JAX side is held component by component in test_torch_shape_update.py.
 """
 
 import os
@@ -53,6 +64,7 @@ Image = pytest.importorskip("PIL.Image")
 
 FRAMES = 3
 KP_ATOL = 1e-5
+CHAMFER_RTOL = 1e-5   # means of float32 distances after float32 rigid transforms
 RADIUS_CLEARANCE = 1e-4
 SPECS = {"dims": [32, 288, 32, 32], "dropout": [0, 1, 2, 3], "dropout_prob": 0.2,
          "norm_layers": [0, 1, 2, 3], "latent_in": [2], "xyz_in_all": False,
@@ -356,3 +368,71 @@ def test_hand_tracking_configs_run_on_the_real_layouts(small, config):
     assert saved["CAD_ID"] == (YCB_CLASSES[real_trees.DEXYCB_OBJECT_ID] if "DexYCB" in config
                                else real_trees.HO3D_OBJECT)
     assert len(saved["pred_hand_kp"]) == FRAMES
+
+
+# ------------------------------------------------------------------ chamfer and shape update
+
+def test_chamfer_eval_matches_the_jax_runner(trees, monkeypatch):
+    from scipy.spatial.transform import Rotation
+
+    from hotrack_tpu.track.types import ObjTrackResult as JaxObjTrackResult
+    from hotrack_tpu.train import run_obj_track as jax_runner
+    from hotrack_tpu_torch.sdf.mesh import load_mesh
+    from hotrack_tpu_torch.track import ObjTrackResult
+    monkeypatch.setenv("HOTRACK_DATA_ROOT", trees["root"])
+    cfg = cli.load_config(["--config", "objopt_test_HO3D.yml", *TINY])
+    meta0 = {"file_name": "ABF10/0000", "category": real_trees.HO3D_OBJECT}
+    assets_ = assets.load_obj_for_opt(cfg["data_cfg"]["basepath"], "HO3D", "pred",
+                                      meta0["file_name"], meta0["category"])
+    assert len(load_mesh(assets_.recon_mesh_path)[0]) > 2048       # FPS runs
+    from hotrack_tpu_torch.data.dexycb import YCB_CLASSES
+    dex = assets.load_obj_for_opt(trees["dex"]["basepath"], "DexYCB", "pred",
+                                  trees["dex"]["sequence"] + "+000000",
+                                  YCB_CLASSES[real_trees.DEXYCB_OBJECT_ID])
+    assert os.path.exists(dex.gt_mesh_path) and os.path.exists(dex.recon_mesh_path)
+    rng, t = np.random.RandomState(5), 12
+    rot = Rotation.random(t, random_state=rng).as_matrix().astype(np.float32)
+    gt_rot = Rotation.random(t, random_state=rng).as_matrix().astype(np.float32)
+    trans = (rng.randn(t, 3, 1) * 0.05 + [[0.0], [0.0], [0.5]]).astype(np.float32)
+    gt_trans = (trans + rng.randn(t, 3, 1) * 0.005).astype(np.float32)
+    want = jax_runner._chamfer_eval(
+        cfg, meta0, JaxObjTrackResult(jnp.asarray(rot), jnp.asarray(trans), jnp.zeros(t)),
+        {"gt_obj_pose": {"rotation": jnp.asarray(gt_rot), "translation": jnp.asarray(gt_trans)}})
+    tbatch = {"gt_obj_pose": {"rotation": torch.from_numpy(gt_rot),
+                              "translation": torch.from_numpy(gt_trans)}}
+    tres = ObjTrackResult(torch.from_numpy(rot), torch.from_numpy(trans), torch.zeros(t))
+    got = run_obj_track._chamfer_eval(cfg, meta0, tres, tbatch)
+    assert set(got) == set(want) == {"mean/raw_obj_chamfer(mm)", "mean/pred_obj_chamfer(mm)"}
+    for k in want:
+        assert np.isfinite(got[k]) and got[k] > 0
+        assert float(got[k]) == pytest.approx(float(want[k]), rel=CHAMFER_RTOL, abs=0), k
+    # None where the JAX runner gives None: the synthetic set, a missing mesh
+    for c, m in ((dict(cfg, sdf_code_source="synthetic"), meta0),
+                 (cfg, dict(meta0, file_name="ABF10/0001"))):
+        assert jax_runner._chamfer_eval(c, m, None, None) is None
+        assert run_obj_track._chamfer_eval(c, m, None, None) is None
+
+
+def test_objopt_shape_update_on_ho3d_through_the_test_entry(small, monkeypatch):
+    from hotrack_tpu_torch.sdf.mesh import load_mesh
+    monkeypatch.setattr(run_obj_track, "UPDATED_MESH_RES", 24)
+    bakes = []
+    bake = run_obj_track.bake_sdf_volume
+    monkeypatch.setattr(run_obj_track, "bake_sdf_volume",
+                        lambda *a, **k: bakes.append(1) or bake(*a, **k))
+    avg, stats = cli.test_main(["--config", "objopt_test_HO3D.yml", *TINY,
+                                "--opt/updateobjshape", "True"])
+    assert stats["n_frames"] == 2 * FRAMES and all(np.isfinite(v) for v in avg.values())
+    # a sequence bakes the decoder's volume once before frame 0 and once an update
+    assert len(bakes) == 2 * len(stats["sequences"])
+    assert {"mean/raw_obj_chamfer(mm)", "mean/pred_obj_chamfer(mm)"} <= set(avg)
+    for seq in stats["sequences"]:
+        assert seq["sdf_query"] == "volume" and seq["distilled"] is None
+        assert float((seq["latent"] - small["latent"]).abs().max()) > 1e-4  # refined
+        assert len(seq["update_seconds"]) == len(seq["rebake_seconds"]) == 1
+        # the tracking window holds the bakes, the update and the mesh export
+        assert seq["net_seconds"] > sum(seq["bake_seconds"] + seq["update_seconds"]
+                                        + seq["rebake_seconds"]) + seq["export_seconds"]
+        assert seq["updated_mesh"].endswith("_update.ply")
+        verts, faces = load_mesh(seq["updated_mesh"])
+        assert len(verts) > 0 and faces.max() < len(verts)

@@ -89,7 +89,8 @@ def _warp_winner(keys: np.ndarray, idx: np.ndarray):
 def _fps_constants() -> dict:
     src = (kernels.CSRC_DIR / "fps.cu").read_text()
     return {name: int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
-            for name in ("kWarpPoints", "kBlockThreads", "kRegisterPoints", "kMaxPoints")}
+            for name in ("kWarpPoints", "kBlockThreads", "kRegisterPoints", "kMaxPoints",
+                         "kGlobalThreads")}
 
 
 def _fps_layout(n: int) -> tuple:
@@ -101,6 +102,8 @@ def _fps_layout(n: int) -> tuple:
         while 32 * per < n:
             per *= 2
         return per, 32
+    if n > k["kMaxPoints"]:  # the global-memory kernel: a fixed block
+        return -(-n // k["kGlobalThreads"]), k["kGlobalThreads"]
     for per in (4, 8, 16):
         threads = 32 * -(-n // (32 * per))
         if threads <= k["kBlockThreads"]:
@@ -148,6 +151,8 @@ FPS_EMULATED = [  # (name, B, N, npoint, cloud, masked): both kernels, every lay
     ("block, 4 a thread (1025)", 1, 1025, 24, "grid", True),
     ("block, 4 a thread (1025), 27 distinct points", 1, 1025, 48, "few", False),
     ("block, 8 a thread (2560), point 0 invalid", 1, 2560, 20, "random", "seed_invalid"),
+    ("global (14337), masked", 1, 14337, 12, "random", True),
+    ("global (14400), 27 distinct points", 1, 14400, 40, "few", False),
 ]
 
 
@@ -195,12 +200,14 @@ def test_warp_winner_takes_the_first_maximal_index():
 
 
 @pytest.mark.parametrize("n", [1, 31, 32, 33, 256, 512, 1000, 1024, 1025, 2048, 2049, 2560,
-                               5120, 8192, 8193, 14336])
+                               5120, 8192, 8193, 14336, 14337, 40000])
 def test_fps_layout_covers_the_cloud(n):
     k = _fps_constants()
     per, threads = _fps_layout(n)
-    assert per * threads >= n and threads % 32 == 0 and n <= k["kMaxPoints"]
-    if n <= k["kWarpPoints"]:
+    assert per * threads >= n and threads % 32 == 0
+    if n > k["kMaxPoints"]:  # every thread owns a point: none reduces an empty set
+        assert threads == k["kGlobalThreads"] < n
+    elif n <= k["kWarpPoints"]:
         assert threads == 32 and per in (1, 2, 4, 8, 16, 32) and (per == 1 or 16 * per < n)
     else:  # the block kernel: registers up to kRegisterPoints, the shared copy above
         assert threads <= k["kBlockThreads"]
@@ -405,7 +412,8 @@ def cuda_device():
 FPS_CARD = [(1, 512, 256, False), (4, 512, 256, True), (32, 256, 128, False),
             (4, 1024, 200, False), (4, 1024, 200, True), (4, 1025, 200, False),
             (4, 1025, 200, True), (32, 2560, 512, True), (2, 8192, 64, True),
-            (2, 8193, 64, True), (1, 14336, 40, True), (140, 200, 50, False)]
+            (2, 8193, 64, True), (1, 14336, 40, True), (1, 14337, 40, True),
+            (2, 16384, 64, False), (140, 200, 50, False)]
 
 
 @pytest.mark.gpu
@@ -425,9 +433,19 @@ def test_fps_kernel_boundaries_and_batches(cuda_device, shape):
 
 @pytest.mark.gpu
 def test_fps_kernel_refuses_clouds_above_capacity(cuda_device):
-    with pytest.raises(RuntimeError, match="CUDA error"):
-        kernels.fps_cuda(torch.zeros((1, _fps_constants()["kMaxPoints"] + 1, 3),
-                                     device=cuda_device), 8)
+    """Above the shared copy's capacity the launch needs the running minima's
+    scratch, which fps_cuda allocates: without it the entry point refuses the
+    cloud (cudaErrorInvalidValue), with it the cloud is sampled."""
+    n = _fps_constants()["kMaxPoints"] + 1
+    xyz = torch.from_numpy((np.random.RandomState(3).randn(1, n, 3) * 0.05)
+                           .astype(np.float32)).to(cuda_device)
+    lib = kernels._load("fps", kernels._bind_fps)
+    assert lib.hotrack_fps_scratch(1, n) == n and lib.hotrack_fps_scratch(1, n - 1) == 0
+    out = torch.empty((1, 8), dtype=torch.int32, device=cuda_device)
+    assert lib.hotrack_fps(xyz.data_ptr(), None, None, out.data_ptr(), 1, n, 8,
+                           torch.cuda.current_stream().cuda_stream) == 1
+    got = kernels.fps_cuda(xyz, 8)
+    assert torch.equal(got, tops._farthest_point_sample_torch(xyz, 8))
 
 
 @pytest.mark.gpu

@@ -156,3 +156,17 @@ def test_obj_energy_kernel_matches_plain_version_and_relaunches_bitwise(cuda_dev
     # off by the size of a weight
     emu = obj_energy._obj_sdf_energy_torch(model, pcld_cf, rts, mlp=tf32.raw_sdf_mlp_3xtf32)
     assert bool(((got - emu).abs() <= ENERGY_RTOL * emu.abs() + ENERGY_ATOL * n).all())
+
+
+@pytest.mark.gpu
+def test_distillation_repeats_bitwise_on_the_card(cuda_device):
+    """Two fits of one volume from one seed on the card are bitwise alike: the
+    near-surface draw's cumulative sum is taken on the host, where a float32
+    scan on the card adds in an order that changes from run to run."""
+    from hotrack_tpu_torch.sdf.assets import synthetic_box_sdf_setup
+    from hotrack_tpu_torch.sdf.distill import distill_sdf_volume
+    vol = synthetic_box_sdf_setup(101, 0.004, device=cuda_device)
+    fits = [distill_sdf_volume(vol, 0.004, torch.Generator().manual_seed(7), steps=30,
+                               batch=1024, pool_batches=4) for _ in range(2)]
+    for a, b in zip(fits[0].weights + fits[0].biases, fits[1].weights + fits[1].biases):
+        assert torch.equal(a, b)

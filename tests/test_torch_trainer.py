@@ -272,7 +272,11 @@ def test_port_imports_nothing_of_the_jax_package():
                       "hotrack_tpu_torch.ops.hand_energy",
                       "hotrack_tpu_torch.ops.hand_energy_skin",
                       "hotrack_tpu_torch.track.hand",
-                      "hotrack_tpu_torch.train.run_hand_track"}
+                      "hotrack_tpu_torch.train.run_hand_track",
+                      "hotrack_tpu_torch.sdf.mesh", "hotrack_tpu_torch.opt.shape_update",
+                      "hotrack_tpu_torch.pose.pose_fit", "hotrack_tpu_torch.pose.bbox",
+                      "hotrack_tpu_torch.models.losses",
+                      "hotrack_tpu_torch.nn.point_transformer"}
     bad = [f for f in files if pat.search(open(f).read())]
     assert not bad, bad
 
