@@ -103,6 +103,20 @@ sequences. Phases, each of which raises on failure:
      composed (#3b) routes, held against it closed loop (the tracker's
      accuracy) and open loop (every frame again from the batched run's pose:
      the batched optimiser bitwise, the unbatched one to float32 rounding);
+ 10b. data parallel (train/dp.py): one dp train step at the JAX package's
+     multi-chip operating point (512 points, 384-d, batch 32 a rank) on NCCL
+     with a rank a card (one card: through the process group all the same),
+     and on gloo with two ranks on cuda:0 (a spawned process each beyond
+     rank 0) at a global batch of 64, each against the one-process step at
+     the global batch (the same index picks, the loss to DP_LOSS_RTOL, the
+     gradients to DP_GRAD_BOUND in float32 with the kernels, and the float64
+     bounds with the plain versions), the ranks' states bitwise equal after
+     DP_STEPS steps and their kernel launches counted (`train_dp`); then
+     `train_main --dp_devices all`, and more cards than there are must
+     raise; then the sharded trackers (`track_hand_sequences_sharded`, skin
+     route, and `track_obj_sequences_sharded`, fused route) on the batched
+     phases' four sequences in two shares on cuda:0, against the batched runs
+     (`hand_sharded`, `object_sharded`);
  11. real-data layouts: HO3D and DexYCB trees written by data/real_trees.py
      (480 x 640 depth z-buffered from the synthetic generator's hand and an
      object, HO3D's two-channel depth PNGs and 240 x 320 seg PNGs, meta
@@ -364,6 +378,36 @@ LIBRARY_ATOL = 1e-4
 # online serving (phase 13): frames of each tracker
 SERVE_FRAMES = HAND_SHORT_FRAMES
 
+# Data-parallel training and the sharded trackers (phase 10b). The dp step is
+# held at the operating point of the JAX package's multi-chip dry run (512
+# points, 384-d, batch 32 a rank): on NCCL with a rank a card (one card: world
+# 1, through the process group all the same), and on gloo with two ranks on
+# cuda:0 at a global batch of 64 (NCCL refuses two ranks on one card), each
+# against the one-process Trainer's step at the global batch, dropout off,
+# twice. In float64 with the plain versions the two compute the same function
+# and are held at F64_LOSS_RTOL and F64_GRAD_BOUND. In float32 with the
+# kernels the dp forward is not bitwise the one-process forward: BatchNorm's
+# statistics are sums of per-rank sums, by other reductions than torch's
+# BatchNorm (even at world 1), so a ReLU within rounding of 0 takes the other
+# branch and moves the gradient of everything upstream, and the untrained
+# net's Procrustes terms amplify the loss's rounding, as across packages
+# (tests/test_torch_trainer.py: losses 1e-4, gradients 6e-2 of the largest).
+# On the card at this width (NVIDIA H100 80GB HBM3, 700 W) world 1 gave
+# total_loss bitwise and 6.3e-2 of the largest on one gradient (cosine
+# 0.99986), two gloo ranks 1.62e-6, 0.25 and 0.99776. So the float32 run is
+# held by the same index picks, total_loss within DP_LOSS_RTOL
+# (test_multichip_training.py's 1e-5) and the whole gradient's cosine at
+# DP_COS_MIN, a sanity bound (an error of the dp step's own, its scale
+# included, shows in float64); its worst gradient is printed.
+DP_PER_RANK, DP_STEPS = BATCH, 3
+DP_BATCH = 2 * DP_PER_RANK
+DP_LOSS_RTOL, DP_COS_MIN = 1e-5, 0.99
+DP_TIMEOUT_S = 300.0
+# the sharded trackers: the batched phases' first HAND_BATCH_SHORT frames of
+# four sequences in two shares on one card (a device may repeat)
+SHARD_DEVICES = ("cuda:0", "cuda:0")
+SHARD_SEQS = HAND_SEQS // len(SHARD_DEVICES)
+
 # the card's published peaks (NVIDIA H100 SXM data sheet): the bounds below
 # are the least time the card could take, whatever its power limit
 HBM_BYTES_PER_S = 3.35e12
@@ -407,8 +451,8 @@ GATHERS_PER_FORWARD, SCATTERS_PER_BACKWARD, FPS_PER_FORWARD, PER_PREPARE = 15, 7
 # test split when training; prepare_batch also takes a whole sequence at once
 # when tracking (the tracking path's and the train path's test sequence).
 TAILS = (2 * TRAIN_FRAMES % BATCH, TRAIN_FRAMES % BATCH)
-MODEL_BATCHES = (1, BATCH, *TAILS, HAND_SEQS)
-BACKWARD_BATCHES = (BATCH, TAILS[0])
+MODEL_BATCHES = (1, BATCH, *TAILS, HAND_SEQS, DP_BATCH, SHARD_SEQS)
+BACKWARD_BATCHES = (BATCH, TAILS[0], DP_BATCH)
 PREPARE_BATCHES = (NUM_FRAMES, TRAIN_FRAMES, BATCH, *TAILS, HAND_FRAMES, HAND_SHORT_FRAMES,
                    HAND_MODE_FRAMES, HAND_BATCH_FRAMES)
 RAW_POINTS = 2560       # points of a raw hand or object cloud, padding included
@@ -478,10 +522,12 @@ HAND_SKIN_SHAPES = [(HAND_PARTICLES, HAND_POSE_DIMS, HAND_VERTS, NO_MASK_HW),
 SDF_MLP_BATCHED_SHAPES = [((OBJ_SEQS, OBJ_PARTICLES, 3, OBJ_NUM_POINTS), True),
                           ((HAND_SEQS, HAND_PARTICLES, 3, HAND_VERTS), True),
                           ((HAND_SEQS, HAND_PARTICLES, HAND_VERTS, 3), False)]
-OBJ_ENERGY_BATCHED_SHAPES = [(OBJ_SEQS, OBJ_PARTICLES, OBJ_NUM_POINTS)]
+OBJ_ENERGY_BATCHED_SHAPES = [(OBJ_SEQS, OBJ_PARTICLES, OBJ_NUM_POINTS),
+                             (SHARD_SEQS, OBJ_PARTICLES, OBJ_NUM_POINTS)]
 MASK_LOOKUP_BATCHED_SHAPES = [((HAND_SEQS, HAND_PARTICLES, HAND_VERTS), HAND_HW)]
 HAND_SKIN_BATCHED_SHAPES = [(HAND_SEQS, HAND_PARTICLES, HAND_POSE_DIMS, HAND_VERTS, hw)
-                            for hw in (NO_MASK_HW, HAND_HW)]
+                            for hw in (NO_MASK_HW, HAND_HW)] \
+    + [(SHARD_SEQS, HAND_PARTICLES, HAND_POSE_DIMS, HAND_VERTS, HAND_HW)]
 
 
 def _seen_shape(name: str, args: tuple) -> tuple:
@@ -2769,14 +2815,15 @@ def _fits_differ(tag: str, fits) -> None:
             raise AssertionError(f"[{tag}] the fits of sequences 0 and {i} are the same")
 
 
-def phase_hand_batched(card: str, seen: dict) -> dict:
+def phase_hand_batched(card: str, seen: dict, keep: dict) -> dict:
     """`test_main --eval_batch_seqs HAND_SEQS` on a set of HAND_SEQS
     sequences (skin route, shape mode 1, a fit a sequence), `test_main`
     without it on the same set (the same generator draws in the same order:
     the same inputs and fits; frame 0 of every sequence held at
     HAND_KP_BOUND_M), then `track_hand_sequences_batched` with seeded
     480 x 640 masks a sequence on the skin, fused, separate and volume
-    routes."""
+    routes. `keep['hand']` receives the skin route's inputs and result, which
+    phase 10b holds the sharded tracker against."""
     from hotrack_tpu_torch.data import get_dataloader, prepare_batch
     from hotrack_tpu_torch.mano.model import get_mano_model
     from hotrack_tpu_torch.ops import kernels
@@ -2917,7 +2964,10 @@ def phase_hand_batched(card: str, seen: dict) -> dict:
             if got != want or not all(bool(torch.isfinite(t).all()) for t in result):
                 raise AssertionError(f"[hand batched] route {tag} launched {counts}, expected "
                                      f"{want}")
-            ref = result.pred_kp if ref is None else ref
+            if ref is None:
+                ref = result.pred_kp
+                keep["hand"] = dict(handnet=handnet, mano=mano, frames=short, ms=ms,
+                                    result=result, kwargs={**kwargs, **extra})
             gap = (result.pred_kp - ref).abs().reshape(HAND_SEQS, HAND_BATCH_SHORT, -1)
             print(f"[hand batched] cuda, track_hand_sequences_batched, {HAND_SEQS} x "
                   f"{HAND_BATCH_SHORT} frames with seeded {HAND_HW} masks a sequence, route "
@@ -2978,12 +3028,13 @@ def _hold_batched_open_loop(tag: str, res, points, init_r, init_t, bank, fits,
                              f"beyond the bound")
 
 
-def phase_object_batched(card: str, seen: dict) -> dict:
+def phase_object_batched(card: str, seen: dict, keep: dict) -> dict:
     """`track_obj_sequences_batched` at OBJ_SEQS x 2048 particles x 1024
     points x 10 iterations on a set of OBJ_SEQS sequences, a fit a sequence,
     on the fused (#4b) and composed (#3b) routes; held against the unbatched
     runner on the same sequences and fits closed loop (the tracker's
-    accuracy) and open loop."""
+    accuracy) and open loop. `keep['object']` receives the fused route's
+    inputs and result for phase 10b."""
     from hotrack_tpu_torch.ops import kernels
     from hotrack_tpu_torch.sdf.assets import synthetic_box_sdf_setup
     from hotrack_tpu_torch.sdf.distill import distill_sdf_volume, distilled_to
@@ -3040,6 +3091,9 @@ def phase_object_batched(card: str, seen: dict) -> dict:
             if not all(bool(torch.isfinite(t).all()) for t in res):
                 raise AssertionError(f"[object batched] {energy} route: non-finite poses")
             results[energy] = res
+            if energy == "fused":
+                keep["object"] = dict(bank=bank, points=points, init_r=init_r, init_t=init_t,
+                                      fits=fits, result=res, ms=ms)
             rot, trans = [], []
             for i, q in enumerate(seqs):
                 r, t = _pose_gap({"rotation": res.rotation[i].cpu().numpy(),
@@ -3060,6 +3114,282 @@ def phase_object_batched(card: str, seen: dict) -> dict:
         return by_path
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+# --------------------------------------------------------------------------
+# data-parallel training and the sharded trackers
+
+def _dp_batch(cfg, rows: int) -> dict:
+    """A global batch of `rows` training frames, prepared once on the CPU
+    (where no kernel runs) and handed to every run."""
+    from hotrack_tpu_torch.data import get_dataloader
+    from hotrack_tpu_torch.train.cli import prepare
+    from hotrack_tpu_torch.train.trainer import Trainer
+    raw, _ = next(iter(get_dataloader({**cfg, "batch_size": rows}, "train")))
+    return prepare(Trainer(cfg, "cpu"), raw, torch.Generator().manual_seed(0), cfg)
+
+
+def _ms_steps(report: dict) -> float:
+    """The median step after the first (which warms up), in ms."""
+    return 1e3 * float(np.median(report["seconds"][1:] or report["seconds"]))
+
+
+def _hold_dp_step(tag: str, ranks: list, one: dict, f64: bool = False) -> str:
+    """Step 0 of every rank against the one-process step at the global batch:
+    each rank's index picks are its rows of the one-process picks, the same
+    parameters without a gradient, the ranks' gradients bitwise equal; in
+    float64 the loss within F64_LOSS_RTOL and every gradient within
+    F64_GRAD_BOUND of its max, in float32 the loss within DP_LOSS_RTOL and the
+    whole gradient's cosine at least DP_COS_MIN (see DP_LOSS_RTOL)."""
+    flips = sum(int((a != torch.cat(parts)).sum()) for a, parts in zip(
+        one["picks"], zip(*(r["picks"] for r in ranks)), strict=True))
+    want = one["losses"][0]["total_loss"]
+    rel = max(abs(r["losses"][0]["total_loss"] - want) / abs(want) for r in ranks)
+    worst, where, cos = _worst_gradient(ranks[0]["grads"], one["grads"])
+    same = all(all((g is None and r["grads"][k] is None) or torch.equal(g, r["grads"][k])
+                   for k, g in ranks[0]["grads"].items()) for r in ranks[1:])
+    if f64:
+        bounds = f"bounds {F64_LOSS_RTOL}, {F64_GRAD_BOUND}"
+        ok = rel <= F64_LOSS_RTOL and worst <= F64_GRAD_BOUND
+    else:
+        bounds = f"bounds {DP_LOSS_RTOL}, cosine >= {DP_COS_MIN}"
+        ok = rel <= DP_LOSS_RTOL and cos >= DP_COS_MIN
+    line = (f"{len(one['picks'])} pick tensors, {flips} picks differ; total_loss relative "
+            f"{rel:.2e}; worst gradient {worst:.2e} of its max at {where}; cosine {cos:.8f} "
+            f"({bounds}); the ranks' gradients bitwise equal: {same}")
+    if flips or not ok or not same:
+        raise AssertionError(f"[dp] {tag}: the dp step differs from the one-process step: "
+                             f"{line}")
+    return line
+
+
+def _hold_ranks_equal(tag: str, ranks: list) -> None:
+    a = ranks[0]["state"]
+    moved = [k for r in ranks[1:] for k in a if not torch.equal(a[k], r["state"][k])]
+    if moved:
+        raise AssertionError(f"[dp] {tag}: the ranks' states differ after {DP_STEPS} steps: "
+                             f"{moved[:5]}")
+
+
+def _dp_launches(ranks: list, world: int) -> dict:
+    """The ranks' launch counts summed; each rank's train steps must have
+    launched FPS, the gather and its adjoint as a step does."""
+    total = {k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]}
+    want = {"fps": DP_STEPS * FPS_PER_FORWARD * world,
+            "gather_rows": DP_STEPS * GATHERS_PER_FORWARD * world,
+            "scatter_rows_add": DP_STEPS * SCATTERS_PER_BACKWARD * world}
+    if {k: v for k, v in total.items() if v} != want:
+        raise AssertionError(f"[dp] the ranks launched {total}, expected {want}")
+    return total
+
+
+def phase_data_parallel(card: str, seen: dict, keep: dict) -> dict:
+    """Data-parallel training (train/dp.py) and the sharded trackers:
+    (a) NCCL, a rank a card (torch.cuda.device_count() ranks, through the
+        process group even at 1): DP_STEPS steps of batch DP_PER_RANK a rank
+        against the one-process Trainer's steps at the global batch;
+    (b) gloo, two ranks on cuda:0 (spawned: the second is a process of its
+        own), global batch DP_BATCH, against the one-process step: in float32
+        with the kernels (their launches in the ranks counted: `train_dp`),
+        and in float64 with the plain versions; the ranks' states bitwise
+        equal after DP_STEPS steps;
+    (c) `train_main --dp_devices all --device cuda`, one epoch; more cards than
+        there are raises;
+    (d) `track_hand_sequences_sharded` (skin route) and
+        `track_obj_sequences_sharded` (fused route) on SHARD_DEVICES: the
+        batched phases' four sequences in two shares, against the batched
+        loop on each share's sequences (frame 0 at the batched holds' bounds)
+        and against the batched run of all four."""
+    from hotrack_tpu_torch.data.synthetic import generate_simgrasp_dataset
+    from hotrack_tpu_torch.ops import kernels
+    from hotrack_tpu_torch.track import (track_hand_sequences_sharded,
+                                         track_obj_sequences_sharded)
+    from hotrack_tpu_torch.train import dp
+    from hotrack_tpu_torch.train.cli import load_config, train_main
+    from hotrack_tpu_torch.train.run_obj_track import VOLUME_SIZE, VOXEL_SCALE
+
+    by_path = {}
+    root = tempfile.mkdtemp(prefix="hotrack_smoke_dp_")
+    os.environ["HOTRACK_DATA_ROOT"] = root
+    try:
+        generate_simgrasp_dataset(root, num_instances=3, num_frames=TRAIN_FRAMES,
+                                  points_per_part=POINTS_PER_PART)
+        cfg = load_config(["--config", TRAIN_CONFIG, "--device", "cuda"], "train")
+        world = torch.cuda.device_count()
+
+        # (a) NCCL, a rank a card
+        t0 = time.perf_counter()
+        batch = _dp_batch(cfg, DP_PER_RANK * world)
+        f32 = (cfg, [batch], DP_STEPS, None, False, True)
+        f64 = (cfg, [batch], 1, torch.float64, False, True, (), None, True)
+        with noting_shapes(seen):
+            results = dp.run_ranks(dp.each, world, "cuda", timeout_s=DP_TIMEOUT_S,
+                                   args=([(dp.step_report, f32), (dp.step_report, f64)],))
+            one = dp.step_report(None, *f32)
+        one64 = dp.step_report(None, *f64)
+        ranks, ranks64 = [r[0] for r in results], [r[1] for r in results]
+        line = _hold_dp_step("nccl float32", ranks, one)
+        line64 = _hold_dp_step("nccl float64", ranks64, one64, f64=True)
+        _hold_ranks_equal("nccl", ranks)
+        print(f"[dp] (a) nccl, {world} rank(s) a card, batch {DP_PER_RANK} a rank, float32 "
+              f"with the kernels: {line}; step {_ms_steps(ranks[0]):.3f} ms against the "
+              f"one-process step's {_ms_steps(one):.3f} ms (median of steps 2-{DP_STEPS}) "
+              f"| {card}", flush=True)
+        print(f"[dp] (a) float64, plain versions: {line64}; {time.perf_counter() - t0:.1f} s",
+              flush=True)
+
+        # (b) gloo, two ranks on one card, float32 with the kernels and float64 plain
+        t0 = time.perf_counter()
+        batch = _dp_batch(cfg, DP_BATCH)
+        f32 = (cfg, [batch], DP_STEPS, None, False, True)
+        f64 = (cfg, [batch], 1, torch.float64, False, True, (), None, True)
+        two = list(SHARD_DEVICES)
+        results = dp.run_ranks(dp.each, len(two), "cuda", backend="gloo", devices=two,
+                               args=([(dp.step_report, f32), (dp.step_report, f64)],),
+                               timeout_s=DP_TIMEOUT_S)
+        with noting_shapes(seen):
+            one = dp.step_report(None, *f32)
+        one64 = dp.step_report(None, *f64)
+        ranks, ranks64 = [r[0] for r in results], [r[1] for r in results]
+        line = _hold_dp_step("gloo float32", ranks, one)
+        line64 = _hold_dp_step("gloo float64", ranks64, one64, f64=True)
+        _hold_ranks_equal("gloo", ranks)
+        by_path["train_dp"] = _dp_launches(ranks, len(two))
+        print(f"[dp] (b) gloo, 2 ranks on cuda:0, global batch {DP_BATCH}, float32 with the "
+              f"kernels: {line}; states bitwise equal across the ranks after {DP_STEPS} steps; "
+              f"launches {by_path['train_dp']}; step {_ms_steps(ranks[0]):.3f} ms against the "
+              f"one-process step's {_ms_steps(one):.3f} ms | {card}", flush=True)
+        print(f"[dp] (b) float64, plain versions: {line64}; "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+        # (c) the entry
+        t0 = time.perf_counter()
+        argv = ["--config", TRAIN_CONFIG, "--device", "cuda", "--epochs", "1",
+                "--experiment_dir", "dp_all"]
+        kernels.reset_launch_counts()
+        with noting_shapes(seen):
+            trainer = train_main([*argv, "--dp_devices", "all"])
+        by_path["train_dp_all"] = dict(kernels.launch_counts)
+        hist = trainer.history[0]
+        bad = {k: v for split in ("train", "test") for k, v in hist[split].items()
+               if not math.isfinite(v)}
+        if bad or (world > 1) != (trainer.dp is not None):
+            raise AssertionError(f"[dp] (c) train_main --dp_devices all: non-finite {bad}, "
+                                 f"ranks {world}")
+        try:
+            train_main([*argv, "--dp_devices", str(world + 1)])
+        except ValueError as err:
+            refused = str(err)
+        else:
+            raise AssertionError(f"[dp] (c) --dp_devices {world + 1} trained on {world} cards")
+        print(f"[dp] (c) train_main --dp_devices all on {world} card(s): "
+              f"{len(hist['step_seconds'])} steps, train total_loss "
+              f"{hist['train']['total_loss']:.5f}, test MPJPE "
+              f"{hist['test']['hand_pred_kp_diff']:.5f} m; --dp_devices {world + 1} raised "
+              f"{refused!r}; {time.perf_counter() - t0:.1f} s", flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    # (d) the sharded trackers: against the batched loop on each share's
+    # sequences (the same program on the same card: frame 0 within
+    # HAND_KP_BOUND_M / the open-loop bounds, printed whether bitwise), and
+    # against the batched run of all four (other rounding at S = 4, so the
+    # shape optimiser may take another step at a near-tie: printed; the JAX
+    # test's |pred_kp| < 100 m; the object closed loop to the tracker's accuracy)
+    from hotrack_tpu_torch.track import (track_hand_sequences_batched,
+                                         track_obj_sequences_batched)
+    from hotrack_tpu_torch.track.shards import share_bounds, slice_tree
+    shares = share_bounds(HAND_SEQS, len(SHARD_DEVICES))
+    h = keep["hand"]
+    kwargs = dict(h["kwargs"])
+    per_seq = {k: kwargs.pop(k) for k in ("sdf_volumes", "background_masks")}
+    fits = kwargs.pop("distilled")
+    kernels.reset_launch_counts()
+    with noting_shapes(seen):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = track_hand_sequences_sharded(h["handnet"], h["mano"], h["frames"],
+                                           devices=SHARD_DEVICES, per_seq_kwargs=per_seq,
+                                           distilled=fits, **kwargs)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / HAND_BATCH_SHORT
+        counts = by_path["hand_sharded"] = dict(kernels.launch_counts)
+        each = [track_hand_sequences_batched(
+            h["handnet"], h["mano"], slice_tree(h["frames"], sl), distilled=fits[sl],
+            **{k: v[sl] for k, v in per_seq.items()}, **kwargs) for sl in shares]
+    want = HAND_ITERATIONS * HAND_BATCH_SHORT * len(SHARD_DEVICES)
+    if counts["hand_energy_skin_batched"] != want or counts["hand_energy_skin"] \
+            or not all(bool(torch.isfinite(t).all()) for t in res):
+        raise AssertionError(f"[dp] (d) hand: launched {counts}, expected {want} of #7b")
+    per_share = torch.cat([e.pred_kp for e in each])
+    gap = (res.pred_kp - per_share).abs().reshape(HAND_SEQS, HAND_BATCH_SHORT, -1) \
+        .max(-1).values.cpu().numpy()
+    bitwise = all(torch.equal(getattr(res, f), torch.cat([getattr(e, f) for e in each]))
+                  for f in res._fields)
+    whole = (res.pred_kp - h["result"].pred_kp).abs().reshape(HAND_SEQS, HAND_BATCH_SHORT, -1) \
+        .max(-1).values.cpu().numpy()
+    beta = (res.pred_beta - h["result"].pred_beta).abs().reshape(HAND_SEQS, -1).max(-1).values
+    print(f"[dp] (d) track_hand_sequences_sharded, {HAND_SEQS} x {HAND_BATCH_SHORT} frames in "
+          f"{len(SHARD_DEVICES)} shares on {SHARD_DEVICES}, skin route: {ms:.3f} ms a "
+          f"chunk-frame against the batched loop's {h['ms']:.3f} (S = {HAND_SEQS}); launches "
+          f"{ {k: v for k, v in counts.items() if v} }; against the batched loop on each "
+          f"share: frame 0 {1e3 * gap[:, 0].max():.4e} mm (bound {1e3 * HAND_KP_BOUND_M} mm), "
+          f"worst frame {1e3 * gap.max():.4e} mm, bitwise equal: {bitwise}; against the "
+          f"batched run of all {HAND_SEQS}: frame 0 "
+          f"{np.array2string(1e3 * whole[:, 0], precision=4)} mm, worst frame "
+          f"{1e3 * whole.max():.4f} mm, betas differ by "
+          f"{np.array2string(beta.cpu().numpy(), precision=3)} | {card}", flush=True)
+    if gap[:, 0].max() > HAND_KP_BOUND_M or float(res.pred_kp.abs().max()) >= 100.0:
+        raise AssertionError("[dp] (d) hand: the sharded run differs from the batched one's")
+
+    o = keep["object"]
+    pts = o["points"][:, :HAND_BATCH_SHORT].contiguous()
+    obj_kw = dict(voxel_scale=VOXEL_SCALE, bbox_res=VOLUME_SIZE, obj_energy="fused")
+    kernels.reset_launch_counts()
+    with noting_shapes(seen):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = track_obj_sequences_sharded(None, o["bank"], pts, o["init_r"], o["init_t"],
+                                          devices=SHARD_DEVICES, distilled=o["fits"], **obj_kw)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / HAND_BATCH_SHORT
+        counts = by_path["object_sharded"] = dict(kernels.launch_counts)
+        each = [track_obj_sequences_batched(None, o["bank"], pts[sl], o["init_r"][sl],
+                                            o["init_t"][sl], distilled=o["fits"][sl], **obj_kw)
+                for sl in shares]
+    want = {"obj_sdf_energy_batched": OBJ_ITERATIONS * HAND_BATCH_SHORT * len(SHARD_DEVICES)}
+    if {k: v for k, v in counts.items() if v} != want \
+            or not all(bool(torch.isfinite(t).all()) for t in res):
+        raise AssertionError(f"[dp] (d) object: launched {counts}, expected {want}")
+
+    def gaps(ref_rot, ref_trans):
+        rot, trans = zip(*(_pose_gap(
+            {"rotation": res.rotation[i].cpu().numpy(),
+             "translation": res.translation[i].cpu().numpy()},
+            {"rotation": ref_rot[i].cpu().numpy(), "translation": ref_trans[i].cpu().numpy()})
+            for i in range(OBJ_SEQS)))
+        return np.stack(rot), np.stack(trans)
+
+    rot, trans = gaps(torch.cat([e.rotation for e in each]),
+                      torch.cat([e.translation for e in each]))
+    bitwise = all(torch.equal(getattr(res, f), torch.cat([getattr(e, f) for e in each]))
+                  for f in res._fields)
+    rot4, trans4 = gaps(o["result"].rotation[:, :HAND_BATCH_SHORT],
+                        o["result"].translation[:, :HAND_BATCH_SHORT])
+    print(f"[dp] (d) track_obj_sequences_sharded, {OBJ_SEQS} x {HAND_BATCH_SHORT} frames x "
+          f"{OBJ_PARTICLES} particles x {OBJ_NUM_POINTS} points x {OBJ_ITERATIONS} iterations "
+          f"in {len(SHARD_DEVICES)} shares, fused route: {ms:.3f} ms a chunk-frame against the "
+          f"batched loop's {o['ms']:.3f} (S = {OBJ_SEQS}); launches {want}; against the "
+          f"batched loop on each share: frame 0 {rot[:, 0].max():.2e} deg / "
+          f"{1e3 * trans[:, 0].max():.2e} mm (bounds {OPEN_ROT_BOUND_DEG} deg / "
+          f"{1e3 * OPEN_TRANS_BOUND_M} mm), bitwise equal: {bitwise}; against the batched run "
+          f"of all {OBJ_SEQS}: frame 0 {rot4[:, 0].max():.2e} deg / "
+          f"{1e3 * trans4[:, 0].max():.2e} mm | {card}", flush=True)
+    if rot[:, 0].max() > OPEN_ROT_BOUND_DEG or trans[:, 0].max() > OPEN_TRANS_BOUND_M:
+        raise AssertionError("[dp] (d) object: frame 0 differs from the batched loop's")
+    _hold_closed_loop("sharded fused route vs the batched run of all four",
+                      rot4.reshape(-1), trans4.reshape(-1))
+    return by_path
 
 
 # --------------------------------------------------------------------------
@@ -3582,8 +3912,10 @@ def _phases(card, real, t0, took, timed) -> int:
     handopt_launches, fit = timed("handopt", phase_hand_optimiser, card, seen)
     by_path.update({f"handopt_{route}": counts for route, counts in handopt_launches.items()})
     by_path.update(timed("hand", phase_hand_path, card, seen, fit))
-    by_path.update(timed("hand_batched", phase_hand_batched, card, seen))
-    by_path.update(timed("object_batched", phase_object_batched, card, seen))
+    keep = {}
+    by_path.update(timed("hand_batched", phase_hand_batched, card, seen, keep))
+    by_path.update(timed("object_batched", phase_object_batched, card, seen, keep))
+    by_path.update(timed("data_parallel", phase_data_parallel, card, seen, keep))
     by_path.update(timed("real", phase_real_paths, card, seen, real))
     by_path.update(timed("shape_update", phase_shape_update, card, seen, real))
     by_path.update(timed("serving", phase_serving, card, seen, fit, obj_fit))

@@ -14,6 +14,7 @@ from typing import Any, Mapping
 import torch
 from torch import nn
 
+from .global_batch import GlobalBatchDropout
 from .pointnet2 import (
     FeaturePropagation,
     SetAbstractionAll,
@@ -56,7 +57,8 @@ class PointNet2Msg(nn.Module):
 
 class PointNet2Encoder(nn.Module):
     """sa1 -> sa2 -> sa3 (group all) -> Linear 256 + BN + ReLU + dropout 0.5
-    -> Linear out_dim + BN + ReLU. `in_channel` extra channels per point
+    -> Linear out_dim + BN + ReLU (the dropout's mask drawn for the global
+    batch: nn/global_batch.py). `in_channel` extra channels per point
     after xyz are its features; with use_xyz_feat the features are the whole
     point (xyz included)."""
 
@@ -74,7 +76,7 @@ class PointNet2Encoder(nn.Module):
         self.sa3 = SetAbstractionAll(c["sa3"]["mlp"], in_channel=self.sa2.out_channel)
         self.fc1 = nn.Linear(self.sa3.out_channel, 256)
         self.bn1 = nn.BatchNorm1d(256, eps=1e-5)
-        self.drop1 = nn.Dropout(0.5)
+        self.drop1 = GlobalBatchDropout(0.5)
         self.fc2 = nn.Linear(256, out_dim)
         self.bn2 = nn.BatchNorm1d(out_dim, eps=1e-5)
 

@@ -10,6 +10,11 @@ checkpoint's unused `*.attn.*` entries are dropped on load
 reference's name `attn`; the JAX package computes its attention outside any
 Pallas kernel, so the library module is the counterpart here.
 
+The residual and FFN dropouts draw their masks for the global batch
+(nn/global_batch.py), so data-parallel ranks draw what one process draws; the
+attention weights' own dropout inside `nn.MultiheadAttention` draws a rank's
+rows alone.
+
 In FFN mode `TransT` is two independent chains: s11 -> c11 on the keypoint
 features gives `result1`, and s12 -> c12 on the cloud features gives
 `result2`, which HandTrackNet only passes to `c3` as the attention source
@@ -24,6 +29,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from .global_batch import GlobalBatchDropout
+
 
 class AttnModule(nn.Module):
     """[MHA + residual,] LayerNorm, then (unless no_linear) a residual FFN
@@ -37,13 +44,13 @@ class AttnModule(nn.Module):
         if attention:
             self.attn = nn.MultiheadAttention(d_model, nhead, dropout=dropout,
                                               batch_first=True)
-            self.dropout1 = nn.Dropout(dropout)
+            self.dropout1 = GlobalBatchDropout(dropout)
         self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
         if not no_linear:
             self.linear1 = nn.Linear(d_model, dim_feedforward)
             self.linear2 = nn.Linear(dim_feedforward, d_model)
             self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
-            self.dropout = nn.Dropout(dropout)
+            self.dropout = GlobalBatchDropout(dropout)
 
     def forward(self, src1: torch.Tensor, pos1=None, src2=None, pos2=None,
                 attn: bool = False) -> torch.Tensor:

@@ -10,8 +10,11 @@ or header rebuilds and an unchanged one loads in milliseconds.
 A wrapper here checks its inputs and raises on anything its kernel does not
 take, allocates the output with `torch.empty`, launches on the current
 stream, checks the launch status, and does not synchronise. It counts its
-launches in `launch_counts`, so a run can show that it went through the
-kernel. Nothing here falls back to another implementation.
+launches in `launch_counts` (under a lock: the sharded trackers launch from
+several threads), so a run can show that it went through the kernel. Nothing
+here falls back to another implementation. A library is loaded once per
+process; its set-up (shared memory opted in above 48 KB, the SM count) runs
+once for each card a kernel of it launches on.
 
 Four kernels also take a leading sequence axis S, for several sequences
 tracked in one loop (`*_batched_cuda`, each with its own launch counter): a
@@ -52,12 +55,20 @@ SOURCES = ("fps", "gather_rows", "sdf_mlp", "obj_energy", "mask_lookup",
 _INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
 
 _libs: dict[str, ctypes.CDLL] = {}
+_ready: set[tuple[str, int]] = set()   # (library, device) pairs set up
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 
 
 def reset_launch_counts() -> None:
-    for name in launch_counts:
-        launch_counts[name] = 0
+    with _count_lock:
+        for name in launch_counts:
+            launch_counts[name] = 0
+
+
+def _count(name: str) -> None:
+    with _count_lock:
+        launch_counts[name] += 1
 
 
 def build_dir() -> Path:
@@ -127,11 +138,22 @@ def build_all() -> dict[str, Path]:
         return dict(zip(SOURCES, pool.map(build, SOURCES)))
 
 
+# each library's set-up function, run once for every card a kernel of it
+# launches on: the SM count, and shared memory above 48 KB opted in for that card
+_SETUP = {"fps": "hotrack_fps_init", "sdf_mlp": "hotrack_sdf_mlp_init",
+          "obj_energy": "hotrack_obj_energy_init", "hand_energy": "hotrack_hand_energy_init",
+          "hand_energy_skin": "hotrack_hand_energy_skin_init"}
+
+
 def _load(name: str, bind) -> ctypes.CDLL:
-    """Build (if needed), load and bind csrc/<name>.cu once per process. A
-    loaded library is a dictionary lookup; the lock is taken only to load."""
+    """Build (if needed), load and bind csrc/<name>.cu once per process, and
+    run its set-up function (`_SETUP`) once for the current device. A library
+    ready on this device is a dictionary lookup; the lock is taken only to
+    load or set up."""
+    setup = _SETUP.get(name)
+    key = None if setup is None else (name, torch._C._cuda_getDevice())
     lib = _libs.get(name)
-    if lib is not None:
+    if lib is not None and (key is None or key in _ready):
         return lib
     with _lock:
         lib = _libs.get(name)
@@ -139,6 +161,9 @@ def _load(name: str, bind) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build(name)))
             bind(lib)
             _libs[name] = lib
+        if key is not None and key not in _ready:
+            _check_status(getattr(lib, setup)(), f"{name} set-up")
+            _ready.add(key)
     return lib
 
 
@@ -158,11 +183,9 @@ def _bind_fps(lib: ctypes.CDLL) -> None:
     lib.hotrack_fps.restype = ctypes.c_int
     lib.hotrack_fps_scratch.argtypes = [ctypes.c_int] * 2
     lib.hotrack_fps_scratch.restype = ctypes.c_longlong
+    # hotrack_fps_init: the SM count, and shared memory above 48 KB for clouds
+    # above 8192 points, read and opted in for the current device
     lib.hotrack_fps_init.restype = ctypes.c_int
-    # the SM count, and shared memory above 48 KB for clouds above 8192
-    # points, read and opted in once for the device current at load: the port
-    # runs on one card per process
-    _check_status(lib.hotrack_fps_init(), "fps set-up")
 
 
 def _bind_gather_rows(lib: ctypes.CDLL) -> None:
@@ -180,10 +203,9 @@ def _bind_sdf_mlp(lib: ctypes.CDLL) -> None:
     lib.hotrack_sdf_mlp.argtypes = [p, p, p, ll, ll, ll, ll, ll, i, ll, ll, i, i,
                                     ctypes.POINTER(ctypes.c_int), p]
     lib.hotrack_sdf_mlp.restype = i
+    # hotrack_sdf_mlp_init: as much dynamic shared memory as a block may have,
+    # opted in for the current device
     lib.hotrack_sdf_mlp_init.restype = i
-    # as much dynamic shared memory as a block may have, opted in once for the
-    # current device
-    _check_status(lib.hotrack_sdf_mlp_init(), "sdf_mlp set-up")
 
 
 def _bind_obj_energy(lib: ctypes.CDLL) -> None:
@@ -192,7 +214,6 @@ def _bind_obj_energy(lib: ctypes.CDLL) -> None:
                                        ctypes.POINTER(ctypes.c_int), p]
     lib.hotrack_obj_energy.restype = i
     lib.hotrack_obj_energy_init.restype = i
-    _check_status(lib.hotrack_obj_energy_init(), "obj_energy set-up")
 
 
 def _bind_mask_lookup(lib: ctypes.CDLL) -> None:
@@ -206,10 +227,9 @@ def _bind_hand_energy(lib: ctypes.CDLL) -> None:
     lib.hotrack_hand_energy.argtypes = [p, p, p, p, p, p, ctypes.c_longlong, i, i, i, i,
                                         ctypes.POINTER(ctypes.c_int), p]
     lib.hotrack_hand_energy.restype = i
+    # hotrack_hand_energy_init: as much dynamic shared memory as a block may
+    # have (csrc/sdf_mlp_wgmma.cuh plan), opted in for the current device
     lib.hotrack_hand_energy_init.restype = i
-    # as much dynamic shared memory as a block may have (csrc/sdf_mlp_wgmma.cuh
-    # plan), opted in once for the current device
-    _check_status(lib.hotrack_hand_energy_init(), "hand_energy set-up")
 
 
 def _bind_hand_energy_skin(lib: ctypes.CDLL) -> None:
@@ -218,7 +238,6 @@ def _bind_hand_energy_skin(lib: ctypes.CDLL) -> None:
         ctypes.POINTER(ctypes.c_longlong), i, i, ctypes.POINTER(ctypes.c_int), p]
     lib.hotrack_hand_energy_skin.restype = i
     lib.hotrack_hand_energy_skin_init.restype = i
-    _check_status(lib.hotrack_hand_energy_skin_init(), "hand_energy_skin set-up")
 
 
 def _check_status(err: int, what: str) -> None:
@@ -268,7 +287,7 @@ def fps_cuda(xyz: torch.Tensor, npoint: int,
                           b, n, npoint, torch._C._cuda_getCurrentRawStream(xyz.get_device()))
     if err:
         _check_status(err, f"fps launch (B={b}, N={n}, npoint={npoint})")
-    launch_counts["fps"] += 1
+    _count("fps")
     return out
 
 
@@ -315,7 +334,7 @@ def gather_rows_cuda(points: torch.Tensor, flat_idx: torch.Tensor) -> torch.Tens
         torch._C._cuda_getCurrentRawStream(dev))
     if err:
         _check_status(err, f"gather_rows launch (B={b}, N={n}, C={c}, S={s})")
-    launch_counts["gather_rows"] += 1
+    _count("gather_rows")
     return out
 
 
@@ -346,7 +365,7 @@ def scatter_rows_add_cuda(dout: torch.Tensor, flat_idx: torch.Tensor,
         flat_idx.dtype == torch.int64, torch._C._cuda_getCurrentRawStream(dev))
     if err:
         _check_status(err, f"scatter_rows_add launch (B={b}, N={n}, C={c}, S={s})")
-    launch_counts["scatter_rows_add"] += 1
+    _count("scatter_rows_add")
     return dsrc
 
 
@@ -423,7 +442,7 @@ def _sdf_mlp(name: str, counter: str, points: torch.Tensor, packed, channels_fir
                               n_hidden, widths, stream)
     _check_status(err, f"{counter} launch (points {tuple(points.shape)}, "
                        f"widths {packed.widths})")
-    launch_counts[counter] += 1
+    _count(counter)
     return out
 
 
@@ -469,7 +488,7 @@ def _obj_energy(name: str, counter: str, pcld_cf: torch.Tensor, rts: torch.Tenso
                                  out.data_ptr(), p, n, n_seq, pcld_seq, packed_seq, n_freqs,
                                  n_hidden, widths, stream)
     _check_status(err, f"{counter} launch (S={n_seq}, P={p}, N={n}, widths {packed.widths})")
-    launch_counts[counter] += 1
+    _count(counter)
     return out
 
 
@@ -533,7 +552,7 @@ def _mask_lookup(name: str, counter: str, mask: torch.Tensor, iy: torch.Tensor,
                                   out.data_ptr(), iy.numel() // n_seq, n_seq, mask_seq, h, w,
                                   stream)
     _check_status(err, f"{counter} launch ({tuple(iy.shape)} queries, mask {h}x{w})")
-    launch_counts[counter] += 1
+    _count(counter)
     return out
 
 
@@ -602,7 +621,7 @@ def hand_energy_cuda(points: torch.Tensor, frame: torch.Tensor, mask: torch.Tens
                                   points.numel() // 3, h, w, n_freqs, n_hidden, widths, stream)
     _check_status(err, f"hand_energy launch (points {tuple(points.shape)}, mask {h}x{w}, "
                        f"widths {packed.widths})")
-    launch_counts["hand_energy"] += 1
+    _count("hand_energy")
     return sdf, hit
 
 
@@ -653,7 +672,7 @@ def _hand_energy_skin(name: str, counter: str, pose_map, rt_flat, offset, posedi
         seq_strides, n_freqs, n_hidden, widths, stream)
     _check_status(err, f"{counter} launch (S={n_seq}, P={p}, K={k}, N={n}, mask {h}x{w}, "
                        f"widths {packed.widths})")
-    launch_counts[counter] += 1
+    _count(counter)
     return sdf, hit
 
 

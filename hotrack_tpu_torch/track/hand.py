@@ -24,7 +24,8 @@ the state carried per sequence along a leading axis (the shape modes'
 re-optimisations fall on the same frames for every sequence); the nets take
 batch S, and the optimisers their batched forms, which on the card launch the
 batched kernels. `track_hand_sequence` is that loop with one sequence and the
-unbatched optimisers.
+unbatched optimisers. `track_hand_sequences_sharded` splits the sequences
+over devices (track/shards.py), the batched loop on each.
 """
 
 from __future__ import annotations
@@ -38,6 +39,7 @@ from ..models.hand_utils import handkp2palmkp
 from ..ops.sdf_mlp import pack_distilled, pack_distilled_batched
 from ..opt.hand_pose import ContactZones, optimize_hand_pose
 from ..opt.hand_shape import kp2length, optimize_hand_shape
+from . import shards
 from .types import HandTrackResult
 
 SHAPE_MODES = (0, 1, 2, 3)
@@ -116,6 +118,42 @@ def track_hand_sequences_batched(
         background_masks=background_masks, energy_weight=energy_weight,
         use_pred_obj_pose=use_pred_obj_pose, sdf_voxel_scale=sdf_voxel_scale,
         distilled=distilled, hand_energy=hand_energy)
+
+
+def track_hand_sequences_sharded(handnet: HandTrackNet, mano_model: ManoModel,
+                                 stacked_frames: dict, devices=None,
+                                 per_seq_kwargs: dict | None = None,
+                                 **kwargs) -> HandTrackResult:
+    """Several devices' tracking of S equal-length sequences (port of the JAX
+    package's `track_hand_sequences_sharded`, whose `variables` the port's
+    modules carry): S splits into len(devices) equal contiguous shares (S
+    must divide by D), and each share runs `track_hand_sequences_batched` on
+    its device, in a thread of its own. `devices` defaults to every visible
+    card and may repeat one.
+
+    The nets, MANO, the particle banks and every entry of `kwargs` are copied
+    to each device whole (replicated, as the JAX function closes over them),
+    except `distilled`, a list of S models, which is per sequence. Entries of
+    `per_seq_kwargs` carry a leading S (a volume, masks a sequence) and are
+    sliced by share. Returns the HandTrackResult of all S sequences on
+    devices[0], in sequence order."""
+    devices = shards.resolve_devices(devices)
+    bounds = shards.share_bounds(shards.leading_size(stacked_frames), len(devices))
+    per_seq_kwargs = dict(per_seq_kwargs or {})
+    distilled = kwargs.pop("distilled", None)
+    move = shards.Mover()
+    jobs = []
+    for device, sl in zip(devices, bounds):
+        share_kwargs = {**move(kwargs, device),
+                        **{k: move(v[sl], device) for k, v in per_seq_kwargs.items()}}
+        if distilled is not None:
+            share_kwargs["distilled"] = move(list(distilled[sl]), device)
+        jobs.append((move(handnet, device), move(mano_model, device),
+                     move(shards.slice_tree(stacked_frames, sl), device), share_kwargs))
+    results = shards.run_shares(
+        lambda device, job: track_hand_sequences_batched(job[0], job[1], job[2], **job[3]),
+        devices, jobs)
+    return shards.concat_results(results, devices[0])
 
 
 class HandStep:

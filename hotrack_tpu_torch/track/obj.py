@@ -7,19 +7,22 @@ pose (the jittered ground truth on frame 0). The JAX package's `lax.scan` is
 a Python loop here; nothing in it reads a device value, so the host runs
 ahead of the card. The SDF volume is baked, and distilled, once per sequence.
 Several sequences of equal length go through one loop with a leading
-sequence axis (the JAX package's `vmap` of the per-sequence scan).
+sequence axis (the JAX package's `vmap` of the per-sequence scan);
+`track_obj_sequences_sharded` splits the sequences over devices
+(track/shards.py), that loop on each.
 """
 
 from __future__ import annotations
 
-import torch
-
 import time
+
+import torch
 
 from ..opt.obj_pose import optimize_obj_pose
 from ..opt.shape_update import estimate_normals, merge_observations, update_shape
 from ..ops.sdf_mlp import pack_distilled, pack_distilled_batched
 from ..sdf.volume import trilinear_sdf
+from . import shards
 from .types import ObjTrackResult
 
 
@@ -81,6 +84,41 @@ def track_obj_sequences_batched(
         rs.append(r), ts.append(t), energies.append(energy)
     return ObjTrackResult(rotation=torch.stack(rs, 1), translation=torch.stack(ts, 1),
                           sdf_energy=torch.stack(energies, 1))
+
+
+def track_obj_sequences_sharded(
+    sdf_volumes: torch.Tensor | None,  # (S, V, V, V); may be None with `distilled`
+    presampled: torch.Tensor,          # (P, 6) particle bank, replicated
+    obj_points: torch.Tensor,          # (S, T, N, 3)
+    init_rotations: torch.Tensor,      # (S, 3, 3)
+    init_translations: torch.Tensor,   # (S, 3, 1)
+    devices=None,
+    **kwargs,
+) -> ObjTrackResult:
+    """Several devices' object tracking (port of the JAX package's
+    `track_obj_sequences_sharded`): S splits into len(devices) equal
+    contiguous shares (S must divide by D), and each share runs
+    `track_obj_sequences_batched` on its device, in a thread of its own. The
+    volumes, clouds, initial poses and `distilled` (a list of S models) are
+    per sequence; the particle bank and the other `kwargs` are replicated.
+    `devices` defaults to every visible card and may repeat one. Returns the
+    result of all S sequences on devices[0], in sequence order."""
+    devices = shards.resolve_devices(devices)
+    bounds = shards.share_bounds(obj_points.shape[0], len(devices))
+    distilled = kwargs.pop("distilled", None)
+    move = shards.Mover()
+    jobs = []
+    for device, sl in zip(devices, bounds):
+        share_kwargs = dict(move(kwargs, device))
+        if distilled is not None:
+            share_kwargs["distilled"] = move(list(distilled[sl]), device)
+        jobs.append((None if sdf_volumes is None else move(sdf_volumes[sl], device),
+                     move(presampled, device), move(obj_points[sl], device),
+                     move(init_rotations[sl], device), move(init_translations[sl], device),
+                     share_kwargs))
+    results = shards.run_shares(
+        lambda device, job: track_obj_sequences_batched(*job[:5], **job[5]), devices, jobs)
+    return shards.concat_results(results, devices[0])
 
 
 def track_obj_with_shape_update(

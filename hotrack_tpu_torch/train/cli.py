@@ -2,7 +2,7 @@
 hotrack_tpu/train/cli.py).
 
     python -m hotrack_tpu_torch.train --config handtracknet_train_SimGrasp.yml \
-        [--device cuda|cpu] [--epochs N] [--key/subkey value ...]
+        [--device cuda|cpu] [--epochs N] [--dp_devices N|all] [--key/subkey value ...]
     python -m hotrack_tpu_torch.test --config handtracknet_test_SimGrasp.yml \
         [--device cuda|cpu] [--save] [--debug] [--debug_save] [--profile DIR] \
         [--key/subkey value ...]
@@ -19,6 +19,14 @@ obj_opt`, see run_obj_track.py for `sdf_query` and `obj_energy`). `--debug`
 and `--debug_save` draw a figure a tracked hand frame (utils/vis.py);
 `--profile DIR` writes a torch.profiler trace of the whole evaluation into
 DIR.
+
+`--dp_devices N` (or `all`, -1: every card) trains, and evaluates single
+frames, on N ranks, one process a device (train/dp.py): every rank reads the
+same global batch from the loader, prepares it with the same seeded host
+generator and keeps its own rows; logging, TensorBoard, `history` and
+checkpoints come from rank 0, and `train_main` returns rank 0's Trainer. More
+cards than there are raises before any work; 0 or 1 is the one-process path.
+The tracking routes ignore it, as the JAX package's do.
 """
 
 from __future__ import annotations
@@ -35,6 +43,7 @@ import torch
 from ..config import get_config
 from ..data import get_dataloader, prepare_batch
 from ..utils.dicts import add_dict, cvt_numpy, divide_dict, log_loss_summary
+from . import dp
 from .trainer import Trainer, pin_fp32
 
 
@@ -115,18 +124,29 @@ def _sync(device: torch.device) -> None:
 
 
 def train_main(argv=None) -> Trainer:
-    """Train as the config says; returns the Trainer, whose `history` holds
-    per epoch the mean train and test losses and the seconds of every step
-    (batch preparation, and forward + backward + update, each read after a
-    device synchronise)."""
+    """Train as the config says; returns the Trainer (rank 0's under
+    `dp_devices`), whose `history` holds per epoch the mean train and test
+    losses and the seconds of every step (batch preparation, and forward +
+    backward + update, each read after a device synchronise)."""
     cfg = load_config(argv, "train", save=True)
+    world = dp.world_size(cfg)
+    if world == 1:
+        return run_training(cfg)
+    return dp.run_ranks(dp.train_rank, world, torch.device(cfg["device"]).type,
+                        args=(cfg,))[0]
+
+
+def run_training(cfg: dict, rank: dp.Rank | None = None) -> Trainer:
+    """The epoch loop of `train_main` in this process: alone, or as rank
+    `rank` of a data-parallel group."""
+    main = rank is None or rank.is_main
     logging.basicConfig(level=logging.INFO)
     log = logging.getLogger("train")
     pin_fp32()
 
     seed = int(cfg.get("seed", 0))
     # dropout takes no generator argument in PyTorch: the process-wide
-    # generators (CPU and CUDA) are seeded once, here
+    # generators (CPU and CUDA) are seeded once, here, alike on every rank
     torch.manual_seed(seed)
     # jitter and sampling are drawn on the host: the same on every device
     generator = torch.Generator().manual_seed(seed)
@@ -135,11 +155,12 @@ def train_main(argv=None) -> Trainer:
     test_loader = get_dataloader(cfg, "test", shuffle=False)
     # iterations per epoch, consumed by the CyclicLR step size
     cfg["dataset_len"] = len(train_loader)
-    trainer = Trainer(cfg, cfg["device"])  # initialised from cfg['seed']
+    device = cfg["device"] if rank is None else rank.device
+    trainer = Trainer(cfg, device, dp=rank)  # initialised from cfg['seed']
     trainer.resume()
     trainer.history = []
 
-    writer = _tb_writer(cfg)
+    writer = _tb_writer(cfg) if main else None
     for epoch in range(trainer.epoch, cfg["total_epoch"]):
         t0 = time.perf_counter()
         total, cnt, data_s, step_s = {}, 0, [], []
@@ -155,20 +176,23 @@ def train_main(argv=None) -> Trainer:
             add_dict(total, loss)
             cnt += 1
         train_avg = divide_dict(total, cnt)
-        log.info("epoch %d train (%d it, %.1fs, lr %.3g): %s", epoch, cnt,
-                 time.perf_counter() - t0, trainer.lr,
-                 {k: round(v, 5) for k, v in train_avg.items()})
-        log_loss_summary(total, cnt,
-                         lambda k, v: _tb_add(writer, f"train/{k}", v, epoch))
+        if main:
+            log.info("epoch %d train (%d it, %.1fs, lr %.3g): %s", epoch, cnt,
+                     time.perf_counter() - t0, trainer.lr,
+                     {k: round(v, 5) for k, v in train_avg.items()})
+            log_loss_summary(total, cnt,
+                             lambda k, v: _tb_add(writer, f"train/{k}", v, epoch))
 
         total, n_test = {}, 0
         for raw, _ in test_loader:
             add_dict(total, cvt_numpy(trainer.test(prepare(trainer, raw, generator, cfg))))
             n_test += 1
         test_avg = divide_dict(total, n_test)
-        log.info("epoch %d test: %s", epoch, {k: round(v, 5) for k, v in test_avg.items()})
-        log_loss_summary(total, n_test,
-                         lambda k, v: _tb_add(writer, f"test/{k}", v, epoch))
+        if main:
+            log.info("epoch %d test: %s", epoch,
+                     {k: round(v, 5) for k, v in test_avg.items()})
+            log_loss_summary(total, n_test,
+                             lambda k, v: _tb_add(writer, f"test/{k}", v, epoch))
         trainer.history.append({"epoch": epoch, "train": train_avg, "test": test_avg,
                                 "lr": trainer.lr, "data_seconds": data_s,
                                 "step_seconds": step_s})
@@ -230,9 +254,18 @@ def _evaluate(cfg, save_flag: bool):
 def _test_single_frame(cfg):
     """Single-frame evaluation of the experiment's checkpoint over the test
     split: (mean losses, stats with the frames per second of wall time with
-    and without data preparation)."""
+    and without data preparation); on `dp_devices` ranks, rank 0's."""
+    world = dp.world_size(cfg)
+    if world == 1:
+        return run_single_frame(cfg)
+    return dp.run_ranks(dp.evaluate_rank, world, torch.device(cfg["device"]).type,
+                        args=(cfg,))[0]
+
+
+def run_single_frame(cfg: dict, rank: dp.Rank | None = None):
+    """`_test_single_frame` in this process: alone, or as rank `rank`."""
     loader = get_dataloader(cfg, "test", shuffle=False)
-    trainer = Trainer(cfg, cfg["device"])
+    trainer = Trainer(cfg, cfg["device"] if rank is None else rank.device, dp=rank)
     trainer.resume()
     generator = torch.Generator().manual_seed(int(cfg.get("seed", 0)))
 
@@ -255,7 +288,9 @@ def _test_single_frame(cfg):
     avg = divide_dict(total, n_batches)
     fps_all = cnt / max(data_time + net_time, 1e-9)
     fps_net = cnt / max(net_time, 1e-9)
-    print(f"frames {cnt}  FPS(all) {fps_all:.1f}  FPS(network) {fps_net:.1f}"
-          f"  device {trainer.device}")
-    print({k: round(v, 5) for k, v in avg.items()})
+    if rank is None or rank.is_main:
+        print(f"frames {cnt}  FPS(all) {fps_all:.1f}  FPS(network) {fps_net:.1f}"
+              f"  device {trainer.device}"
+              + (f" x {rank.world} ranks" if rank is not None else ""))
+        print({k: round(v, 5) for k, v in avg.items()})
     return avg, {"fps_all": fps_all, "fps_network": fps_net, "n_frames": cnt}

@@ -20,6 +20,16 @@ backward, the optimizer update. Parameters that take no part in the forward
 (FFN mode leaves transt.s12 / transt.c12 out) have `.grad is None`, and torch's
 optimizers skip them: no step and no weight decay. That is the behaviour the
 JAX trainer's reachability probe and mask imitate, so neither is ported.
+
+Data-parallel (`dp`, a train/dp.Rank): the model's BatchNorms become
+GlobalBatchNorm1d and rank 0's weights are broadcast after construction and
+after `resume`; `update` and `test` take the global batch and keep the rank's
+rows (an indivisible train batch raises on every rank before any collective;
+an indivisible eval batch runs whole on every rank, the JAX trainer's rule);
+after the backward one all-reduce sums every gradient that is not None, with
+the step's loss values, and divides by D, so each rank's optimizer takes the
+one-process step at the global batch. The parameters without a gradient are
+the same on every rank (checked at the first step). `save` writes on rank 0.
 """
 
 from __future__ import annotations
@@ -35,6 +45,7 @@ from torch import nn
 from ..mano.model import get_mano_model
 from ..models.hand_network import HandTrackNet, IKNet, hand_tracknet_loss, iknet_loss
 from ..models.hand_utils import CanonPose
+from ..nn.global_batch import convert_batchnorm
 from ..pose.rotations import mano_axisang2quat
 from ..utils.convert import load_reference_checkpoint, save_reference_checkpoint
 
@@ -170,10 +181,12 @@ def _obb_pose(model, batch):
 
 
 class Trainer:
-    """Model, optimizer and schedules of one experiment on one device."""
+    """Model, optimizer and schedules of one experiment on one device, or on
+    one rank `dp` of a data-parallel group (train/dp.py)."""
 
-    def __init__(self, cfg: dict, device=None):
+    def __init__(self, cfg: dict, device=None, dp=None):
         self.cfg = cfg
+        self.dp = dp
         self.device = torch.device(device or cfg.get("device") or "cuda")
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device 'cuda' was asked for and "
@@ -185,6 +198,10 @@ class Trainer:
         self.network_type = cfg["network"]["type"]
         self.mano = get_mano_model(cfg.get("mano_root")).to(self.device)
         self.model = build_model(cfg).to(self.device)
+        if dp is not None:
+            convert_batchnorm(self.model)
+            dp.broadcast_module(self.model)
+        self._frozen_checked = False
         self.optimizer = make_optimizer(cfg, self.model.parameters())
         self.epoch = 0
         self.iteration = 0
@@ -214,33 +231,77 @@ class Trainer:
         return iknet_loss(ret, gt_quat, batch["gt_hand_kp"])[0]
 
     def update(self, batch: dict) -> dict:
-        """One optimizer step on a prepared batch; returns the losses
-        (detached tensors, `total_loss` included)."""
+        """One optimizer step on a prepared (global) batch; returns the losses
+        (detached tensors, `total_loss` included; under dp their means over
+        the global batch)."""
+        if self.dp is not None:
+            batch = self.dp.shard(batch, strict=True)
         self.model.train()
         loss_dict = self._losses(batch)
         total, loss_dict = summarize_losses(
             loss_dict, self.loss_weights or _default_weights(loss_dict))
         self.optimizer.zero_grad(set_to_none=True)
         total.backward()
+        loss_dict = {k: v.detach() for k, v in loss_dict.items()}
+        if self.dp is not None:
+            loss_dict = self._all_reduce_gradients(loss_dict)
         self.optimizer.step()
         self.iteration += 1
-        return {k: v.detach() for k, v in loss_dict.items()}
+        return loss_dict
+
+    def _all_reduce_gradients(self, loss_dict: dict) -> dict:
+        """One all-reduce of every gradient that is not None and of the loss
+        values, flattened into one buffer; divided by D, written back.
+        Returns the losses' means over the ranks."""
+        grads = [p.grad for p in self.model.parameters() if p.grad is not None]
+        if not self._frozen_checked:
+            has = torch.tensor([p.grad is not None for p in self.model.parameters()],
+                               dtype=torch.float32, device=self.device)
+            self.dp.all_reduce(has)
+            if not bool(((has == 0) | (has == self.dp.world)).all()):
+                raise RuntimeError("the parameters without a gradient differ between ranks")
+            self._frozen_checked = True
+        keys = list(loss_dict)
+        flat = torch.cat([g.reshape(-1) for g in grads]
+                         + [torch.stack([loss_dict[k] for k in keys]).to(grads[0].dtype)])
+        self.dp.all_reduce(flat)
+        flat /= self.dp.world
+        offset = 0
+        for g in grads:
+            g.copy_(flat[offset:offset + g.numel()].view_as(g))
+            offset += g.numel()
+        return {k: flat[offset + i].to(loss_dict[k].dtype) for i, k in enumerate(keys)}
 
     @torch.no_grad()
     def test(self, batch: dict) -> dict:
-        """Losses of a prepared batch in eval mode."""
+        """Losses of a prepared (global) batch in eval mode. Under dp a batch
+        that divides by D is split and its means all-reduced; one that does
+        not runs whole on every rank."""
         self.model.eval()
-        return self._losses(batch)
+        rows = self.dp.shard(batch, strict=False) if self.dp is not None else None
+        if rows is None:
+            return self._losses(batch)
+        loss_dict = self._losses(rows)
+        keys = list(loss_dict)
+        means = torch.stack([loss_dict[k] for k in keys])
+        self.dp.all_reduce(means)
+        means /= self.dp.world
+        return {k: means[i] for i, k in enumerate(keys)}
 
     def step_epoch(self) -> None:
         self.epoch += 1
         self._apply_schedules()
 
     def save(self, epoch: int | None = None) -> str:
+        """Write the checkpoint (under dp: rank 0 writes, every rank waits
+        for it); returns its path."""
         epoch = self.epoch if epoch is None else epoch
-        path = save_reference_checkpoint(
-            self.model, pjoin(self.ckpt_dir, f"model_{epoch:04d}.pt"), epoch=self.epoch)
-        print(f"saved checkpoint {path}")
+        path = pjoin(self.ckpt_dir, f"model_{epoch:04d}.pt")
+        if self.dp is None or self.dp.is_main:
+            path = save_reference_checkpoint(self.model, path, epoch=self.epoch)
+            print(f"saved checkpoint {path}")
+        if self.dp is not None:
+            self.dp.barrier()
         return path
 
     def resume(self, path: str | None = None) -> bool:
@@ -258,6 +319,9 @@ class Trainer:
                     return False
                 path = ckpts[-1]
         self.epoch = load_reference_checkpoint(self.model, path)
+        if self.dp is not None:
+            self.dp.broadcast_module(self.model)
         self._apply_schedules()
-        print(f"resumed from {path} (epoch {self.epoch})")
+        if self.dp is None or self.dp.is_main:
+            print(f"resumed from {path} (epoch {self.epoch})")
         return True

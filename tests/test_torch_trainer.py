@@ -251,7 +251,8 @@ def test_exporter_copy_matches_the_jax_package(tmp_path, net_type):
 
 def test_port_imports_nothing_of_the_jax_package():
     """No module of the port, and neither chip_smoke.py nor a profile script
-    of the port, names jax, flax or hotrack_tpu in an import statement."""
+    of the port, names jax, flax or hotrack_tpu in an import statement; and a
+    data-parallel rank spawned by train/dp.py imports none of them."""
     pat = re.compile(r"^\s*(from|import)\s+(jax|flax|hotrack_tpu)(\.|\s|$)", re.M)
     files = [os.path.join(REPO, "chip_smoke.py")]
     files += [os.path.join(REPO, "scripts", n) for n in os.listdir(os.path.join(REPO, "scripts"))
@@ -276,9 +277,19 @@ def test_port_imports_nothing_of_the_jax_package():
                       "hotrack_tpu_torch.sdf.mesh", "hotrack_tpu_torch.opt.shape_update",
                       "hotrack_tpu_torch.pose.pose_fit", "hotrack_tpu_torch.pose.bbox",
                       "hotrack_tpu_torch.models.losses",
-                      "hotrack_tpu_torch.nn.point_transformer"}
+                      "hotrack_tpu_torch.nn.point_transformer",
+                      "hotrack_tpu_torch.train.dp", "hotrack_tpu_torch.nn.global_batch",
+                      "hotrack_tpu_torch.track.shards"}
     bad = [f for f in files if pat.search(open(f).read())]
     assert not bad, bad
+    from hotrack_tpu_torch.train import dp
+    infos = dp.run_ranks(dp.rank_info, 2, "cpu", timeout_s=120.0)
+    assert [i["rank"] for i in infos] == [0, 1] and infos[1]["world_seen"] == 2
+    child = infos[1]["modules"]
+    assert "hotrack_tpu_torch.train.dp" in child
+    jaxish = [m for m in child if m in ("jax", "hotrack_tpu")
+              or m.startswith(("jax.", "jaxlib", "flax", "optax", "hotrack_tpu."))]
+    assert not jaxish, jaxish
 
 
 # --------------------------------------------------------------- schedules
