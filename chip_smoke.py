@@ -148,8 +148,21 @@ sequences. Phases, each of which raises on failure:
  14. library code no entry calls: PointNet2Encoder and a point-transformer
      down / up stack, eval mode, on the card (FPS and gather launches
      required) against the CPU within LIBRARY_ATOL;
+ 14b. reduced precision (`--network/compute_dtype bfloat16`): test_main on
+     the tracking config in float32 and bf16 in turns (ms/frame; the bf16
+     run's frame-0 FPS and gather picks equal to float32's; frame 0 within
+     BF16_FRAME0_BOUND_M of float32 on the card and of bf16 on the CPU, on
+     the inputs the runner prepares; 100 frames within BF16_TRACK_BOUND_M of
+     float32), `track_bf16`; train_main, one epoch, bf16 and float32 in turns
+     (ms/step, peak memory), `train_bf16`, and the step-0 loss card against
+     CPU in bf16 within BF16_LOSS_RTOL; the row gathers and adjoints counted
+     by dtype (3 of 15 gathers a forward and 3 of 7 adjoints a step in bf16);
+     #2 and #2b in bf16 and fp16 at the shapes the bf16 paths gave them
+     (bitwise the plain versions, the adjoint bitwise its CPU plain version),
+     timed at batch 32; the max-pool's tie rule on the card in bf16;
  15. the shapes the kernels' wrappers were given on those paths, noted while
-     they ran, must be exactly the shapes phase 3 checked;
+     they ran, must be exactly the shapes phase 3 checked (the bf16 ones
+     phase 14b checked);
  16. neither JAX nor the JAX package (hotrack_tpu) may have been imported.
 
 The line before the last is a JSON object describing the kernels; the last
@@ -497,6 +510,17 @@ GATHER_SHAPES += [
     ("pt down k/v", 1, PT_NPOINT, PT_MID, PT_NPOINT * PT_NSAMPLE),
     ("pt up 3-nn", 1, PT_NPOINT, PT_DIM, PT_POINTS * 3),
     ("pt up k/v", 1, PT_POINTS, PT_MID, PT_POINTS * PT_NSAMPLE)]
+# HandTrackNet in --network/compute_dtype bfloat16 (phase 14b): the gathers
+# whose sources the JAX package leaves in the compute dtype (sa2's grouped
+# features, fp2, fp1) run in bf16 on the tracking path (batch 1) and in
+# training (the train and test batches), their adjoints in the train step;
+# sa1, the centres and the keypoint queries (q1, q2: the backbone's float32
+# output) stay float32. The kernel holds take these shapes in bf16 and fp16.
+BF16_GATHERS = ("sa2 group feats", "fp2", "fp1")
+BF16_GATHER_SHAPES = [(name, b, n, c, s, "bfloat16") for b in (1, BATCH, *TAILS)
+                      for name, n, c, s in FORWARD_GATHERS if name in BF16_GATHERS]
+BF16_SCATTER_SHAPES = [(name, b, n, c, s, "bfloat16") for b in (BATCH, TAILS[0])
+                       for name, n, c, s in FORWARD_GATHERS if name in BF16_GATHERS]
 TIMED_FPS_BATCHES = (NUM_FRAMES, 1, BATCH)
 TIMED_SHAPES = ("q feats k=64", "sa2 group feats")  # the two largest outputs, at BATCH
 # what the object path gives the two SDF kernels: the composed route's
@@ -548,7 +572,7 @@ def _seen_shape(name: str, args: tuple) -> tuple:
         return (*xyz.shape[:2], npoint, bool(mask) and mask[0] is not None)
     if name == "gather_rows":
         points, flat_idx = args
-        return (*points.shape, flat_idx.shape[1])
+        return (*points.shape, flat_idx.shape[1], *_dtype_tag(points))
     if name == "sdf_mlp":
         points, _, channels_first = args
         return (tuple(points.shape), channels_first)
@@ -565,7 +589,12 @@ def _seen_shape(name: str, args: tuple) -> tuple:
         pose_map, *_, hw, _ = args
         return (*pose_map.shape, args[3].shape[2], tuple(hw))
     dout, flat_idx, n = args
-    return (dout.shape[0], n, dout.shape[2], flat_idx.shape[1])
+    return (dout.shape[0], n, dout.shape[2], flat_idx.shape[1], *_dtype_tag(dout))
+
+
+def _dtype_tag(t: torch.Tensor) -> tuple:
+    """A row kernel's shape carries its dtype where that is not float32."""
+    return () if t.dtype == torch.float32 else (str(t.dtype).removeprefix("torch."),)
 
 
 @contextlib.contextmanager
@@ -596,8 +625,8 @@ def check_seen_shapes(seen: dict) -> None:
     """The kernels phase must have held each kernel at every shape the paths
     gave it, and at no shape that was assumed rather than seen."""
     checked = {"fps": {sh[1:] for sh in FPS_SHAPES},
-               "gather_rows": {sh[1:] for sh in GATHER_SHAPES},
-               "scatter_rows_add": {sh[1:] for sh in SCATTER_SHAPES},
+               "gather_rows": {sh[1:] for sh in GATHER_SHAPES + BF16_GATHER_SHAPES},
+               "scatter_rows_add": {sh[1:] for sh in SCATTER_SHAPES + BF16_SCATTER_SHAPES},
                "sdf_mlp": set(SDF_MLP_SHAPES), "obj_sdf_energy": set(OBJ_ENERGY_SHAPES),
                "packed_mask_lookup": set(MASK_LOOKUP_SHAPES),
                "hand_energy": set(HAND_ENERGY_SHAPES),
@@ -895,6 +924,11 @@ def phase_kernels_fps() -> dict:
     return {"max_abs_err": max_err, **timed[0], "cases": timed}
 
 
+def _nbytes(*tensors) -> int:
+    """The bytes of the tensors, each element at its own size."""
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
 def _rows_case(rng, b, n, c, s, dtype=torch.float32, hi=None):
     src = torch.from_numpy(rng.randn(b, n, c).astype(np.float32)).to(dtype).cuda()
     idx = torch.from_numpy(rng.randint(0, hi or n, (b, s))).cuda()
@@ -926,7 +960,7 @@ def phase_kernels_gather() -> dict:
             case = _in_turns(lambda: kernels.gather_rows_cuda(src, idx),
                              lambda: plain(src, idx),
                              lambda: torch.gather(src, 1, expanded))
-            case.update(_bound(src.numel() * 4 + idx.numel() * 8 + got.numel() * 4, 0))
+            case.update(_bound(_nbytes(src, idx, got), 0))
             case["shape"] = f"{name} ({b},{n},{c})x({b},{s})"
             timed.append(case)
             line += "; " + _fmt(case)
@@ -1004,8 +1038,7 @@ def phase_kernels_scatter() -> dict:
                     lambda: kernels.scatter_rows_add_cuda(dout, idx, n),
                     lambda: plain(dout, idx, n),
                     lambda: torch.zeros((b * n, c), device=dout.device).index_add_(0, flat, rows))
-                case.update(_bound(dout.numel() * 4 + idx.numel() * 8 + got.numel() * 4,
-                                   float(dout.numel())))
+                case.update(_bound(_nbytes(dout, idx, got), float(dout.numel())))
                 case["shape"] = f"{name} ({b},{s},{c})->({b},{n},{c})"
                 timed.append(case)
                 line += "; " + _fmt(case)
@@ -1420,8 +1453,6 @@ def _step_gradients(cfg, batch, device: str, plain: bool = False,
     off. With plain=True the model's FPS and index_points are the kernels'
     plain PyTorch versions (on a CUDA tensor: no kernel runs). Records the
     indices index_points was given and the FPS indices."""
-    from hotrack_tpu_torch.nn import pointnet2
-    from hotrack_tpu_torch.ops import pointops
     from hotrack_tpu_torch.train.trainer import Trainer, summarize_losses
 
     trainer = Trainer(cfg, device)  # seeded: the same weights every time
@@ -1430,27 +1461,12 @@ def _step_gradients(cfg, batch, device: str, plain: bool = False,
         if isinstance(m, torch.nn.Dropout):
             m.p = 0.0
     trainer.model.train()
-    fps_idx, group_idx = [], []
-    fps = pointops._farthest_point_sample_torch if plain else pointops.farthest_point_sample
-    gather = _plain_index_points if plain else pointops.index_points
-
-    def recording_fps(xyz, npoint, valid_mask=None):
-        fps_idx.append(fps(xyz, npoint, valid_mask).cpu())
-        return fps_idx[-1].to(xyz.device)
-
-    def recording_gather(points, idx):
-        group_idx.append(idx.cpu().long())
-        return gather(points, idx)
-
-    pointnet2.farthest_point_sample, pointnet2.index_points = recording_fps, recording_gather
-    try:
+    picks = []
+    with recording_picks(picks, plain=plain):
         total, _ = summarize_losses(
             trainer._losses(_to_device(batch, device, dtype)), trainer.loss_weights)
         total.backward()
-    finally:
-        pointnet2.farthest_point_sample = pointops.farthest_point_sample
-        pointnet2.index_points = pointops.index_points
-    return {"loss": float(total.detach()), "picks": fps_idx + group_idx,
+    return {"loss": float(total.detach()), "picks": picks,
             "grads": {k: None if p.grad is None else p.grad.detach().cpu()
                       for k, p in trainer.model.named_parameters()}}
 
@@ -3706,6 +3722,340 @@ def phase_library(card: str, seen: dict) -> dict:
     return {"library": launches}
 
 
+# Reduced precision (phase 14b): the tracking and training paths with
+# --network/compute_dtype bfloat16. bf16 keeps 8 significant bits, so a
+# feature that rounds the other way moves by 2^-8 of itself; the head-scaled
+# net's frame-0 correction is millimetres (HEAD_SCALE), and such flips move
+# it by about 1e-5 m: frame 0 is held at 2e-4 m against float32 on the card
+# and against bf16 on the CPU (the same inputs; cuBLAS and the CPU sum the
+# products in another order). Over 100 frames the closed loop carries the
+# flips on: the bf16 track is held against the float32 one to the tracker's
+# accuracy, 1 cm. The train step's loss, card against CPU in bf16 on the same
+# batch, is held as the CPU test holds the port against the JAX step (5e-2:
+# in bf16 a flip moves train-mode BatchNorm's batch statistics).
+BF16_FRAME0_BOUND_M = 2e-4
+BF16_TRACK_BOUND_M = 1e-2
+BF16_LOSS_RTOL = 5e-2
+# the max-pool over neighbours sends its gradient to the first maximal one:
+# torch.max(dim)'s index on the card against the CPU where bf16 makes ties
+MAXPOOL_TIE_SHAPE = (BATCH, 128, 32, 64)
+
+
+@contextlib.contextmanager
+def counting_row_dtypes(counts: dict):
+    """While a path runs, count the row gathers and their adjoints by the
+    dtype they were given: counts[kernel][dtype] (the kernels' own counters
+    count launches, not dtypes)."""
+    from hotrack_tpu_torch.ops import kernels
+    real = {name: getattr(kernels, name + "_cuda") for name in ("gather_rows",
+                                                                "scatter_rows_add")}
+
+    def counting(name):
+        def wrapper(t, *args, **kwargs):
+            key = str(t.dtype).removeprefix("torch.")
+            counts[name][key] = counts[name].get(key, 0) + 1
+            return real[name](t, *args, **kwargs)
+        return wrapper
+
+    for name in real:
+        counts.setdefault(name, {})
+        setattr(kernels, name + "_cuda", counting(name))
+    try:
+        yield
+    finally:
+        for name, fn in real.items():
+            setattr(kernels, name + "_cuda", fn)
+
+
+@contextlib.contextmanager
+def recording_picks(picks: list, limit: int | None = None, plain: bool = False):
+    """The FPS and row-gather index picks of HandTrackNet's layers
+    (nn/pointnet2.py), on the host, in call order (the first `limit` of
+    them); with plain=True FPS and index_points run their plain versions."""
+    from hotrack_tpu_torch.nn import pointnet2
+    from hotrack_tpu_torch.ops import pointops
+    run_fps = pointops._farthest_point_sample_torch if plain else pointops.farthest_point_sample
+    run_gather = _plain_index_points if plain else pointops.index_points
+
+    def keep(idx):
+        if limit is None or len(picks) < limit:
+            picks.append(idx.cpu().long())
+
+    def fps(xyz, npoint, valid_mask=None):
+        out = run_fps(xyz, npoint, valid_mask)
+        keep(out)
+        return out
+
+    def gather(points, idx):
+        keep(idx)
+        return run_gather(points, idx)
+
+    pointnet2.farthest_point_sample, pointnet2.index_points = fps, gather
+    try:
+        yield
+    finally:
+        pointnet2.farthest_point_sample = pointops.farthest_point_sample
+        pointnet2.index_points = pointops.index_points
+
+
+def _first_frames(tree, t: int, frames: int):
+    """The first `frames` frames of a prepared sequence of t frames."""
+    if isinstance(tree, dict):
+        return {k: _first_frames(v, t, frames) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor) and tree.dim() and tree.shape[0] == t:
+        return tree[:frames]
+    return tree
+
+
+def _device_ms(fn, reps: int = 20, attempts: int = 3) -> float | None:
+    """The device time a call of fn takes: the sum of torch.profiler's CUDA
+    events over `reps` calls, divided by reps; None where the profiler
+    recorded no device event in `attempts` windows (it has missed a whole
+    window now and then). At these sizes a launch from Python takes about as
+    long on the host as the kernel on the card, so the CUDA events around
+    back-to-back calls measure the host as much."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if events:
+            return sum(e.device_time_total for e in events) / 1e3 / reps
+    return None
+
+
+def _with_device_times(case: dict, kernel, library) -> str:
+    """The kernel's and the library call's device times beside the CUDA-event
+    ones; the line's tail."""
+    case.update(device_ms=_device_ms(kernel), library_device_ms=_device_ms(library))
+    dev, lib = case["device_ms"], case["library_device_ms"]
+    return (f"{_fmt(case)}, {case['bound_ms'] / case['ms']:.3f} of the bound; device time "
+            f"(profiler): kernel "
+            + ("not measured" if dev is None else
+               f"{dev:.4f} ms ({case['bound_ms'] / dev:.3f} of the bound)")
+            + ", library " + ("not measured" if lib is None else f"{lib:.4f} ms"))
+
+
+def _rows_in_dtype(rng, dtype) -> list:
+    """#2 and #2b in `dtype` at the shapes of BF16_GATHER_SHAPES and
+    BF16_SCATTER_SHAPES: the gather bitwise its plain version, the adjoint
+    bitwise the CPU plain version (float32 sum in ascending s, rounded once),
+    a relaunch bitwise the first, within one rounding of the float64 sum;
+    timed at BATCH (bytes at each tensor's element size)."""
+    from hotrack_tpu_torch.ops import kernels
+    from hotrack_tpu_torch.ops.pointops import _gather_rows_torch as plain_gather
+    from hotrack_tpu_torch.ops.pointops import _scatter_rows_add_torch as plain_scatter
+    tag = str(dtype).removeprefix("torch.")
+    timed = []
+    for name, b, n, c, s, _ in BF16_GATHER_SHAPES:
+        src, idx = _rows_case(rng, b, n, c, s, dtype)
+        got = kernels.gather_rows_cuda(src, idx)
+        torch.cuda.synchronize()
+        if not torch.equal(got, plain_gather(src, idx)):
+            raise AssertionError(f"[bf16] gather_rows {name} {tag} differs from the plain "
+                                 f"version")
+        line = f"[bf16] gather_rows {name} ({b},{n},{c})x({b},{s}) {tag}: bitwise"
+        if b == BATCH:
+            expanded = idx[..., None].expand(-1, -1, c)
+            fns = (lambda: kernels.gather_rows_cuda(src, idx), lambda: plain_gather(src, idx),
+                   lambda: torch.gather(src, 1, expanded))
+            case = _in_turns(*fns)
+            case.update(_bound(_nbytes(src, idx, got), 0),
+                        shape=f"{name} ({b},{n},{c})x({b},{s}) {tag}")
+            timed.append(case)
+            line += "; " + _with_device_times(case, fns[0], fns[2])
+        print(line, flush=True)
+    for name, b, n, c, s, _ in BF16_SCATTER_SHAPES:
+        dout, idx = _rows_case(rng, b, s, c, s, dtype, hi=n)
+        got = kernels.scatter_rows_add_cuda(dout, idx, n)
+        again = kernels.scatter_rows_add_cuda(dout, idx, n)
+        want = plain_scatter(dout.double(), idx, n, torch.float64)
+        torch.cuda.synchronize()
+        ulp = 2.0 ** -8 if dtype == torch.bfloat16 else 2.0 ** -11
+        if not torch.equal(got, again) \
+                or not torch.equal(got.cpu(), plain_scatter(dout.cpu(), idx.cpu(), n)) \
+                or not bool(((got.double() - want).abs() <= ulp * want.abs() + 1e-4).all()):
+            raise AssertionError(f"[bf16] scatter_rows_add {name} {tag}: relaunch, CPU plain "
+                                 f"version or one rounding of the float64 sum")
+        line = (f"[bf16] scatter_rows_add {name} ({b},{s},{c})->({b},{n},{c}) {tag}: bitwise "
+                f"the CPU plain version, relaunch bitwise, within one rounding")
+        if b == BATCH:
+            flat = (idx + torch.arange(b, device=idx.device)[:, None] * n).reshape(-1)
+            rows = dout.reshape(b * s, c)
+            fns = (lambda: kernels.scatter_rows_add_cuda(dout, idx, n),
+                   lambda: plain_scatter(dout, idx, n),
+                   lambda: torch.zeros((b * n, c), dtype=dtype,
+                                       device=dout.device).index_add_(0, flat, rows))
+            case = _in_turns(*fns)
+            case.update(_bound(_nbytes(dout, idx, got), float(dout.numel())),
+                        shape=f"{name} ({b},{s},{c})->({b},{n},{c}) {tag}", kernel="scatter")
+            timed.append(case)
+            line += "; " + _with_device_times(case, fns[0], fns[2])
+        print(line, flush=True)
+    return timed
+
+
+def phase_compute_dtype(card: str, seen: dict) -> tuple:
+    """HandTrackNet in `--network/compute_dtype bfloat16` through the tracking
+    and training entries (phase 14b): (a) test_main on the tracking config,
+    float32 and bf16 in turns (ms/frame), the frame-0 picks equal, frame 0
+    against float32 on the card and against bf16 on the CPU, 100 frames to
+    the tracker's accuracy; (b) train_main, one epoch, bf16 and float32 in
+    turns (ms/step, peak memory), the step-0 loss card against CPU in bf16;
+    (c) #2 and #2b in bf16 and fp16 at the shapes the bf16 paths gave them,
+    and the max-pool's tie rule on the card. Returns ({path: launches},
+    {path: {kernel: {dtype: launches}}}, the timed kernel cases)."""
+    from hotrack_tpu_torch.data import get_dataloader, prepare_batch
+    from hotrack_tpu_torch.data.synthetic import generate_simgrasp_dataset
+    from hotrack_tpu_torch.mano.model import get_mano_model
+    from hotrack_tpu_torch.ops import kernels
+    from hotrack_tpu_torch.track.hand import track_hand_sequence
+    from hotrack_tpu_torch.train.cli import load_config, prepare, test_main, train_main
+    from hotrack_tpu_torch.train.run_hand_track import load_handnet, sequence_generator
+    from hotrack_tpu_torch.train.trainer import Trainer
+
+    bf16 = ["--network/compute_dtype", "bfloat16"]
+    by_path, by_dtype = {}, {}
+    root = tempfile.mkdtemp(prefix="hotrack_smoke_bf16_")
+    os.environ["HOTRACK_DATA_ROOT"] = root
+    try:
+        # (a) tracking
+        generate_simgrasp_dataset(root, num_instances=2, num_frames=NUM_FRAMES,
+                                  points_per_part=POINTS_PER_PART)
+        argv = ["--config", CONFIG, "--device", "cuda"]
+        _write_checkpoint(load_config(argv))
+        test_main(argv + bf16)  # warm-up: cuBLAS's bf16 products
+        runs, ms, picks = {}, {"float32": [], "bfloat16": []}, {}
+        for turn, key in enumerate(("float32", "bfloat16", "bfloat16", "float32")):
+            extra = bf16 if key == "bfloat16" else []
+            kernels.reset_launch_counts()
+            counts = {}
+            with contextlib.ExitStack() as stack:
+                if turn < 2:   # the first run of each: its picks, shapes and launches
+                    picks[key] = []
+                    stack.enter_context(recording_picks(picks[key],
+                                                        FPS_PER_FORWARD + GATHERS_PER_FORWARD))
+                    stack.enter_context(noting_shapes(seen))
+                    stack.enter_context(counting_row_dtypes(counts))
+                _, stats = test_main(argv + extra)
+            torch.cuda.synchronize()
+            if turn == 1:
+                by_path["track_bf16"] = dict(kernels.launch_counts)
+                by_dtype["track_bf16"] = counts
+            runs.setdefault(key, stats["sequences"][0]["pred_kp"])
+            ms[key].append(1e3 * stats["net_seconds"] / stats["n_frames"])
+        f32, b16 = runs["float32"], runs["bfloat16"]
+        if b16.shape != (NUM_FRAMES, 21, 3) or not np.isfinite(b16).all():
+            raise AssertionError(f"[bf16] track: pred_kp {b16.shape}, finite "
+                                 f"{bool(np.isfinite(b16).all())}")
+        _require_launches("bf16", by_path["track_bf16"], {
+            "fps": PER_PREPARE + FPS_PER_FORWARD * NUM_FRAMES,
+            "gather_rows": PER_PREPARE + GATHERS_PER_FORWARD * NUM_FRAMES})
+        if by_dtype["track_bf16"]["gather_rows"].get("bfloat16") != 3 * NUM_FRAMES:
+            raise AssertionError(f"[bf16] track: gathers by dtype {by_dtype['track_bf16']}")
+        same = all(torch.equal(a, b) for a, b in zip(picks["float32"], picks["bfloat16"],
+                                                    strict=True))
+        gap = np.linalg.norm(b16 - f32, axis=-1).max(-1)   # per frame, m
+        # frame 0 on the CPU in bf16, on the inputs the runner prepares
+        cfg = load_config(argv + bf16 + ["--device", "cpu"])
+        mano = get_mano_model(cfg.get("mano_root"))
+        raw, _ = get_dataloader(cfg, "test")[0]
+        hj = cfg["hand_jitter_cfg"]
+        seq = prepare_batch(mano, raw, cfg["num_points"],
+                            generator=sequence_generator(int(cfg.get("seed", 0)), 0),
+                            hand_jitter_scale=hj["rand_scale"], jitter_kind=hj["rand_type"],
+                            sample_kind=cfg.get("point_sample", "fps"), device="cpu")
+        with torch.no_grad():
+            cpu0 = track_hand_sequence(load_handnet(cfg, "cpu"), mano,
+                                       _first_frames(seq, NUM_FRAMES, 1)).pred_kp.numpy()
+        cpu_gap = float(np.linalg.norm(b16[:1] - cpu0, axis=-1).max())
+        print(f"[bf16] track: {NUM_FRAMES} frames, ms/frame in turns float32 / bf16 / bf16 / "
+              f"float32: {ms['float32'][0]:.3f} / {ms['bfloat16'][0]:.3f} / "
+              f"{ms['bfloat16'][1]:.3f} / {ms['float32'][1]:.3f}; frame-0 picks "
+              f"{'equal' if same else 'DIFFER'}; bf16 vs float32 keypoints frame 0 "
+              f"{gap[0]:.3e} m (bound {BF16_FRAME0_BOUND_M}), any frame {gap.max():.3e} m "
+              f"(bound {BF16_TRACK_BOUND_M}); card vs CPU in bf16, frame 0: {cpu_gap:.3e} m "
+              f"(bound {BF16_FRAME0_BOUND_M}); launches {by_dtype['track_bf16']} | {card}",
+              flush=True)
+        if not same or gap[0] > BF16_FRAME0_BOUND_M or gap.max() > BF16_TRACK_BOUND_M \
+                or cpu_gap > BF16_FRAME0_BOUND_M:
+            raise AssertionError("[bf16] the bf16 track is outside its bounds")
+        shutil.rmtree(root, ignore_errors=True)
+
+        # (b) training
+        root = tempfile.mkdtemp(prefix="hotrack_smoke_bf16_train_")
+        os.environ["HOTRACK_DATA_ROOT"] = root
+        generate_simgrasp_dataset(root, num_instances=3, num_frames=TRAIN_FRAMES,
+                                  points_per_part=POINTS_PER_PART)
+        targv = ["--config", TRAIN_CONFIG, "--device", "cuda", "--epochs", "1"]
+        steps, peak = {"float32": [], "bfloat16": []}, {}
+        for turn, key in enumerate(("bfloat16", "float32", "float32", "bfloat16")):
+            extra = bf16 if key == "bfloat16" else []
+            kernels.reset_launch_counts()
+            torch.cuda.reset_peak_memory_stats()
+            counts = {}
+            with contextlib.ExitStack() as stack:
+                if turn == 0:
+                    stack.enter_context(noting_shapes(seen))
+                    stack.enter_context(counting_row_dtypes(counts))
+                trainer = train_main(targv + extra + ["--experiment_dir",
+                                                      f"smoke_bf16_{turn}"])
+            torch.cuda.synchronize()
+            hist = trainer.history[0]
+            bad = {k: v for split in ("train", "test") for k, v in hist[split].items()
+                   if not math.isfinite(v)}
+            if bad:
+                raise AssertionError(f"[bf16] train {key}: non-finite losses {bad}")
+            if turn == 0:
+                by_path["train_bf16"] = dict(kernels.launch_counts)
+                by_dtype["train_bf16"] = counts
+            steps[key].append(1e3 * float(np.median(hist["step_seconds"][1:-1])))
+            peak.setdefault(key, torch.cuda.max_memory_allocated())
+        n_steps = -(-2 * TRAIN_FRAMES // BATCH)
+        if by_dtype["train_bf16"]["scatter_rows_add"].get("bfloat16") != 3 * n_steps:
+            raise AssertionError(f"[bf16] train: adjoints by dtype {by_dtype['train_bf16']}")
+        tcfg = load_config(targv + bf16, "train")
+        raw, _ = next(iter(get_dataloader(tcfg, "train")))
+        batch = prepare(Trainer(tcfg, "cpu"), raw, torch.Generator().manual_seed(0), tcfg)
+        with noting_shapes(seen):
+            card_step = _step_gradients(tcfg, batch, "cuda")
+        cpu_step = _step_gradients(tcfg, batch, "cpu")
+        rel = abs(card_step["loss"] - cpu_step["loss"]) / abs(cpu_step["loss"])
+        print(f"[bf16] train: one epoch ({n_steps} steps of {BATCH}), ms/step in turns bf16 "
+              f"/ float32 / float32 / bf16: {steps['bfloat16'][0]:.3f} / "
+              f"{steps['float32'][0]:.3f} / {steps['float32'][1]:.3f} / "
+              f"{steps['bfloat16'][1]:.3f}; peak memory bf16 {peak['bfloat16'] / 2**20:.1f} "
+              f"MiB, float32 {peak['float32'] / 2**20:.1f} MiB; step-0 loss card "
+              f"{card_step['loss']:.7f} vs CPU {cpu_step['loss']:.7f} (relative {rel:.2e}, "
+              f"bound {BF16_LOSS_RTOL}), {_picks_differ(card_step, cpu_step)} index picks "
+              f"differ; launches {by_dtype['train_bf16']} | {card}", flush=True)
+        if rel > BF16_LOSS_RTOL:
+            raise AssertionError("[bf16] the step-0 loss differs between card and CPU")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    # (c) the row kernels in bf16 and fp16, and the max-pool's tie rule
+    rng = np.random.RandomState(14)
+    timed = _rows_in_dtype(rng, torch.bfloat16) + _rows_in_dtype(rng, torch.float16)
+    h = torch.from_numpy(rng.randint(0, 4, MAXPOOL_TIE_SHAPE).astype(np.float32)).bfloat16()
+    hc = h.cuda().requires_grad_(True)
+    torch.max(hc, dim=2).values.sum().backward()
+    first = torch.zeros_like(h).scatter_(2, torch.from_numpy(np.argmax(h.float().numpy(), 2))
+                                         [:, :, None], 1.0)
+    if not torch.equal(hc.grad.cpu(), first) \
+            or not torch.equal(torch.max(h, dim=2).indices, torch.max(hc, 2).indices.cpu()):
+        raise AssertionError("[bf16] torch.max(dim) does not send the gradient to the first "
+                             "maximal neighbour on the card")
+    print(f"[bf16] max-pool over neighbours {MAXPOOL_TIE_SHAPE} bf16 with ties: the gradient "
+          f"goes to the first maximum on the card, indices equal to the CPU's", flush=True)
+    return by_path, by_dtype, timed
+
+
 def _ms(fn) -> tuple:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3920,6 +4270,16 @@ def _phases(card, real, t0, took, timed) -> int:
     by_path.update(timed("shape_update", phase_shape_update, card, seen, real))
     by_path.update(timed("serving", phase_serving, card, seen, fit, obj_fit))
     by_path.update(timed("library", phase_library, card, seen))
+    dtype_paths, by_dtype, dtype_cases = timed("compute_dtype", phase_compute_dtype, card,
+                                               seen)
+    by_path.update(dtype_paths)
+    numbers["gather_rows"]["cases_compute_dtype"] = [
+        c for c in dtype_cases if c.get("kernel") != "scatter"]
+    numbers["scatter_rows_add"]["cases_compute_dtype"] = [
+        c for c in dtype_cases if c.get("kernel") == "scatter"]
+    for name in ("gather_rows", "scatter_rows_add"):
+        numbers[name]["launches_by_dtype"] = {path: counts[name]
+                                              for path, counts in by_dtype.items()}
     # the path whose count stands for the kernel in the result line
     main_path = {"fps": "train", "gather_rows": "train", "scatter_rows_add": "train",
                  "sdf_mlp": "object_composed", "obj_sdf_energy": "object",

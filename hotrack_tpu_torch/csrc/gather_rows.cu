@@ -31,13 +31,18 @@
 // from the ball query: 10.75 KB a batch row at S = 1344), not once a warp and
 // a channel slice, so the bytes are dout's, dsrc's and little else. Above
 // kScatterChunk positions the sum so far waits between chunks in float32:
-// in dsrc itself for float32, in a float32 scratch of dsrc's shape for bf16,
-// so a bf16 output is still rounded once, at the last chunk.
+// in dsrc itself for float32, in a float32 scratch of dsrc's shape for bf16
+// and fp16, so a 2-byte output is still rounded once, at the last chunk.
+//
+// Element types: float32, bf16 and fp16 (HandTrackNet's compute dtypes).
+// The gather copies bytes and does not look at the type; the scatter-add is
+// one template over the type, the sum float32 for each.
 
 #include <cstdint>
 #include <type_traits>
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -79,20 +84,36 @@ __global__ void gather_rows_kernel(const T* __restrict__ src, const IdxT* __rest
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_float(__half v) { return __half2float(v); }
 __device__ __forceinline__ void from_float(float v, float* o) { *o = v; }
 __device__ __forceinline__ void from_float(float v, __nv_bfloat16* o) {
   *o = __float2bfloat16_rn(v);
 }
-__device__ __forceinline__ float bf16_bits_to_float(unsigned bits) {
-  return __bfloat162float(__ushort_as_bfloat16(static_cast<unsigned short>(bits)));
+__device__ __forceinline__ void from_float(float v, __half* o) { *o = __float2half_rn(v); }
+
+// the 16 bits of a 2-byte element (bf16 or fp16) as float32, and back,
+// rounded to nearest even
+template <typename T>
+__device__ __forceinline__ float bits_to_float(unsigned bits) {
+  const unsigned short b = static_cast<unsigned short>(bits);
+  if constexpr (std::is_same_v<T, __half>) {
+    return __half2float(__ushort_as_half(b));
+  } else {
+    return __bfloat162float(__ushort_as_bfloat16(b));
+  }
 }
-__device__ __forceinline__ unsigned float_to_bf16_bits(float v) {
-  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+template <typename T>
+__device__ __forceinline__ unsigned float_to_bits(float v) {
+  if constexpr (std::is_same_v<T, __half>) {
+    return __half_as_ushort(__float2half_rn(v));
+  } else {
+    return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+  }
 }
 
 // W consecutive elements of T (dout, which the kernel never writes) as
 // float32, through the read-only path: one 16-byte load when W > 1 (W = 4
-// for f32, 8 for bf16), else one element.
+// for f32, 8 for bf16 and fp16), else one element.
 template <typename T, int W>
 __device__ __forceinline__ void load_unit(const T* p, float (&f)[W]) {
   if constexpr (W == 1) {
@@ -108,8 +129,8 @@ __device__ __forceinline__ void load_unit(const T* p, float (&f)[W]) {
       const unsigned w[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
-        f[2 * k] = bf16_bits_to_float(w[k] & 0xffffu);  // the lower address
-        f[2 * k + 1] = bf16_bits_to_float(w[k] >> 16);
+        f[2 * k] = bits_to_float<T>(w[k] & 0xffffu);  // the lower address
+        f[2 * k + 1] = bits_to_float<T>(w[k] >> 16);
       }
     }
   }
@@ -128,7 +149,7 @@ __device__ __forceinline__ void store_unit(T* p, const float (&f)[W]) {
       unsigned w[4];
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
-        w[k] = float_to_bf16_bits(f[2 * k]) | (float_to_bf16_bits(f[2 * k + 1]) << 16);
+        w[k] = float_to_bits<T>(f[2 * k]) | (float_to_bits<T>(f[2 * k + 1]) << 16);
       }
       v = make_uint4(w[0], w[1], w[2], w[3]);
     }
@@ -184,8 +205,9 @@ __device__ __forceinline__ void store_partial(float* p, const float (&f)[W]) {
 //      kInFlight hits, then add them in ascending s, and write each output
 //      element once with 16-byte stores (the first chunk starts from 0, a
 //      later one from the float32 sum so far, so the order is one sequential
-//      sum; only the last chunk writes dsrc's type, and for bf16 the chunks
-//      before it write the sum to `partial`, float32 of dsrc's shape).
+//      sum; only the last chunk writes dsrc's type, and for bf16 and fp16
+//      the chunks before it write the sum to `partial`, float32 of dsrc's
+//      shape).
 template <typename T, typename IdxT, int W>
 __global__ void __launch_bounds__(kScatterThreads)
     scatter_rows_add_kernel(const T* __restrict__ dout, const IdxT* __restrict__ idx,
@@ -373,8 +395,8 @@ void launch_scatter(const void* dout, const void* idx, void* dsrc, float* partia
 extern "C" {
 
 // out (B*S rows of row_bytes) <- rows of src (B, N, row_bytes) picked by idx
-// (B*S, int32, or int64 when idx64 != 0). row_bytes is even (f32 or bf16
-// elements). Launches on `stream`, does not synchronise; returns the
+// (B*S, int32, or int64 when idx64 != 0). row_bytes is even (f32, bf16 or
+// fp16 elements). Launches on `stream`, does not synchronise; returns the
 // cudaError_t of the launch (cudaErrorInvalidValue for an empty or oversized
 // problem).
 int hotrack_gather_rows(const void* src, const void* idx, void* out, long long rows, int s,
@@ -392,30 +414,36 @@ int hotrack_gather_rows(const void* src, const void* idx, void* out, long long r
   return static_cast<int>(cudaGetLastError());
 }
 
+// The element types of hotrack_scatter_rows_add's `dtype`.
+enum { kFloat32 = 0, kBFloat16 = 1, kFloat16 = 2 };
+
 // The float32 elements of the scratch that hotrack_scatter_rows_add needs
-// for these sizes: B * N * C for bf16 above kScatterChunk positions (the
-// sum so far, between chunks), else 0.
-long long hotrack_scatter_rows_add_scratch(int b, int s, int n, int c, int bf16) {
-  return bf16 && s > kScatterChunk ? static_cast<long long>(b) * n * c : 0;
+// for these sizes: B * N * C for a 2-byte type above kScatterChunk
+// positions (the sum so far, between chunks), else 0.
+long long hotrack_scatter_rows_add_scratch(int b, int s, int n, int c, int dtype) {
+  return dtype != kFloat32 && s > kScatterChunk ? static_cast<long long>(b) * n * c : 0;
 }
 
 // dsrc (B, N, C) <- scatter-add of dout (B, S, C) by idx (B, S); both tensors
-// f32, or both bf16 when bf16 != 0 (the sum is f32 either way and rounded
-// once at the end). `partial` is the float32 scratch of
+// of `dtype` (kFloat32, kBFloat16, kFloat16; the sum is f32 for each and
+// rounded once at the end). `partial` is the float32 scratch of
 // hotrack_scatter_rows_add_scratch's size (null when that is 0), 16-byte
 // aligned. Same launch conventions as above.
 int hotrack_scatter_rows_add(const void* dout, const void* idx, void* dsrc, void* partial,
-                             int b, int s, int n, int c, int bf16, int idx64, void* stream) {
-  if (b <= 0 || s <= 0 || n <= 0 || c <= 0 ||
+                             int b, int s, int n, int c, int dtype, int idx64, void* stream) {
+  if (b <= 0 || s <= 0 || n <= 0 || c <= 0 || dtype < kFloat32 || dtype > kFloat16 ||
       static_cast<long long>(b) * ((n + kScatterRows - 1) / kScatterRows) > 2147483647LL ||
-      (partial == nullptr && hotrack_scatter_rows_add_scratch(b, s, n, c, bf16) > 0)) {
+      (partial == nullptr && hotrack_scatter_rows_add_scratch(b, s, n, c, dtype) > 0)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* p = static_cast<float*>(partial);
-  if (bf16) {
+  if (dtype == kBFloat16) {
     if (idx64) launch_scatter<__nv_bfloat16, int64_t>(dout, idx, dsrc, p, b, s, n, c, st);
     else launch_scatter<__nv_bfloat16, int32_t>(dout, idx, dsrc, p, b, s, n, c, st);
+  } else if (dtype == kFloat16) {
+    if (idx64) launch_scatter<__half, int64_t>(dout, idx, dsrc, p, b, s, n, c, st);
+    else launch_scatter<__half, int32_t>(dout, idx, dsrc, p, b, s, n, c, st);
   } else {
     if (idx64) launch_scatter<float, int64_t>(dout, idx, dsrc, p, b, s, n, c, st);
     else launch_scatter<float, int32_t>(dout, idx, dsrc, p, b, s, n, c, st);

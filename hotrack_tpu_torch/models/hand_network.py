@@ -8,6 +8,13 @@ skeleton-rearrange modules and the TransT stack (FFN mode as shipped), and
 regress a per-keypoint delta. IKNet maps canonical keypoints and bones to 15
 joint quaternions (MANO theta). Channels-last; submodule names follow the
 reference's state dict, so reference checkpoints load (utils/convert.py).
+
+HandTrackNet's `compute_dtype` (`network/compute_dtype`: bfloat16, float16,
+float32 or None) runs the backbone, the keypoint set abstractions, the
+rearrange layers and the FFN's dense layers in that dtype, as the JAX net
+does (nn/precision.py); parameters, norms, the canonicalisation, the
+Procrustes solve and the delta head stay float32, and the parameter names do
+not change. IKNet has no compute dtype, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -21,6 +28,7 @@ from ..mano.layer import mano_forward
 from ..nn.backbones import PointNet2Msg
 from ..nn.blocks import RearrangeModule, position_embedding_sine
 from ..nn.pointnet2 import SetAbstractionAtCenters
+from ..nn.precision import resolve_compute_dtype, to_f32
 from ..nn.transformer import AttnModule, TransT
 from ..ops.pointops import knn_point
 from ..pose.rotations import matrix_to_unit_quaternion, mano_quat2axisang
@@ -74,8 +82,10 @@ class HandTrackNet(nn.Module):
 
     def __init__(self, net_cfg: Mapping[str, Any], backbone_out_dim: int = 384,
                  handframe: str = "kp", use_attention: bool = False,
-                 procrustes_solver: str | None = None):
+                 procrustes_solver: str | None = None, compute_dtype: str | None = None):
         super().__init__()
+        cd = resolve_compute_dtype(compute_dtype)
+        self.compute_dtype = cd
         d = backbone_out_dim
         if d % 6:
             raise ValueError(f"backbone_out_dim must divide by 6, got {d}")
@@ -87,14 +97,14 @@ class HandTrackNet(nn.Module):
         self.procrustes_solver = procrustes_solver
         q_mlps = ((128, 128, d // 2), (128, 128, d // 2))
         q_kwargs = dict(radius_list=(0.2, 0.2), nsample_list=(16, 64),
-                        mlp_list=q_mlps, knn=True)
-        self.bhand = PointNet2Msg(net_cfg, d)
+                        mlp_list=q_mlps, knn=True, compute_dtype=cd)
+        self.bhand = PointNet2Msg(net_cfg, d, compute_dtype=cd)
         self.q1 = SetAbstractionAtCenters(**q_kwargs, in_channel=d)
-        self.r1 = RearrangeModule(d)
+        self.r1 = RearrangeModule(d, compute_dtype=cd)
         self.q2 = SetAbstractionAtCenters(**q_kwargs, in_channel=d, center_channel=d)
-        self.r2 = RearrangeModule(d)
-        self.transt = TransT(d, attention=use_attention)
-        self.c3 = AttnModule(d, attention=use_attention)
+        self.r2 = RearrangeModule(d, compute_dtype=cd)
+        self.transt = TransT(d, attention=use_attention, compute_dtype=cd)
+        self.c3 = AttnModule(d, attention=use_attention, compute_dtype=cd)
         self.final_mlp = nn.Sequential(nn.Linear(d, 256), nn.ReLU(), nn.Linear(256, 3))
 
     def forward(self, hand_points, jittered_kp, palm_template=None,
@@ -129,7 +139,8 @@ class HandTrackNet(nn.Module):
         else:
             # FFN mode never reads the positional embedding or result2
             fused = self.c3(self.transt(f14)[0])
-        pred_kp_handframe = self.final_mlp(fused) + xyz1
+        # the delta head on float32, for the residual
+        pred_kp_handframe = self.final_mlp(to_f32(fused, self.compute_dtype)) + xyz1
         ret = {
             "canon_pose": canon_pose,
             "init_kp_handframe": xyz1,

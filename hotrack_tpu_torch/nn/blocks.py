@@ -10,6 +10,8 @@ import math
 import torch
 from torch import nn
 
+from .precision import dense
+
 # four fixed skeleton-topology permutations of the 21 keypoints:
 # neighbours along fingers / across the palm
 REARRANGE_1 = (1, 2, 3, 4, 4, 6, 7, 8, 8, 10, 11, 12, 12, 14, 15, 16, 16, 18, 19, 20, 20)
@@ -21,15 +23,17 @@ _PERMS = (REARRANGE_1, REARRANGE_2, REARRANGE_3, REARRANGE_4)
 
 class RearrangeModule(nn.Module):
     """Concat 5 skeleton-permuted copies of the per-keypoint features and map
-    them back: (B, 21, channel) -> (B, 21, channel)."""
+    them back: (B, 21, channel) -> (B, 21, channel), in the compute dtype
+    where one is set (nn/precision.py)."""
 
-    def __init__(self, channel: int = 384):
+    def __init__(self, channel: int = 384, compute_dtype=None):
         super().__init__()
+        self.compute_dtype = compute_dtype
         self.linear = nn.Linear(5 * channel, channel)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = torch.cat([x] + [x[:, list(p), :] for p in _PERMS], dim=-1)
-        return self.linear(x)
+        return dense(self.linear, x, self.compute_dtype)
 
 
 def position_embedding_sine(coor: torch.Tensor, num_pos_feats: int = 64) -> torch.Tensor:

@@ -7,6 +7,13 @@ names follow the reference's state dict (`conv_blocks.{scale}.{layer}` /
 `bn_blocks...` for multi-scale layers, `mlp_convs` / `mlp_bns` for the
 others); its 1x1 convolution kernels load squeezed (utils/convert.py).
 BatchNorm is `nn.BatchNorm1d` (eps 1e-5) over the flattened leading axes.
+
+`compute_dtype` (bfloat16 or float16; None: float32) runs each shared MLP's
+Linear layers in that dtype, BatchNorm on float32 and the ReLU on its result
+cast back (nn/precision.py), as the JAX modules do. Features in the compute
+dtype meet float32 coordinates in a concatenation or the 3-NN weights and
+promote to float32 there, as in jnp; the max-pool over neighbours keeps the
+compute dtype and sends its gradient to the first maximal neighbour.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ from ..ops.pointops import (
     query_ball_point,
     three_nn,
 )
+from .precision import dense, to_f32
 
 
 def shared_mlp_layers(in_channel: int, widths: Sequence[int]):
@@ -37,12 +45,18 @@ def shared_mlp_layers(in_channel: int, widths: Sequence[int]):
     return convs, bns
 
 
-def shared_mlp(convs, bns, x: torch.Tensor) -> torch.Tensor:
+def shared_mlp(convs, bns, x: torch.Tensor, compute_dtype=None) -> torch.Tensor:
     """SharedMLP (hotrack_tpu/nn/pointnet2.py): per-point [Linear -> BN ->
-    ReLU] for each layer, channels-last."""
+    ReLU] for each layer, channels-last; with a compute dtype the input and
+    each Linear in it, BN on float32, its output cast back before the ReLU."""
+    if compute_dtype is not None:
+        x = x.to(compute_dtype)
     for conv, bn in zip(convs, bns):
-        x = conv(x)
-        x = torch.relu(bn(x.reshape(-1, x.shape[-1])).reshape(x.shape))
+        x = dense(conv, x, compute_dtype)
+        x = bn(to_f32(x, compute_dtype).reshape(-1, x.shape[-1])).reshape(x.shape)
+        if compute_dtype is not None:
+            x = x.to(compute_dtype)
+        x = torch.relu(x)
     return x
 
 
@@ -79,8 +93,9 @@ class SetAbstractionMsg(nn.Module):
     `in_channel` is the feature width D of `feats` (0 for None)."""
 
     def __init__(self, npoint: int, radius_list, nsample_list, mlp_list,
-                 in_channel: int = 0, knn: bool = False):
+                 in_channel: int = 0, knn: bool = False, compute_dtype=None):
         super().__init__()
+        self.compute_dtype = compute_dtype
         self.npoint = npoint
         self.radius_list = tuple(radius_list)
         self.nsample_list = tuple(nsample_list)
@@ -102,15 +117,17 @@ class SetAbstractionMsg(nn.Module):
         outs = []
         for convs, bns, group_idx in zip(self.conv_blocks, self.bn_blocks, groups):
             grouped = _group(xyz, feats, new_xyz, group_idx)
-            outs.append(torch.max(shared_mlp(convs, bns, grouped), dim=2).values)
+            h = shared_mlp(convs, bns, grouped, self.compute_dtype)
+            outs.append(torch.max(h, dim=2).values)
         return new_xyz, torch.cat(outs, dim=-1)
 
 
 class SetAbstractionAll(nn.Module):
     """group_all SA: one global group over all points -> MLP -> max."""
 
-    def __init__(self, mlp: Sequence[int], in_channel: int = 0):
+    def __init__(self, mlp: Sequence[int], in_channel: int = 0, compute_dtype=None):
         super().__init__()
+        self.compute_dtype = compute_dtype
         self.mlp_convs, self.mlp_bns = shared_mlp_layers(in_channel + 3, mlp)
         self.out_channel = mlp[-1]
 
@@ -118,7 +135,7 @@ class SetAbstractionAll(nn.Module):
         """xyz (B, N, 3), feats (B, N, D) -> new_xyz (B, 1, 3) zeros,
         new_feats (B, 1, mlp[-1])."""
         grouped = xyz if feats is None else torch.cat([xyz, feats], dim=-1)
-        h = shared_mlp(self.mlp_convs, self.mlp_bns, grouped[:, None])
+        h = shared_mlp(self.mlp_convs, self.mlp_bns, grouped[:, None], self.compute_dtype)
         return torch.zeros_like(xyz[:, :1, :]), torch.max(h, dim=2).values
 
 
@@ -126,8 +143,9 @@ class FeaturePropagation(nn.Module):
     """Inverse-squared-distance 3-NN feature upsampling + MLP.
     `in_channel` = D1 + D2."""
 
-    def __init__(self, mlp: Sequence[int], in_channel: int):
+    def __init__(self, mlp: Sequence[int], in_channel: int, compute_dtype=None):
         super().__init__()
+        self.compute_dtype = compute_dtype
         self.mlp_convs, self.mlp_bns = shared_mlp_layers(in_channel, mlp)
         self.out_channel = mlp[-1]
 
@@ -145,7 +163,7 @@ class FeaturePropagation(nn.Module):
                                      dim=2)
         if feats1 is not None:
             interpolated = torch.cat([feats1, interpolated], dim=-1)
-        return shared_mlp(self.mlp_convs, self.mlp_bns, interpolated)
+        return shared_mlp(self.mlp_convs, self.mlp_bns, interpolated, self.compute_dtype)
 
 
 class SetAbstractionAtCenters(nn.Module):
@@ -154,8 +172,9 @@ class SetAbstractionAtCenters(nn.Module):
     previous group index. `in_channel` = D of feats, `center_channel` = Dc."""
 
     def __init__(self, radius_list, nsample_list, mlp_list, in_channel: int,
-                 center_channel: int = 0, knn: bool = False):
+                 center_channel: int = 0, knn: bool = False, compute_dtype=None):
         super().__init__()
+        self.compute_dtype = compute_dtype
         self.radius_list = tuple(radius_list)
         self.nsample_list = tuple(nsample_list)
         self.knn = knn
@@ -181,7 +200,8 @@ class SetAbstractionAtCenters(nn.Module):
                 tiled = center_feats[:, :, None, :].expand(
                     *grouped.shape[:3], center_feats.shape[-1])
                 grouped = torch.cat([grouped, tiled], dim=-1)
-            outs.append(torch.max(shared_mlp(convs, bns, grouped), dim=2).values)
+            h = shared_mlp(convs, bns, grouped, self.compute_dtype)
+            outs.append(torch.max(h, dim=2).values)
         new_feats = torch.cat(outs, dim=-1)
         if return_group_idx:
             return new_feats, list(pre_group_idx)

@@ -22,6 +22,11 @@ that FFN mode ignores. So with attn=False `TransT.forward` computes
 `result1` only and returns None for `result2`; s12 and c12 keep their weights
 so checkpoints load unchanged, and they get no gradient in training, which
 is what the JAX trainer's reachability mask freezes.
+
+With a compute dtype (nn/precision.py) the FFN runs as the JAX module's:
+LayerNorm on float32, linear1, ReLU, dropout and linear2 in the compute
+dtype, then float32 for the second dropout, the residual and LayerNorm. The
+attention itself runs on float32 inputs, as flax promotes them.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ import torch
 from torch import nn
 
 from .global_batch import GlobalBatchDropout
+from .precision import dense, to_f32
 
 
 class AttnModule(nn.Module):
@@ -38,8 +44,9 @@ class AttnModule(nn.Module):
 
     def __init__(self, d_model: int = 384, no_linear: bool = False,
                  dim_feedforward: int = 1024, dropout: float = 0.1,
-                 attention: bool = False, nhead: int = 8):
+                 attention: bool = False, nhead: int = 8, compute_dtype=None):
         super().__init__()
+        self.compute_dtype = compute_dtype
         self.no_linear = no_linear
         if attention:
             self.attn = nn.MultiheadAttention(d_model, nhead, dropout=dropout,
@@ -54,30 +61,34 @@ class AttnModule(nn.Module):
 
     def forward(self, src1: torch.Tensor, pos1=None, src2=None, pos2=None,
                 attn: bool = False) -> torch.Tensor:
+        cd = self.compute_dtype
         if attn:
             if not hasattr(self, "attn"):
                 raise ValueError("this AttnModule was built without attention "
                                  "weights (attention=False)")
             q = src1 if pos1 is None else src1 + pos1
             k = src2 if pos2 is None else src2 + pos2
-            out, _ = self.attn(q, k, src2, need_weights=False)
+            out, _ = self.attn(to_f32(q, cd), to_f32(k, cd), to_f32(src2, cd),
+                               need_weights=False)
             src1 = src1 + self.dropout1(out)
-        src1 = self.norm1(src1)
+        src1 = self.norm1(to_f32(src1, cd))
         if not self.no_linear:
-            h = self.dropout(torch.relu(self.linear1(src1)))
-            src1 = self.norm2(src1 + self.dropout(self.linear2(h)))
+            h = self.dropout(torch.relu(dense(self.linear1, src1, cd)))
+            h = to_f32(dense(self.linear2, h, cd), cd)
+            src1 = self.norm2(src1 + self.dropout(h))
         return src1
 
 
 class TransT(nn.Module):
     """2x self + 2x cross attention stack -> (result1, result2)."""
 
-    def __init__(self, d_model: int = 384, attention: bool = False):
+    def __init__(self, d_model: int = 384, attention: bool = False, compute_dtype=None):
         super().__init__()
-        self.s11 = AttnModule(d_model, no_linear=True, attention=attention)
-        self.s12 = AttnModule(d_model, no_linear=True, attention=attention)
-        self.c11 = AttnModule(d_model, attention=attention)
-        self.c12 = AttnModule(d_model, attention=attention)
+        kw = dict(attention=attention, compute_dtype=compute_dtype)
+        self.s11 = AttnModule(d_model, no_linear=True, **kw)
+        self.s12 = AttnModule(d_model, no_linear=True, **kw)
+        self.c11 = AttnModule(d_model, **kw)
+        self.c12 = AttnModule(d_model, **kw)
 
     def forward(self, src1, pos1=None, src2=None, pos2=None, attn: bool = False):
         src11 = self.s11(src1, pos1, src1, pos1, attn)

@@ -291,12 +291,13 @@ def fps_cuda(xyz: torch.Tensor, npoint: int,
     return out
 
 
-_ROW_DTYPES = (torch.float32, torch.bfloat16)
+# the row kernels' element types, each with its code in csrc/gather_rows.cu
+_ROW_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _IDX_DTYPES = (torch.int32, torch.int64)
 
 
 def _check_rows(name: str, t: torch.Tensor, flat_idx: torch.Tensor) -> tuple:
-    """The checks the two row kernels share: `t` (B, *, C) f32 or bf16 and
+    """The checks the two row kernels share: `t` (B, *, C) f32, bf16 or fp16 and
     flat_idx (B, S) int32 or int64, both contiguous on the current card.
     Returns (t's shape, S, the device index)."""
     shape, ishape = t.shape, flat_idx.shape
@@ -305,8 +306,8 @@ def _check_rows(name: str, t: torch.Tensor, flat_idx: torch.Tensor) -> tuple:
         raise ValueError(f"{name} takes a CUDA tensor on the current device, "
                          f"got one on {t.device}")
     if t.dtype not in _ROW_DTYPES or len(shape) != 3:
-        raise ValueError(f"{name} takes a (B, rows, C) float32 or bfloat16 "
-                         f"tensor, got {tuple(shape)} {t.dtype}")
+        raise ValueError(f"{name} takes a (B, rows, C) float32, bfloat16 or "
+                         f"float16 tensor, got {tuple(shape)} {t.dtype}")
     if flat_idx.get_device() != dev or len(ishape) != 2 or ishape[0] != shape[0] or \
             flat_idx.dtype not in _IDX_DTYPES:
         raise ValueError(f"{name} takes (B, S) int32 or int64 indices on the "
@@ -321,8 +322,8 @@ def _check_rows(name: str, t: torch.Tensor, flat_idx: torch.Tensor) -> tuple:
 
 
 def gather_rows_cuda(points: torch.Tensor, flat_idx: torch.Tensor) -> torch.Tensor:
-    """Row gather on the card (csrc/gather_rows.cu): points (B, N, C) f32 or
-    bf16, flat_idx (B, S) int32 or int64 -> (B, S, C), bitwise the selected
+    """Row gather on the card (csrc/gather_rows.cu): points (B, N, C) f32,
+    bf16 or fp16, flat_idx (B, S) int32 or int64 -> (B, S, C), bitwise the selected
     rows. An index outside [0, N) gives a zero row (the TPU kernel's rule for
     its -1 padding) and reads nothing outside the tensor."""
     (b, n, c), s, dev = _check_rows("gather_rows_cuda", points, flat_idx)
@@ -340,7 +341,7 @@ def gather_rows_cuda(points: torch.Tensor, flat_idx: torch.Tensor) -> torch.Tens
 
 def scatter_rows_add_cuda(dout: torch.Tensor, flat_idx: torch.Tensor,
                           n: int) -> torch.Tensor:
-    """The row gather's adjoint on the card: dout (B, S, C) f32 or bf16,
+    """The row gather's adjoint on the card: dout (B, S, C) f32, bf16 or fp16,
     flat_idx (B, S) -> dsrc (B, n, C) of dout's dtype, with
     dsrc[b, i] = sum of dout[b, s] over idx[b, s] == i. The sum is f32, taken
     in ascending s, one term after another, with no atomics: two launches
@@ -353,15 +354,13 @@ def scatter_rows_add_cuda(dout: torch.Tensor, flat_idx: torch.Tensor,
                          f"against indices {tuple(flat_idx.shape)}, n={n}")
     lib = _load("gather_rows", _bind_gather_rows)
     dsrc = torch.empty((b, n, c), dtype=dout.dtype, device=dout.device)
-    bf16 = dout.dtype == torch.bfloat16
-    partial = None  # bf16 above one chunk of positions: the float32 sum between chunks
-    if bf16:
-        floats = lib.hotrack_scatter_rows_add_scratch(b, s, n, c, 1)
-        if floats:
-            partial = torch.empty(floats, dtype=torch.float32, device=dout.device)
+    code = _ROW_DTYPES[dout.dtype]
+    # bf16 or fp16 above one chunk of positions: the float32 sum between chunks
+    floats = lib.hotrack_scatter_rows_add_scratch(b, s, n, c, code) if code else 0
+    partial = torch.empty(floats, dtype=torch.float32, device=dout.device) if floats else None
     err = lib.hotrack_scatter_rows_add(
         dout.data_ptr(), flat_idx.data_ptr(), dsrc.data_ptr(),
-        None if partial is None else partial.data_ptr(), b, s, n, c, bf16,
+        None if partial is None else partial.data_ptr(), b, s, n, c, code,
         flat_idx.dtype == torch.int64, torch._C._cuda_getCurrentRawStream(dev))
     if err:
         _check_status(err, f"scatter_rows_add launch (B={b}, N={n}, C={c}, S={s})")

@@ -93,7 +93,7 @@ class _GatherRows(torch.autograd.Function):
 
 def index_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """points (B, N, C), idx (B, S) or (B, S1, .., Sk) -> (B, *idx, C).
-    Differentiable in `points`. A CUDA tensor (float32 or bfloat16) runs the
+    Differentiable in `points`. A CUDA tensor (float32, bfloat16 or float16) runs the
     hand-written kernels; a CPU tensor the plain versions. Where no gradient
     is recorded (inference mode, no_grad, or `points` needs none) the gather
     is launched directly, without the autograd Function."""

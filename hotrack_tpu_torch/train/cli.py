@@ -27,6 +27,10 @@ generator and keeps its own rows; logging, TensorBoard, `history` and
 checkpoints come from rank 0, and `train_main` returns rank 0's Trainer. More
 cards than there are raises before any work; 0 or 1 is the one-process path.
 The tracking routes ignore it, as the JAX package's do.
+
+`--network/compute_dtype bfloat16` (or float16, float32) runs HandTrackNet's
+dense layers in that dtype on every route that builds it (nn/precision.py);
+IKNet ignores it. Any other value raises before any work.
 """
 
 from __future__ import annotations
@@ -42,6 +46,7 @@ import torch
 
 from ..config import get_config
 from ..data import get_dataloader, prepare_batch
+from ..nn.precision import resolve_compute_dtype
 from ..utils.dicts import add_dict, cvt_numpy, divide_dict, log_loss_summary
 from . import dp
 from .trainer import Trainer, pin_fp32
@@ -95,6 +100,7 @@ def load_config(argv=None, name: str = "test", save: bool = False) -> dict:
     cfg = get_config(parse_with_overrides(build_arg_parser(name), argv), save=save)
     if cfg.get("device") is None:
         cfg["device"] = "cuda"
+    resolve_compute_dtype(cfg.get("network", {}).get("compute_dtype"))
     return cfg
 
 

@@ -72,7 +72,8 @@ TRACK_ROUTES = ("hand", "hand_IKNet")
 
 
 def build_handnet(cfg, device) -> HandTrackNet:
-    """HandTrackNet at the config's width, initialised from `cfg['seed']`."""
+    """HandTrackNet at the config's width and `network/compute_dtype`
+    (checked here), initialised from `cfg['seed']`."""
     net = cfg["network"]
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(int(cfg.get("seed", 0)))
@@ -80,7 +81,8 @@ def build_handnet(cfg, device) -> HandTrackNet:
                              backbone_out_dim=net["backbone_out_dim"],
                              handframe=net.get("handframe", "kp"),
                              use_attention=net.get("use_attention", False),
-                             procrustes_solver=net.get("procrustes_solver"))
+                             procrustes_solver=net.get("procrustes_solver"),
+                             compute_dtype=net.get("compute_dtype"))
     return model.to(device).eval()
 
 

@@ -8,8 +8,11 @@ Port of hotrack_tpu/train/trainer.py. Reproduced semantics:
   - the BatchNorm momentum schedule momentum_original *
     decay^((epoch+1)//step), floored at momentum_min, written into every
     BatchNorm's `momentum` (torch's convention: the weight of the new batch);
-  - xavier re-initialisation (`weight_init: xavier`);
-  - the model factory keyed on cfg['network']['type'];
+  - xavier re-initialisation (`weight_init: xavier`); without it IKNet's
+    Linear layers take flax's default init (lecun_normal kernels, zero
+    biases) unless `network/torch_init` asks for torch's own;
+  - the model factory keyed on cfg['network']['type'], HandTrackNet in
+    `network/compute_dtype` (nn/precision.py; IKNet ignores the key);
   - checkpoints `<experiment_dir>/ckpt/model_%04d.pt` in the reference's
     format (utils/convert.py), which the tracking entry reads. Like the JAX
     package's, a checkpoint holds weights, BN statistics and the epoch, not
@@ -52,9 +55,13 @@ from ..utils.convert import load_reference_checkpoint, save_reference_checkpoint
 
 def pin_fp32() -> None:
     """Full float32 in matmuls and cuDNN convolutions on the card (no TF32):
-    the port is held against float32 references."""
+    the port is held against float32 references. bf16 and fp16 products
+    (`network/compute_dtype`) sum in float32 too, with no reduced-precision
+    reduction inside cuBLAS, as XLA sums them."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = False
 
 
 def lr_schedule(cfg: dict, epoch: int) -> float:
@@ -149,9 +156,25 @@ def xavier_reinit(model: nn.Module, generator: torch.Generator) -> None:
                     m.bias.zero_()
 
 
+def lecun_reinit(model: nn.Module, generator: torch.Generator) -> None:
+    """flax's default Dense init: every Linear weight redrawn from a normal
+    truncated at two standard deviations and scaled to variance 1 / fan_in
+    (`lecun_normal`), its bias zeroed."""
+    with torch.no_grad():
+        for m in model.modules():
+            if type(m) is nn.Linear:
+                # the std of a unit normal truncated to [-2, 2]
+                std = math.sqrt(1.0 / m.weight.shape[1]) / 0.87962566103423978
+                nn.init.trunc_normal_(m.weight, std=std, a=-2.0 * std, b=2.0 * std,
+                                      generator=generator)
+                m.bias.zero_()
+
+
 def build_model(cfg: dict) -> nn.Module:
     """The network of cfg['network']['type'] on the CPU, initialised from
-    cfg['seed'] (torch's default init, then xavier if the config asks)."""
+    cfg['seed']: torch's default init, then xavier if the config asks; IKNet
+    without xavier takes flax's default init unless `network/torch_init`
+    holds. HandTrackNet computes in `network/compute_dtype`, checked here."""
     net = cfg["network"]
     seed = int(cfg.get("seed", 0))
     with torch.random.fork_rng(devices=[]):
@@ -161,7 +184,8 @@ def build_model(cfg: dict) -> nn.Module:
                                  backbone_out_dim=net["backbone_out_dim"],
                                  handframe=net.get("handframe", "kp"),
                                  use_attention=net.get("use_attention", False),
-                                 procrustes_solver=net.get("procrustes_solver"))
+                                 procrustes_solver=net.get("procrustes_solver"),
+                                 compute_dtype=net.get("compute_dtype"))
         elif net["type"] == "iknet":
             model = IKNet(iknetframe=net.get("iknetframe", "kp"),
                           procrustes_solver=net.get("procrustes_solver"))
@@ -169,6 +193,8 @@ def build_model(cfg: dict) -> nn.Module:
             raise NotImplementedError(net["type"])
     if cfg.get("weight_init") == "xavier":
         xavier_reinit(model, torch.Generator().manual_seed(seed + 1))
+    elif net["type"] == "iknet" and not net.get("torch_init", False):
+        lecun_reinit(model, torch.Generator().manual_seed(seed + 1))
     return model
 
 

@@ -93,6 +93,32 @@ def test_plain_adjoint_bf16_is_cast_at_the_end():
     assert torch.equal(got[0], want)
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_plain_adjoint_in_the_compute_dtypes_matches_the_pallas_adjoint(dtype):
+    """HandTrackNet's bf16 and fp16 feature gathers (`network/compute_dtype`):
+    the port's adjoint sums in float32 and rounds once, and so does the
+    Pallas kernel's (`_gather_bwd_impl`, interpret mode); the two sum in
+    another order, so a row's sum may round to the neighbouring value: held
+    within one ulp of the dtype, at most 1% of the elements off bitwise."""
+    b, n, c, s = 2, 96, 48, 640
+    pts, idx = _case(6, b, n, c, s, hi=7)  # hundreds of terms a row
+    cot = np.random.RandomState(7).randn(b, s, c).astype(np.float32)
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    jcot = jnp.asarray(cot, jd)
+    want = jax.vjp(lambda p: gather_rows_mm(p, jnp.asarray(idx), True),
+                   jnp.asarray(pts, jd))[1](jcot)[0]
+    assert want.dtype == jd
+    tpts = torch.from_numpy(pts).to(td).requires_grad_(True)
+    tops.index_points(tpts, torch.from_numpy(idx)).backward(torch.from_numpy(cot).to(td))
+    got = tpts.grad.float().numpy()
+    want = np.asarray(want.astype(jnp.float32))
+    ulp = np.ldexp(1.0, np.frexp(np.maximum(np.abs(got), np.abs(want)))[1] - 1) \
+        * (2.0 ** -7 if dtype == "bfloat16" else 2.0 ** -10)
+    assert np.all(np.abs(got - want) <= ulp)
+    assert np.mean(got != want) <= 0.01
+    assert np.all(got[:, 7:] == 0) and np.all(want[:, 7:] == 0)
+
+
 def test_index_points_multi_dim_indices_match_jax():
     rng = np.random.RandomState(5)
     pts = rng.randn(3, 50, 7).astype(np.float32)
@@ -157,7 +183,8 @@ GATHER_SHAPES = [(32, 512, 3, 256), (32, 256, 64, 4096), (32, 256, 128, 1536),
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16],
+                         ids=["f32", "bf16", "f16"])
 @pytest.mark.parametrize("shape", GATHER_SHAPES, ids=lambda s: "x".join(map(str, s)))
 def test_gather_kernel_bitwise(cuda_device, shape, dtype):
     b, n, c, s = shape
@@ -242,5 +269,5 @@ def test_index_points_on_the_card_runs_both_kernels(cuda_device):
     xc = x.detach().cpu().requires_grad_(True)
     (tops.index_points(xc, idx.cpu()) ** 2).sum().backward()
     torch.testing.assert_close(x.grad.cpu(), xc.grad, rtol=1e-6, atol=1e-6)
-    with pytest.raises(ValueError, match="float32 or bfloat16"):
+    with pytest.raises(ValueError, match="float32, bfloat16 or float16"):
         tops.index_points(x.detach().double(), idx)

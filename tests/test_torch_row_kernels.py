@@ -453,13 +453,16 @@ def test_fps_kernel_refuses_clouds_above_capacity(cuda_device):
                                    (32, 256, 64, 4096, None, "f32"),
                                    (4, 512, 384, 1344, 7, "f32"), (3, 100, 5, 2500, None, "f32"),
                                    (32, 256, 64, 4096, None, "bf16"),
-                                   (3, 100, 6, 2500, None, "bf16")],
+                                   (3, 100, 6, 2500, None, "bf16"),
+                                   (32, 256, 64, 4096, None, "f16"),
+                                   (3, 100, 6, 2500, None, "f16")],
                          ids=lambda s: "x".join(map(str, s)))
 def test_scatter_kernel_is_bitwise_the_cpu_plain_version(cuda_device, shape):
     b, n, c, s, hi, dtype = shape
     rng = np.random.RandomState(s)
     dout = torch.from_numpy(rng.randn(b, s, c).astype(np.float32)).to(
-        {"f32": torch.float32, "bf16": torch.bfloat16}[dtype]).to(cuda_device)
+        {"f32": torch.float32, "bf16": torch.bfloat16, "f16": torch.float16}[dtype]
+    ).to(cuda_device)
     for itype in (torch.int64, torch.int32):
         idx = torch.from_numpy(rng.randint(0, hi or n, (b, s))).to(itype).to(cuda_device)
         got = kernels.scatter_rows_add_cuda(dout, idx, n)

@@ -629,6 +629,39 @@ def test_xavier_reinit_is_seeded_and_leaves_norms_alone(tmp_path):
             assert float((pa.detach() - 1.0).abs().max()) == 0.0, k
 
 
+def test_iknet_takes_flax_init_without_xavier_unless_torch_init(tmp_path):
+    """Under `weight_init` other than xavier, IKNet's Linear layers take the
+    JAX IKNet's default init (`network/torch_init` False): lecun_normal
+    kernels, a normal truncated at two standard deviations with std
+    1 / sqrt(fan_in), and zero biases; `torch_init: True` keeps torch's
+    U(+-1 / sqrt(fan_in)) kernels and biases (std 1 / sqrt(3 fan_in)). Each
+    kernel's std within 2% (61,440 to 1,048,576 draws a layer)."""
+    cfg = {**_trainer_cfg(tmp_path, "iknet"), "weight_init": "default"}
+    lecun, again = ttrainer.build_model(cfg), ttrainer.build_model(cfg)
+    torch_init = ttrainer.build_model({**cfg, "network": {**cfg["network"], "torch_init": True}})
+    kernels = 0
+    for (k, p), q, r in zip(lecun.named_parameters(), torch_init.parameters(),
+                            again.parameters()):
+        p, q = p.detach(), q.detach()
+        assert torch.equal(p, r), k  # seeded
+        if k.startswith("linear.") and k.endswith(".weight"):
+            fan_in = p.shape[1]
+            assert abs(float(p.std()) * np.sqrt(fan_in) - 1.0) < 0.02, k
+            assert float(p.abs().max()) <= 2.0 / np.sqrt(fan_in) / 0.87962566103423978 + 1e-7
+            assert abs(float(q.std()) * np.sqrt(3.0 * fan_in) - 1.0) < 0.02, k
+            kernels += 1
+        elif k.startswith("linear."):
+            assert float(p.abs().max()) == 0.0 and float(q.abs().max()) > 0.0, k
+        else:  # BatchNorm: torch's init in both
+            assert torch.equal(p, q), k
+    assert kernels == 7
+    # xavier (every shipped config) overrides either init, as before
+    xavier = {**cfg, "weight_init": "xavier"}
+    for a, b in zip(ttrainer.build_model(xavier).parameters(), ttrainer.build_model(
+            {**xavier, "network": {**xavier["network"], "torch_init": True}}).parameters()):
+        assert torch.equal(a, b)
+
+
 def test_trainer_refuses_cuda_without_a_card(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
