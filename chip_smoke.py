@@ -160,9 +160,24 @@ sequences. Phases, each of which raises on failure:
      #2 and #2b in bf16 and fp16 at the shapes the bf16 paths gave them
      (bitwise the plain versions, the adjoint bitwise its CPU plain version),
      timed at batch 32; the max-pool's tie rule on the card in bf16;
+ 14c. HOTRACK_SDF_BF16: each SDF kernel's bf16 instantiation (#3, #3b, #4,
+     #4b, #6, #7, #7b) against its bf16 plain version at the shapes the bf16
+     paths give it and a few more (BF16_SDF_SHARE of the values within
+     BF16_SDF_ATOL_TIGHT, every value within BF16_CARD_FLIPS flip steps; sums
+     at the matching bound; hits exact), two launches and a batched launch's
+     sequences bitwise, apart from the 3xTF32 kernel by more than BF16_RAN_ATOL;
+     timed in turns with the 3xTF32 kernel, the plain version and the matmul
+     chain in bf16, beside the bf16 bound; then with the variable set, on
+     phase 6's and 8's fits: the object path (10 frames fused, 5 composed) and
+     the hand path (5 frames skin, 3 each fused and separate) in turns with
+     float32, the iteration-0 candidates of the kernel against its plain
+     version on the card (object and hand), a batched object chunk (fused,
+     composed) and a batched hand chunk of 3 frames; every run under the
+     variable launches bf16 SDF kernels only (`obj_sdf_bf16`, `hand_sdf_bf16`
+     and the others in `launches_by_path`);
  15. the shapes the kernels' wrappers were given on those paths, noted while
      they ran, must be exactly the shapes phase 3 checked (the bf16 ones
-     phase 14b checked);
+     phases 14b and 14c checked);
  16. neither JAX nor the JAX package (hotrack_tpu) may have been imported.
 
 The line before the last is a JSON object describing the kernels; the last
@@ -347,6 +362,10 @@ HAND_SHAPE_STEP_BOUND_M = 3e-2
 # paths distil with the full 4000), one a sequence, so that they differ.
 HAND_SEQS, HAND_BATCH_FRAMES, HAND_BATCH_SHORT = 4, 20, 5
 OBJ_SEQS, OBJ_BATCH_FRAMES = 4, 10
+# HOTRACK_SDF_BF16's paths (phase 14c): frames of the object path (fused,
+# composed), of the hand path (skin; fused and separate) and of the batched chunks
+OBJ_BF16_FRAMES, OBJ_BF16_SHORT_FRAMES = 10, 5
+HAND_BF16_FRAMES, HAND_BF16_SHORT_FRAMES, BF16_BATCH_FRAMES = 5, 3, 3
 BATCH_FIT_STEPS = 500
 
 # The real-data layouts (phase 11): the shipped HO3D and DexYCB configs on
@@ -426,6 +445,7 @@ SHARD_SEQS = HAND_SEQS // len(SHARD_DEVICES)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 TF32_FLOPS = 495e12   # dense, on the tensor cores
+BF16_FLOPS = 989e12   # dense, on the tensor cores
 
 KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "fps": ("hotrack_tpu_torch/csrc/fps.cu", "hotrack_tpu/ops/pallas/fps.py:35"),
@@ -452,6 +472,11 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces)
     "hand_energy_skin_batched": ("hotrack_tpu_torch/csrc/hand_energy_skin.cu",
                                  "hotrack_tpu/ops/pallas/hand_energy_skin.py:197"),
 }
+# the SDF kernels' bf16 instantiations (HOTRACK_SDF_BF16): the same sources and
+# the same TPU kernels, which take compute_dtype bfloat16 there
+KERNELS.update({f"{name}_bf16": KERNELS[name] for name in (
+    "sdf_mlp", "obj_sdf_energy", "hand_energy", "hand_energy_skin", "sdf_mlp_batched",
+    "obj_sdf_energy_batched", "hand_energy_skin_batched")})
 # launches per call of the model: index_points runs 15 times in a HandTrackNet
 # forward (sa1 2, sa2 3, fp2 1, fp1 1, q1 4, q2 4), 7 of them on feature
 # sources, whose backward is the scatter-add; FPS runs in sa1 and sa2.
@@ -467,10 +492,11 @@ TAILS = (2 * TRAIN_FRAMES % BATCH, TRAIN_FRAMES % BATCH)
 MODEL_BATCHES = (1, BATCH, *TAILS, HAND_SEQS, DP_BATCH, SHARD_SEQS)
 BACKWARD_BATCHES = (BATCH, TAILS[0], DP_BATCH)
 PREPARE_BATCHES = (NUM_FRAMES, TRAIN_FRAMES, BATCH, *TAILS, HAND_FRAMES, HAND_SHORT_FRAMES,
-                   HAND_MODE_FRAMES, HAND_BATCH_FRAMES)
+                   HAND_MODE_FRAMES, HAND_BATCH_FRAMES, HAND_BF16_FRAMES, HAND_BF16_SHORT_FRAMES)
 RAW_POINTS = 2560       # points of a raw hand or object cloud, padding included
 # the object path prepares whole sequences at 1024 points from 5 x 1024 raw ones
-OBJ_PREPARE_BATCHES = (NUM_FRAMES, OBJ_SHORT_FRAMES, OBJ_CPU_FRAMES, OBJ_BATCH_FRAMES)
+OBJ_PREPARE_BATCHES = (NUM_FRAMES, OBJ_SHORT_FRAMES, OBJ_CPU_FRAMES, OBJ_BATCH_FRAMES,
+                       OBJ_BF16_SHORT_FRAMES)
 OBJ_RAW_POINTS = 5 * OBJ_NUM_POINTS
 # (name, N, C, S) of the index_points calls of one HandTrackNet forward; the
 # sources of C = 3 are coordinates (no gradient), the others features
@@ -552,6 +578,38 @@ MASK_LOOKUP_BATCHED_SHAPES = [((HAND_SEQS, HAND_PARTICLES, HAND_VERTS), HAND_HW)
 HAND_SKIN_BATCHED_SHAPES = [(HAND_SEQS, HAND_PARTICLES, HAND_POSE_DIMS, HAND_VERTS, hw)
                             for hw in (NO_MASK_HW, HAND_HW)] \
     + [(SHARD_SEQS, HAND_PARTICLES, HAND_POSE_DIMS, HAND_VERTS, HAND_HW)]
+# HOTRACK_SDF_BF16 (phase 14c): what the paths under the variable give the SDF
+# kernels' bf16 instantiations: the object path's fused and composed routes,
+# the hand path's skin, fused and separate routes on the synthetic set's 1 x 1
+# masks, the pose optimiser at its operating point on a 480 x 640 mask, a
+# batched object chunk (fused, composed) and a batched hand chunk (skin, masks)
+BF16_SDF_MLP_SHAPES = [((OBJ_PARTICLES, 3, OBJ_NUM_POINTS), True),
+                       ((HAND_PARTICLES, HAND_VERTS, 3), False)]
+BF16_OBJ_ENERGY_SHAPES = [(OBJ_PARTICLES, OBJ_NUM_POINTS)]
+BF16_HAND_ENERGY_SHAPES = [((HAND_PARTICLES, HAND_VERTS, 3), NO_MASK_HW)]
+BF16_HAND_SKIN_SHAPES = [(HAND_PARTICLES, HAND_POSE_DIMS, HAND_VERTS, hw)
+                         for hw in (NO_MASK_HW, HAND_HW)]
+BF16_SDF_MLP_BATCHED_SHAPES = [((OBJ_SEQS, OBJ_PARTICLES, 3, OBJ_NUM_POINTS), True)]
+BF16_OBJ_ENERGY_BATCHED_SHAPES = [(OBJ_SEQS, OBJ_PARTICLES, OBJ_NUM_POINTS)]
+BF16_HAND_SKIN_BATCHED_SHAPES = [(HAND_SEQS, HAND_PARTICLES, HAND_POSE_DIMS, HAND_VERTS, HAND_HW)]
+# The bf16 holds (tests/test_torch_sdf_bf16.py). The kernel and its plain
+# version round the same float32 features and weights to bf16 and sum exact
+# products in float32 in other orders (the tensor cores truncating), so a sum
+# that lands on the other side of a bf16 rounding boundary moves one
+# activation by a bf16 ulp, 2^(e - 7) for an activation in [2^e, 2^(e + 1)),
+# and the later layers carry it ("a flip"): at least BF16_SDF_SHARE of the
+# values within BF16_SDF_ATOL_TIGHT, and every value within BF16_CARD_FLIPS
+# times the largest such step that the output layer carries (`_bf16_flip`; on an
+# H100 one of 6.3M values of the shipped width's random net lay 5.37e-4 off,
+# 1.8 of those steps). A sum of N values within N tight bounds plus the
+# flip bound for max(1, 0.5% of N) of them. A bf16 kernel is apart from the
+# 3xTF32 one on the same inputs by more than BF16_RAN_ATOL somewhere (a bf16
+# activation is 2^-8 of itself off; 9.3e-4 on an H100 at the shipped width).
+BF16_SDF_ATOL_TIGHT, BF16_SDF_SHARE, BF16_CARD_FLIPS, BF16_RAN_ATOL = 1e-6, 0.995, 4, 1e-5
+# float32 instructions of one sincosf of the angles the features take (range
+# reduction and two polynomials), reckoned for the CUDA-core term of the bf16
+# kernels, not measured
+BF16_SINCOS_OPS = 40
 
 
 def _seen_shape(name: str, args: tuple) -> tuple:
@@ -601,14 +659,18 @@ def _dtype_tag(t: torch.Tensor) -> tuple:
 def noting_shapes(seen: dict):
     """While a path runs, note into `seen` (kernel name -> set) the shapes each
     kernel's wrapper is given: (B, N, npoint, masked) for FPS, (B, N, C, S)
-    for the row gather and its adjoint, and so on (`_seen_shape`). The
+    for the row gather and its adjoint, and so on (`_seen_shape`); an SDF
+    kernel's wrapper given compute_dtype bf16 notes under `<name>_bf16`. The
     wrappers themselves run as they are."""
     from hotrack_tpu_torch.ops import kernels
-    real = {name: getattr(kernels, name + "_cuda") for name in KERNELS}
+    real = {name: getattr(kernels, name + "_cuda") for name in KERNELS
+            if not name.endswith("_bf16")}
 
     def noting(name):
         def wrapper(*args, **kwargs):
-            seen[name].add(_seen_shape(name, (*args, *kwargs.values())))
+            rest = {k: v for k, v in kwargs.items() if k != "compute_dtype"}
+            key = name if kwargs.get("compute_dtype") is None else f"{name}_bf16"
+            seen[key].add(_seen_shape(name, (*args, *rest.values())))
             return real[name](*args, **kwargs)
         return wrapper
 
@@ -634,7 +696,14 @@ def check_seen_shapes(seen: dict) -> None:
                "sdf_mlp_batched": set(SDF_MLP_BATCHED_SHAPES),
                "obj_sdf_energy_batched": set(OBJ_ENERGY_BATCHED_SHAPES),
                "packed_mask_lookup_batched": set(MASK_LOOKUP_BATCHED_SHAPES),
-               "hand_energy_skin_batched": set(HAND_SKIN_BATCHED_SHAPES)}
+               "hand_energy_skin_batched": set(HAND_SKIN_BATCHED_SHAPES),
+               "sdf_mlp_bf16": set(BF16_SDF_MLP_SHAPES),
+               "obj_sdf_energy_bf16": set(BF16_OBJ_ENERGY_SHAPES),
+               "hand_energy_bf16": set(BF16_HAND_ENERGY_SHAPES),
+               "hand_energy_skin_bf16": set(BF16_HAND_SKIN_SHAPES),
+               "sdf_mlp_batched_bf16": set(BF16_SDF_MLP_BATCHED_SHAPES),
+               "obj_sdf_energy_batched_bf16": set(BF16_OBJ_ENERGY_BATCHED_SHAPES),
+               "hand_energy_skin_batched_bf16": set(BF16_HAND_SKIN_BATCHED_SHAPES)}
     for name in KERNELS:
         print(f"[shapes] {name}: the paths gave it {len(seen[name])} shapes: "
               f"{sorted(seen[name])}", flush=True)
@@ -707,12 +776,35 @@ def phase_build():
         torch.ones((2, 1, 3), **f32), torch.zeros((3, 4, 5), **f32), torch.zeros((2, 3, 5), **f32),
         torch.zeros((16, 5), **f32), torch.stack([frame, frame]), torch.stack([bits, bits]),
         (2, 3), two)
+    # and the SDF kernels' bf16 instantiations
+    bf16 = torch.bfloat16
+    fused_sdf_mlp(tiny, torch.zeros((5, 3), device="cuda"), compute_dtype=bf16)
+    fused_obj_sdf_energy(tiny, torch.zeros((3, 5), device="cuda"),
+                         torch.eye(3, device="cuda")[None], torch.zeros((1, 3), device="cuda"),
+                         compute_dtype=bf16)
+    fused_hand_energy(tiny, bits, frame, torch.ones((1, 5, 3), device="cuda"), (2, 3),
+                      compute_dtype=bf16)
+    fused_hand_energy_skin(tiny, bits, frame, torch.zeros((1, 4), **f32),
+                           torch.zeros((12, 16), **f32), torch.ones((1, 3), **f32),
+                           SkinConsts(torch.zeros((3, 4, 5), **f32), torch.zeros((3, 5), **f32),
+                                      torch.zeros((16, 5), **f32)), (2, 3), compute_dtype=bf16)
+    kernels.sdf_mlp_batched_cuda(torch.zeros((2, 5, 3), **f32), two, False, compute_dtype=bf16)
+    kernels.obj_sdf_energy_batched_cuda(torch.zeros((2, 3, 5), **f32),
+                                        torch.zeros((2, 1, 12), **f32), two, compute_dtype=bf16)
+    kernels.hand_energy_skin_batched_cuda(
+        torch.zeros((2, 1, 4), **f32), torch.zeros((2, 12, 16), **f32),
+        torch.ones((2, 1, 3), **f32), torch.zeros((3, 4, 5), **f32), torch.zeros((2, 3, 5), **f32),
+        torch.zeros((16, 5), **f32), torch.stack([frame, frame]), torch.stack([bits, bits]),
+        (2, 3), two, compute_dtype=bf16)
     torch.cuda.synchronize()
     print(f"[build] {sorted(libs)}: {time.perf_counter() - t0:.3f} s", flush=True)
     for name, lib in libs.items():
+        # each kernel's entry (a template's instantiation: ILb0E 3xTF32, ILb1E bf16),
+        # then its registers and spills
         with open(str(lib) + ".log") as f:
             report = [ln for ln in f.read().splitlines()
-                      if "registers" in ln or "spill" in ln or "error" in ln.lower()]
+                      if "registers" in ln or "spill" in ln or "error" in ln.lower()
+                      or "Compiling entry" in ln]
         print(f"[build] {name} -> {lib}\n" + "\n".join(report), flush=True)
 
 
@@ -743,7 +835,7 @@ def _in_turns(kernel, plain, library, reps=50, slow_reps=3) -> dict:
 
 
 def _bound(n_bytes: float, n_ops: float, mlp_ops: float = 0.0,
-           tensor_cores: bool = False) -> dict:
+           tensor_cores: bool = False, bf16: bool = False) -> dict:
     """The least time the card could take: the larger of the bytes the
     function must move (each input read once, each output written once) over
     the HBM rate and its operations over the peak for their type. n_ops are
@@ -751,14 +843,16 @@ def _bound(n_bytes: float, n_ops: float, mlp_ops: float = 0.0,
     float32 FMA or three tensor-core passes of them at the TF32 peak in 3xTF32
     (float32-class results): an MLP kernel reports both (bound_fp32_ms,
     bound_3xtf32_ms), and bound_ms is the one of its own arithmetic
-    (tensor_cores: 3xTF32)."""
+    (tensor_cores: 3xTF32; bf16: one pass at the bf16 peak)."""
     by_bytes = 1e3 * n_bytes / HBM_BYTES_PER_S
     fp32 = 1e3 * (n_ops + mlp_ops) / FP32_FLOPS
     tc3 = 1e3 * (3.0 * mlp_ops / TF32_FLOPS + n_ops / FP32_FLOPS)
     by_ops = tc3 if tensor_cores else fp32
+    if bf16:
+        by_ops = 1e3 * (mlp_ops / BF16_FLOPS + n_ops / FP32_FLOPS)
     out = {"bound_ms": max(by_bytes, by_ops),
            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
-    if mlp_ops:
+    if mlp_ops and not bf16:
         out.update(bound_fp32_ms=max(by_bytes, fp32), bound_3xtf32_ms=max(by_bytes, tc3))
     return out
 
@@ -4213,6 +4307,745 @@ def phase_serving(card: str, seen: dict, hand_fit, obj_fit) -> dict:
             shutil.rmtree(root, ignore_errors=True)
 
 
+# --------------------------------------------------------------------------
+# HOTRACK_SDF_BF16: the SDF kernels' bf16 instantiations (phase 14c)
+
+def _bf16_flip(model, pts) -> float:
+    """The flip part of the bf16 holds (tests/torch_sdf_models.py
+    bf16_flip_atol): a float32 sum that lands on the other side of a bf16
+    rounding boundary moves an activation by one bf16 ulp, 2^(e - 7) for an
+    activation in [2^e, 2^(e + 1)), and the output layer carries that with the
+    unit's weight. BF16_CARD_FLIPS times the largest such step over the last
+    hidden layer's units, each at its largest activation over `pts` (..., 3)
+    (object frame), a chunk of points at a time."""
+    from hotrack_tpu_torch.ops.sdf_mlp import fourier_features
+    flat = pts.reshape(-1, 3)
+    top = torch.zeros(model.weights[-1].shape[0], device=flat.device)
+    with torch.no_grad():
+        for lo in range(0, flat.shape[0], 1 << 20):
+            h = fourier_features(flat[lo:lo + (1 << 20)], model.freqs, model.scale)
+            for w, b in zip(model.weights[:-1], model.biases[:-1]):
+                h = torch.relu(h @ w + b)
+            top = torch.maximum(top, h.amax(0))
+        ulp = 2.0 ** (torch.floor(torch.log2(top.clamp(min=1e-30))) - 7)
+        return BF16_CARD_FLIPS * float((ulp * model.weights[-1][:, 0].abs()).max())
+
+
+def _bf16_share_floor(n_values: int, n_hidden: int = 3) -> float:
+    """The least share of n_values within the tight bound: BF16_SDF_SHARE at
+    the shipped depth of 3 hidden layers, the values beyond it scaled with the
+    depth (each hidden layer's output is rounded once, each rounding may flip),
+    and never fewer than 4 of them (tests/torch_sdf_models.bf16_share_floor)."""
+    misses = max(4.0, (1 - BF16_SDF_SHARE) * max(n_hidden, 3) / 3 * n_values)
+    return 1.0 - misses / n_values
+
+
+def _bf16_hold(tag: str, got, want, flip: float, tight: float = BF16_SDF_ATOL_TIGHT,
+               n_hidden: int = 3) -> str:
+    """The two-part hold of bf16 sdf values: at least `_bf16_share_floor`
+    within `tight`, every one within `flip` (+ tight where the vertices
+    differ)."""
+    if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"[sdf-bf16] {tag}: shape {tuple(got.shape)} or non-finite values")
+    d = (got.double() - want.double()).abs()
+    share, worst = float((d <= tight).double().mean()), float(d.max())
+    floor = _bf16_share_floor(d.numel(), n_hidden)
+    bound = flip + (tight if tight > BF16_SDF_ATOL_TIGHT else 0.0)
+    if share < floor or worst > bound:
+        raise AssertionError(f"[sdf-bf16] {tag}: {share:.5f} of the values within {tight:g} "
+                             f"(bound {floor:.5f}), largest {worst:.3e} (bound {bound:.3e})")
+    return f"{100 * share:.3f}% within {tight:g}, largest {worst:.3e} (flip bound {flip:.3e})"
+
+
+def _bf16_ran(tag: str, got, f32) -> float:
+    """A bf16 kernel's output against the 3xTF32 kernel's on the same inputs:
+    apart by more than BF16_RAN_ATOL somewhere, or bf16 did not run."""
+    gap = float((got - f32).abs().max())
+    if gap <= BF16_RAN_ATOL:
+        raise AssertionError(f"[sdf-bf16] {tag}: {gap:.3e} from the 3xTF32 kernel: bf16 did "
+                             f"not run")
+    return gap
+
+
+def _bf16_energy_hold(tag: str, got, want, n: int, flip: float, scale: float = 1.0) -> str:
+    """Sums of n |sdf| values: n x the tight bound (times `scale` where the
+    clamp lets values grow past 0.05), plus the flip bound for at most
+    1 - BF16_SDF_SHARE of them (and at least one)."""
+    atol = n * BF16_SDF_ATOL_TIGHT * scale \
+        + max(1, math.ceil((1 - BF16_SDF_SHARE) * n)) * flip
+    worst = float((got - want).abs().max())
+    rel = float(((got - want).abs() / want.abs().clamp(min=1e-12)).max())
+    if worst > atol or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"[sdf-bf16] {tag}: sums off by {worst:.3e} > {atol:.3e}")
+    return f"sums within {worst:.3e} (relative {rel:.3e}; bound {atol:.3e})"
+
+
+def _bf16_turns(fns: dict, reps: int = 10, slow_reps: int = 3) -> dict:
+    """Times on one card, in turns: plain, 3xTF32 kernel, bf16 kernel, chain,
+    chain, bf16, 3xTF32, plain; the mean of each pair."""
+    order = ["plain", "f32", "bf16", "chain", "chain", "bf16", "f32", "plain"]
+    for fn in fns.values():   # warm-up: cuBLAS's first bf16 products set up
+        fn()
+    t = {}
+    for name in order:
+        t.setdefault(name, []).append(_time_ms(fns[name], slow_reps if name == "plain"
+                                               else reps if name != "chain" else 3))
+    return {"ms": sum(t["bf16"]) / 2, "f32_ms": sum(t["f32"]) / 2,
+            "plain_ms": sum(t["plain"]) / 2, "matmul_chain_ms": sum(t["chain"]) / 2,
+            "library_ms": None}
+
+
+def _cuda_core_ms(widths, points: int) -> float:
+    """The float32 work the bf16 kernels do beside the tensor cores, at the
+    float32 peak: a point's scaled coordinates and angles (3 + 3F products),
+    3F sincosf (BF16_SINCOS_OPS each), and for each hidden unit the bias, the
+    ReLU and the conversion to bf16, and the output layer's 2 x 128."""
+    f = (widths[0] - 3) // 6
+    hidden = sum(widths[1:])
+    ops = 3 + 3 * f + BF16_SINCOS_OPS * 3 * f + 3 * hidden + 2 * widths[-1]
+    return 1e3 * ops * points / FP32_FLOPS
+
+
+def _bf16_bound(case: dict, n_bytes: float, n_ops: float, widths, points: int) -> None:
+    case.update(_bound(n_bytes, n_ops, _mlp_ops(widths, points), bf16=True))
+    case["cuda_core_ms"] = _cuda_core_ms(widths, points)
+    case["share_of_bound"] = case["bound_ms"] / case["ms"]
+
+
+def _fmt_bf16(case: dict) -> str:
+    return (f"bf16 kernel {case['ms']:.4f} ms, 3xTF32 kernel {case['f32_ms']:.4f} ms, plain "
+            f"{case['plain_ms']:.4f} ms, bf16 matmul chain {case['matmul_chain_ms']:.4f} ms; "
+            f"bf16 bound {case['bound_ms']:.5f} ms ({case['bound_by']}), "
+            f"{case['share_of_bound']:.3f} of it; CUDA-core term {case['cuda_core_ms']:.4f} ms")
+
+
+def _bf16_chain(model, m: int):
+    """The matmul-chain yardstick in bf16: ready bf16 features through the
+    layers as cuBLAS bf16 products."""
+    from hotrack_tpu_torch.ops.sdf_mlp import fourier_features
+    from hotrack_tpu_torch.sdf.distill import distilled_to
+    feats = fourier_features(torch.from_numpy(
+        (np.random.RandomState(9).randn(1 << 18, 3) * 0.08).astype(np.float32)).cuda(),
+        model.freqs, model.scale)
+    feats = feats.repeat(-(-m // feats.shape[0]), 1)[:m].to(torch.bfloat16).contiguous()
+    low = distilled_to(model, "cuda", torch.bfloat16)
+    return lambda: _matmul_chain(low, feats)
+
+
+def phase_kernels_sdf_bf16() -> dict:
+    """Phase 14c, kernels: each SDF kernel's bf16 instantiation against its
+    bf16 plain version on the card at the shapes the bf16 paths give it (and a
+    few more): the two-part hold (share and flip), sums at `_bf16_energy_hold`,
+    hits exact, two launches bitwise, a batched launch's sequence bitwise the
+    unbatched launch on its inputs, apart from the 3xTF32 kernel by more than
+    BF16_RAN_ATOL somewhere; timed in turns with the 3xTF32 kernel, the plain
+    version and the matmul chain in bf16. Returns {name: numbers}."""
+    from hotrack_tpu_torch.mano.layer import mano_skin_inputs
+    from hotrack_tpu_torch.ops import kernels
+    from hotrack_tpu_torch.ops.hand_energy import _hand_energy_torch, object_frame
+    from hotrack_tpu_torch.ops.hand_energy_skin import (_hand_energy_skin_batched_torch,
+                                                        _hand_energy_skin_torch, skin_consts,
+                                                        skin_reference)
+    from hotrack_tpu_torch.ops.mask_lookup import pack_mask
+    from hotrack_tpu_torch.ops.obj_energy import _obj_sdf_energy_torch, obj_rts
+    from hotrack_tpu_torch.ops.sdf_mlp import (_sdf_mlp_batched_torch, _sdf_mlp_torch,
+                                               fused_sdf_mlp, fused_sdf_mlp_cf,
+                                               pack_distilled, pack_distilled_batched)
+    from hotrack_tpu_torch.pose.rotations import normalize_quat, unit_quaternion_to_matrix
+    bf16 = torch.bfloat16
+    rng = np.random.RandomState(14)
+    out = {}
+
+    def record(name, tag, line, case=None):
+        entry = out.setdefault(name, {"max_abs_err": 0.0, "cases": []})
+        if case is not None:
+            case["shape"] = tag
+            entry["cases"].append(case)
+            line += "; " + _fmt_bf16(case)
+        print(f"[sdf-bf16] {name}_bf16 {tag}: {line}", flush=True)
+
+    def err(name, got, want):
+        out.setdefault(name, {"max_abs_err": 0.0, "cases": []})
+        out[name]["max_abs_err"] = max(out[name]["max_abs_err"],
+                                       float((got - want).abs().max()))
+
+    # #3
+    cases = [(f"path {shape}", MLP_WIDTHS, shape, cf, True) for shape, cf in BF16_SDF_MLP_SHAPES]
+    cases += [("ragged round (37,3)", MLP_WIDTHS, (37, 3), False, False),
+              ("depth 8 at width 128: the ring streams 10 tiles (2,3,700)", (21,) + (128,) * 8,
+               (2, 3, 700), True, False),
+              ("6 frequencies, depth 4 (3,3,1000)", (39, 128, 128, 128, 128), (3, 3, 1000), True,
+               False),
+              ("depth 1 (2,3,300)", (9, 128), (2, 3, 300), True, False)]
+    for tag, widths, shape, cf, timed in cases:
+        model = _random_sdf(rng, widths)
+        pts = torch.from_numpy((rng.randn(*shape) * 0.08).astype(np.float32)).cuda()
+        pts_cf = pts if cf else pts.transpose(-1, -2)
+        fn = fused_sdf_mlp_cf if cf else fused_sdf_mlp
+        got, again = fn(model, pts, compute_dtype=bf16), fn(model, pts, compute_dtype=bf16)
+        want = _sdf_mlp_torch(model, pts_cf, compute_dtype=bf16)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"[sdf-bf16] sdf_mlp_bf16 {tag}: two launches differ")
+        line = _bf16_hold(f"sdf_mlp_bf16 {tag}", got, want,
+                          _bf16_flip(model, pts_cf.transpose(-1, -2)), n_hidden=len(widths) - 1)
+        line += f"; {_bf16_ran(f'sdf_mlp_bf16 {tag}', got, fn(model, pts)):.3e} from 3xTF32"
+        line += "; relaunch bitwise"
+        err("sdf_mlp", got, want)
+        case = None
+        if timed:
+            packed, m = pack_distilled(model), pts.numel() // 3
+            case = _bf16_turns({
+                "bf16": lambda: kernels.sdf_mlp_cuda(pts, packed, cf, compute_dtype=bf16),
+                "f32": lambda: kernels.sdf_mlp_cuda(pts, packed, cf),
+                "plain": lambda: _sdf_mlp_torch(model, pts_cf, compute_dtype=bf16),
+                "chain": _bf16_chain(model, m)})
+            _bf16_bound(case, 16.0 * m + 4 * packed.wg16.numel(), 0.0, widths, m)
+        record("sdf_mlp", tag, line, case)
+
+    # #4
+    # the depth-8 net's later layers are staged (7 x 33,280 bytes do not fit); its
+    # values all reach a clamp of 0.05, so it is held at a clamp of 1e3
+    cases = [(f"path ({p},{n})", MLP_WIDTHS, p, n, 0.05, True) for p, n in BF16_OBJ_ENERGY_SHAPES]
+    cases += [("odd P and N (2047,1000)", MLP_WIDTHS, 2047, 1000, 0.05, False),
+              ("one candidate, one point (1,1)", MLP_WIDTHS, 1, 1, 0.05, False),
+              ("6 frequencies, depth 4 (7,129)", (39, 128, 128, 128, 128), 7, 129, 0.05, False),
+              ("depth 8, layers staged, clamp 1e3 (5,300)", (21,) + (128,) * 8, 5, 300, 1e3,
+               False)]
+    for tag, widths, p, n, clamp, timed in cases:
+        model = _random_sdf(rng, widths, clamp)
+        pcld = torch.from_numpy((rng.randn(3, n) * 0.06).astype(np.float32)).cuda()
+        rot = unit_quaternion_to_matrix(normalize_quat(
+            torch.from_numpy(rng.randn(p, 4).astype(np.float32)).cuda()))
+        trans = torch.from_numpy((rng.randn(p, 3) * 0.03).astype(np.float32)).cuda()
+        rts, packed = obj_rts(rot, trans).contiguous(), pack_distilled(model)
+        got = kernels.obj_sdf_energy_cuda(pcld, rts, packed, compute_dtype=bf16)
+        again = kernels.obj_sdf_energy_cuda(pcld, rts, packed, compute_dtype=bf16)
+        want = _obj_sdf_energy_torch(model, pcld, rts, compute_dtype=bf16)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"[sdf-bf16] obj_sdf_energy_bf16 {tag}: two launches differ")
+        obj = -rts[:, 9:, None] + sum(rts[:, :9].reshape(p, 3, 3, 1)[:, :, y] * pcld[y]
+                                      for y in range(3))
+        scale = max(1.0, float(_sdf_mlp_torch(model, obj, compute_dtype=bf16).abs().max()) / 0.05)
+        line = _bf16_energy_hold(f"obj_sdf_energy_bf16 {tag}", got, want, n,
+                                 _bf16_flip(model, obj.transpose(-1, -2)), scale)
+        if p * n > 1000:
+            line += (f"; {_bf16_ran(tag, got, kernels.obj_sdf_energy_cuda(pcld, rts, packed)):.3e}"
+                     f" from 3xTF32")
+        line += "; relaunch bitwise"
+        err("obj_sdf_energy", got, want)
+        case = None
+        if timed:
+            m = p * n
+            case = _bf16_turns({
+                "bf16": lambda: kernels.obj_sdf_energy_cuda(pcld, rts, packed, compute_dtype=bf16),
+                "f32": lambda: kernels.obj_sdf_energy_cuda(pcld, rts, packed),
+                "plain": lambda: _obj_sdf_energy_torch(model, pcld, rts, compute_dtype=bf16),
+                "chain": _bf16_chain(model, m)})
+            _bf16_bound(case, 12.0 * n + 52.0 * p + 4 * packed.tc16.numel(), 0.0, widths, m)
+        record("obj_sdf_energy", tag, line, case)
+
+    # #6
+    cases = [(f"path {shape} on {hw}", shape, hw, True) for shape, hw in BF16_HAND_ENERGY_SHAPES]
+    cases += [(f"(64,778,3) on {HAND_HW}", (64, HAND_VERTS, 3), HAND_HW, False),
+              ("(1,129,3) on (37,53)", (1, 129, 3), (37, 53), False)]
+    for tag, shape, hw, timed in cases:
+        model = _random_sdf(rng, MLP_WIDTHS)
+        bits, frame = pack_mask(_seeded_mask(rng, hw)), _seeded_frame(rng, hw)
+        pts = _camera_points(rng, shape[:-1])
+        packed = pack_distilled(model)
+        sdf, hit = kernels.hand_energy_cuda(pts, frame, bits, hw, packed, compute_dtype=bf16)
+        sdf2, hit2 = kernels.hand_energy_cuda(pts, frame, bits, hw, packed, compute_dtype=bf16)
+        want_sdf, want_hit = _hand_energy_torch(model, bits, frame, pts, hw, compute_dtype=bf16)
+        f32_sdf, f32_hit = kernels.hand_energy_cuda(pts, frame, bits, hw, packed)
+        obj = object_frame(pts, frame)
+        torch.cuda.synchronize()
+        if not (torch.equal(sdf, sdf2) and torch.equal(hit, hit2)):
+            raise AssertionError(f"[sdf-bf16] hand_energy_bf16 {tag}: two launches differ")
+        if not (torch.equal(hit, want_hit) and torch.equal(hit, f32_hit)):
+            raise AssertionError(f"[sdf-bf16] hand_energy_bf16 {tag}: hit differs")
+        if not torch.equal(sdf, fused_sdf_mlp_cf(model, obj, packed, compute_dtype=bf16)):
+            raise AssertionError(f"[sdf-bf16] hand_energy_bf16 {tag}: sdf is not #3's bf16 "
+                                 f"on object_frame")
+        line = _bf16_hold(f"hand_energy_bf16 {tag}", sdf, want_sdf,
+                          _bf16_flip(model, obj.transpose(-1, -2)))
+        line += (f"; {_bf16_ran(tag, sdf, f32_sdf):.3e} from 3xTF32; hit exact and the 3xTF32 "
+                 f"kernel's; sdf bitwise #3 bf16 on object_frame; relaunch bitwise")
+        err("hand_energy", sdf, want_sdf)
+        case = None
+        if timed:
+            m = pts.numel() // 3
+            case = _bf16_turns({
+                "bf16": lambda: kernels.hand_energy_cuda(pts, frame, bits, hw, packed,
+                                                         compute_dtype=bf16),
+                "f32": lambda: kernels.hand_energy_cuda(pts, frame, bits, hw, packed),
+                "plain": lambda: _hand_energy_torch(model, bits, frame, pts, hw,
+                                                    compute_dtype=bf16),
+                "chain": _bf16_chain(model, m)})
+            _bf16_bound(case, 20.0 * m + 64 + bits.numel() + 4 * packed.wg16.numel(),
+                        27.0 * m, MLP_WIDTHS, m)
+        record("hand_energy", tag, line, case)
+
+    # #7
+    cases = [(f"path ({p},{k},{n}) on {hw}", p, n, hw, hw == NO_MASK_HW)
+             for p, k, n, hw in BF16_HAND_SKIN_SHAPES]
+    cases += [("odd P (33,135,778) on (37,53)", 33, HAND_VERTS, (37, 53), False)]
+    for tag, p, n, hw, timed in cases:
+        model = _random_sdf(rng, MLP_WIDTHS)
+        mano, pose, trans, shaped = _skin_candidates(rng, p, n)
+        _, pose_map, rt_flat, offset = mano_skin_inputs(mano, pose, trans, shaped)
+        consts = skin_consts(mano, shaped)
+        bits, frame = pack_mask(_seeded_mask(rng, hw)), _seeded_frame(rng, hw)
+        packed = pack_distilled(model)
+        args = (pose_map, rt_flat, offset, *consts, frame, bits, hw, packed)
+        sdf, hit = kernels.hand_energy_skin_cuda(*args, compute_dtype=bf16)
+        sdf2, hit2 = kernels.hand_energy_skin_cuda(*args, compute_dtype=bf16)
+        f32_sdf, f32_hit = kernels.hand_energy_skin_cuda(*args)
+        want_sdf, _ = _hand_energy_skin_torch(model, bits, frame, pose_map, rt_flat, offset,
+                                              consts, hw, compute_dtype=bf16)
+        verts = skin_reference(pose_map, rt_flat, offset, consts)
+        torch.cuda.synchronize()
+        if not (torch.equal(sdf, sdf2) and torch.equal(hit, hit2)):
+            raise AssertionError(f"[sdf-bf16] hand_energy_skin_bf16 {tag}: two launches differ")
+        if not torch.equal(hit, f32_hit):
+            raise AssertionError(f"[sdf-bf16] hand_energy_skin_bf16 {tag}: hit is not the 3xTF32 "
+                                 f"kernel's")
+        line = _bf16_hold(f"hand_energy_skin_bf16 {tag}", sdf, want_sdf,
+                          _bf16_flip(model, object_frame(verts, frame).transpose(-1, -2)),
+                          tight=SKIN_SDF_ATOL)
+        line += (f"; {_bf16_ran(tag, sdf, f32_sdf):.3e} from 3xTF32; hit the 3xTF32 kernel's; "
+                 f"relaunch bitwise")
+        err("hand_energy_skin", sdf, want_sdf)
+        case = None
+        if timed:
+            m = p * n
+            case = _bf16_turns({
+                "bf16": lambda: kernels.hand_energy_skin_cuda(*args, compute_dtype=bf16),
+                "f32": lambda: kernels.hand_energy_skin_cuda(*args),
+                "plain": lambda: _hand_energy_skin_torch(model, bits, frame, pose_map, rt_flat,
+                                                         offset, consts, hw,
+                                                         compute_dtype=bf16),
+                "chain": _bf16_chain(model, m)})
+            in_bytes = sum(t.numel() * 4 for t in (pose_map, rt_flat, offset, *consts, frame))
+            _bf16_bound(case, in_bytes + bits.numel() + 8.0 * m + 4 * packed.tc16.numel(),
+                        (2.0 * (3 * HAND_POSE_DIMS + 12 * 16) + 18 + 27) * m, MLP_WIDTHS, m)
+        record("hand_energy_skin", tag, line, case)
+
+    # #3b
+    for (shape, cf) in BF16_SDF_MLP_BATCHED_SHAPES:
+        tag = f"path {shape}"
+        s = shape[0]
+        models = [_random_sdf(rng, MLP_WIDTHS) for _ in range(s)]
+        packed = pack_distilled_batched(models)
+        pts = torch.from_numpy((rng.randn(*shape) * 0.08).astype(np.float32)).cuda()
+        got = kernels.sdf_mlp_batched_cuda(pts, packed, cf, compute_dtype=bf16)
+        again = kernels.sdf_mlp_batched_cuda(pts, packed, cf, compute_dtype=bf16)
+        want = _sdf_mlp_batched_torch(models, pts, compute_dtype=bf16)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"[sdf-bf16] sdf_mlp_batched_bf16 {tag}: two launches differ")
+        holds = []
+        for i, model in enumerate(models):
+            one = kernels.sdf_mlp_cuda(pts[i].contiguous(), pack_distilled(model), cf,
+                                       compute_dtype=bf16)
+            if not torch.equal(got[i], one):
+                raise AssertionError(f"[sdf-bf16] sdf_mlp_batched_bf16 {tag}: sequence {i} is not "
+                                     f"the unbatched launch")
+            holds.append(_bf16_hold(f"sdf_mlp_batched_bf16 {tag} sequence {i}", got[i], want[i],
+                                    _bf16_flip(model, pts[i].transpose(-1, -2))))
+        gap = _bf16_ran(tag, got, kernels.sdf_mlp_batched_cuda(pts, packed, cf))
+        err("sdf_mlp_batched", got, want)
+        m = pts.numel() // 3
+        case = _bf16_turns({
+            "bf16": lambda: kernels.sdf_mlp_batched_cuda(pts, packed, cf, compute_dtype=bf16),
+            "f32": lambda: kernels.sdf_mlp_batched_cuda(pts, packed, cf),
+            "plain": lambda: _sdf_mlp_batched_torch(models, pts, compute_dtype=bf16),
+            "chain": _bf16_chain(models[0], m)})
+        _bf16_bound(case, 16.0 * m + 4 * packed.wg16.numel(), 0.0, MLP_WIDTHS, m)
+        record("sdf_mlp_batched", tag, f"{holds[0]} (sequence 0); {gap:.3e} from 3xTF32; each "
+               f"sequence bitwise its unbatched launch; relaunch bitwise", case)
+
+    # #4b
+    for s, p, n in BF16_OBJ_ENERGY_BATCHED_SHAPES:
+        tag = f"path ({s},{p},{n})"
+        models = [_random_sdf(rng, MLP_WIDTHS) for _ in range(s)]
+        packed = pack_distilled_batched(models)
+        pcld = torch.from_numpy((rng.randn(s, 3, n) * 0.06).astype(np.float32)).cuda()
+        rot = unit_quaternion_to_matrix(normalize_quat(
+            torch.from_numpy(rng.randn(s, p, 4).astype(np.float32)).cuda()))
+        trans = torch.from_numpy((rng.randn(s, p, 3) * 0.03).astype(np.float32)).cuda()
+        rts = obj_rts(rot, trans).contiguous()
+        got = kernels.obj_sdf_energy_batched_cuda(pcld, rts, packed, compute_dtype=bf16)
+        again = kernels.obj_sdf_energy_batched_cuda(pcld, rts, packed, compute_dtype=bf16)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"[sdf-bf16] obj_sdf_energy_batched_bf16 {tag}: two launches "
+                                 f"differ")
+        holds = []
+        for i, model in enumerate(models):
+            one = kernels.obj_sdf_energy_cuda(pcld[i].contiguous(), rts[i].contiguous(),
+                                              pack_distilled(model), compute_dtype=bf16)
+            if not torch.equal(got[i], one):
+                raise AssertionError(f"[sdf-bf16] obj_sdf_energy_batched_bf16 {tag}: sequence {i} "
+                                     f"is not the unbatched launch")
+            want = _obj_sdf_energy_torch(model, pcld[i], rts[i], compute_dtype=bf16)
+            obj = -rts[i, :, 9:, None] + sum(rts[i, :, :9].reshape(p, 3, 3, 1)[:, :, y]
+                                             * pcld[i, y] for y in range(3))
+            holds.append(_bf16_energy_hold(f"obj_sdf_energy_batched_bf16 {tag} sequence {i}",
+                                           got[i], want, n,
+                                           _bf16_flip(model, obj.transpose(-1, -2))))
+            err("obj_sdf_energy_batched", got[i], want)
+        gap = _bf16_ran(tag, got, kernels.obj_sdf_energy_batched_cuda(pcld, rts, packed))
+        m = s * p * n
+        case = _bf16_turns({
+            "bf16": lambda: kernels.obj_sdf_energy_batched_cuda(pcld, rts, packed,
+                                                                compute_dtype=bf16),
+            "f32": lambda: kernels.obj_sdf_energy_batched_cuda(pcld, rts, packed),
+            "plain": lambda: torch.stack([_obj_sdf_energy_torch(
+                mm, c, r, compute_dtype=bf16) for mm, c, r in zip(models, pcld, rts)]),
+            "chain": _bf16_chain(models[0], m)})
+        _bf16_bound(case, s * (12.0 * n + 52.0 * p) + 4 * packed.tc16.numel(), 0.0,
+                    MLP_WIDTHS, m)
+        record("obj_sdf_energy_batched", tag, f"{holds[0]} (sequence 0); {gap:.3e} from "
+               f"3xTF32; each sequence bitwise its unbatched launch; relaunch bitwise", case)
+
+    # #7b
+    for s, p, k, n, hw in BF16_HAND_SKIN_BATCHED_SHAPES:
+        tag = f"path ({s},{p},{k},{n}) on {hw}"
+        models = [_random_sdf(rng, MLP_WIDTHS) for _ in range(s)]
+        packed = pack_distilled_batched(models)
+        pose_map, rt_flat, offset, consts, frames, masks, ones = _skin_sequences(rng, s, p, n, hw)
+        args = (pose_map, rt_flat, offset, *consts, frames, masks, hw, packed)
+        sdf, hit = kernels.hand_energy_skin_batched_cuda(*args, compute_dtype=bf16)
+        sdf2, hit2 = kernels.hand_energy_skin_batched_cuda(*args, compute_dtype=bf16)
+        f32_sdf, f32_hit = kernels.hand_energy_skin_batched_cuda(*args)
+        want_sdf, _ = _hand_energy_skin_batched_torch(models, masks, frames, pose_map, rt_flat,
+                                                      offset, consts, hw, compute_dtype=bf16)
+        torch.cuda.synchronize()
+        if not (torch.equal(sdf, sdf2) and torch.equal(hit, hit2)):
+            raise AssertionError(f"[sdf-bf16] hand_energy_skin_batched_bf16 {tag}: two launches "
+                                 f"differ")
+        if not torch.equal(hit, f32_hit):
+            raise AssertionError(f"[sdf-bf16] hand_energy_skin_batched_bf16 {tag}: hit is not the "
+                                 f"3xTF32 kernel's")
+        holds = []
+        for i, model in enumerate(models):
+            one = kernels.hand_energy_skin_cuda(pose_map[i], rt_flat[i], offset[i], *ones[i],
+                                                frames[i], masks[i], hw, pack_distilled(model),
+                                                compute_dtype=bf16)
+            if not (torch.equal(sdf[i], one[0]) and torch.equal(hit[i], one[1])):
+                raise AssertionError(f"[sdf-bf16] hand_energy_skin_batched_bf16 {tag}: sequence {i} "
+                                     f"is not the unbatched launch")
+            verts = skin_reference(pose_map[i], rt_flat[i], offset[i], ones[i])
+            holds.append(_bf16_hold(f"hand_energy_skin_batched_bf16 {tag} sequence {i}", sdf[i],
+                                    want_sdf[i], _bf16_flip(model, object_frame(
+                                        verts, frames[i]).transpose(-1, -2)),
+                                    tight=SKIN_SDF_ATOL))
+        gap = _bf16_ran(tag, sdf, f32_sdf)
+        err("hand_energy_skin_batched", sdf, want_sdf)
+        m = s * p * n
+        case = _bf16_turns({
+            "bf16": lambda: kernels.hand_energy_skin_batched_cuda(*args, compute_dtype=bf16),
+            "f32": lambda: kernels.hand_energy_skin_batched_cuda(*args),
+            "plain": lambda: _hand_energy_skin_batched_torch(models, masks, frames, pose_map,
+                                                             rt_flat, offset, consts, hw,
+                                                             compute_dtype=bf16),
+            "chain": _bf16_chain(models[0], m)})
+        in_bytes = sum(t.numel() * 4 for t in (pose_map, rt_flat, offset, *consts, frames))
+        _bf16_bound(case, in_bytes + masks.numel() + 8.0 * m + 4 * packed.tc16.numel(),
+                    (2.0 * (3 * HAND_POSE_DIMS + 12 * 16) + 18 + 27) * m, MLP_WIDTHS, m)
+        record("hand_energy_skin_batched", tag, f"{holds[0]} (sequence 0); {gap:.3e} from "
+               f"3xTF32; hit the 3xTF32 kernel's; each sequence bitwise its unbatched launch; "
+               f"relaunch bitwise", case)
+    return {f"{name}_bf16": {**numbers, **_headline(numbers["cases"])}
+            for name, numbers in out.items()}
+
+
+@contextlib.contextmanager
+def _sdf_bf16(on: bool):
+    """HOTRACK_SDF_BF16 set to "1" (on) or unset, for the runs inside."""
+    before = os.environ.pop("HOTRACK_SDF_BF16", None)
+    if on:
+        os.environ["HOTRACK_SDF_BF16"] = "1"
+    try:
+        yield
+    finally:
+        os.environ.pop("HOTRACK_SDF_BF16", None)
+        if before is not None:
+            os.environ["HOTRACK_SDF_BF16"] = before
+
+
+def _require_bf16(tag: str, launches: dict, want: dict) -> None:
+    """A run under the variable: exactly `want` of the SDF kernels' launches,
+    all of them bf16, and no 3xTF32 SDF launch."""
+    from hotrack_tpu_torch.ops import kernels
+    sdf = {k: v for k, v in launches.items() if v and (k in kernels.SDF_KERNELS
+                                                       or k.endswith("_bf16"))}
+    if sdf != want:
+        raise AssertionError(f"[sdf-bf16] {tag} launched {sdf}, expected {want}")
+
+
+@contextlib.contextmanager
+def _plain_energies(module, name: str, plain):
+    """The optimiser module's energy entry `name` swapped for `plain`, its plain
+    version on the card (the kernel against it, at iteration 0)."""
+    real = getattr(module, name)
+    setattr(module, name, plain)
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+def _hold_ranking(tag: str, got, want, atol: float) -> str:
+    """Iteration-0 energies of the kernel (got) and the plain version (want):
+    within atol; the candidates better than particle 0 the same but for those
+    within atol of particle 0's energy (counted)."""
+    got, want = got.double().cpu(), want.double().cpu()
+    worst = float((got - want).abs().max())
+    near = (want - want[0]).abs() <= atol
+    differ = (got < got[0]) != (want < want[0])
+    if worst > atol or bool((differ & ~near).any()):
+        raise AssertionError(f"[sdf-bf16] {tag}: energies within {worst:.3e} (bound {atol:.3e}), "
+                             f"{int((differ & ~near).sum())} candidates taken on one side only "
+                             f"beyond the near-ties")
+    return (f"energies within {worst:.3e} (bound {atol:.3e}); {int((want < want[0]).sum())} "
+            f"candidates better than particle 0, {int(near[1:].sum())} within the bound of it, "
+            f"{int(differ.sum())} of those taken on one side only")
+
+
+def phase_sdf_bf16(card: str, seen: dict, hand_fit, obj_fit, keep: dict) -> tuple:
+    """Phase 14c, HOTRACK_SDF_BF16: the bf16 kernels (`phase_kernels_sdf_bf16`),
+    then with the variable set, on phase 6's and phase 8's fits: the object
+    path (OBJ_BF16_FRAMES frames fused, OBJ_BF16_SHORT_FRAMES composed) and the
+    hand path (HAND_BF16_FRAMES frames skin, HAND_BF16_SHORT_FRAMES each fused
+    and separate), each in turns with float32 (ms/frame, poses and keypoints
+    against float32's to the tracker's accuracy, the object's pose error below
+    the jittered initialisation's); the iteration-0 candidates of the kernel
+    against its plain version on the card, object and hand; one batched object
+    chunk (fused and composed) and one batched hand chunk of BF16_BATCH_FRAMES
+    frames on phase 9's and 10's inputs. Every run under the variable launches
+    bf16 SDF kernels only. Returns ({path: launches}, {kernel: numbers})."""
+    from hotrack_tpu_torch.mano.layer import mano_forward
+    from hotrack_tpu_torch.ops import kernels
+    from hotrack_tpu_torch.ops.hand_energy import hand_frame, object_frame
+    from hotrack_tpu_torch.ops.hand_energy_skin import _hand_energy_skin_torch
+    from hotrack_tpu_torch.ops.obj_energy import _obj_sdf_energy_torch, obj_rts
+    from hotrack_tpu_torch.opt import (hand_pose, obj_pose, optimize_hand_pose, optimize_obj_pose,
+                                       presample_particles)
+    from hotrack_tpu_torch.pose.metrics import rot_diff_degree
+    from hotrack_tpu_torch.pose.rotations import matrix_to_rotvec
+    from hotrack_tpu_torch.sdf.distill import distilled_to
+    from hotrack_tpu_torch.track import track_hand_sequences_batched, track_obj_sequences_batched
+    from hotrack_tpu_torch.train.run_hand_track import HAND_VOXEL_SCALE
+    from hotrack_tpu_torch.train.run_obj_track import VOLUME_SIZE, VOXEL_SCALE
+    numbers = phase_kernels_sdf_bf16()
+    roots = {"obj": _obj_dataset(OBJ_BF16_FRAMES), "obj_short": _obj_dataset(OBJ_BF16_SHORT_FRAMES),
+             "hand": _hand_dataset(HAND_BF16_FRAMES),
+             "hand_short": _hand_dataset(HAND_BF16_SHORT_FRAMES)}
+    by_path = {}
+    try:
+        # the object path: fused (#4) and composed (#3), float32 and bf16 in turns
+        for route, root, frames, name in (
+                ("fused", roots["obj"], OBJ_BF16_FRAMES, "obj_sdf_energy"),
+                ("composed", roots["obj_short"], OBJ_BF16_SHORT_FRAMES, "sdf_mlp")):
+            runs = {}
+            for on in (False, True, True, False):
+                with _sdf_bf16(on):
+                    runs.setdefault(on, []).append(_obj_run(
+                        root, seen, "cuda", obj_fit,
+                        ("--sdf_query", "distilled", "--obj_energy", route)))
+            seq, launches, _ = runs[True][0]
+            _require_bf16(f"object {route}", launches,
+                          {f"{name}_bf16": OBJ_ITERATIONS * frames})
+            _require_bf16(f"object {route}, float32", runs[False][0][1],
+                          {name: OBJ_ITERATIONS * frames})
+            by_path["obj_sdf_bf16" if route == "fused" else "object_composed_bf16"] = launches
+            f32 = runs[False][0][0]
+            ms = {on: sum(r[2] for r in rs) / 2 for on, rs in runs.items()}
+            init_t = float(np.linalg.norm(seq["init_translation"] - seq["gt_translation"][0]))
+            init_r = float(rot_diff_degree(torch.from_numpy(seq["gt_rotation"][0]),
+                                           torch.from_numpy(seq["init_rotation"]), 1))
+            print(f"[sdf-bf16] object path, {route} route, {frames} frames x {OBJ_PARTICLES} "
+                  f"particles x {OBJ_NUM_POINTS} points x {OBJ_ITERATIONS} iterations, in turns "
+                  f"(float32, bf16, bf16, float32): bf16 {ms[True]:.3f} ms/frame, float32 "
+                  f"{ms[False]:.3f} ms/frame; error bf16 {seq['rdiff'].mean():.3f} deg / "
+                  f"{1e3 * seq['tdiff'].mean():.3f} mm, float32 {f32['rdiff'].mean():.3f} deg / "
+                  f"{1e3 * f32['tdiff'].mean():.3f} mm, jittered init {init_r:.3f} deg / "
+                  f"{1e3 * init_t:.3f} mm; launches {launches} | {card}", flush=True)
+            if not (seq["tdiff"].mean() < init_t and seq["tdiff"].max() < init_t):
+                raise AssertionError(f"[sdf-bf16] object {route}: the pose error did not fall "
+                                     f"below the jittered initialisation's")
+            _hold_closed_loop(f"bf16 vs float32, {route} route", *_pose_gap(seq, f32))
+            if route == "fused":
+                obj_seq = seq
+
+        # iteration 0 of every frame of the bf16 fused run, from its own previous
+        # pose: the kernel (#4) against its plain version on the card
+        model = distilled_to(obj_fit, "cuda")
+        bank = torch.from_numpy(obj_seq["particles"]).cuda()
+
+        def plain_obj(m, pcld_cf, rot, trans, packed=None, compute_dtype=None):
+            return _obj_sdf_energy_torch(m, pcld_cf, obj_rts(rot, trans), compute_dtype=compute_dtype)
+
+        lines = []
+        for f in range(OBJ_BF16_FRAMES):
+            r0 = obj_seq["init_rotation"] if f == 0 else obj_seq["rotation"][f - 1]
+            t0 = obj_seq["init_translation"] if f == 0 else obj_seq["translation"][f - 1]
+            pts = torch.from_numpy(obj_seq["obj_points"][f]).cuda()
+            start = (torch.from_numpy(r0).cuda(), torch.from_numpy(t0).cuda())
+            traces = []
+            for use_plain in (False, True):
+                trace = []
+                with _sdf_bf16(True), (_plain_energies(obj_pose, "fused_obj_sdf_energy", plain_obj)
+                                       if use_plain else contextlib.nullcontext()):
+                    with noting_shapes(seen):
+                        optimize_obj_pose(None, bank, pts, *start, iterations=1, distilled=model,
+                                          trace=trace)
+                traces.append(trace[0][0])
+            cloud = (start[0].T @ (pts.T - start[1])).T    # the cloud in the object frame
+            flip = _bf16_flip(model, cloud)
+            n = OBJ_NUM_POINTS
+            atol = 500.0 / n * (n * BF16_SDF_ATOL_TIGHT
+                                + max(1, math.ceil((1 - BF16_SDF_SHARE) * n)) * flip)
+            lines.append(_hold_ranking(f"object frame {f}", traces[0], traces[1], atol))
+        print(f"[sdf-bf16] object fused route, kernel against its plain version on the card, "
+              f"iteration 0 of each of {OBJ_BF16_FRAMES} frames:\n  " + "\n  ".join(lines),
+              flush=True)
+
+        # the hand path: skin (#7), then fused (#6) and separate (#3)
+        runs = {}
+        for on in (False, True, True, False):
+            with _sdf_bf16(on):
+                runs.setdefault(on, []).append(_hand_run(roots["hand"], seen, hand_fit))
+        _, st_bf16, launches = runs[True][0]
+        per_frame = HAND_ITERATIONS * HAND_BF16_FRAMES
+        _require_bf16("hand skin", launches, {"hand_energy_skin_bf16": per_frame})
+        _require_bf16("hand skin, float32", runs[False][0][2], {"hand_energy_skin": per_frame})
+        by_path["hand_sdf_bf16"] = launches
+        ms = {on: sum(1e3 * r[1]["net_seconds"] / HAND_BF16_FRAMES for r in rs) / 2
+              for on, rs in runs.items()}
+        kp_bf16 = st_bf16["sequences"][0]["pred_kp"]
+        gap = np.abs(kp_bf16 - runs[False][0][1]["sequences"][0]["pred_kp"]).max()
+        print(f"[sdf-bf16] hand path, skin route, {HAND_BF16_FRAMES} frames at {HAND_NUM_POINTS} "
+              f"points, {HAND_PARTICLES} particles, in turns: bf16 {ms[True]:.3f} ms/frame, "
+              f"float32 {ms[False]:.3f} ms/frame (the frame-0 shape optimiser included); "
+              f"keypoints against float32's up to {1e3 * gap:.4f} mm (bound "
+              f"{1e3 * HAND_STEP_BOUND_M} mm: another step of the search); launches {launches} "
+              f"| {card}", flush=True)
+        if gap > HAND_STEP_BOUND_M:
+            raise AssertionError("[sdf-bf16] hand skin: keypoints beyond the bound")
+        short = HAND_ITERATIONS * HAND_BF16_SHORT_FRAMES
+        for route, want in (("fused", {"hand_energy_bf16": short}),
+                            ("separate", {"sdf_mlp_bf16": short})):
+            timing = {}
+            for on in (False, True):
+                with _sdf_bf16(on):
+                    _, st, ln = _hand_run(roots["hand_short"], seen, hand_fit,
+                                          ("--hand_energy", route))
+                timing[on] = 1e3 * st["net_seconds"] / HAND_BF16_SHORT_FRAMES
+            _require_bf16(f"hand {route}", ln, want)
+            by_path[f"hand_{route}_bf16"] = ln
+            print(f"[sdf-bf16] hand path, {route} route, {HAND_BF16_SHORT_FRAMES} frames: bf16 "
+                  f"{timing[True]:.3f} ms/frame, float32 {timing[False]:.3f} ms/frame; launches "
+                  f"{ {k: v for k, v in ln.items() if v} }", flush=True)
+
+        # iteration 0 of the pose optimiser at its operating point (5120 x 778 on a
+        # 480 x 640 mask): the skin kernel (#7) against its plain version on the card
+        scene = _handopt_scene("cuda")
+        hbank = presample_particles(HAND_PARTICLES, 16, torch.Generator().manual_seed(4)).cuda()
+        hmodel = distilled_to(hand_fit, "cuda")
+
+        def plain_skin(m, mask, frame, pose_map, rt_flat, offset, consts, hw, packed=None,
+                       compute_dtype=None):
+            return _hand_energy_skin_torch(m, mask, frame, pose_map, rt_flat, offset, consts, hw,
+                                           compute_dtype=compute_dtype)
+
+        traces = []
+        for use_plain in (False, True):
+            trace = []
+            with _sdf_bf16(True), (_plain_energies(hand_pose, "fused_hand_energy_skin",
+                                                   plain_skin)
+                                   if use_plain else contextlib.nullcontext()):
+                with noting_shapes(seen):
+                    optimize_hand_pose(scene["mano"], hbank, scene["zones"], None,
+                                       **scene["kwargs"], voxel_scale=HAND_VOXEL_SCALE,
+                                       iterations=1, distilled=hmodel, trace=trace)
+            traces.append(trace[0][0])
+        # the flip bound at the start's vertices, twice over for the candidates' spread
+        kw = scene["kwargs"]
+        start, _ = mano_forward(scene["mano"], torch.cat([matrix_to_rotvec(kw["init_rotation"]),
+                                                         kw["init_theta"]], -1),
+                                betas=kw["hand_shape"], trans=kw["init_translation"][..., 0])
+        frame = hand_frame(kw["obj_rotation"], kw["obj_translation"], 1.0, 1.0, 0.0, 0.0)
+        flip = 2 * _bf16_flip(hmodel, object_frame(start, frame).transpose(-1, -2))
+        atol = HAND_E_ATOL + (1.0 + 5 * 0.05) * flip + HAND_MAX_FLIPS * HAND_FLIP
+        print(f"[sdf-bf16] hand pose optimiser, skin route, {HAND_PARTICLES} particles on "
+              f"{HAND_HW}, kernel against its plain version on the card, iteration 0: "
+              f"{_hold_ranking('hand skin', traces[0], traces[1], atol)}", flush=True)
+
+        # one batched object chunk (#4b fused, #3b composed) and one batched hand
+        # chunk (#7b), BF16_BATCH_FRAMES frames, on phase 10's and 9's inputs
+        o = keep["object"]
+        frames = BF16_BATCH_FRAMES
+        for route, name in (("fused", "obj_sdf_energy_batched"), ("composed", "sdf_mlp_batched")):
+            kernels.reset_launch_counts()
+            with _sdf_bf16(True), noting_shapes(seen):
+                t1 = time.perf_counter()
+                res = track_obj_sequences_batched(
+                    None, o["bank"], o["points"][:, :frames].contiguous(), o["init_r"],
+                    o["init_t"], voxel_scale=VOXEL_SCALE, bbox_res=VOLUME_SIZE,
+                    distilled=o["fits"], obj_energy=route)
+                torch.cuda.synchronize()
+                ms_chunk = 1e3 * (time.perf_counter() - t1) / frames
+            counts = dict(kernels.launch_counts)
+            _require_bf16(f"object batched {route}", counts,
+                          {f"{name}_bf16": OBJ_ITERATIONS * frames})
+            by_path["object_batched_bf16" if route == "fused"
+                    else "object_batched_composed_bf16"] = counts
+            rot, trans = [], []
+            for i in range(OBJ_SEQS):
+                r, t = _pose_gap({"rotation": res.rotation[i].cpu().numpy(),
+                                  "translation": res.translation[i].cpu().numpy()},
+                                 {"rotation": o["result"].rotation[i, :frames].cpu().numpy(),
+                                  "translation": o["result"].translation[i, :frames].cpu().numpy()})
+                rot.append(r), trans.append(t)
+            print(f"[sdf-bf16] object batched, {route} route, {OBJ_SEQS} x {frames} frames: "
+                  f"{ms_chunk:.3f} ms a chunk-frame (float32 fused: {o['ms']:.3f})", flush=True)
+            _hold_closed_loop(f"bf16 batched {route} vs the float32 batched fused run",
+                              np.concatenate(rot), np.concatenate(trans))
+        h = keep["hand"]
+        cut = lambda x: x[:, :frames].contiguous()   # noqa: E731
+        kwargs = dict(h["kwargs"], background_masks=cut(h["kwargs"]["background_masks"]))
+        kernels.reset_launch_counts()
+        with _sdf_bf16(True), noting_shapes(seen):
+            t1 = time.perf_counter()
+            res = track_hand_sequences_batched(h["handnet"], h["mano"], _tree(cut, h["frames"]),
+                                               **kwargs)
+            torch.cuda.synchronize()
+            ms_chunk = 1e3 * (time.perf_counter() - t1) / frames
+        counts = dict(kernels.launch_counts)
+        _require_bf16("hand batched skin", counts,
+                      {"hand_energy_skin_batched_bf16": HAND_ITERATIONS * frames})
+        by_path["hand_batched_bf16"] = counts
+        # on random masks a candidate that changes sides moves the closed loop by a
+        # step of the search, as the float32 routes part from one another (phase 9):
+        # frame 0 is held to a step, the later frames printed
+        gap = (res.pred_kp - h["result"].pred_kp[:, :frames]).abs().reshape(HAND_SEQS, frames, -1)
+        gap0, worst = float(gap[:, 0].max()), float(gap.max())
+        print(f"[sdf-bf16] hand batched, skin route, {HAND_SEQS} x {frames} frames with {HAND_HW} "
+              f"masks: {ms_chunk:.3f} ms a chunk-frame (float32: {h['ms']:.3f}); keypoints "
+              f"against float32's: frame 0 {1e3 * gap0:.4f} mm (bound "
+              f"{1e3 * HAND_SHAPE_STEP_BOUND_M} mm), worst {1e3 * worst:.4f} mm", flush=True)
+        if not all(bool(torch.isfinite(t).all()) for t in res) or gap0 > HAND_SHAPE_STEP_BOUND_M:
+            raise AssertionError("[sdf-bf16] hand batched: keypoints beyond the bound")
+        return by_path, numbers
+    finally:
+        for root in roots.values():
+            shutil.rmtree(root, ignore_errors=True)
+
+
 def check_no_jax() -> None:
     bad = sorted(m for m in sys.modules if m in ("jax", "hotrack_tpu")
                  or m.startswith(("jax.", "jaxlib", "flax", "optax", "hotrack_tpu.")))
@@ -4280,6 +5113,9 @@ def _phases(card, real, t0, took, timed) -> int:
     for name in ("gather_rows", "scatter_rows_add"):
         numbers[name]["launches_by_dtype"] = {path: counts[name]
                                               for path, counts in by_dtype.items()}
+    bf16_paths, bf16_numbers = timed("sdf_bf16", phase_sdf_bf16, card, seen, fit, obj_fit, keep)
+    by_path.update(bf16_paths)
+    numbers.update(bf16_numbers)
     # the path whose count stands for the kernel in the result line
     main_path = {"fps": "train", "gather_rows": "train", "scatter_rows_add": "train",
                  "sdf_mlp": "object_composed", "obj_sdf_energy": "object",
@@ -4287,7 +5123,12 @@ def _phases(card, real, t0, took, timed) -> int:
                  "hand_energy_skin": "hand", "sdf_mlp_batched": "object_batched_composed",
                  "obj_sdf_energy_batched": "object_batched",
                  "packed_mask_lookup_batched": "hand_batched_separate",
-                 "hand_energy_skin_batched": "hand_batched"}
+                 "hand_energy_skin_batched": "hand_batched",
+                 "sdf_mlp_bf16": "object_composed_bf16", "obj_sdf_energy_bf16": "obj_sdf_bf16",
+                 "hand_energy_bf16": "hand_fused_bf16", "hand_energy_skin_bf16": "hand_sdf_bf16",
+                 "sdf_mlp_batched_bf16": "object_batched_composed_bf16",
+                 "obj_sdf_energy_batched_bf16": "object_batched_bf16",
+                 "hand_energy_skin_batched_bf16": "hand_batched_bf16"}
     check_seen_shapes(seen)
     check_no_jax()
     print(f"[done] {time.perf_counter() - t0:.1f} s; seconds by phase {took}", flush=True)

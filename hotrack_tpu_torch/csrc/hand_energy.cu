@@ -34,6 +34,12 @@
 // round computes on zeros for its missing vertices and stores neither an sdf
 // nor a hit for them. A vertex's values depend on its inputs only: two
 // launches agree bitwise.
+//
+// bf16 (HOTRACK_SDF_BF16): a second instantiation with the bf16 MLP of
+// sdf_mlp_wgmma.cuh (PackedSDF.wg16), entry hotrack_hand_energy_bf16: its sdf
+// is bitwise sdf_mlp.cu's bf16 instantiation on object_frame's points, its hit
+// the same as above. Bound: one bf16 pass at 989 TFLOP/s plus the 27 float32
+// operations, 0.288 ms at 5120 x 778 vertices.
 
 #include "hand_energy_core.cuh"
 #include "sdf_mlp_wgmma.cuh"
@@ -86,24 +92,49 @@ struct Vertices {
   }
 };
 
+template <bool kBf16>
 __global__ void __launch_bounds__(wg::kThreads, 1)
 hand_energy_kernel(const __grid_constant__ Vertices job, const float* __restrict__ packed,
                    long long rounds, wg::Shape shape, int pinned, int ring) {
   extern __shared__ __align__(128) unsigned char smem[];
-  wg::walk(job, smem, packed, 0, rounds, rounds, shape, pinned, ring);
+  wg::walk<kBf16>(job, smem, packed, 0, rounds, rounds, shape, pinned, ring);
 }
 
 int g_smem_limit = 0;   // what a block of this kernel may opt into
-wg::Grid g_grid;
+wg::Grid g_grid[2];     // by instantiation
+
+template <bool kBf16>
+int launch(const void* pts, const void* frame, const void* mask, const void* packed, void* sdf,
+           void* hit, long long m, int h, int w, int n_freqs, int n_hidden, const int* widths,
+           void* stream) {
+  const wg::Shape shape = wg::make_shape(n_freqs, n_hidden, widths, kBf16);
+  if (shape.tiles == 0 || m < 1 || h < 1 || w < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const long long rounds = (m + wg::kRoundPoints - 1) / wg::kRoundPoints;
+  int pinned = 0, ring = 0;
+  long long smem = 0;
+  unsigned grid = 0;
+  const cudaError_t err = wg::plan_launch(hand_energy_kernel<kBf16>, shape, g_smem_limit, rounds,
+                                          g_grid[kBf16], pinned, ring, smem, grid);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const Vertices job{static_cast<const float*>(pts), static_cast<const float*>(frame),
+                     static_cast<const unsigned char*>(mask), static_cast<float*>(sdf),
+                     static_cast<float*>(hit), m, h, w};
+  hand_energy_kernel<kBf16><<<grid, wg::kThreads, static_cast<size_t>(smem),
+                              static_cast<cudaStream_t>(stream)>>>(
+      job, static_cast<const float*>(packed), rounds, shape, pinned, ring);
+  return static_cast<int>(cudaGetLastError());
+}
 
 }  // namespace
 
 extern "C" {
 
-// Opts the kernel into as much dynamic shared memory as a block may have on
-// the current device, once per process.
+// Opts both instantiations into as much dynamic shared memory as a block may
+// have on the current device, once per process.
 int hotrack_hand_energy_init() {
-  return static_cast<int>(wg::opt_in(hand_energy_kernel, g_smem_limit));
+  const cudaError_t err = wg::opt_in(hand_energy_kernel<false>, g_smem_limit);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(wg::opt_in(hand_energy_kernel<true>, g_smem_limit));
 }
 
 // pts (m, 3), frame (16,), mask (h, ceil(w / 8)) uint8, packed (PackedSDF.wg),
@@ -111,22 +142,17 @@ int hotrack_hand_energy_init() {
 int hotrack_hand_energy(const void* pts, const void* frame, const void* mask,
                         const void* packed, void* sdf, void* hit, long long m, int h, int w,
                         int n_freqs, int n_hidden, const int* widths, void* stream) {
-  const wg::Shape shape = wg::make_shape(n_freqs, n_hidden, widths);
-  if (shape.tiles == 0 || m < 1 || h < 1 || w < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const long long rounds = (m + wg::kRoundPoints - 1) / wg::kRoundPoints;
-  int pinned = 0, ring = 0;
-  long long smem = 0;
-  unsigned grid = 0;
-  const cudaError_t err = wg::plan_launch(hand_energy_kernel, shape, g_smem_limit, rounds,
-                                          g_grid, pinned, ring, smem, grid);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const Vertices job{static_cast<const float*>(pts), static_cast<const float*>(frame),
-                     static_cast<const unsigned char*>(mask), static_cast<float*>(sdf),
-                     static_cast<float*>(hit), m, h, w};
-  hand_energy_kernel<<<grid, wg::kThreads, static_cast<size_t>(smem),
-                       static_cast<cudaStream_t>(stream)>>>(
-      job, static_cast<const float*>(packed), rounds, shape, pinned, ring);
-  return static_cast<int>(cudaGetLastError());
+  return launch<false>(pts, frame, mask, packed, sdf, hit, m, h, w, n_freqs, n_hidden, widths,
+                       stream);
+}
+
+// The same in bf16: packed is PackedSDF.wg16.
+int hotrack_hand_energy_bf16(const void* pts, const void* frame, const void* mask,
+                             const void* packed, void* sdf, void* hit, long long m, int h,
+                             int w, int n_freqs, int n_hidden, const int* widths,
+                             void* stream) {
+  return launch<true>(pts, frame, mask, packed, sdf, hit, m, h, w, n_freqs, n_hidden, widths,
+                      stream);
 }
 
 }  // extern "C"

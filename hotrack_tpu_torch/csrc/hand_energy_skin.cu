@@ -50,6 +50,13 @@
 // shares it between the sequences (posedirs and weights always are). An
 // unbatched launch is the case of one sequence: sequence s of a batched launch
 // computes bitwise what an unbatched launch on s's inputs computes.
+//
+// bf16 (HOTRACK_SDF_BF16): a second instantiation with the bf16 core of
+// sdf_mlp_tc.cuh (mlp_rows<true>, PackedSDF.tc16), entry
+// hotrack_hand_energy_skin_bf16; the skinning, transform and hit are the
+// same code, so the vertices and the hit are bitwise the float32 kernel's.
+// Bound: one bf16 pass of the MLP at 989 TFLOP/s plus the same float32
+// operations, 0.360 ms at 5120 x 778 vertices.
 
 #include "hand_energy_core.cuh"
 #include "sdf_mlp_tc.cuh"
@@ -79,6 +86,7 @@ __host__ __device__ inline long long pair_floats(int k, int n) {
   return kPair * 3LL * tc::round_up4(n) + kPair * stage_floats(k);
 }
 
+template <bool kBf16>
 __global__ void __launch_bounds__(tc::kThreads, 1)
 hand_energy_skin_kernel(const float* __restrict__ pose_map_g, const float* __restrict__ rt_g,
                         const float* __restrict__ offset_g, const float* __restrict__ posedirs_g,
@@ -90,7 +98,7 @@ hand_energy_skin_kernel(const float* __restrict__ pose_map_g, const float* __res
                         long long items, SeqStrides seq, tc::Shape shape, int resident) {
   extern __shared__ float4 smem4[];
   float* wsm = reinterpret_cast<float*>(smem4);
-  float* xs = wsm + tc::weight_smem_floats(shape, resident != 0);   // [cand][coord][n4]
+  float* xs = wsm + tc::weight_smem_floats<kBf16>(shape, resident != 0);   // [cand][coord][n4]
   const int n4 = tc::round_up4(n);
   float* stage = xs + kPair * 3 * n4;                                 // [cand][stage_floats]
   const int stage_n = stage_floats(k_pose);
@@ -112,9 +120,9 @@ hand_energy_skin_kernel(const float* __restrict__ pose_map_g, const float* __res
     const float* v_shaped = v_shaped_g + s * seq.v_shaped;
     const float* weights = weights_g + s * seq.weights;
     const unsigned char* mask = mask_g + s * seq.mask;
-    const tc::Net net = tc::net_of(packed_g + s * seq.packed, shape);
+    const tc::Net net = tc::net_of<kBf16>(packed_g + s * seq.packed, shape);
     if (resident && s != loaded) {
-      tc::load_resident(wsm, net, shape);
+      tc::load_resident<kBf16>(wsm, net, shape);
       loaded = s;
     }
     __syncthreads();   // the previous item's phase 2 has read xs
@@ -214,7 +222,7 @@ hand_energy_skin_kernel(const float* __restrict__ pose_map_g, const float* __res
       }
       if (lane < tc::kRows && row0 + lane < total)
         hit_out[row0 + lane] = silhouette_hit(mask, h, w, frame, cam[0], cam[1], cam[2]);
-      const float2 sdf = tc::mlp_rows(xa, xb, net, shape, resident != 0, wsm);
+      const float2 sdf = tc::mlp_rows<kBf16>(xa, xb, net, shape, resident != 0, wsm);
       if (t == 0) {
         if (row0 + g < total) sdf_out[row0 + g] = sdf.x;
         if (row0 + g + 8 < total) sdf_out[row0 + g + 8] = sdf.y;
@@ -223,25 +231,63 @@ hand_energy_skin_kernel(const float* __restrict__ pose_map_g, const float* __res
   }
 }
 
-int g_smem_limit = 0;           // what a block of this kernel may opt into
-long long g_grid_smem = -1;     // persistent_blocks' memo
-int g_grid_blocks = 0;
+int g_smem_limit = 0;            // what a block of this kernel may opt into
+long long g_grid_smem[2] = {-1, -1};   // persistent_blocks' memo, by instantiation
+int g_grid_blocks[2] = {0, 0};
+
+template <bool kBf16>
+int launch(const void* pose_map, const void* rt, const void* offset, const void* posedirs,
+           const void* v_shaped, const void* weights, const void* frame, const void* mask,
+           const void* packed, void* sdf, void* hit, int p, int k, int n, int h, int w, int n_seq,
+           const long long* seq_strides, int n_freqs, int n_hidden, const int* widths,
+           void* stream) {
+  const tc::Shape shape = tc::make_shape(n_freqs, n_hidden, widths, kBf16);
+  if (shape.k0 == 0 || p < 1 || k < 1 || n < 1 || h < 1 || w < 1 || n_seq < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const SeqStrides seq{seq_strides[0], seq_strides[1], seq_strides[2], seq_strides[3],
+                       seq_strides[4], seq_strides[5]};
+  const long long other = 4LL * pair_floats(k, n);
+  const int resident = tc::resident_mode<kBf16>(shape, other, g_smem_limit);
+  if (resident < 0 || static_cast<long long>(kPair) * n > 2147483647LL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long smem = other + 4LL * tc::weight_smem_floats<kBf16>(shape, resident != 0);
+  const long long items = static_cast<long long>((p + kPair - 1) / kPair) * n_seq;
+  const int blocks = tc::persistent_blocks(hand_energy_skin_kernel<kBf16>, smem,
+                                           g_grid_smem[kBf16], g_grid_blocks[kBf16]);
+  if (blocks < 1) {
+    const cudaError_t err = cudaGetLastError();
+    return static_cast<int>(err != cudaSuccess ? err : cudaErrorUnknown);
+  }
+  const unsigned grid = static_cast<unsigned>(items < blocks ? items : blocks);
+  hand_energy_skin_kernel<kBf16><<<grid, tc::kThreads, static_cast<size_t>(smem),
+                                   static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(pose_map), static_cast<const float*>(rt),
+      static_cast<const float*>(offset), static_cast<const float*>(posedirs),
+      static_cast<const float*>(v_shaped), static_cast<const float*>(weights),
+      static_cast<const float*>(frame), static_cast<const unsigned char*>(mask),
+      static_cast<const float*>(packed), static_cast<float*>(sdf), static_cast<float*>(hit), p,
+      k, n, h, w, items, seq, shape, resident);
+  return static_cast<int>(cudaGetLastError());
+}
 
 }  // namespace
 
 extern "C" {
 
-// Opts the kernel into as much dynamic shared memory as a block may have on
-// the current device, once per process; a launch takes what its net and N
-// need.
+// Opts both instantiations into as much dynamic shared memory as a block may
+// have on the current device, once per process; a launch takes what its net
+// and N need.
 int hotrack_hand_energy_skin_init() {
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaDeviceGetAttribute(&g_smem_limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaFuncSetAttribute(hand_energy_skin_kernel<false>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, g_smem_limit);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaFuncSetAttribute(
-      hand_energy_skin_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, g_smem_limit));
+      hand_energy_skin_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, g_smem_limit));
 }
 
 // pose_map (p, k), rt (p, 12, 16), offset (p, 3), posedirs (3, k, n), v_shaped (3, n),
@@ -256,33 +302,21 @@ int hotrack_hand_energy_skin(const void* pose_map, const void* rt, const void* o
                              void* sdf, void* hit, int p, int k, int n, int h, int w,
                              int n_seq, const long long* seq_strides, int n_freqs,
                              int n_hidden, const int* widths, void* stream) {
-  const tc::Shape shape = tc::make_shape(n_freqs, n_hidden, widths);
-  if (shape.k0 == 0 || p < 1 || k < 1 || n < 1 || h < 1 || w < 1 || n_seq < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const SeqStrides seq{seq_strides[0], seq_strides[1], seq_strides[2], seq_strides[3],
-                       seq_strides[4], seq_strides[5]};
-  const long long other = 4LL * pair_floats(k, n);
-  const int resident = tc::resident_mode(shape, other, g_smem_limit);
-  if (resident < 0 || static_cast<long long>(kPair) * n > 2147483647LL)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const long long smem = other + 4LL * tc::weight_smem_floats(shape, resident != 0);
-  const long long items = static_cast<long long>((p + kPair - 1) / kPair) * n_seq;
-  const int blocks =
-      tc::persistent_blocks(hand_energy_skin_kernel, smem, g_grid_smem, g_grid_blocks);
-  if (blocks < 1) {
-    const cudaError_t err = cudaGetLastError();
-    return static_cast<int>(err != cudaSuccess ? err : cudaErrorUnknown);
-  }
-  const unsigned grid = static_cast<unsigned>(items < blocks ? items : blocks);
-  hand_energy_skin_kernel<<<grid, tc::kThreads, static_cast<size_t>(smem),
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(pose_map), static_cast<const float*>(rt),
-      static_cast<const float*>(offset), static_cast<const float*>(posedirs),
-      static_cast<const float*>(v_shaped), static_cast<const float*>(weights),
-      static_cast<const float*>(frame), static_cast<const unsigned char*>(mask),
-      static_cast<const float*>(packed), static_cast<float*>(sdf), static_cast<float*>(hit), p,
-      k, n, h, w, items, seq, shape, resident);
-  return static_cast<int>(cudaGetLastError());
+  return launch<false>(pose_map, rt, offset, posedirs, v_shaped, weights, frame, mask, packed,
+                       sdf, hit, p, k, n, h, w, n_seq, seq_strides, n_freqs, n_hidden, widths,
+                       stream);
+}
+
+// The same in bf16: packed is PackedSDF.tc16.
+int hotrack_hand_energy_skin_bf16(const void* pose_map, const void* rt, const void* offset,
+                                  const void* posedirs, const void* v_shaped,
+                                  const void* weights, const void* frame, const void* mask,
+                                  const void* packed, void* sdf, void* hit, int p, int k, int n,
+                                  int h, int w, int n_seq, const long long* seq_strides,
+                                  int n_freqs, int n_hidden, const int* widths, void* stream) {
+  return launch<true>(pose_map, rt, offset, posedirs, v_shaped, weights, frame, mask, packed,
+                      sdf, hit, p, k, n, h, w, n_seq, seq_strides, n_freqs, n_hidden, widths,
+                      stream);
 }
 
 }  // extern "C"

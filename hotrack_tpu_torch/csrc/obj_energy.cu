@@ -36,6 +36,13 @@
 // candidates, model and output s times their per-sequence strides further on;
 // a stride of 0 shares an input) sums bitwise what an unbatched launch on s's
 // inputs sums: that launch is the case of one sequence.
+//
+// bf16 (HOTRACK_SDF_BF16): the kernel is instantiated a second time with the
+// bf16 core of sdf_mlp_tc.cuh (mlp_rows<true>, PackedSDF.tc16: 66,560 bytes of
+// resident weights for 21-128-128-128-1), entry hotrack_obj_energy_bf16; the
+// transform and the sums are the same code. Bound: one bf16 pass at 989
+// TFLOP/s, 0.151 ms at 2048 x 1024. Both instantiations keep the properties
+// above.
 
 #include "sdf_mlp_tc.cuh"
 
@@ -58,6 +65,7 @@ __device__ __forceinline__ void transform(const float* __restrict__ pc, int n, i
   }
 }
 
+template <bool kBf16>
 __global__ void __launch_bounds__(tc::kThreads, 1)
 obj_energy_kernel(const float* __restrict__ pcld_cf, const float* __restrict__ rts,
                   const float* __restrict__ packed, float* __restrict__ out, int p, int n,
@@ -65,15 +73,15 @@ obj_energy_kernel(const float* __restrict__ pcld_cf, const float* __restrict__ r
                   int resident) {
   extern __shared__ float4 smem4[];
   float* wsm = reinterpret_cast<float*>(smem4);
-  float* red = wsm + tc::weight_smem_floats(shape, resident != 0);   // one float a warp
+  float* red = wsm + tc::weight_smem_floats<kBf16>(shape, resident != 0);   // one float a warp
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
   long long loaded = -1;
   for (long long item = blockIdx.x; item < items; item += gridDim.x) {
     const long long s = item / p;
-    const tc::Net net = tc::net_of(packed + s * packed_seq, shape);
+    const tc::Net net = tc::net_of<kBf16>(packed + s * packed_seq, shape);
     if (resident && s != loaded) {
-      tc::load_resident(wsm, net, shape);
+      tc::load_resident<kBf16>(wsm, net, shape);
       loaded = s;
     }
     const float* pc = pcld_cf + s * pcld_seq;
@@ -86,7 +94,7 @@ obj_energy_kernel(const float* __restrict__ pcld_cf, const float* __restrict__ r
       float xa[3], xb[3];
       transform(pc, n, i0, r, net.scale, xa);
       transform(pc, n, i1, r, net.scale, xb);
-      const float2 sdf = tc::mlp_rows(xa, xb, net, shape, resident != 0, wsm);
+      const float2 sdf = tc::mlp_rows<kBf16>(xa, xb, net, shape, resident != 0, wsm);
       if (t == 0) {
         if (i0 < n) energy += fabsf(sdf.x);
         if (i1 < n) energy += fabsf(sdf.y);
@@ -107,24 +115,53 @@ obj_energy_kernel(const float* __restrict__ pcld_cf, const float* __restrict__ r
   }
 }
 
-int g_smem_limit = 0;           // what a block of this kernel may opt into
-long long g_grid_smem = -1;     // persistent_blocks' memo
-int g_grid_blocks = 0;
+int g_smem_limit = 0;            // what a block of this kernel may opt into
+long long g_grid_smem[2] = {-1, -1};   // persistent_blocks' memo, by instantiation
+int g_grid_blocks[2] = {0, 0};
+
+template <bool kBf16>
+int launch(const void* pcld_cf, const void* rts, const void* packed, void* out, int p, int n,
+           int n_seq, long long pcld_seq, long long packed_seq, int n_freqs, int n_hidden,
+           const int* widths, void* stream) {
+  const tc::Shape shape = tc::make_shape(n_freqs, n_hidden, widths, kBf16);
+  if (shape.k0 == 0 || p < 1 || n < 1 || n_seq < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const long long red_bytes = 4LL * tc::kWarps;
+  const int resident = tc::resident_mode<kBf16>(shape, red_bytes, g_smem_limit);
+  if (resident < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const long long smem = red_bytes + 4LL * tc::weight_smem_floats<kBf16>(shape, resident != 0);
+  const long long items = static_cast<long long>(p) * n_seq;
+  const int blocks = tc::persistent_blocks(obj_energy_kernel<kBf16>, smem, g_grid_smem[kBf16],
+                                           g_grid_blocks[kBf16]);
+  if (blocks < 1) {
+    const cudaError_t err = cudaGetLastError();
+    return static_cast<int>(err != cudaSuccess ? err : cudaErrorUnknown);
+  }
+  const unsigned grid = static_cast<unsigned>(items < blocks ? items : blocks);
+  obj_energy_kernel<kBf16><<<grid, tc::kThreads, static_cast<size_t>(smem),
+                             static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(pcld_cf), static_cast<const float*>(rts),
+      static_cast<const float*>(packed), static_cast<float*>(out), p, n, items, pcld_seq,
+      packed_seq, shape, resident);
+  return static_cast<int>(cudaGetLastError());
+}
 
 }  // namespace
 
 extern "C" {
 
-// Opts the kernel into as much dynamic shared memory as a block may have on
-// the current device, once per process.
+// Opts both instantiations into as much dynamic shared memory as a block may
+// have on the current device, once per process.
 int hotrack_obj_energy_init() {
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaDeviceGetAttribute(&g_smem_limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaFuncSetAttribute(obj_energy_kernel<false>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, g_smem_limit);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaFuncSetAttribute(
-      obj_energy_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, g_smem_limit));
+      obj_energy_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, g_smem_limit));
 }
 
 // pcld_cf (n_seq, 3, n), rts (n_seq, p, 12), packed (PackedSDF.tc), out
@@ -134,25 +171,16 @@ int hotrack_obj_energy_init() {
 int hotrack_obj_energy(const void* pcld_cf, const void* rts, const void* packed, void* out,
                        int p, int n, int n_seq, long long pcld_seq, long long packed_seq,
                        int n_freqs, int n_hidden, const int* widths, void* stream) {
-  const tc::Shape shape = tc::make_shape(n_freqs, n_hidden, widths);
-  if (shape.k0 == 0 || p < 1 || n < 1 || n_seq < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const long long red_bytes = 4LL * tc::kWarps;
-  const int resident = tc::resident_mode(shape, red_bytes, g_smem_limit);
-  if (resident < 0) return static_cast<int>(cudaErrorInvalidValue);
-  const long long smem = red_bytes + 4LL * tc::weight_smem_floats(shape, resident != 0);
-  const long long items = static_cast<long long>(p) * n_seq;
-  const int blocks = tc::persistent_blocks(obj_energy_kernel, smem, g_grid_smem, g_grid_blocks);
-  if (blocks < 1) {
-    const cudaError_t err = cudaGetLastError();
-    return static_cast<int>(err != cudaSuccess ? err : cudaErrorUnknown);
-  }
-  const unsigned grid = static_cast<unsigned>(items < blocks ? items : blocks);
-  obj_energy_kernel<<<grid, tc::kThreads, static_cast<size_t>(smem),
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(pcld_cf), static_cast<const float*>(rts),
-      static_cast<const float*>(packed), static_cast<float*>(out), p, n, items, pcld_seq,
-      packed_seq, shape, resident);
-  return static_cast<int>(cudaGetLastError());
+  return launch<false>(pcld_cf, rts, packed, out, p, n, n_seq, pcld_seq, packed_seq, n_freqs,
+                       n_hidden, widths, stream);
+}
+
+// The same in bf16: packed is PackedSDF.tc16.
+int hotrack_obj_energy_bf16(const void* pcld_cf, const void* rts, const void* packed, void* out,
+                            int p, int n, int n_seq, long long pcld_seq, long long packed_seq,
+                            int n_freqs, int n_hidden, const int* widths, void* stream) {
+  return launch<true>(pcld_cf, rts, packed, out, p, n, n_seq, pcld_seq, packed_seq, n_freqs,
+                      n_hidden, widths, stream);
 }
 
 }  // extern "C"

@@ -33,6 +33,13 @@
 // never spans two sequences and a point's value depends on nothing but its
 // inputs and model, so two launches agree bitwise and sequence s of a batched
 // launch computes bitwise what an unbatched launch on s's inputs computes.
+//
+// bf16 (HOTRACK_SDF_BF16): a second instantiation of the same walk with the
+// bf16 MLP of sdf_mlp_wgmma.cuh (wgmma m64n128k16 bf16, PackedSDF.wg16, 18
+// tiles for 21-128-128-128-1, all pinned), entry hotrack_sdf_mlp_bf16. Bound:
+// one bf16 pass at 989 TFLOP/s, 0.151 ms for 2048 x 1024 points. It keeps the
+// properties above: two launches agree bitwise, and so do a batched launch's
+// sequence and the unbatched launch on its inputs.
 
 #include "sdf_mlp_wgmma.cuh"
 
@@ -68,24 +75,53 @@ struct Points {
   __device__ __forceinline__ void aside(long long, long long, int) const {}
 };
 
+template <bool kBf16>
 __global__ void __launch_bounds__(wg::kThreads, 1)
 sdf_mlp_kernel(const __grid_constant__ Points job, const float* __restrict__ packed,
                long long packed_seq, long long rounds, long long items, wg::Shape shape,
                int pinned, int ring) {
   extern __shared__ __align__(128) unsigned char smem[];
-  wg::walk(job, smem, packed, packed_seq, rounds, items, shape, pinned, ring);
+  wg::walk<kBf16>(job, smem, packed, packed_seq, rounds, items, shape, pinned, ring);
 }
 
 int g_smem_limit = 0;   // what a block of this kernel may opt into
-wg::Grid g_grid;
+wg::Grid g_grid[2];     // by instantiation
+
+template <bool kBf16>
+int launch(const void* pts, const void* packed, void* out, long long m, long long n_inner,
+           long long batch_stride, long long chan_stride, long long point_stride, int n_seq,
+           long long pts_seq, long long packed_seq, int n_freqs, int n_hidden, const int* widths,
+           void* stream) {
+  const wg::Shape shape = wg::make_shape(n_freqs, n_hidden, widths, kBf16);
+  if (shape.tiles == 0 || m < 1 || n_inner < 1 || n_seq < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long rounds = (m + wg::kRoundPoints - 1) / wg::kRoundPoints;
+  const long long items = rounds * n_seq;
+  int pinned = 0, ring = 0;
+  long long smem = 0;
+  unsigned grid = 0;
+  const cudaError_t err = wg::plan_launch(sdf_mlp_kernel<kBf16>, shape, g_smem_limit, items,
+                                          g_grid[kBf16], pinned, ring, smem, grid);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const Points job{static_cast<const float*>(pts), static_cast<float*>(out), m, n_inner,
+                   batch_stride, chan_stride, point_stride, pts_seq};
+  sdf_mlp_kernel<kBf16><<<grid, wg::kThreads, static_cast<size_t>(smem),
+                          static_cast<cudaStream_t>(stream)>>>(
+      job, static_cast<const float*>(packed), packed_seq, rounds, items, shape, pinned, ring);
+  return static_cast<int>(cudaGetLastError());
+}
 
 }  // namespace
 
 extern "C" {
 
-// Opts the kernel into as much dynamic shared memory as a block may have on
-// the current device, once per process.
-int hotrack_sdf_mlp_init() { return static_cast<int>(wg::opt_in(sdf_mlp_kernel, g_smem_limit)); }
+// Opts both instantiations into as much dynamic shared memory as a block may
+// have on the current device, once per process.
+int hotrack_sdf_mlp_init() {
+  const cudaError_t err = wg::opt_in(sdf_mlp_kernel<false>, g_smem_limit);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(wg::opt_in(sdf_mlp_kernel<true>, g_smem_limit));
+}
 
 // pts, packed (PackedSDF.wg), out: device pointers; m points a sequence,
 // n_seq sequences, out (n_seq, m); pts_seq, packed_seq: floats from one
@@ -95,24 +131,18 @@ int hotrack_sdf_mlp(const void* pts, const void* packed, void* out, long long m,
                     long long n_inner, long long batch_stride, long long chan_stride,
                     long long point_stride, int n_seq, long long pts_seq, long long packed_seq,
                     int n_freqs, int n_hidden, const int* widths, void* stream) {
-  const wg::Shape shape = wg::make_shape(n_freqs, n_hidden, widths);
-  if (shape.tiles == 0 || m < 1 || n_inner < 1 || n_seq < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const long long rounds = (m + wg::kRoundPoints - 1) / wg::kRoundPoints;
-  const long long items = rounds * n_seq;
-  int pinned = 0, ring = 0;
-  long long smem = 0;
-  unsigned grid = 0;
-  const cudaError_t err = wg::plan_launch(sdf_mlp_kernel, shape, g_smem_limit, items, g_grid,
-                                          pinned, ring, smem, grid);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const Points job{static_cast<const float*>(pts), static_cast<float*>(out), m, n_inner,
-                   batch_stride, chan_stride, point_stride, pts_seq};
-  sdf_mlp_kernel<<<grid, wg::kThreads, static_cast<size_t>(smem),
-                   static_cast<cudaStream_t>(stream)>>>(job, static_cast<const float*>(packed),
-                                                        packed_seq, rounds, items, shape, pinned,
-                                                        ring);
-  return static_cast<int>(cudaGetLastError());
+  return launch<false>(pts, packed, out, m, n_inner, batch_stride, chan_stride, point_stride,
+                       n_seq, pts_seq, packed_seq, n_freqs, n_hidden, widths, stream);
+}
+
+// The same in bf16: packed is PackedSDF.wg16.
+int hotrack_sdf_mlp_bf16(const void* pts, const void* packed, void* out, long long m,
+                         long long n_inner, long long batch_stride, long long chan_stride,
+                         long long point_stride, int n_seq, long long pts_seq,
+                         long long packed_seq, int n_freqs, int n_hidden, const int* widths,
+                         void* stream) {
+  return launch<true>(pts, packed, out, m, n_inner, batch_stride, chan_stride, point_stride,
+                      n_seq, pts_seq, packed_seq, n_freqs, n_hidden, widths, stream);
 }
 
 }  // extern "C"

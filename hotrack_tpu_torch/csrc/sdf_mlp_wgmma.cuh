@@ -1,9 +1,31 @@
 // The distilled-SDF MLP on Hopper's warpgroup tensor-core instruction
-// (wgmma) at float32-class precision (3xTF32), and the persistent walk of
-// 128-point rounds around it, for sdf_mlp.cu (#3, #3b) and hand_energy.cu
-// (#6): the two kernels differ only in how a point is read and how a round is
-// stored (`walk` below). obj_energy.cu and hand_energy_skin.cu (#4, #7) run
-// the mma.sync core of sdf_mlp_tc.cuh.
+// (wgmma), at float32-class precision (3xTF32) or in bf16, and the persistent
+// walk of 128-point rounds around it, for sdf_mlp.cu (#3, #3b) and
+// hand_energy.cu (#6): the two kernels differ only in how a point is read and
+// how a round is stored (`walk` below), and each instantiates the walk for
+// both precisions (its template parameter kBf16). obj_energy.cu and
+// hand_energy_skin.cu (#4, #7) run the mma.sync core of sdf_mlp_tc.cuh.
+//
+// bf16 (kBf16, HOTRACK_SDF_BF16), the rule of sdf_mlp_tc.cuh: activations and
+// weights rounded to bf16 to nearest, ties to even, before every product,
+// float32 sums, bias, ReLU, output layer (float32 FMA on bf16-rounded values)
+// and clamp in float32. Instruction: wgmma.mma_async.m64n128k16.f32.bf16.bf16,
+// A from registers (4 words of two bf16 a thread: rows g and g + 8, k-slots
+// 2 t, 2 t + 1, 2 t + 8, 2 t + 9), B from a tile of shared memory (K-major, no
+// transpose); one wgmma a k-step of 16 into one accumulator, where 3xTF32
+// takes three a k-step of 8 into two. The C fragments of n-tiles 2 k and
+// 2 k + 1, bias added and ReLU'd, are k-step k's A fragment after
+// cvt.rn.bf16x2.f32, with the units in their natural order, so the later
+// layers' rows are in order. Layer 0 (K0 = 3 + 6F) pairs each angle's sine and
+// cosine in one register (_wg16_rows, ops/sdf_mlp.py): one sincosf a lane a
+// row an angle, (3F + 10) / 8 k-steps (2 for 21-128-128-128-1: K0 padded to
+// 32). A bf16 tile of a k-step of 16 and 128 units is 4096 bytes, as a TF32
+// tile of a k-step of 8: the descriptor, plan() and the ring are the same, and
+// 21-128-128-128-1 is 2 + 8 + 8 = 18 tiles (73,728 bytes), all pinned; depth
+// 8 at width 128 is 58 tiles, of which the ring streams 10. Bound: one bf16
+// pass at 989 TFLOP/s, 0.151 ms for 2048 x 1024 points; the CUDA-core work
+// (features, bias, ReLU, conversion of 384 activations a point) is no longer
+// small beside it.
 //
 // Computes what sdf_mlp_tc.cuh computes: per point, Fourier features
 // s*x | sin(f*s*x) | cos(f*s*x) (axis-major, frequency-minor; sincosf of the
@@ -101,6 +123,10 @@
 //   k-slots t and t + 4 hold the sine and cosine of angle 4 ks + t, then the 3
 //   coordinates, then zero rows: _wg_rows), then 16 k-steps a later layer
 //   (128 rows in _tc_rows' order); a k-step's big tile, then its small tile
+// and in bf16 (PackedSDF.wg16, _pack_wg16): the same header, biases and
+// output layer (its weights rounded to bf16); then one tile of bf16 weights a
+// k-step of 16 (core matrices of 8 units x 8 k-slots): layer 0's (3F + 10) / 8
+// (_wg16_rows), then 8 a later layer (128 rows in order).
 
 #pragma once
 
@@ -131,18 +157,26 @@ constexpr uint32_t kSbo = 256;                    // from units 8 nb to 8 nb + 8
 struct Shape {
   int n_freqs;
   int n_hidden;
-  int ks0;      // layer 0's k-steps: 3F angles and 3 coordinates, 4 a k-step
-  int tiles;    // 2 (ks0 + 16 (n_hidden - 1))
+  int ks0;          // layer 0's k-steps: 3F angles and 3 coordinates, 4 a k-step (8 in bf16)
+  int tiles;        // 2 (ks0 + 16 (n_hidden - 1)); in bf16 ks0 + 8 (n_hidden - 1)
+  int first_tiles;  // layer 0's: 2 ks0; in bf16 ks0
 };
 
 // The shape of a model the launcher was given, or tiles = 0 when the kernel
 // does not take it: 1 to 8 hidden layers, no layer wider than 128.
-inline Shape make_shape(int n_freqs, int n_hidden, const int* widths) {
-  Shape s{n_freqs, n_hidden, 0, 0};
+inline Shape make_shape(int n_freqs, int n_hidden, const int* widths, bool bf16 = false) {
+  Shape s{n_freqs, n_hidden, 0, 0, 0};
   const tc::Shape t = tc::make_shape(n_freqs, n_hidden, widths);
   if (t.k0 == 0) return s;
-  s.ks0 = (3 * n_freqs + 6) / 4;
-  s.tiles = 2 * (s.ks0 + kMaxKSteps * (n_hidden - 1));
+  if (bf16) {
+    s.ks0 = (3 * n_freqs + 10) / 8;
+    s.first_tiles = s.ks0;
+    s.tiles = s.ks0 + kMaxKSteps / 2 * (n_hidden - 1);
+  } else {
+    s.ks0 = (3 * n_freqs + 6) / 4;
+    s.first_tiles = 2 * s.ks0;
+    s.tiles = 2 * (s.ks0 + kMaxKSteps * (n_hidden - 1));
+  }
   return s;
 }
 
@@ -166,7 +200,7 @@ inline void plan(const Shape& s, long long limit, int& pinned, int& ring) {
   ring = kRing;
   const long long fit = (limit - static_cast<long long>(kRing) * kTileBytes -
                          barrier_bytes(kRing)) / kTileBytes;
-  pinned = fit >= 2 * s.ks0 ? static_cast<int>(fit) : -1;
+  pinned = fit >= s.first_tiles ? static_cast<int>(fit) : -1;
 }
 inline long long smem_bytes(int pinned, int ring) {
   return static_cast<long long>(pinned + ring) * kTileBytes + barrier_bytes(ring);
@@ -449,6 +483,142 @@ __device__ __forceinline__ void bias_relu(float (&act)[64], const float (&dm)[64
   }
 }
 
+// ---- bf16 ----
+
+// d (64 x 128 float32 sums) = A (64 x 16 bf16, 4 words a thread) * B (the
+// 16 x 128 bf16 tile that desc describes, K-major) + (scale_d ? d : 0).
+// Asynchronous, as wgmma_tf32.
+__device__ __forceinline__ void wgmma_bf16(float (&d)[64], const uint32_t (&a)[4], uint64_t desc,
+                                           int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+// Layer 0's bf16 A fragment of k-step ks, in the row order of ops/sdf_mlp.py
+// _wg16_rows: lane (g, t) takes angle 8 ks + t as k-slots 2 t (sine) and
+// 2 t + 1 (cosine) and angle 8 ks + 4 + t as k-slots 2 t + 8 and 2 t + 9, of
+// rows g (xa) and g + 8 (xb), one sincosf each; past the 3F angles, the three
+// coordinates as the first k-slot of a pair, and zeros.
+__device__ __forceinline__ void first_fragments16(uint32_t (&a)[4], const float (&xa)[3],
+                                                  const float (&xb)[3],
+                                                  const float* __restrict__ freqs,
+                                                  const Shape& s, int ks) {
+  const int angles = 3 * s.n_freqs;
+  float v[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};   // [pair][row][sin, cos]
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int j = 8 * ks + 4 * h + (threadIdx.x & 3);
+    if (j < angles) {
+      const int axis = j / s.n_freqs;
+      const float f = __ldg(freqs + (j - axis * s.n_freqs));
+      sincosf(__fmul_rn(tc::pick3(xa, axis), f), &v[4 * h], &v[4 * h + 1]);
+      sincosf(__fmul_rn(tc::pick3(xb, axis), f), &v[4 * h + 2], &v[4 * h + 3]);
+    } else if (j < angles + 3) {
+      v[4 * h] = tc::pick3(xa, j - angles);
+      v[4 * h + 2] = tc::pick3(xb, j - angles);
+    }
+  }
+  __syncwarp();   // the features branch by lane
+#pragma unroll
+  for (int i = 0; i < 4; ++i) a[i] = tc::pack_bf16(v[2 * i], v[2 * i + 1]);
+}
+
+// Layer 0's bf16 product of k-step ks on fragment a (its tile is pinned),
+// the fragment of k-step ks + 1 computed into next meanwhile.
+__device__ __forceinline__ void first_step16(float (&d)[64], uint32_t (&a)[1][4],
+                                             uint32_t (&next)[1][4], const float (&xa)[3],
+                                             const float (&xb)[3],
+                                             const float* __restrict__ freqs, const Shape& s,
+                                             const Tiles& w, int ks) {
+  fence_a(a);
+  fence_acc(d);
+  wgmma_fence();
+  wgmma_bf16(d, a[0], tile_desc(w.pinned_base + static_cast<uint32_t>(ks) * kTileBytes), ks > 0);
+  wgmma_commit();
+  first_fragments16(next[0], xa, xb, freqs, s, ks + 1);
+  wgmma_wait<0>();
+  fence_acc(d);
+  fence_a(a);   // the product reads a until here
+}
+
+// Layer 0 in bf16 for the warpgroup, one k-step at a time (two fragments,
+// taken in turns); d is overwritten.
+__device__ __forceinline__ void first_layer16(float (&d)[64], const float (&xa)[3],
+                                              const float (&xb)[3],
+                                              const float* __restrict__ freqs, const Shape& s,
+                                              const Tiles& w) {
+  uint32_t a[1][4], n[1][4];
+  first_fragments16(a[0], xa, xb, freqs, s, 0);
+  for (int ks = 0; ks < s.ks0; ks += 2) {
+    first_step16(d, a, n, xa, xb, freqs, s, w, ks);
+    if (ks + 1 == s.ks0) break;
+    first_step16(d, n, a, xa, xb, freqs, s, w, ks + 1);
+  }
+}
+
+// A layer's bf16 A fragments from its sums: ReLU(d + bias) of n-tiles 2 ks
+// and 2 ks + 1 is k-step ks's fragment (units 16 ks + 2 t, + 1 and
+// 16 ks + 8 + 2 t, + 1 of rows g and g + 8).
+__device__ __forceinline__ void bias_relu16(uint32_t (&a)[kMaxKSteps / 2][4],
+                                            const float (&d)[64],
+                                            const float* __restrict__ bias, int t) {
+#pragma unroll
+  for (int j = 0; j < kMaxKSteps; ++j) {
+    const float2 b = __ldg(reinterpret_cast<const float2*>(bias + 8 * j + 2 * t));
+    a[j / 2][2 * (j & 1)] = tc::pack_bf16(fmaxf(d[4 * j] + b.x, 0.0f),
+                                          fmaxf(d[4 * j + 1] + b.y, 0.0f));
+    a[j / 2][2 * (j & 1) + 1] = tc::pack_bf16(fmaxf(d[4 * j + 2] + b.x, 0.0f),
+                                              fmaxf(d[4 * j + 3] + b.y, 0.0f));
+  }
+}
+
+// A later layer's bf16 products for the warpgroup on the fragments a of the
+// layer before, tile first_tile + ks for k-step ks, a group a k-step; once
+// the next is issued, the one before is done and its ring slot goes back. d
+// is overwritten.
+__device__ __forceinline__ void hidden_layer16(float (&d)[64],
+                                               uint32_t (&a)[kMaxKSteps / 2][4],
+                                               int first_tile, Tiles& w) {
+  int held = -1;   // the previous k-step's ring slot
+#pragma unroll
+  for (int ks = 0; ks < kMaxKSteps / 2; ++ks) {
+    int slot;
+    const uint64_t desc = tile_desc(acquire(w, first_tile + ks, slot));
+    // the wait above branches by thread: the product after it needs its own
+    // fence, or the compiler inserts one and serialises the products
+    fence_a(a);
+    fence_acc(d);
+    wgmma_fence();
+    wgmma_bf16(d, a[ks], desc, ks > 0);
+    wgmma_commit();
+    wgmma_wait<1>();
+    release(w, held);
+    held = slot;
+  }
+  wgmma_wait<0>();
+  fence_acc(d);
+  fence_a(a);
+  release(w, held);
+}
+
 // The model's parts in device memory.
 struct Net {
   float scale, clamp;
@@ -500,6 +670,39 @@ __device__ __forceinline__ float2 mlp_rows(const float (&xa)[3], const float (&x
                      fminf(fmaxf(p1 + b, -net.clamp), net.clamp));
 }
 
+// mlp_rows in bf16: the same rows, one accumulator, the output layer in
+// float32 FMA on bf16-rounded activations and weights (the packed output
+// weights are rounded already).
+__device__ __forceinline__ float2 mlp_rows16(const float (&xa)[3], const float (&xb)[3],
+                                             const Net& net, const Shape& s, Tiles& w) {
+  const int t = threadIdx.x & 3;
+  float d[64];
+  uint32_t a[kMaxKSteps / 2][4];
+  first_layer16(d, xa, xb, net.freqs, s, w);
+  for (int l = 1; l < s.n_hidden; ++l) {
+    bias_relu16(a, d, net.bias + kUnits * (l - 1), t);
+    hidden_layer16(d, a, s.first_tiles + kMaxKSteps / 2 * (l - 1), w);
+  }
+  const float* bias = net.bias + kUnits * (s.n_hidden - 1);
+  float p0 = 0.0f, p1 = 0.0f;
+#pragma unroll
+  for (int j = 0; j < kMaxKSteps; ++j) {
+    const float2 b = __ldg(reinterpret_cast<const float2*>(bias + 8 * j + 2 * t));
+    const float2 wo = __ldg(reinterpret_cast<const float2*>(net.wout + 8 * j + 2 * t));
+    p0 = fmaf(tc::bf16_round(fmaxf(d[4 * j] + b.x, 0.0f)), wo.x, p0);
+    p0 = fmaf(tc::bf16_round(fmaxf(d[4 * j + 1] + b.y, 0.0f)), wo.y, p0);
+    p1 = fmaf(tc::bf16_round(fmaxf(d[4 * j + 2] + b.x, 0.0f)), wo.x, p1);
+    p1 = fmaf(tc::bf16_round(fmaxf(d[4 * j + 3] + b.y, 0.0f)), wo.y, p1);
+  }
+  p0 += __shfl_xor_sync(0xffffffffu, p0, 1);
+  p1 += __shfl_xor_sync(0xffffffffu, p1, 1);
+  p0 += __shfl_xor_sync(0xffffffffu, p0, 2);
+  p1 += __shfl_xor_sync(0xffffffffu, p1, 2);
+  const float b = __ldg(net.wout + kUnits);
+  return make_float2(fminf(fmaxf(p0 + b, -net.clamp), net.clamp),
+                     fminf(fmaxf(p1 + b, -net.clamp), net.clamp));
+}
+
 // The persistent walk of a kernel on this core, for one block of kThreads
 // threads with `smem` holding smem_bytes(pinned, ring) bytes: items = rounds x
 // sequences, item i is round i % rounds of sequence i / rounds, whose model
@@ -514,8 +717,9 @@ __device__ __forceinline__ float2 mlp_rows(const float (&xa)[3], const float (&x
 //                                     row % 16 of the warp that holds it;
 //   aside(s, round, t)                warps 9-11's work for the item, thread
 //                                     t of kAsideThreads, beside the copies.
-// A point's value depends on its raw values and its model only.
-template <class Job>
+// A point's value depends on its raw values and its model only. kBf16: the
+// MLP in bf16 (mlp_rows16, the wg16 layout), else in 3xTF32.
+template <bool kBf16, class Job>
 __device__ __forceinline__ void walk(const Job& job, unsigned char* smem,
                                      const float* __restrict__ packed, long long packed_seq,
                                      long long rounds, long long items, const Shape& shape,
@@ -601,7 +805,9 @@ __device__ __forceinline__ void walk(const Job& job, unsigned char* smem,
     job.place(s, na, net.scale, xa);
     job.place(s, nb, net.scale, xb);
     if (item + gridDim.x < items) fetch(item + gridDim.x);
-    const float2 sdf = mlp_rows(xa, xb, net, shape, w);
+    float2 sdf;
+    if constexpr (kBf16) sdf = mlp_rows16(xa, xb, net, shape, w);
+    else sdf = mlp_rows(xa, xb, net, shape, w);
     // lane l < 16 stores the warp's row l, which lanes 4 (l % 8) .. + 3 hold
     const long long base = (item - s * rounds) * kRoundPoints + warp * 16;
     const float lo = __shfl_sync(0xffffffffu, sdf.x, 4 * (lane & 7));

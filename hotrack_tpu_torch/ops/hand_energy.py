@@ -33,7 +33,10 @@ A CUDA tensor launches the kernel or raises; a CPU tensor takes the plain
 version, which is also the kernel's oracle. Bound on the card: operations,
 the MLP's 71,168 operations a vertex at the shipped net as three TF32
 passes at 495 TFLOP/s, and 27 float32 operations for the transform and the
-projection (1.720 ms at 5120 x 778 vertices).
+projection (1.720 ms at 5120 x 778 vertices). With `compute_dtype=
+torch.bfloat16` (HOTRACK_SDF_BF16) the sdf is #3's bf16 MLP (ops/sdf_mlp.py)
+on the same object-frame points, one bf16 pass at 989 TFLOP/s (0.288 ms), and
+`hit` is unchanged.
 
 With a model, mask and object pose a sequence (several sequences tracked in
 one loop), `fused_hand_energy_batched` follows the JAX package's `vmap` rule
@@ -48,8 +51,8 @@ import torch
 
 from . import kernels
 from .mask_lookup import (_packed_mask_lookup_torch, packed_mask_lookup_batched)
-from .sdf_mlp import (PackedSDF, _check_batch, _sdf_mlp_torch, fused_sdf_mlp_cf_batched,
-                      pack_distilled, raw_sdf_mlp)
+from .sdf_mlp import (PackedSDF, _check_batch, _sdf_mlp_torch, check_compute_dtype,
+                      fused_sdf_mlp_cf_batched, pack_distilled, raw_sdf_mlp)
 
 
 def hand_frame(obj_rotation: torch.Tensor, obj_translation: torch.Tensor,
@@ -99,32 +102,38 @@ def object_frame(points: torch.Tensor, frame: torch.Tensor) -> torch.Tensor:
 
 @torch.no_grad()
 def _hand_energy_torch(model, packed_mask: torch.Tensor, frame: torch.Tensor,
-                       points: torch.Tensor, hw, mlp=raw_sdf_mlp) -> tuple:
+                       points: torch.Tensor, hw, mlp=raw_sdf_mlp, compute_dtype=None) -> tuple:
     """Plain version: points (..., N, 3) -> (sdf (..., N), hit (..., N)).
-    `mlp` as for `_sdf_mlp_torch`."""
-    sdf = _sdf_mlp_torch(model, object_frame(points, frame), mlp=mlp)
+    `mlp` and `compute_dtype` as for `_sdf_mlp_torch`."""
+    sdf = _sdf_mlp_torch(model, object_frame(points, frame), mlp=mlp,
+                         compute_dtype=compute_dtype)
     iy, ix = pixel_coords(points, frame, hw)
     return sdf, _packed_mask_lookup_torch(packed_mask, iy, ix)
 
 
 def fused_hand_energy(model, packed_mask: torch.Tensor, frame: torch.Tensor,
                       points: torch.Tensor, hw,
-                      packed: PackedSDF | None = None) -> tuple:
+                      packed: PackedSDF | None = None, compute_dtype=None) -> tuple:
     """Camera-frame vertices (..., N, 3) float32 -> (sdf (..., N), background
     hit (..., N) in {0, 1}). model: sdf.distill.DistilledSDF; packed_mask:
-    `pack_mask` of the (H, W) = hw background mask; frame: `hand_frame`."""
+    `pack_mask` of the (H, W) = hw background mask; frame: `hand_frame`;
+    compute_dtype None or torch.bfloat16 (the SDF's precision, ops/sdf_mlp.py)."""
+    check_compute_dtype(compute_dtype)
     if points.dim() < 2 or points.shape[-1] != 3:
         raise ValueError(f"points must be (..., N, 3), got {tuple(points.shape)}")
     if points.is_cuda:
         packed = packed if packed is not None else pack_distilled(model)
-        return kernels.hand_energy_cuda(points.contiguous(), frame, packed_mask, hw, packed)
+        return kernels.hand_energy_cuda(points.contiguous(), frame, packed_mask, hw, packed,
+                                        compute_dtype=compute_dtype)
     if points.device.type != "cpu":
         raise ValueError(f"no hand energy for device {points.device}")
-    return _hand_energy_torch(model, packed_mask, frame, points, hw)
+    return _hand_energy_torch(model, packed_mask, frame, points, hw,
+                              compute_dtype=compute_dtype)
 
 
 def fused_hand_energy_batched(models, packed_masks: torch.Tensor, frames: torch.Tensor,
-                              points: torch.Tensor, hw, packed: PackedSDF | None = None) -> tuple:
+                              points: torch.Tensor, hw, packed: PackedSDF | None = None,
+                              compute_dtype=None) -> tuple:
     """A model, mask and frame a sequence: camera-frame vertices (S, ..., N, 3),
     S models, packed masks (S, H, ceil(W / 8)) of masks padded to hw, frames
     (S, 16) -> (sdf (S, ..., N), hit (S, ..., N)). The object-frame transform,
@@ -134,5 +143,5 @@ def fused_hand_energy_batched(models, packed_masks: torch.Tensor, frames: torch.
     _check_batch(models, points)
     if points.dim() < 3 or points.shape[-1] != 3:
         raise ValueError(f"points must be (S, ..., N, 3), got {tuple(points.shape)}")
-    sdf = fused_sdf_mlp_cf_batched(models, object_frame(points, frames), packed)
+    sdf = fused_sdf_mlp_cf_batched(models, object_frame(points, frames), packed, compute_dtype)
     return sdf, packed_mask_lookup_batched(packed_masks, *pixel_coords(points, frames, hw), hw)

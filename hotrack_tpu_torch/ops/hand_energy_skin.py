@@ -34,7 +34,9 @@ Bound on the card: operations (the MLP's, three tensor-core passes in
 3xTF32, plus 1,239 float32 operations a vertex of skinning, transform and
 projection). The kernel's MLP runs on the tensor cores in 3xTF32
 (csrc/sdf_mlp_tc.cuh, `PackedSDF.tc`), within the plain version's bounds;
-`ops/tf32.py` emulates it.
+`ops/tf32.py` emulates it. With `compute_dtype=torch.bfloat16`
+(HOTRACK_SDF_BF16) it is ops/sdf_mlp.py's bf16 MLP (`PackedSDF.tc16`, one bf16
+pass), and the skinning, transform and hit are unchanged.
 """
 
 from __future__ import annotations
@@ -46,7 +48,8 @@ import torch
 from ..mano.model import ManoModel
 from . import kernels
 from .hand_energy import _hand_energy_torch
-from .sdf_mlp import PackedSDF, _check_batch, pack_distilled, pack_distilled_batched, raw_sdf_mlp
+from .sdf_mlp import (PackedSDF, _check_batch, check_compute_dtype, pack_distilled,
+                      pack_distilled_batched, raw_sdf_mlp)
 
 
 class SkinConsts(NamedTuple):
@@ -85,41 +88,45 @@ def skin_reference(pose_map: torch.Tensor, rt_flat: torch.Tensor, offset: torch.
 def _hand_energy_skin_torch(model, packed_mask: torch.Tensor, frame: torch.Tensor,
                             pose_map: torch.Tensor, rt_flat: torch.Tensor,
                             offset: torch.Tensor, consts: SkinConsts, hw,
-                            mlp=raw_sdf_mlp) -> tuple:
+                            mlp=raw_sdf_mlp, compute_dtype=None) -> tuple:
     """Plain version: `skin_reference`, then the plain per-vertex energy
-    (`mlp` as for `_sdf_mlp_torch`)."""
+    (`mlp` and `compute_dtype` as for `_sdf_mlp_torch`)."""
     verts = skin_reference(pose_map, rt_flat, offset, consts)
-    return _hand_energy_torch(model, packed_mask, frame, verts, hw, mlp)
+    return _hand_energy_torch(model, packed_mask, frame, verts, hw, mlp, compute_dtype)
 
 
 def fused_hand_energy_skin(model, packed_mask: torch.Tensor, frame: torch.Tensor,
                            pose_map: torch.Tensor, rt_flat: torch.Tensor,
                            offset: torch.Tensor, consts: SkinConsts, hw,
-                           packed: PackedSDF | None = None) -> tuple:
+                           packed: PackedSDF | None = None, compute_dtype=None) -> tuple:
     """Per-candidate (pose_map (B, 135), rt_flat (B * 12, 16), offset (B, 3))
     from `mano_skin_inputs` and the per-call `skin_consts` -> (sdf (B, N),
     hit (B, N)). frame: ops/hand_energy.hand_frame; packed_mask: `pack_mask`
-    of the (H, W) = hw background mask."""
+    of the (H, W) = hw background mask; compute_dtype None or torch.bfloat16
+    (the SDF's precision, ops/sdf_mlp.py)."""
+    check_compute_dtype(compute_dtype)
     if pose_map.is_cuda:
         packed = packed if packed is not None else pack_distilled(model)
         return kernels.hand_energy_skin_cuda(
             pose_map.contiguous(), rt_flat.contiguous(), offset.contiguous(),
-            *consts, frame, packed_mask, hw, packed)
+            *consts, frame, packed_mask, hw, packed, compute_dtype=compute_dtype)
     if pose_map.device.type != "cpu":
         raise ValueError(f"no fused hand energy for device {pose_map.device}")
     return _hand_energy_skin_torch(model, packed_mask, frame, pose_map, rt_flat, offset,
-                                   consts, hw)
+                                   consts, hw, compute_dtype=compute_dtype)
 
 
 @torch.no_grad()
 def _hand_energy_skin_batched_torch(models, packed_masks: torch.Tensor, frames: torch.Tensor,
                                     pose_map: torch.Tensor, rt_flat: torch.Tensor,
-                                    offset: torch.Tensor, consts: SkinConsts, hw) -> tuple:
+                                    offset: torch.Tensor, consts: SkinConsts, hw,
+                                    compute_dtype=None) -> tuple:
     """Plain version of the batched kernel: the unbatched plain version on
     each sequence's candidates, shape, frame, mask and model."""
     out = [_hand_energy_skin_torch(models[s], packed_masks[s], frames[s], pose_map[s],
                                    rt_flat[s], offset[s],
-                                   consts._replace(vshaped_cf=consts.vshaped_cf[s]), hw)
+                                   consts._replace(vshaped_cf=consts.vshaped_cf[s]), hw,
+                                   compute_dtype=compute_dtype)
            for s in range(len(models))]
     return torch.stack([o[0] for o in out]), torch.stack([o[1] for o in out])
 
@@ -127,7 +134,8 @@ def _hand_energy_skin_batched_torch(models, packed_masks: torch.Tensor, frames: 
 def fused_hand_energy_skin_batched(models, packed_masks: torch.Tensor, frames: torch.Tensor,
                                    pose_map: torch.Tensor, rt_flat: torch.Tensor,
                                    offset: torch.Tensor, consts: SkinConsts, hw,
-                                   packed: PackedSDF | None = None) -> tuple:
+                                   packed: PackedSDF | None = None,
+                                   compute_dtype=None) -> tuple:
     """S sequences at once: per candidate pose_map (S, P, 135), rt_flat
     (S, P * 12, 16), offset (S, P, 3); `skin_consts(..., batched=True)` of
     the S shapes; frames (S, 16), packed masks (S, H, ceil(W / 8)) of masks
@@ -136,6 +144,7 @@ def fused_hand_energy_skin_batched(models, packed_masks: torch.Tensor, frames: t
     `pack_distilled_batched`), sequence s bitwise what the unbatched kernel
     gives on its inputs; on the CPU the plain version."""
     _check_batch(models, pose_map)
+    check_compute_dtype(compute_dtype)
     if pose_map.dim() != 3 or consts.vshaped_cf.dim() != 3:
         raise ValueError(f"pose_map must be (S, P, 135) beside vshaped_cf (S, 3, N), got "
                          f"{tuple(pose_map.shape)} and {tuple(consts.vshaped_cf.shape)}")
@@ -143,8 +152,8 @@ def fused_hand_energy_skin_batched(models, packed_masks: torch.Tensor, frames: t
         packed = packed if packed is not None else pack_distilled_batched(models)
         return kernels.hand_energy_skin_batched_cuda(
             pose_map.contiguous(), rt_flat.contiguous(), offset.contiguous(), *consts, frames,
-            packed_masks, hw, packed)
+            packed_masks, hw, packed, compute_dtype=compute_dtype)
     if pose_map.device.type != "cpu":
         raise ValueError(f"no fused hand energy for device {pose_map.device}")
     return _hand_energy_skin_batched_torch(models, packed_masks, frames, pose_map, rt_flat,
-                                           offset, consts, hw)
+                                           offset, consts, hw, compute_dtype)

@@ -22,6 +22,12 @@ launch covers every sequence, sequence s reads its own per-sequence inputs,
 and an input given without the axis is shared (a stride of 0). The unbatched
 wrapper launches the same kernel body with one sequence, so sequence s of a
 batched launch is bitwise an unbatched launch on s's inputs.
+
+The four kernels that run the distilled-SDF MLP (#3, #4, #6, #7, and the
+batched #3b, #4b, #7b) each have two instantiations of one body: float32-class
+(3xTF32) and bf16 (`compute_dtype=torch.bfloat16`, ops/sdf_mlp.py). A wrapper
+given bf16 launches the bf16 one and counts it apart (`<name>_bf16` in
+`launch_counts`); it never takes the other precision.
 """
 
 from __future__ import annotations
@@ -50,6 +56,10 @@ launch_counts = {"fps": 0, "gather_rows": 0, "scatter_rows_add": 0,
                  "hand_energy": 0, "hand_energy_skin": 0, "sdf_mlp_batched": 0,
                  "obj_sdf_energy_batched": 0, "packed_mask_lookup_batched": 0,
                  "hand_energy_skin_batched": 0}
+# the SDF kernels' bf16 instantiations, counted apart
+SDF_KERNELS = ("sdf_mlp", "sdf_mlp_batched", "obj_sdf_energy", "obj_sdf_energy_batched",
+               "hand_energy", "hand_energy_skin", "hand_energy_skin_batched")
+launch_counts.update({f"{name}_bf16": 0 for name in SDF_KERNELS})
 SOURCES = ("fps", "gather_rows", "sdf_mlp", "obj_energy", "mask_lookup",
            "hand_energy", "hand_energy_skin")  # csrc/<name>.cu
 _INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
@@ -200,19 +210,20 @@ def _bind_gather_rows(lib: ctypes.CDLL) -> None:
 
 def _bind_sdf_mlp(lib: ctypes.CDLL) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.hotrack_sdf_mlp.argtypes = [p, p, p, ll, ll, ll, ll, ll, i, ll, ll, i, i,
-                                    ctypes.POINTER(ctypes.c_int), p]
-    lib.hotrack_sdf_mlp.restype = i
+    for fn in (lib.hotrack_sdf_mlp, lib.hotrack_sdf_mlp_bf16):   # one signature
+        fn.argtypes = [p, p, p, ll, ll, ll, ll, ll, i, ll, ll, i, i,
+                       ctypes.POINTER(ctypes.c_int), p]
+        fn.restype = i
     # hotrack_sdf_mlp_init: as much dynamic shared memory as a block may have,
-    # opted in for the current device
+    # opted in for the current device (both instantiations)
     lib.hotrack_sdf_mlp_init.restype = i
 
 
 def _bind_obj_energy(lib: ctypes.CDLL) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.hotrack_obj_energy.argtypes = [p, p, p, p, i, i, i, ll, ll, i, i,
-                                       ctypes.POINTER(ctypes.c_int), p]
-    lib.hotrack_obj_energy.restype = i
+    for fn in (lib.hotrack_obj_energy, lib.hotrack_obj_energy_bf16):
+        fn.argtypes = [p, p, p, p, i, i, i, ll, ll, i, i, ctypes.POINTER(ctypes.c_int), p]
+        fn.restype = i
     lib.hotrack_obj_energy_init.restype = i
 
 
@@ -224,9 +235,10 @@ def _bind_mask_lookup(lib: ctypes.CDLL) -> None:
 
 def _bind_hand_energy(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.hotrack_hand_energy.argtypes = [p, p, p, p, p, p, ctypes.c_longlong, i, i, i, i,
-                                        ctypes.POINTER(ctypes.c_int), p]
-    lib.hotrack_hand_energy.restype = i
+    for fn in (lib.hotrack_hand_energy, lib.hotrack_hand_energy_bf16):
+        fn.argtypes = [p, p, p, p, p, p, ctypes.c_longlong, i, i, i, i,
+                       ctypes.POINTER(ctypes.c_int), p]
+        fn.restype = i
     # hotrack_hand_energy_init: as much dynamic shared memory as a block may
     # have (csrc/sdf_mlp_wgmma.cuh plan), opted in for the current device
     lib.hotrack_hand_energy_init.restype = i
@@ -234,9 +246,10 @@ def _bind_hand_energy(lib: ctypes.CDLL) -> None:
 
 def _bind_hand_energy_skin(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.hotrack_hand_energy_skin.argtypes = [p] * 11 + [i] * 6 + [
-        ctypes.POINTER(ctypes.c_longlong), i, i, ctypes.POINTER(ctypes.c_int), p]
-    lib.hotrack_hand_energy_skin.restype = i
+    for fn in (lib.hotrack_hand_energy_skin, lib.hotrack_hand_energy_skin_bf16):
+        fn.argtypes = [p] * 11 + [i] * 6 + [
+            ctypes.POINTER(ctypes.c_longlong), i, i, ctypes.POINTER(ctypes.c_int), p]
+        fn.restype = i
     lib.hotrack_hand_energy_skin_init.restype = i
 
 
@@ -391,12 +404,25 @@ def _seq_stride(name: str, what: str, t: torch.Tensor, shape, n_seq: int | None)
                      + f", got {tuple(t.shape)}")
 
 
+def _precision(name: str, compute_dtype) -> str:
+    """"" for float32-class (compute_dtype None), "_bf16" for torch.bfloat16:
+    the suffix of the instantiation's C entry point and launch counter; raises
+    on any other compute_dtype."""
+    if compute_dtype is None:
+        return ""
+    if compute_dtype == torch.bfloat16:
+        return "_bf16"
+    raise ValueError(f"{name} computes in float32 (compute_dtype None) or torch.bfloat16, "
+                     f"got {compute_dtype!r}")
+
+
 def _mlp_args(name: str, packed, like: torch.Tensor, n_seq: int | None, layout: str):
     """The packed model's arguments for a launch (ops/sdf_mlp.PackedSDF): its
-    buffer in `layout` (`tc`: the mma.sync kernels' of csrc/sdf_mlp_tc.cuh;
-    `wg`: the wgmma kernels' of csrc/sdf_mlp_wgmma.cuh), frequency count,
-    hidden depth, widths and the floats from one sequence's model to the next
-    (a stack (S, n) of `pack_distilled_batched`, or 0)."""
+    buffer in `layout` (`tc`, `tc16`: the mma.sync kernels' of
+    csrc/sdf_mlp_tc.cuh; `wg`, `wg16`: the wgmma kernels' of
+    csrc/sdf_mlp_wgmma.cuh), frequency count, hidden depth, widths and the
+    floats from one sequence's model to the next (a stack (S, n) of
+    `pack_distilled_batched`, or 0)."""
     buf = getattr(packed, layout)
     _check_f32(name, "the packed model", buf)
     if buf.device != like.device:
@@ -408,7 +434,8 @@ def _mlp_args(name: str, packed, like: torch.Tensor, n_seq: int | None, layout: 
 
 
 def _sdf_mlp(name: str, counter: str, points: torch.Tensor, packed, channels_first: bool,
-             batched: bool) -> torch.Tensor:
+             batched: bool, compute_dtype) -> torch.Tensor:
+    bf16 = _precision(name, compute_dtype)
     _check_f32(name, "points", points)
     if torch.is_grad_enabled() and points.requires_grad:
         raise ValueError(f"{name} has no backward: query under "
@@ -431,41 +458,46 @@ def _sdf_mlp(name: str, counter: str, points: torch.Tensor, packed, channels_fir
     if m < 1 or n_seq < 1:
         raise ValueError(f"empty sdf_mlp problem: {tuple(points.shape)}")
     buf, n_freqs, n_hidden, widths, packed_seq = _mlp_args(
-        name, packed, points, n_seq if batched else None, layout="wg")
+        name, packed, points, n_seq if batched else None, layout="wg16" if bf16 else "wg")
     lib = _load("sdf_mlp", _bind_sdf_mlp)
     out = torch.empty((n_seq, *shape) if batched else shape, dtype=torch.float32,
                       device=points.device)
     stream = torch.cuda.current_stream(points.device).cuda_stream
-    err = lib.hotrack_sdf_mlp(points.data_ptr(), buf.data_ptr(), out.data_ptr(), m,
-                              *strides, n_seq, 3 * m if batched else 0, packed_seq, n_freqs,
-                              n_hidden, widths, stream)
-    _check_status(err, f"{counter} launch (points {tuple(points.shape)}, "
+    launch = lib.hotrack_sdf_mlp_bf16 if bf16 else lib.hotrack_sdf_mlp
+    err = launch(points.data_ptr(), buf.data_ptr(), out.data_ptr(), m, *strides, n_seq,
+                 3 * m if batched else 0, packed_seq, n_freqs, n_hidden, widths, stream)
+    _check_status(err, f"{counter}{bf16} launch (points {tuple(points.shape)}, "
                        f"widths {packed.widths})")
-    _count(counter)
+    _count(counter + bf16)
     return out
 
 
-def sdf_mlp_cuda(points: torch.Tensor, packed, channels_first: bool) -> torch.Tensor:
+def sdf_mlp_cuda(points: torch.Tensor, packed, channels_first: bool,
+                 compute_dtype=None) -> torch.Tensor:
     """The distilled-SDF MLP on the card (csrc/sdf_mlp.cu, the hidden layers
-    on the tensor cores in 3xTF32 through wgmma): points (..., 3, N)
-    (channels_first) or (..., 3), contiguous float32, and a `PackedSDF` on the
-    same device (its `wg` layout is read) -> clamped sdf (..., N) or (...,).
-    Gradient-free; two launches agree bitwise."""
-    return _sdf_mlp("sdf_mlp_cuda", "sdf_mlp", points, packed, channels_first, False)
+    on the tensor cores through wgmma, in 3xTF32 or, with compute_dtype
+    torch.bfloat16, in bf16): points (..., 3, N) (channels_first) or (..., 3),
+    contiguous float32, and a `PackedSDF` on the same device (its `wg` or
+    `wg16` layout is read) -> clamped sdf (..., N) or (...,). Gradient-free;
+    two launches agree bitwise."""
+    return _sdf_mlp("sdf_mlp_cuda", "sdf_mlp", points, packed, channels_first, False,
+                    compute_dtype)
 
 
-def sdf_mlp_batched_cuda(points: torch.Tensor, packed, channels_first: bool) -> torch.Tensor:
+def sdf_mlp_batched_cuda(points: torch.Tensor, packed, channels_first: bool,
+                         compute_dtype=None) -> torch.Tensor:
     """The SDF MLP with a model a sequence, in one launch (csrc/sdf_mlp.cu):
     points (S, ..., 3, N) (channels_first) or (S, ..., 3), contiguous float32,
     and a `PackedSDF` of S models (buffers (S, n), `pack_distilled_batched`) or
     of one model for all -> sdf (S, ..., N) or (S, ...). Sequence s is bitwise
-    `sdf_mlp_cuda` on its points and model. Gradient-free."""
+    `sdf_mlp_cuda` on its points and model, in either precision. Gradient-free."""
     return _sdf_mlp("sdf_mlp_batched_cuda", "sdf_mlp_batched", points, packed, channels_first,
-                    True)
+                    True, compute_dtype)
 
 
 def _obj_energy(name: str, counter: str, pcld_cf: torch.Tensor, rts: torch.Tensor, packed,
-                batched: bool) -> torch.Tensor:
+                batched: bool, compute_dtype) -> torch.Tensor:
+    bf16 = _precision(name, compute_dtype)
     _check_f32(name, "pcld_cf", pcld_cf)
     _check_f32(name, "rts", rts)
     if rts.device != pcld_cf.device or rts.dim() != 2 + batched or rts.shape[-1] != 12 \
@@ -479,36 +511,40 @@ def _obj_energy(name: str, counter: str, pcld_cf: torch.Tensor, rts: torch.Tenso
     if p < 1 or n < 1 or n_seq < 1:
         raise ValueError(f"empty obj_sdf_energy problem: S={n_seq} P={p} N={n}")
     buf, n_freqs, n_hidden, widths, packed_seq = _mlp_args(
-        name, packed, pcld_cf, n_seq if batched else None, layout="tc")
+        name, packed, pcld_cf, n_seq if batched else None, layout="tc16" if bf16 else "tc")
     lib = _load("obj_energy", _bind_obj_energy)
     out = torch.empty(rts.shape[:-1], dtype=torch.float32, device=pcld_cf.device)
     stream = torch.cuda.current_stream(pcld_cf.device).cuda_stream
-    err = lib.hotrack_obj_energy(pcld_cf.data_ptr(), rts.data_ptr(), buf.data_ptr(),
-                                 out.data_ptr(), p, n, n_seq, pcld_seq, packed_seq, n_freqs,
-                                 n_hidden, widths, stream)
-    _check_status(err, f"{counter} launch (S={n_seq}, P={p}, N={n}, widths {packed.widths})")
-    _count(counter)
+    launch = lib.hotrack_obj_energy_bf16 if bf16 else lib.hotrack_obj_energy
+    err = launch(pcld_cf.data_ptr(), rts.data_ptr(), buf.data_ptr(), out.data_ptr(), p, n,
+                 n_seq, pcld_seq, packed_seq, n_freqs, n_hidden, widths, stream)
+    _check_status(err, f"{counter}{bf16} launch (S={n_seq}, P={p}, N={n}, "
+                       f"widths {packed.widths})")
+    _count(counter + bf16)
     return out
 
 
-def obj_sdf_energy_cuda(pcld_cf: torch.Tensor, rts: torch.Tensor, packed) -> torch.Tensor:
+def obj_sdf_energy_cuda(pcld_cf: torch.Tensor, rts: torch.Tensor, packed,
+                        compute_dtype=None) -> torch.Tensor:
     """The fused object-pose energy on the card (csrc/obj_energy.cu, the
-    MLP on the tensor cores in 3xTF32): pcld_cf (3, N), rts (P, 12)
-    (ops/obj_energy.obj_rts), both contiguous float32, and a `PackedSDF`
-    (its `tc` layout is read) -> (P,) sums over the cloud of |sdf|. No
-    atomics: two launches agree bitwise."""
-    return _obj_energy("obj_sdf_energy_cuda", "obj_sdf_energy", pcld_cf, rts, packed, False)
+    MLP on the tensor cores in 3xTF32 or, with compute_dtype torch.bfloat16,
+    in bf16): pcld_cf (3, N), rts (P, 12) (ops/obj_energy.obj_rts), both
+    contiguous float32, and a `PackedSDF` (its `tc` or `tc16` layout is read)
+    -> (P,) sums over the cloud of |sdf|. No atomics: two launches agree
+    bitwise."""
+    return _obj_energy("obj_sdf_energy_cuda", "obj_sdf_energy", pcld_cf, rts, packed, False,
+                       compute_dtype)
 
 
 def obj_sdf_energy_batched_cuda(pcld_cf: torch.Tensor, rts: torch.Tensor,
-                                packed) -> torch.Tensor:
+                                packed, compute_dtype=None) -> torch.Tensor:
     """The fused object-pose energy of S sequences in one launch
     (csrc/obj_energy.cu, grid (P, S)): pcld_cf (S, 3, N) (or (3, N) for all),
     rts (S, P, 12), contiguous float32, and a `PackedSDF` of S models (or of
     one) -> (S, P). Sequence s is bitwise `obj_sdf_energy_cuda` on its
-    inputs; no atomics."""
+    inputs, in either precision; no atomics."""
     return _obj_energy("obj_sdf_energy_batched_cuda", "obj_sdf_energy_batched", pcld_cf, rts,
-                       packed, True)
+                       packed, True, compute_dtype)
 
 
 def _check_mask(name: str, mask: torch.Tensor, hw, like: torch.Tensor,
@@ -591,15 +627,17 @@ def _check_frame(name: str, frame: torch.Tensor, like: torch.Tensor,
 
 
 def hand_energy_cuda(points: torch.Tensor, frame: torch.Tensor, mask: torch.Tensor,
-                     hw, packed) -> tuple:
+                     hw, packed, compute_dtype=None) -> tuple:
     """The fused per-vertex hand energy on the card (csrc/hand_energy.cu, the
-    MLP of `sdf_mlp_cuda` on the tensor cores in 3xTF32 through wgmma):
-    points (..., 3) contiguous float32 camera-frame vertices, frame (16,)
-    from `hand_frame`, the packed mask for image size hw and a `PackedSDF`
-    (its `wg` layout is read) -> (sdf (...), hit (...)) float32. `sdf` is
-    bitwise `sdf_mlp_cuda` on `object_frame(points, frame)`, `hit` bitwise
-    `packed_mask_lookup_cuda` at `pixel_coords(points, frame, hw)`; two
-    launches agree bitwise. Gradient-free."""
+    MLP of `sdf_mlp_cuda` on the tensor cores through wgmma, in 3xTF32 or in
+    bf16): points (..., 3) contiguous float32 camera-frame vertices, frame
+    (16,) from `hand_frame`, the packed mask for image size hw and a
+    `PackedSDF` (its `wg` or `wg16` layout is read) -> (sdf (...), hit (...))
+    float32. `sdf` is bitwise `sdf_mlp_cuda` of the same precision on
+    `object_frame(points, frame)`, `hit` bitwise `packed_mask_lookup_cuda` at
+    `pixel_coords(points, frame, hw)`; two launches agree bitwise.
+    Gradient-free."""
+    bf16 = _precision("hand_energy_cuda", compute_dtype)
     _check_f32("hand_energy_cuda", "points", points)
     if points.dim() < 1 or points.shape[-1] != 3 or points.numel() < 3:
         raise ValueError(f"points must be a non-empty (..., 3), got {tuple(points.shape)}")
@@ -609,18 +647,19 @@ def hand_energy_cuda(points: torch.Tensor, frame: torch.Tensor, mask: torch.Tens
     _check_frame("hand_energy_cuda", frame, points)
     h, w, _ = _check_mask("hand_energy_cuda", mask, hw, points)
     buf, n_freqs, n_hidden, widths, _ = _mlp_args("hand_energy_cuda", packed, points, None,
-                                                  layout="wg")
+                                                  layout="wg16" if bf16 else "wg")
     lib = _load("hand_energy", _bind_hand_energy)
     shape = tuple(points.shape[:-1])
     sdf = torch.empty(shape, dtype=torch.float32, device=points.device)
     hit = torch.empty(shape, dtype=torch.float32, device=points.device)
     stream = torch.cuda.current_stream(points.device).cuda_stream
-    err = lib.hotrack_hand_energy(points.data_ptr(), frame.data_ptr(), mask.data_ptr(),
-                                  buf.data_ptr(), sdf.data_ptr(), hit.data_ptr(),
-                                  points.numel() // 3, h, w, n_freqs, n_hidden, widths, stream)
-    _check_status(err, f"hand_energy launch (points {tuple(points.shape)}, mask {h}x{w}, "
-                       f"widths {packed.widths})")
-    _count("hand_energy")
+    launch = lib.hotrack_hand_energy_bf16 if bf16 else lib.hotrack_hand_energy
+    err = launch(points.data_ptr(), frame.data_ptr(), mask.data_ptr(), buf.data_ptr(),
+                 sdf.data_ptr(), hit.data_ptr(), points.numel() // 3, h, w, n_freqs, n_hidden,
+                 widths, stream)
+    _check_status(err, f"hand_energy{bf16} launch (points {tuple(points.shape)}, "
+                       f"mask {h}x{w}, widths {packed.widths})")
+    _count("hand_energy" + bf16)
     return sdf, hit
 
 
@@ -628,7 +667,9 @@ SKIN_JOINTS = 16  # csrc/hand_energy_skin.cu blends this many joints a vertex
 
 
 def _hand_energy_skin(name: str, counter: str, pose_map, rt_flat, offset, posedirs_cf,
-                      vshaped_cf, weights_t, frame, mask, hw, packed, batched: bool) -> tuple:
+                      vshaped_cf, weights_t, frame, mask, hw, packed, batched: bool,
+                      compute_dtype) -> tuple:
+    bf16 = _precision(name, compute_dtype)
     per_cand = {"pose_map": pose_map, "rt_flat": rt_flat, "offset": offset}
     per_call = {"posedirs_cf": posedirs_cf, "vshaped_cf": vshaped_cf, "weights_t": weights_t}
     for what, t in (*per_cand.items(), *per_call.items()):
@@ -657,31 +698,34 @@ def _hand_energy_skin(name: str, counter: str, pose_map, rt_flat, offset, posedi
         raise ValueError(f"empty {name} problem: S={n_seq} P={p} K={k} N={n}")
     strides.append(_check_frame(name, frame, pose_map, one))
     h, w, mask_seq = _check_mask(name, mask, hw, pose_map, one)
-    buf, n_freqs, n_hidden, widths, packed_seq = _mlp_args(name, packed, pose_map, one,
-                                                           layout="tc")
+    buf, n_freqs, n_hidden, widths, packed_seq = _mlp_args(
+        name, packed, pose_map, one, layout="tc16" if bf16 else "tc")
     seq_strides = (ctypes.c_longlong * 6)(*strides, mask_seq, packed_seq)
     lib = _load("hand_energy_skin", _bind_hand_energy_skin)
     sdf = torch.empty((*lead, p, n), dtype=torch.float32, device=pose_map.device)
     hit = torch.empty((*lead, p, n), dtype=torch.float32, device=pose_map.device)
     stream = torch.cuda.current_stream(pose_map.device).cuda_stream
-    err = lib.hotrack_hand_energy_skin(
+    launch = lib.hotrack_hand_energy_skin_bf16 if bf16 else lib.hotrack_hand_energy_skin
+    err = launch(
         pose_map.data_ptr(), rt_flat.data_ptr(), offset.data_ptr(), posedirs_cf.data_ptr(),
         vshaped_cf.data_ptr(), weights_t.data_ptr(), frame.data_ptr(), mask.data_ptr(),
         buf.data_ptr(), sdf.data_ptr(), hit.data_ptr(), p, k, n, h, w, n_seq,
         seq_strides, n_freqs, n_hidden, widths, stream)
-    _check_status(err, f"{counter} launch (S={n_seq}, P={p}, K={k}, N={n}, mask {h}x{w}, "
-                       f"widths {packed.widths})")
-    _count(counter)
+    _check_status(err, f"{counter}{bf16} launch (S={n_seq}, P={p}, K={k}, N={n}, "
+                       f"mask {h}x{w}, widths {packed.widths})")
+    _count(counter + bf16)
     return sdf, hit
 
 
 def hand_energy_skin_cuda(pose_map: torch.Tensor, rt_flat: torch.Tensor,
                           offset: torch.Tensor, posedirs_cf: torch.Tensor,
                           vshaped_cf: torch.Tensor, weights_t: torch.Tensor,
-                          frame: torch.Tensor, mask: torch.Tensor, hw, packed) -> tuple:
+                          frame: torch.Tensor, mask: torch.Tensor, hw, packed,
+                          compute_dtype=None) -> tuple:
     """MANO skinning fused with the per-vertex hand energy on the card
-    (csrc/hand_energy_skin.cu, the MLP on the tensor cores in 3xTF32, reading
-    `PackedSDF.tc`). Per candidate: pose_map (P, K), rt_flat
+    (csrc/hand_energy_skin.cu, the MLP on the tensor cores in 3xTF32 reading
+    `PackedSDF.tc` or, with compute_dtype torch.bfloat16, in bf16 reading
+    `PackedSDF.tc16`). Per candidate: pose_map (P, K), rt_flat
     (P * 12, 16), offset (P, 3) (mano/layer.mano_skin_inputs); per call:
     posedirs_cf (3, K, N), vshaped_cf (3, N), weights_t (16, N)
     (ops/hand_energy_skin.skin_consts); frame (16,), the packed mask for
@@ -690,14 +734,14 @@ def hand_energy_skin_cuda(pose_map: torch.Tensor, rt_flat: torch.Tensor,
     memory. Gradient-free."""
     return _hand_energy_skin("hand_energy_skin_cuda", "hand_energy_skin", pose_map, rt_flat,
                              offset, posedirs_cf, vshaped_cf, weights_t, frame, mask, hw,
-                             packed, False)
+                             packed, False, compute_dtype)
 
 
 def hand_energy_skin_batched_cuda(pose_map: torch.Tensor, rt_flat: torch.Tensor,
                                   offset: torch.Tensor, posedirs_cf: torch.Tensor,
                                   vshaped_cf: torch.Tensor, weights_t: torch.Tensor,
                                   frame: torch.Tensor, mask: torch.Tensor, hw,
-                                  packed) -> tuple:
+                                  packed, compute_dtype=None) -> tuple:
     """The fused skinning + energy of S sequences in one launch
     (csrc/hand_energy_skin.cu, grid (pairs, S)): per candidate pose_map
     (S, P, K), rt_flat (S, P * 12, 16), offset (S, P, 3); per call, each
@@ -705,7 +749,7 @@ def hand_energy_skin_batched_cuda(pose_map: torch.Tensor, rt_flat: torch.Tensor,
     vshaped_cf (3, N), weights_t (16, N), frame (16,), the packed mask
     (H, ceil(W / 8)) for the padded image size hw, and a `PackedSDF` of S
     models (or one) -> (sdf (S, P, N), hit (S, P, N)). Sequence s is bitwise
-    `hand_energy_skin_cuda` on its inputs. Gradient-free."""
+    `hand_energy_skin_cuda` on its inputs, in either precision. Gradient-free."""
     return _hand_energy_skin("hand_energy_skin_batched_cuda", "hand_energy_skin_batched",
                              pose_map, rt_flat, offset, posedirs_cf, vshaped_cf, weights_t,
-                             frame, mask, hw, packed, True)
+                             frame, mask, hw, packed, True, compute_dtype)

@@ -18,7 +18,10 @@ Bound on the card: operations (P * N * 71,168 operations at the shipped
 net, 149.2 GFLOP at 2048 x 1024, against 116 KB of traffic). The kernel runs
 the MLP's hidden layers on the tensor cores in 3xTF32 (csrc/sdf_mlp_tc.cuh,
 `PackedSDF.tc`): three passes, 0.904 ms at the TF32 peak, float32-class
-results within the plain version's bounds; `ops/tf32.py` emulates it.
+results within the plain version's bounds; `ops/tf32.py` emulates it. With
+`compute_dtype=torch.bfloat16` (HOTRACK_SDF_BF16) the MLP is ops/sdf_mlp.py's
+bf16 one: one bf16 pass (`PackedSDF.tc16`), 0.151 ms at the bf16 peak; the
+transform and the sum over N stay float32, as in the float32 kernel.
 
 A CUDA tensor launches the kernel or raises; a CPU tensor takes the plain
 version, `_obj_sdf_energy_torch`, which is also the kernel's oracle.
@@ -29,8 +32,8 @@ from __future__ import annotations
 import torch
 
 from . import kernels
-from .sdf_mlp import (PLAIN_CHUNK, PackedSDF, _check_batch, _sdf_mlp_torch, pack_distilled,
-                      pack_distilled_batched, raw_sdf_mlp)
+from .sdf_mlp import (PLAIN_CHUNK, PackedSDF, _check_batch, _sdf_mlp_torch, check_compute_dtype,
+                      pack_distilled, pack_distilled_batched, raw_sdf_mlp)
 
 
 def obj_rts(rotations: torch.Tensor, translations: torch.Tensor) -> torch.Tensor:
@@ -45,11 +48,12 @@ def obj_rts(rotations: torch.Tensor, translations: torch.Tensor) -> torch.Tensor
 
 @torch.no_grad()
 def _obj_sdf_energy_torch(model, pcld_cf: torch.Tensor, rts: torch.Tensor,
-                          chunk: int = PLAIN_CHUNK, mlp=raw_sdf_mlp) -> torch.Tensor:
+                          chunk: int = PLAIN_CHUNK, mlp=raw_sdf_mlp,
+                          compute_dtype=None) -> torch.Tensor:
     """Plain version: pcld_cf (3, N), rts (P, 12) -> (P,) sums of |sdf|.
     The transform is summed as the kernels sum it, ((-rt_c + r_c0 x) + r_c1 y)
-    + r_c2 z; candidates go through `chunk` points at a time. `mlp` as for
-    `_sdf_mlp_torch`."""
+    + r_c2 z; candidates go through `chunk` points at a time. `mlp` and
+    `compute_dtype` as for `_sdf_mlp_torch`."""
     p, n = rts.shape[0], pcld_cf.shape[1]
     r = rts[:, :9].reshape(p, 3, 3, 1)
     out = torch.empty(p, dtype=pcld_cf.dtype, device=pcld_cf.device)
@@ -59,43 +63,49 @@ def _obj_sdf_energy_torch(model, pcld_cf: torch.Tensor, rts: torch.Tensor,
         obj = -rts[lo:lo + step, 9:, None]                      # (p', 3, 1)
         for y in range(3):
             obj = obj + rr[:, :, y] * pcld_cf[y]                # (p', 3, N)
-        sdf = _sdf_mlp_torch(model, obj, chunk, mlp)
+        sdf = _sdf_mlp_torch(model, obj, chunk, mlp, compute_dtype)
         out[lo:lo + step] = torch.sum(torch.abs(sdf), dim=-1)
     return out
 
 
 def fused_obj_sdf_energy(model, pcld_cf: torch.Tensor, rotations: torch.Tensor,
                          translations: torch.Tensor,
-                         packed: PackedSDF | None = None) -> torch.Tensor:
+                         packed: PackedSDF | None = None, compute_dtype=None) -> torch.Tensor:
     """Sum over n of |clamped SDF(R_p^T (x_n - t_p))| per candidate pose ->
     (P,). pcld_cf: the observed cloud channels-first (3, N) float32;
-    rotations (P, 3, 3); translations (P, 3) or (P, 3, 1)."""
+    rotations (P, 3, 3); translations (P, 3) or (P, 3, 1); compute_dtype None
+    or torch.bfloat16 (ops/sdf_mlp.py)."""
+    check_compute_dtype(compute_dtype)
     if pcld_cf.dim() != 2 or pcld_cf.shape[0] != 3:
         raise ValueError(f"pcld_cf must be (3, N), got {tuple(pcld_cf.shape)}")
     rts = obj_rts(rotations, translations)
     if pcld_cf.is_cuda:
         packed = packed if packed is not None else pack_distilled(model)
-        return kernels.obj_sdf_energy_cuda(pcld_cf.contiguous(), rts.contiguous(), packed)
+        return kernels.obj_sdf_energy_cuda(pcld_cf.contiguous(), rts.contiguous(), packed,
+                                           compute_dtype=compute_dtype)
     if pcld_cf.device.type != "cpu":
         raise ValueError(f"no object energy for device {pcld_cf.device}")
-    return _obj_sdf_energy_torch(model, pcld_cf, rts)
+    return _obj_sdf_energy_torch(model, pcld_cf, rts, compute_dtype=compute_dtype)
 
 
-def _obj_sdf_energy_batched_torch(models, pcld_cf: torch.Tensor,
-                                  rts: torch.Tensor) -> torch.Tensor:
+def _obj_sdf_energy_batched_torch(models, pcld_cf: torch.Tensor, rts: torch.Tensor,
+                                  compute_dtype=None) -> torch.Tensor:
     """Plain version of the batched kernel: the unbatched plain version on
     each sequence's cloud (S, 3, N) and candidates (S, P, 12) -> (S, P)."""
-    return torch.stack([_obj_sdf_energy_torch(m, c, r) for m, c, r in zip(models, pcld_cf, rts)])
+    return torch.stack([_obj_sdf_energy_torch(m, c, r, compute_dtype=compute_dtype)
+                        for m, c, r in zip(models, pcld_cf, rts)])
 
 
 def fused_obj_sdf_energy_batched(models, pcld_cf: torch.Tensor, rotations: torch.Tensor,
                                  translations: torch.Tensor,
-                                 packed: PackedSDF | None = None) -> torch.Tensor:
+                                 packed: PackedSDF | None = None,
+                                 compute_dtype=None) -> torch.Tensor:
     """A model a sequence: pcld_cf (S, 3, N), rotations (S, P, 3, 3),
     translations (S, P, 3) or (S, P, 3, 1) and S models -> (S, P) sums of
     |sdf|. On the card one launch on a (P, S) grid (`packed` from
     `pack_distilled_batched`); on the CPU the plain version."""
     _check_batch(models, pcld_cf)
+    check_compute_dtype(compute_dtype)
     if pcld_cf.dim() != 3 or pcld_cf.shape[1] != 3 or rotations.shape[0] != pcld_cf.shape[0]:
         raise ValueError(f"pcld_cf must be (S, 3, N) beside rotations (S, P, 3, 3), got "
                          f"{tuple(pcld_cf.shape)} and {tuple(rotations.shape)}")
@@ -103,7 +113,7 @@ def fused_obj_sdf_energy_batched(models, pcld_cf: torch.Tensor, rotations: torch
     if pcld_cf.is_cuda:
         packed = packed if packed is not None else pack_distilled_batched(models)
         return kernels.obj_sdf_energy_batched_cuda(pcld_cf.contiguous(), rts.contiguous(),
-                                                   packed)
+                                                   packed, compute_dtype=compute_dtype)
     if pcld_cf.device.type != "cpu":
         raise ValueError(f"no object energy for device {pcld_cf.device}")
-    return _obj_sdf_energy_batched_torch(models, pcld_cf, rts)
+    return _obj_sdf_energy_batched_torch(models, pcld_cf, rts, compute_dtype)

@@ -37,6 +37,10 @@ shapes (hand_shape (S, 1, 10), init_rotation (S, 1, 3, 3), pred_kp
 distilled models or volumes (S, V, V, V), and the shared bank. The routes
 become the batched kernels: 'skin' #7b, 'fused' and 'separate' #3b + #5b,
 'volume' each sequence's nearest voxel + #5b.
+
+HOTRACK_SDF_BF16 (`sdf.distill.sdf_compute_dtype`, read at each call) puts
+the SDF queries of 'skin', 'fused' and 'separate' in bf16, as in the JAX
+package; the volume route and the silhouette terms are unchanged.
 """
 
 from __future__ import annotations
@@ -61,6 +65,7 @@ from ..pose.rotations import (
     matrix_to_unit_quaternion,
     unit_quaternion_to_matrix,
 )
+from ..sdf.distill import sdf_compute_dtype
 from ..sdf.volume import nearest_sdf
 from .obj_pose import _reproject_so3
 from .particle import (
@@ -167,6 +172,7 @@ def optimize_hand_pose(
     if distilled is not None and packed is None and presampled.is_cuda:
         packed = (pack_distilled_batched if batch else pack_distilled)(distilled)
     consts = skin_consts(mano_model, shaped, batched=bool(batch)) if route == "skin" else None
+    compute_dtype = sdf_compute_dtype()
     n_verts = mano_model.weights.shape[0]
     vis = vis_mask.to(presampled.dtype)[..., 0, :]             # (*b, 21)
     invis_finger = 1.0 - vis[..., list(TIP_KP_IDS)]            # (*b, 5)
@@ -192,16 +198,17 @@ def optimize_hand_pose(
                 sdf, hits = fused_hand_energy_skin_batched(
                     distilled, mask_bits, frame, pose_map.reshape(*batch, p, -1),
                     rt_flat.reshape(*batch, p * 12, -1), offset.reshape(*batch, p, 3), consts,
-                    hw, packed)
+                    hw, packed, compute_dtype)
             else:
                 sdf, hits = fused_hand_energy_skin(distilled, mask_bits, frame, pose_map,
-                                                   rt_flat, offset, consts, hw, packed)
+                                                   rt_flat, offset, consts, hw, packed,
+                                                   compute_dtype)
         else:
             hand, kp = mano_forward(mano_model, pose, trans=new_t, shaped=shaped)
             hand = hand.reshape(*batch, p, n_verts, 3)
             if route == "fused":
                 fused = fused_hand_energy_batched if batch else fused_hand_energy
-                sdf, hits = fused(distilled, mask_bits, frame, hand, hw, packed)
+                sdf, hits = fused(distilled, mask_bits, frame, hand, hw, packed, compute_dtype)
             else:
                 if batch:
                     obj_frame = torch.matmul(hand - obj_translation[:, None, None, :],
@@ -211,7 +218,7 @@ def optimize_hand_pose(
                                              obj_rotation)
                 if route == "separate":
                     sdf = (fused_sdf_mlp_batched if batch else fused_sdf_mlp)(
-                        distilled, obj_frame, packed)
+                        distilled, obj_frame, packed, compute_dtype)
                 elif batch:
                     sdf = torch.stack([nearest_sdf(v, o, voxel_scale, v.shape[0])
                                        for v, o in zip(sdf_volume, obj_frame)])

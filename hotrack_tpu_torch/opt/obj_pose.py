@@ -24,6 +24,10 @@ clouds (S, N, 3), poses (S, 3, 3) and (S, 3, 1), a volume (S, V, V, V) or a
 list of S distilled models, with the shared bank; the routes become the
 batched kernels #4b (fused) and #3b (composed) and a trilinear lookup in each
 sequence's own volume.
+
+HOTRACK_SDF_BF16 (`sdf.distill.sdf_compute_dtype`, read at each call) puts
+both distilled routes' SDF queries in bf16, as in the JAX package; the
+volume route has no MLP.
 """
 
 from __future__ import annotations
@@ -36,7 +40,7 @@ from ..pose.rotations import (
     compute_rotation_matrix_from_ortho6d,
     unit_quaternion_to_matrix,
 )
-from ..sdf.distill import eval_distilled_sdf_cf
+from ..sdf.distill import eval_distilled_sdf_cf, sdf_compute_dtype
 from ..sdf.volume import trilinear_sdf
 from .particle import (
     ParticleSpec,
@@ -104,6 +108,7 @@ def optimize_obj_pose(
     pcld_t = pcld.transpose(-1, -2).contiguous()  # (*b, 3, N), once per frame
     if distilled is not None and packed is None and pcld.is_cuda:
         packed = (pack_distilled_batched if batch else pack_distilled)(distilled)
+    compute_dtype = sdf_compute_dtype()
 
     def energy_fn(params, sample_ext):
         r, t = params
@@ -111,12 +116,14 @@ def optimize_obj_pose(
         new_t = t.unsqueeze(-3) + sample_ext[..., 4:, None]  # (*b, P, 3, 1)
         if distilled is not None and obj_energy == "fused":
             fused = fused_obj_sdf_energy_batched if batch else fused_obj_sdf_energy
-            sdf_energy = fused(distilled, pcld_t, new_r, new_t[..., 0], packed) / n
+            sdf_energy = fused(distilled, pcld_t, new_r, new_t[..., 0], packed,
+                               compute_dtype) / n
             return sdf_energy * 500.0, sdf_energy
         if distilled is not None:
             flat_cf = torch.matmul(new_r.transpose(-1, -2), pcld_t.unsqueeze(-3) - new_t)
-            sdf = (fused_sdf_mlp_cf_batched(distilled, flat_cf, packed) if batch
-                   else eval_distilled_sdf_cf(distilled, flat_cf, packed))  # (*b, P, N)
+            sdf = (fused_sdf_mlp_cf_batched(distilled, flat_cf, packed, compute_dtype) if batch
+                   else eval_distilled_sdf_cf(distilled, flat_cf, packed,
+                                              compute_dtype))  # (*b, P, N)
         else:
             flat = torch.matmul(pcld.unsqueeze(-3) - new_t.transpose(-1, -2), new_r)
             sdf = (_trilinear_batched(sdf_volume, flat, voxel_scale, bbox_res) if batch

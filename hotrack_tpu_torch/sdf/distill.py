@@ -17,6 +17,7 @@ package the same numbers.
 from __future__ import annotations
 
 import math
+import os
 from typing import NamedTuple
 
 import numpy as np
@@ -28,7 +29,7 @@ from ..ops.sdf_mlp import raw_sdf_mlp as _raw_sdf
 from .volume import trilinear_sdf
 
 __all__ = ["DistilledSDF", "MAX_FREQS", "HIDDEN", "DEPTH", "_features", "_raw_sdf",
-           "eval_distilled_sdf", "eval_distilled_sdf_cf", "distill_sdf_volume",
+           "eval_distilled_sdf", "eval_distilled_sdf_cf", "sdf_compute_dtype", "distill_sdf_volume",
            "near_surface_indices", "distilled_to"]
 
 
@@ -60,17 +61,26 @@ def distilled_to(model: DistilledSDF, device, dtype=None) -> DistilledSDF:
                         move(model.freqs), move(model.scale), move(model.clamp))
 
 
+def sdf_compute_dtype():
+    """The precision of the optimisers' SDF queries: torch.bfloat16 when the
+    environment variable HOTRACK_SDF_BF16 is set to anything non-empty ("0"
+    included), else None (float32-class), as in the JAX package. Read at
+    each optimiser call (the JAX package reads it when it traces)."""
+    return torch.bfloat16 if os.environ.get("HOTRACK_SDF_BF16") else None
+
+
 def eval_distilled_sdf(model: DistilledSDF, points: torch.Tensor,
-                       packed=None) -> torch.Tensor:
+                       packed=None, compute_dtype=None) -> torch.Tensor:
     """points (..., 3) -> clamped sdf (...,). Gradient-free; a CUDA tensor
-    runs the kernel of csrc/sdf_mlp.cu, a CPU tensor the plain version."""
-    return fused_sdf_mlp(model, points, packed)
+    runs the kernel of csrc/sdf_mlp.cu, a CPU tensor the plain version.
+    compute_dtype: None (float32-class) or torch.bfloat16 (ops/sdf_mlp.py)."""
+    return fused_sdf_mlp(model, points, packed, compute_dtype)
 
 
 def eval_distilled_sdf_cf(model: DistilledSDF, points_cf: torch.Tensor,
-                          packed=None) -> torch.Tensor:
+                          packed=None, compute_dtype=None) -> torch.Tensor:
     """Channels-first variant: points_cf (..., 3, N) -> sdf (..., N)."""
-    return fused_sdf_mlp_cf(model, points_cf, packed)
+    return fused_sdf_mlp_cf(model, points_cf, packed, compute_dtype)
 
 
 def near_surface_indices(flat: torch.Tensor, clamp: float, u: torch.Tensor) -> torch.Tensor:

@@ -33,7 +33,8 @@ from hotrack_tpu_torch.ops import (hand_energy, hand_energy_skin, kernels, mask_
 from hotrack_tpu_torch.pose.rotations import normalize_quat, unit_quaternion_to_matrix
 from hotrack_tpu_torch.utils.convert import distilled_from_numpy
 from hand_energy_cases import camera_points, candidates, intrinsics, mask_of, object_pose
-from torch_sdf_models import model_arrays
+from torch_sdf_models import (BF16_CARD_FLIPS, bf16_flip_atol, bf16_share_floor,
+                              bf16_share_and_worst, bf16_sum_atol, model_arrays)
 
 # #3b, #4b and #7b run the MLP on the tensor cores in 3xTF32, whose float32
 # sums truncate: one sdf value lay up to 1.7e-7 from the plain version's on the
@@ -224,6 +225,108 @@ def test_hand_energy_skin_batched_kernel(cuda_device, name, s, p, hw):
                 pose_map[i], rt_flat[i], offset[i], *c0, frames[i], masks[i], hw,
                 sdf_mlp.pack_distilled(models[i]))
             assert _differs(other[0], sdf[i])
+
+
+# bf16 (HOTRACK_SDF_BF16): the batched kernels' bf16 instantiations, sequence
+# s bitwise the unbatched bf16 launch on s's inputs, two launches bitwise,
+# against the bf16 plain versions under tests/test_torch_sdf_bf16.py's
+# two-part bound (torch_sdf_models), and no 3xTF32 launch.
+BF16 = torch.bfloat16
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(WIDTHS))
+@pytest.mark.parametrize("shape,cf", [((3, 2, 3, 129), True), ((2, 64, 3, 778), True),
+                                      ((3, 5, 37, 3), False), ((4, 1, 3, 1), True)])
+def test_sdf_mlp_batched_kernel_bf16(cuda_device, name, shape, cf):
+    s = shape[0]
+    models = _models(name, s, cuda_device)
+    packed = sdf_mlp.pack_distilled_batched(models)
+    pts = torch.from_numpy((np.random.RandomState(s).randn(*shape) * 0.08)
+                           .astype(np.float32)).to(cuda_device)
+    before = dict(kernels.launch_counts)
+    fn = sdf_mlp.fused_sdf_mlp_cf_batched if cf else sdf_mlp.fused_sdf_mlp_batched
+    got = fn(models, pts, packed, compute_dtype=BF16)
+    again = fn(models, pts, packed, compute_dtype=BF16)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["sdf_mlp_batched_bf16"] == before["sdf_mlp_batched_bf16"] + 2
+    assert kernels.launch_counts["sdf_mlp_batched"] == before["sdf_mlp_batched"]
+    assert torch.equal(got, again)
+    pts_cf = pts if cf else pts.transpose(-1, -2)
+    want = sdf_mlp._sdf_mlp_batched_torch(models, pts_cf, compute_dtype=BF16)
+    for i, model in enumerate(models):
+        one = kernels.sdf_mlp_cuda(pts[i].contiguous(), sdf_mlp.pack_distilled(model), cf,
+                                   compute_dtype=BF16)
+        assert torch.equal(got[i], one)
+        share, worst = bf16_share_and_worst(got[i], want[i])
+        flip = bf16_flip_atol(model, pts_cf[i].transpose(-1, -2), BF16_CARD_FLIPS)
+        floor = bf16_share_floor(got[i].numel(), len(model.weights) - 1)
+        assert share >= floor and worst <= flip, (share, floor, worst, flip)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(WIDTHS))
+@pytest.mark.parametrize("s,p,n", [(3, 17, 129), (2, 64, 1000), (4, 1, 1)])
+def test_obj_energy_batched_kernel_bf16(cuda_device, name, s, p, n):
+    rng = np.random.RandomState(p + n)
+    models = _models(name, s, cuda_device, seed=3)
+    packed = sdf_mlp.pack_distilled_batched(models)
+    pcld = torch.from_numpy((rng.randn(s, 3, n) * 0.06).astype(np.float32)).to(cuda_device)
+    rot, trans = _poses(rng, s, p, cuda_device)
+    before = dict(kernels.launch_counts)
+    got = obj_energy.fused_obj_sdf_energy_batched(models, pcld, rot, trans, packed,
+                                                  compute_dtype=BF16)
+    again = obj_energy.fused_obj_sdf_energy_batched(models, pcld, rot, trans, packed,
+                                                    compute_dtype=BF16)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["obj_sdf_energy_batched_bf16"] == \
+        before["obj_sdf_energy_batched_bf16"] + 2
+    assert kernels.launch_counts["obj_sdf_energy_batched"] == before["obj_sdf_energy_batched"]
+    assert torch.equal(got, again) and got.shape == (s, p)
+    rts = obj_energy.obj_rts(rot, trans).contiguous()
+    want = obj_energy._obj_sdf_energy_batched_torch(models, pcld, rts, compute_dtype=BF16)
+    for i, model in enumerate(models):
+        one = kernels.obj_sdf_energy_cuda(pcld[i].contiguous(), rts[i].contiguous(),
+                                          sdf_mlp.pack_distilled(model), compute_dtype=BF16)
+        assert torch.equal(got[i], one)
+        obj = -rts[i, :, 9:, None] + sum(rts[i, :, :9].reshape(p, 3, 3, 1)[:, :, y] * pcld[i, y]
+                                         for y in range(3))
+        atol = bf16_sum_atol(n, bf16_flip_atol(model, obj.transpose(-1, -2), BF16_CARD_FLIPS))
+        assert float((got[i] - want[i]).abs().max()) <= atol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(WIDTHS))
+@pytest.mark.parametrize("s,p,hw", [(3, 33, (480, 640)), (4, 1, (1, 1))])
+def test_hand_energy_skin_batched_kernel_bf16(cuda_device, name, s, p, hw):
+    models = _models(name, s, cuda_device, seed=5)
+    packed = sdf_mlp.pack_distilled_batched(models)
+    _, pose_map, rt_flat, offset, consts, frames, masks = _skin_inputs(s, p, cuda_device, hw)
+    args = (models, masks, frames, pose_map, rt_flat, offset, consts, hw)
+    before = dict(kernels.launch_counts)
+    sdf, hit = hand_energy_skin.fused_hand_energy_skin_batched(*args, packed, BF16)
+    sdf2, hit2 = hand_energy_skin.fused_hand_energy_skin_batched(*args, packed, BF16)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["hand_energy_skin_batched_bf16"] == \
+        before["hand_energy_skin_batched_bf16"] + 2
+    assert kernels.launch_counts["hand_energy_skin_batched"] == \
+        before["hand_energy_skin_batched"]
+    assert torch.equal(sdf, sdf2) and torch.equal(hit, hit2)
+    f32_sdf, f32_hit = hand_energy_skin.fused_hand_energy_skin_batched(*args, packed)
+    assert torch.equal(hit, f32_hit)
+    want_sdf, _ = hand_energy_skin._hand_energy_skin_batched_torch(*args, compute_dtype=BF16)
+    for i in range(s):
+        c = consts._replace(vshaped_cf=consts.vshaped_cf[i].contiguous())
+        one = kernels.hand_energy_skin_cuda(pose_map[i], rt_flat[i], offset[i], *c, frames[i],
+                                            masks[i], hw, sdf_mlp.pack_distilled(models[i]),
+                                            compute_dtype=BF16)
+        assert torch.equal(sdf[i], one[0]) and torch.equal(hit[i], one[1])
+        verts = hand_energy_skin.skin_reference(pose_map[i], rt_flat[i], offset[i], c)
+        flip = bf16_flip_atol(models[i], hand_energy.object_frame(verts, frames[i])
+                              .transpose(-1, -2), BF16_CARD_FLIPS)
+        d = (sdf[i] - want_sdf[i]).abs()
+        assert float((d <= SKIN_SDF_ATOL).float().mean()) >= bf16_share_floor(d.numel())
+        assert float(d.max()) <= flip + SKIN_SDF_ATOL
 
 
 @pytest.mark.gpu

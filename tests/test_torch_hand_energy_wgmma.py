@@ -15,7 +15,8 @@ header and checked against the sources' own loop headers:
   of one block, a few and an H100's 132 (and, for the sdf, with several
   sequences, as #3b walks them);
 - the wrapper hands the kernel `PackedSDF.wg`, the buffer of the wgmma core
-  (a spy on the launch).
+  (a spy on the launch), and with compute_dtype bf16 `PackedSDF.wg16` to the
+  bf16 instantiation, which walks the same items.
 
 The layout of `PackedSDF.wg` and the 3xTF32 arithmetic on it are held in
 test_torch_sdf_wgmma_layout.py; the kernel itself on the card
@@ -66,7 +67,7 @@ def test_the_model_follows_the_sources():
     src = (kernels.CSRC_DIR / "hand_energy.cu").read_text()
     assert "for (int v = t; v < wg::kRoundPoints; v += wg::kAsideThreads) {" in src
     assert "const long long row = round * wg::kRoundPoints + v;" in src
-    assert "wg::walk(job, smem, packed, 0, rounds, rounds, shape, pinned, ring);" in src
+    assert "wg::walk<kBf16>(job, smem, packed, 0, rounds, rounds, shape, pinned, ring);" in src
     assert "const long long rounds = (m + wg::kRoundPoints - 1) / wg::kRoundPoints;" in src
     # the producer's warpgroup: one copying warp after the consumers, the rest do the aside
     assert K["kProducerWarp"] == CONSUMER_WARPS
@@ -136,6 +137,10 @@ class _Lib:
         self.calls.append(args)
         return 0
 
+    def hotrack_hand_energy_bf16(self, *args):
+        self.calls.append(("bf16", *args))
+        return 0
+
 
 @pytest.mark.parametrize("shape", [(3, 5), (130,)])
 def test_hand_energy_wrapper_launches_on_the_wgmma_layout(monkeypatch, shape):
@@ -167,6 +172,30 @@ def test_hand_energy_wrapper_launches_on_the_wgmma_layout(monkeypatch, shape):
     assert call[6:11] == (pts.numel() // 3, 6, 9, packed.n_freqs, len(packed.widths) - 1)
     assert list(call[11]) == list(packed.widths)
     assert not hasattr(packed, "packed")   # the float32 FMA core's layout is gone
+
+
+def test_hand_energy_wrapper_launches_bf16_on_the_bf16_layout(monkeypatch):
+    """compute_dtype bf16: the bf16 entry point on `PackedSDF.wg16`, counted
+    apart; never the 3xTF32 one."""
+    lib = _Lib()
+    monkeypatch.setattr(kernels, "_check_f32", lambda *a: None)
+    monkeypatch.setattr(kernels, "_check_frame", lambda *a: 0)
+    monkeypatch.setattr(kernels, "_check_mask", lambda name, mask, hw, like: (*hw, 0))
+    monkeypatch.setattr(kernels, "_load", lambda name, bind: lib)
+
+    class _Stream:
+        cuda_stream = 0
+
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: _Stream())
+    packed = sdf_mlp.pack_distilled(distilled_from_numpy(model_arrays(4, widths=(21, 32, 48))))
+    mask = mask_lookup.pack_mask(torch.zeros((6, 9), dtype=torch.bool))
+    before = dict(kernels.launch_counts)
+    kernels.hand_energy_cuda(torch.ones((130, 3)), torch.zeros(16), mask, (6, 9), packed,
+                             compute_dtype=torch.bfloat16)
+    (call,) = lib.calls
+    assert call[0] == "bf16" and call[4] == packed.wg16.data_ptr()
+    assert kernels.launch_counts["hand_energy_bf16"] == before["hand_energy_bf16"] + 1
+    assert kernels.launch_counts["hand_energy"] == before["hand_energy"]
 
 
 def test_hand_energy_dispatch_keeps_the_plain_version_on_the_cpu():

@@ -31,6 +31,12 @@ build bitwise alike, its sdf is held within TC_SDF_ATOL of the plain
 version's and of the 3xTF32 emulation's (ops/tf32.py; one value lay up to
 1.7e-7 off on the card: the tensor cores' float32 sums truncate). Two
 launches of every kernel agree bitwise.
+
+bf16 (HOTRACK_SDF_BF16): #6's and #7's bf16 instantiations, `hit` exactly the
+3xTF32 kernel's, `sdf` against the bf16 plain version under
+tests/test_torch_sdf_bf16.py's two-part bound (torch_sdf_models), #6 bitwise
+#3's bf16 instantiation on `object_frame`; #7 on vertices built by both alike
+under that bound, and on the others within SKIN_SDF_ATOL beside it.
 """
 
 import re
@@ -45,7 +51,8 @@ from hotrack_tpu_torch.ops import (hand_energy, hand_energy_skin, kernels, mask_
                                    tf32)
 from hotrack_tpu_torch.utils.convert import distilled_from_numpy
 from hand_energy_cases import camera_points, candidates, intrinsics, mask_of, object_pose
-from torch_sdf_models import model_arrays
+from torch_sdf_models import (BF16_CARD_FLIPS, bf16_flip_atol, bf16_share_floor,
+                              bf16_share_and_worst, model_arrays)
 
 SKIN_SDF_ATOL = 2e-5
 TC_SDF_ATOL = 2.5e-7
@@ -148,6 +155,39 @@ def test_hand_energy_kernel_matches_plain_version(cuda_device, name, hw, shape):
         for idx, hi in ((iy, hw[0] - 1), (ix, hw[1] - 1)):  # the clip is exercised
             assert int((idx == 0).sum()) > 0 and int((idx == hi).sum()) > 0
         assert 0.2 < float(hit.mean()) < 0.8
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(MODELS))
+@pytest.mark.parametrize("hw", MASKS)
+@pytest.mark.parametrize("shape", [(64, 778), (7, 10), (300,)])
+def test_hand_energy_kernel_bf16_matches_plain_version(cuda_device, name, hw, shape):
+    model = distilled_from_numpy(model_arrays(2, **MODELS[name]), device=cuda_device)
+    packed_mask = mask_lookup.pack_mask(_mask(2, hw, cuda_device))
+    frame = _frame(3, hw, cuda_device)
+    pts = torch.from_numpy(camera_points(shape, seed=shape[0])).to(cuda_device)
+    if len(shape) == 1:
+        pts = pts[None]
+    bf16 = torch.bfloat16
+    before = dict(kernels.launch_counts)
+    sdf, hit = hand_energy.fused_hand_energy(model, packed_mask, frame, pts, hw,
+                                             compute_dtype=bf16)
+    sdf2, hit2 = hand_energy.fused_hand_energy(model, packed_mask, frame, pts, hw,
+                                               compute_dtype=bf16)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["hand_energy_bf16"] == before["hand_energy_bf16"] + 2
+    assert kernels.launch_counts["hand_energy"] == before["hand_energy"]
+    assert torch.equal(sdf, sdf2) and torch.equal(hit, hit2)
+    want_sdf, want_hit = hand_energy._hand_energy_torch(model, packed_mask, frame, pts, hw,
+                                                        compute_dtype=bf16)
+    assert torch.equal(hit, want_hit)
+    assert torch.equal(hit, hand_energy.fused_hand_energy(model, packed_mask, frame, pts, hw)[1])
+    obj = hand_energy.object_frame(pts, frame)
+    share, worst = bf16_share_and_worst(sdf, want_sdf)
+    flip = bf16_flip_atol(model, obj.transpose(-1, -2), BF16_CARD_FLIPS)
+    floor = bf16_share_floor(sdf.numel(), len(model.weights) - 1)
+    assert share >= floor and worst <= flip, (share, floor, worst, flip)
+    assert torch.equal(sdf, sdf_mlp.fused_sdf_mlp_cf(model, obj, compute_dtype=bf16))
 
 
 @pytest.mark.gpu
@@ -268,3 +308,75 @@ def test_hand_energy_skin_kernel_matches_its_3xtf32_emulation(cuda_device, width
     assert torch.equal(hit, want_hit)
     assert float((sdf - want_sdf).abs().max()) <= TC_SDF_ATOL
     assert float((sdf - emu_sdf).abs().max()) <= TC_SDF_ATOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(MODELS))
+@pytest.mark.parametrize("hw", [(480, 640), (1, 1)])
+@pytest.mark.parametrize("p,n_verts", [(33, 778), (1, 778), (5, 129)])
+def test_hand_energy_skin_kernel_bf16_matches_plain_version(cuda_device, name, hw, p, n_verts):
+    model = distilled_from_numpy(model_arrays(3, **MODELS[name]), device=cuda_device)
+    packed_mask = mask_lookup.pack_mask(_mask(4, hw, cuda_device))
+    frame = _frame(5, hw, cuda_device)
+    mano, pose, trans, shaped = _skin_case(p + n_verts, p, n_verts, cuda_device)
+    _, pose_map, rt_flat, offset = mano_skin_inputs(mano, pose, trans, shaped)
+    consts = hand_energy_skin.skin_consts(mano, shaped)
+    args = (model, packed_mask, frame, pose_map, rt_flat, offset, consts, hw)
+    before = dict(kernels.launch_counts)
+    sdf, hit = hand_energy_skin.fused_hand_energy_skin(*args, compute_dtype=torch.bfloat16)
+    sdf2, hit2 = hand_energy_skin.fused_hand_energy_skin(*args, compute_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["hand_energy_skin_bf16"] == \
+        before["hand_energy_skin_bf16"] + 2
+    assert kernels.launch_counts["hand_energy_skin"] == before["hand_energy_skin"]
+    assert torch.equal(sdf, sdf2) and torch.equal(hit, hit2)
+    # the skinning and the hit are the 3xTF32 kernel's code: its hit bitwise
+    f32_sdf, f32_hit = hand_energy_skin.fused_hand_energy_skin(*args)
+    assert torch.equal(hit, f32_hit)
+    assert float((sdf - f32_sdf).abs().max()) > 1e-5
+    # the vertices differ from the plain version's by rounding (SKIN_SDF_ATOL)
+    want_sdf, _ = hand_energy_skin._hand_energy_skin_torch(*args, compute_dtype=torch.bfloat16)
+    verts = hand_energy_skin.skin_reference(pose_map, rt_flat, offset, consts)
+    flip = bf16_flip_atol(model, hand_energy.object_frame(verts, frame).transpose(-1, -2),
+                          BF16_CARD_FLIPS)
+    d = (sdf - want_sdf).abs()
+    assert float((d <= SKIN_SDF_ATOL).float().mean()) >= bf16_share_floor(d.numel())
+    assert float(d.max()) <= flip + SKIN_SDF_ATOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("widths", [(21, 128, 128, 128), (39, 128, 128, 128, 128), (9, 128)])
+def test_hand_energy_skin_kernel_bf16_on_exact_vertices(cuda_device, widths):
+    """test_hand_energy_skin_kernel_matches_its_3xtf32_emulation's vertices,
+    which the kernel and the plain version build bitwise alike: the sdf
+    isolates the bf16 MLP (staged layers at depth 4)."""
+    rng = np.random.RandomState(len(widths))
+    model = distilled_from_numpy(model_arrays(7, widths=widths), device=cuda_device)
+    mano = synthetic_mano_model().to(cuda_device)
+    shaped = shape_hand(mano, torch.zeros(1, 10, device=cuda_device))
+    p, n = 9, mano.v_template.shape[0]
+    joint = torch.from_numpy(rng.randint(0, 16, n)).to(cuda_device)
+    consts = hand_energy_skin.SkinConsts(
+        mano.posedirs.permute(1, 2, 0).contiguous(), shaped[0][0].T.contiguous(),
+        torch.nn.functional.one_hot(joint, 16).T.float().contiguous())
+    rt = torch.zeros(p, 12, 16, device=cuda_device)
+    rt[:, [0, 4, 8]] = 1.0
+    rt[:, 9:] = torch.from_numpy((rng.randn(p, 3, 1) * 0.02).astype(np.float32)).to(cuda_device)
+    offset = torch.from_numpy((rng.randn(p, 3) * 0.02 + [0, 0, 0.45]).astype(np.float32)) \
+        .to(cuda_device)
+    pose_map = torch.zeros(p, consts.posedirs_cf.shape[1], device=cuda_device)
+    hw = (480, 640)
+    frame = _frame(5, hw, cuda_device)
+    args = (model, mask_lookup.pack_mask(_mask(4, hw, cuda_device)), frame,
+            pose_map, rt.reshape(p * 12, 16), offset, consts, hw)
+    sdf, hit = hand_energy_skin.fused_hand_energy_skin(*args, compute_dtype=torch.bfloat16)
+    want_sdf, want_hit = hand_energy_skin._hand_energy_skin_torch(
+        *args, compute_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert torch.equal(hit, want_hit)
+    verts = hand_energy_skin.skin_reference(*args[3:7])
+    share, worst = bf16_share_and_worst(sdf, want_sdf)
+    flip = bf16_flip_atol(model, hand_energy.object_frame(verts, frame).transpose(-1, -2),
+                          BF16_CARD_FLIPS)
+    floor = bf16_share_floor(sdf.numel(), len(model.weights) - 1)
+    assert share >= floor and worst <= flip, (share, floor, worst, flip)

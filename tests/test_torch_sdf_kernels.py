@@ -20,6 +20,13 @@ ops/tf32.py, whose exact sums would show a layout error at the size of a
 weight; a sum of N |sdf| values within ENERGY_RTOL of its size plus
 ENERGY_ATOL a point; two launches of either kernel bitwise equal (a fixed
 summation order, no atomics).
+
+bf16 (HOTRACK_SDF_BF16, `compute_dtype=torch.bfloat16`): each kernel's bf16
+instantiation against the bf16 plain version, under tests/test_torch_sdf_bf16.py's
+two-part bound (torch_sdf_models: `bf16_share_floor` of the values within
+BF16_SDF_ATOL_TIGHT, every value within BF16_CARD_FLIPS of `bf16_flip_atol`'s
+steps, a sum within `bf16_sum_atol`), two launches bitwise equal, and apart from
+the 3xTF32 kernel by more than 1e-5 somewhere (so that bf16 really ran).
 """
 
 import numpy as np
@@ -29,7 +36,8 @@ import torch
 from hotrack_tpu_torch.ops import kernels, obj_energy, sdf_mlp, tf32
 from hotrack_tpu_torch.pose.rotations import normalize_quat, unit_quaternion_to_matrix
 from hotrack_tpu_torch.utils.convert import distilled_from_numpy
-from torch_sdf_models import model_arrays
+from torch_sdf_models import (BF16_CARD_FLIPS, bf16_flip_atol, bf16_share_floor,
+                              bf16_share_and_worst, bf16_sum_atol, model_arrays)
 
 MODELS = {
     "shipped width": dict(widths=(21, 128, 128, 128)),
@@ -102,17 +110,73 @@ def test_sdf_mlp_kernel_ragged_counts_around_a_round(cuda_device, m, cf):
 
 
 @pytest.mark.gpu
-def test_sdf_mlp_kernel_depth_8_at_width_128(cuda_device):
+@pytest.mark.parametrize("compute_dtype", [None, torch.bfloat16])
+def test_sdf_mlp_kernel_depth_8_at_width_128(cuda_device, compute_dtype):
     """The deepest net the kernels take, whose later layers do not all fit
-    in a block's shared memory at once."""
+    in a block's shared memory at once (in bf16, 58 tiles of which the ring
+    streams 10)."""
     model = distilled_from_numpy(model_arrays(5, widths=(21,) + (128,) * 8), device=cuda_device)
     pts = torch.from_numpy((np.random.RandomState(6).randn(5, 3, 300) * 0.08)
                            .astype(np.float32)).to(cuda_device)
-    got = sdf_mlp.fused_sdf_mlp_cf(model, pts)
-    again = sdf_mlp.fused_sdf_mlp_cf(model, pts)
+    got = sdf_mlp.fused_sdf_mlp_cf(model, pts, compute_dtype=compute_dtype)
+    again = sdf_mlp.fused_sdf_mlp_cf(model, pts, compute_dtype=compute_dtype)
     torch.cuda.synchronize()
     assert torch.equal(got, again)
-    _sdf_holds(model, pts, True, got)
+    if compute_dtype is None:
+        _sdf_holds(model, pts, True, got)
+    else:
+        _bf16_holds(model, pts, True, got)
+
+
+def _bf16_holds(model, pts, cf, got, ran=True):
+    """A bf16 kernel's values against the bf16 plain version; `ran`: and apart
+    from the 3xTF32 kernel by more than 1e-5 somewhere."""
+    pts_cf = pts if cf else pts.transpose(-1, -2)
+    want = sdf_mlp._sdf_mlp_torch(model, pts_cf, compute_dtype=torch.bfloat16)
+    assert got.shape == want.shape and bool(torch.isfinite(got).all())
+    share, worst = bf16_share_and_worst(got, want)
+    flip = bf16_flip_atol(model, pts_cf.transpose(-1, -2), BF16_CARD_FLIPS)
+    floor = bf16_share_floor(got.numel(), len(model.weights) - 1)
+    assert share >= floor and worst <= flip, (share, floor, worst, flip)
+    if ran:
+        fn = sdf_mlp.fused_sdf_mlp_cf if cf else sdf_mlp.fused_sdf_mlp
+        assert float((got - fn(model, pts)).abs().max()) > 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(MODELS))
+@pytest.mark.parametrize("shape,cf", [((2048, 3, 256), True), ((4, 300, 3), False),
+                                      ((3, 3, 1000), True)])
+def test_sdf_mlp_kernel_bf16_matches_plain_version(cuda_device, name, shape, cf):
+    model = _model(name, cuda_device)
+    pts = torch.from_numpy((np.random.RandomState(2).randn(*shape) * 0.08)
+                           .astype(np.float32)).to(cuda_device)
+    before = dict(kernels.launch_counts)
+    fn = sdf_mlp.fused_sdf_mlp_cf if cf else sdf_mlp.fused_sdf_mlp
+    got = fn(model, pts, compute_dtype=torch.bfloat16)
+    again = fn(model, pts, compute_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["sdf_mlp_bf16"] == before["sdf_mlp_bf16"] + 2
+    assert kernels.launch_counts["sdf_mlp"] == before["sdf_mlp"]    # no 3xTF32 launch
+    assert torch.equal(got, again)
+    _bf16_holds(model, pts, cf, got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 63, 64, 65, 127, 128, 129, 1000])
+@pytest.mark.parametrize("cf", [True, False])
+def test_sdf_mlp_kernel_bf16_ragged_counts_around_a_round(cuda_device, m, cf):
+    model = _model("shipped width", cuda_device)
+    shape = (2, 3, m) if cf else (2, m, 3)
+    pts = torch.from_numpy((np.random.RandomState(m).randn(*shape) * 0.08)
+                           .astype(np.float32)).to(cuda_device)
+    fn = sdf_mlp.fused_sdf_mlp_cf if cf else sdf_mlp.fused_sdf_mlp
+    got = fn(model, pts, compute_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    _bf16_holds(model, pts, cf, got, ran=m >= 64)
+    for b in range(2):
+        assert torch.equal(fn(model, pts[b:b + 1].contiguous(),
+                              compute_dtype=torch.bfloat16)[0], got[b])
 
 
 @pytest.mark.gpu
@@ -126,6 +190,10 @@ def test_sdf_mlp_kernel_refuses_what_it_does_not_take(cuda_device):
         sdf_mlp.fused_sdf_mlp(model, torch.zeros(8, 3, device=cuda_device, requires_grad=True))
     with torch.no_grad():  # a query under no_grad is fine whatever the points require
         sdf_mlp.fused_sdf_mlp(model, torch.zeros(8, 3, device=cuda_device, requires_grad=True))
+    for bad in (torch.float16, torch.float32):   # bf16 or the float32-class default only
+        with pytest.raises(ValueError, match="bfloat16"):
+            kernels.sdf_mlp_cuda(torch.zeros(3, 8, device=cuda_device), packed, True,
+                                 compute_dtype=bad)
 
 
 ENERGY_RTOL, ENERGY_ATOL = 2e-6, 2.5e-7
@@ -156,6 +224,37 @@ def test_obj_energy_kernel_matches_plain_version_and_relaunches_bitwise(cuda_dev
     # off by the size of a weight
     emu = obj_energy._obj_sdf_energy_torch(model, pcld_cf, rts, mlp=tf32.raw_sdf_mlp_3xtf32)
     assert bool(((got - emu).abs() <= ENERGY_RTOL * emu.abs() + ENERGY_ATOL * n).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(MODELS))
+@pytest.mark.parametrize("p,n", [(10, 200), (7, 129), (1, 1), (2048, 256), (2047, 1000)])
+def test_obj_energy_kernel_bf16_matches_plain_version_and_relaunches_bitwise(cuda_device,
+                                                                            name, p, n):
+    model = _model(name, cuda_device)
+    rng = np.random.RandomState(n)
+    pcld_cf = torch.from_numpy((rng.randn(3, n) * 0.1).astype(np.float32)).to(cuda_device)
+    rot = unit_quaternion_to_matrix(normalize_quat(
+        torch.from_numpy(rng.randn(p, 4).astype(np.float32)).to(cuda_device)))
+    trans = torch.from_numpy((rng.randn(p, 3) * 0.05).astype(np.float32)).to(cuda_device)
+    before = dict(kernels.launch_counts)
+    got = obj_energy.fused_obj_sdf_energy(model, pcld_cf, rot, trans,
+                                          compute_dtype=torch.bfloat16)
+    again = obj_energy.fused_obj_sdf_energy(model, pcld_cf, rot, trans,
+                                            compute_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["obj_sdf_energy_bf16"] == before["obj_sdf_energy_bf16"] + 2
+    assert kernels.launch_counts["obj_sdf_energy"] == before["obj_sdf_energy"]
+    assert tuple(got.shape) == (p,) and torch.equal(got, again)
+    rts = obj_energy.obj_rts(rot, trans).contiguous()
+    want = obj_energy._obj_sdf_energy_torch(model, pcld_cf, rts, compute_dtype=torch.bfloat16)
+    obj = -rts[:, 9:, None] + sum(rts[:, :9].reshape(p, 3, 3, 1)[:, :, y] * pcld_cf[y]
+                                  for y in range(3))
+    atol = bf16_sum_atol(n, bf16_flip_atol(model, obj.transpose(-1, -2), BF16_CARD_FLIPS))
+    assert float((got - want).abs().max()) <= atol
+    if p * n > 1000:
+        f32 = obj_energy.fused_obj_sdf_energy(model, pcld_cf, rot, trans)
+        assert float((got - f32).abs().max()) > 1e-5
 
 
 @pytest.mark.gpu
