@@ -799,8 +799,8 @@ def phase_build():
     torch.cuda.synchronize()
     print(f"[build] {sorted(libs)}: {time.perf_counter() - t0:.3f} s", flush=True)
     for name, lib in libs.items():
-        # each kernel's entry (a template's instantiation: ILb0E 3xTF32, ILb1E bf16),
-        # then its registers and spills
+        # each kernel's entry (#3's and #6's templates: ILb0E 3xTF32, ILb1E bf16; #4's and
+        # #7's bf16 walk kernels: *_wg_kernel), then its registers and spills
         with open(str(lib) + ".log") as f:
             report = [ln for ln in f.read().splitlines()
                       if "registers" in ln or "spill" in ln or "error" in ln.lower()
@@ -4412,6 +4412,30 @@ def _bf16_bound(case: dict, n_bytes: float, n_ops: float, widths, points: int) -
     case["share_of_bound"] = case["bound_ms"] / case["ms"]
 
 
+def _ptxas_walk_jobs() -> str:
+    """The compiler's report for the bf16 walk kernels of #4 and #7
+    (`*_wg_kernel` in csrc/obj_energy.cu and csrc/hand_energy_skin.cu): each
+    entry's registers and spills, which must show no spill, and no wgmma
+    serialised (C7520 / C7513) or setmaxnreg ignored (C7508) in either
+    library."""
+    from hotrack_tpu_torch.ops import kernels
+    lines = []
+    for name in ("obj_energy", "hand_energy_skin"):
+        with open(str(kernels.build(name)) + ".log") as f:
+            log = f.read()
+        bad = [ln for ln in log.splitlines() if any(c in ln for c in ("C7520", "C7513", "C7508"))]
+        for entry in log.split("Compiling entry function")[1:]:
+            if "_wg_kernel" not in entry.split("\n", 1)[0]:
+                continue
+            report = [ln.split(":", 1)[-1].strip() for ln in entry.splitlines()
+                      if "registers" in ln or "spill" in ln]
+            bad += [ln for ln in report if any(int(v) for v in re.findall(r"(\d+) bytes spill", ln))]
+            lines.append(f"{name}: " + "; ".join(report))
+        if bad or not lines or not lines[-1].startswith(name):
+            raise AssertionError(f"[sdf-bf16] {name} ptxas: {bad or 'no walk kernel'}")
+    return " | ".join(lines)
+
+
 def _fmt_bf16(case: dict) -> str:
     return (f"bf16 kernel {case['ms']:.4f} ms, 3xTF32 kernel {case['f32_ms']:.4f} ms, plain "
             f"{case['plain_ms']:.4f} ms, bf16 matmul chain {case['matmul_chain_ms']:.4f} ms; "
@@ -4455,6 +4479,7 @@ def phase_kernels_sdf_bf16() -> dict:
     bf16 = torch.bfloat16
     rng = np.random.RandomState(14)
     out = {}
+    print(f"[sdf-bf16] ptxas, #4 and #7 on the bf16 walk: {_ptxas_walk_jobs()}", flush=True)
 
     def record(name, tag, line, case=None):
         entry = out.setdefault(name, {"max_abs_err": 0.0, "cases": []})
@@ -4543,7 +4568,7 @@ def phase_kernels_sdf_bf16() -> dict:
                 "f32": lambda: kernels.obj_sdf_energy_cuda(pcld, rts, packed),
                 "plain": lambda: _obj_sdf_energy_torch(model, pcld, rts, compute_dtype=bf16),
                 "chain": _bf16_chain(model, m)})
-            _bf16_bound(case, 12.0 * n + 52.0 * p + 4 * packed.tc16.numel(), 0.0, widths, m)
+            _bf16_bound(case, 12.0 * n + 52.0 * p + 4 * packed.wg16.numel(), 0.0, widths, m)
         record("obj_sdf_energy", tag, line, case)
 
     # #6
@@ -4628,7 +4653,7 @@ def phase_kernels_sdf_bf16() -> dict:
                                                          compute_dtype=bf16),
                 "chain": _bf16_chain(model, m)})
             in_bytes = sum(t.numel() * 4 for t in (pose_map, rt_flat, offset, *consts, frame))
-            _bf16_bound(case, in_bytes + bits.numel() + 8.0 * m + 4 * packed.tc16.numel(),
+            _bf16_bound(case, in_bytes + bits.numel() + 8.0 * m + 4 * packed.wg16.numel(),
                         (2.0 * (3 * HAND_POSE_DIMS + 12 * 16) + 18 + 27) * m, MLP_WIDTHS, m)
         record("hand_energy_skin", tag, line, case)
 
@@ -4705,7 +4730,7 @@ def phase_kernels_sdf_bf16() -> dict:
             "plain": lambda: torch.stack([_obj_sdf_energy_torch(
                 mm, c, r, compute_dtype=bf16) for mm, c, r in zip(models, pcld, rts)]),
             "chain": _bf16_chain(models[0], m)})
-        _bf16_bound(case, s * (12.0 * n + 52.0 * p) + 4 * packed.tc16.numel(), 0.0,
+        _bf16_bound(case, s * (12.0 * n + 52.0 * p) + 4 * packed.wg16.numel(), 0.0,
                     MLP_WIDTHS, m)
         record("obj_sdf_energy_batched", tag, f"{holds[0]} (sequence 0); {gap:.3e} from "
                f"3xTF32; each sequence bitwise its unbatched launch; relaunch bitwise", case)
@@ -4753,7 +4778,7 @@ def phase_kernels_sdf_bf16() -> dict:
                                                              compute_dtype=bf16),
             "chain": _bf16_chain(models[0], m)})
         in_bytes = sum(t.numel() * 4 for t in (pose_map, rt_flat, offset, *consts, frames))
-        _bf16_bound(case, in_bytes + masks.numel() + 8.0 * m + 4 * packed.tc16.numel(),
+        _bf16_bound(case, in_bytes + masks.numel() + 8.0 * m + 4 * packed.wg16.numel(),
                     (2.0 * (3 * HAND_POSE_DIMS + 12 * 16) + 18 + 27) * m, MLP_WIDTHS, m)
         record("hand_energy_skin_batched", tag, f"{holds[0]} (sequence 0); {gap:.3e} from "
                f"3xTF32; hit the 3xTF32 kernel's; each sequence bitwise its unbatched launch; "

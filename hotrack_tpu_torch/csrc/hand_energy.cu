@@ -48,15 +48,7 @@ namespace {
 
 using namespace hotrack;
 
-// A float of the frame, loaded where it is used: a volatile load is neither
-// hoisted out of the walk's loop nor kept in a register across the MLP.
-__device__ __forceinline__ float frame_at(const float* p) {
-  float v;
-  asm volatile("ld.global.nc.f32 %0, [%1];\n" : "=f"(v) : "l"(p));
-  return v;
-}
-
-struct Vertices {
+struct Vertices : wg::Job {
   const float* __restrict__ pts;      // (m, 3) camera frame
   const float* __restrict__ frame;    // (16,) ops/hand_energy.hand_frame
   const unsigned char* __restrict__ mask;
@@ -72,11 +64,11 @@ struct Vertices {
     x[1] = __ldg(pts + 3 * row + 1);
     x[2] = __ldg(pts + 3 * row + 2);
   }
-  __device__ __forceinline__ void place(long long, const float (&raw)[3], float scale,
+  __device__ __forceinline__ void place(long long, long long, const float (&raw)[3], float scale,
                                         float (&x)[3]) const {
     float f[12];
 #pragma unroll
-    for (int i = 0; i < 12; ++i) f[i] = frame_at(frame + i);
+    for (int i = 0; i < 12; ++i) f[i] = wg::frame_at(frame + i);
     scaled_object_frame(f, scale, raw[0], raw[1], raw[2], x);
   }
   __device__ __forceinline__ void store(long long, long long row, float value) const {
@@ -116,7 +108,7 @@ int launch(const void* pts, const void* frame, const void* mask, const void* pac
   const cudaError_t err = wg::plan_launch(hand_energy_kernel<kBf16>, shape, g_smem_limit, rounds,
                                           g_grid[kBf16], pinned, ring, smem, grid);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const Vertices job{static_cast<const float*>(pts), static_cast<const float*>(frame),
+  const Vertices job{{}, static_cast<const float*>(pts), static_cast<const float*>(frame),
                      static_cast<const unsigned char*>(mask), static_cast<float*>(sdf),
                      static_cast<float*>(hit), m, h, w};
   hand_energy_kernel<kBf16><<<grid, wg::kThreads, static_cast<size_t>(smem),

@@ -50,7 +50,7 @@ using namespace hotrack;
 // Point mi of a sequence's flattened batch: batch element mi / n_inner, point
 // mi % n_inner; its coordinate c is at
 // pts[b * batch_stride + c * chan_stride + n * point_stride]. Zeros past m.
-struct Points {
+struct Points : wg::Job {
   const float* __restrict__ pts;
   float* __restrict__ out;   // (n_seq, m)
   long long m, n_inner, batch_stride, chan_stride, point_stride, pts_seq;
@@ -64,7 +64,7 @@ struct Points {
     x[1] = __ldg(q + chan_stride);
     x[2] = __ldg(q + 2 * chan_stride);
   }
-  __device__ __forceinline__ void place(long long, const float (&raw)[3], float scale,
+  __device__ __forceinline__ void place(long long, long long, const float (&raw)[3], float scale,
                                         float (&x)[3]) const {
 #pragma unroll
     for (int c = 0; c < 3; ++c) x[c] = __fmul_rn(raw[c], scale);
@@ -72,7 +72,6 @@ struct Points {
   __device__ __forceinline__ void store(long long s, long long row, float sdf) const {
     out[s * m + row] = sdf;
   }
-  __device__ __forceinline__ void aside(long long, long long, int) const {}
 };
 
 template <bool kBf16>
@@ -103,7 +102,7 @@ int launch(const void* pts, const void* packed, void* out, long long m, long lon
   const cudaError_t err = wg::plan_launch(sdf_mlp_kernel<kBf16>, shape, g_smem_limit, items,
                                           g_grid[kBf16], pinned, ring, smem, grid);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const Points job{static_cast<const float*>(pts), static_cast<float*>(out), m, n_inner,
+  const Points job{{}, static_cast<const float*>(pts), static_cast<float*>(out), m, n_inner,
                    batch_stride, chan_stride, point_stride, pts_seq};
   sdf_mlp_kernel<kBf16><<<grid, wg::kThreads, static_cast<size_t>(smem),
                           static_cast<cudaStream_t>(stream)>>>(

@@ -1,30 +1,9 @@
 // The distilled-SDF MLP on Hopper's tensor cores through mma.sync, at
-// float32-class precision (3xTF32) or in bf16, for obj_energy.cu (#4, #4b)
-// and hand_energy_skin.cu (#7, #7b), each of which instantiates its kernel
-// for both (the template parameter kBf16 of mlp_rows and of the layout
-// helpers). sdf_mlp.cu (#3, #3b) and hand_energy.cu (#6) run the same
-// arithmetic through wgmma (sdf_mlp_wgmma.cuh, which takes this header's
-// rounding and shape check).
-//
-// bf16 (kBf16, HOTRACK_SDF_BF16; the JAX package's compute_dtype bfloat16):
-// every layer's input activations and weights, the output layer's included,
-// rounded to bf16 to nearest with ties to even (cvt.rn.bf16x2.f32; the
-// weights when they are packed, ops/sdf_mlp.py _pack_tc16), exact products
-// summed in float32 by the tensor cores, bias, ReLU and clamp in float32.
-// One mma.sync.m16n8k16 bf16 a k-step of 16 and n-tile, where 3xTF32 takes
-// three m16n8k8 a k-step of 8: a sixth of the instructions. The C fragments
-// of n-tiles 2 k and 2 k + 1 are the A fragment of k-step k with the units in
-// their natural order, so the bf16 layout keeps every layer's rows in order.
-// Weights: 2 bytes each, [k-step][n-tile pair p][lane][8 bf16] (lane (g, t)
-// holds b0 b1 of n-tiles 2 p and 2 p + 1: the weights of k-slots 16 ks + 2 t,
-// + 1, + 8, + 9 and units 16 p + g, 16 p + 8 + g), 16 bytes a lane a load;
-// 33,280 bytes a later layer with its bias (66,560 for 21-128-128-128-1). The
-// output layer is float32 FMA on bf16-rounded activations and weights: its
-// products are exact, as the tensor cores' are. Bound: one bf16 pass of the
-// 71,168 operations a point at bf16's 989 TFLOP/s (0.151 ms for 2048 x 1024
-// points); the features, bias, ReLU and conversions, about 2 x 384 + 60
-// float32 operations a point at 67 TFLOP/s (0.05 ms there), are no longer
-// small beside it.
+// float32-class precision (3xTF32), for the 3xTF32 instantiations of
+// obj_energy.cu (#4, #4b) and hand_energy_skin.cu (#7, #7b). Their bf16
+// instantiations, sdf_mlp.cu (#3, #3b) and hand_energy.cu (#6) run the MLP
+// through wgmma on the persistent walk of sdf_mlp_wgmma.cuh (which takes this
+// header's rounding and shape check).
 //
 // Computes what `_sdf_mlp_core` of hotrack_tpu/ops/pallas/hand_energy.py
 // computes for the TPU kernels: per point, Fourier features
@@ -102,10 +81,6 @@
 //   layers in _tc_rows' order): big weights, K x 128 floats in fragment order;
 //   small weights, K x 128 fp16 in fragment order (K x 64 words); bias [128]
 //   output layer: weights [128], bias, 0 0 0
-// and in bf16 (PackedSDF.tc16, _pack_tc16): the same header; per hidden layer
-// (K = 3 + 6F padded to a multiple of 16 for layer 0, 128 after, rows in
-// order) K x 128 bf16 weights in the bf16 fragment order (K x 64 words), bias
-// [128]; output layer: weights rounded to bf16 [128], bias, 0 0 0.
 
 #pragma once
 
@@ -125,61 +100,51 @@ constexpr int kNTiles = kUnits / 8;             // 16 n-tiles of 8 units, 16 k-s
 constexpr int kMaxHidden = 8;
 constexpr float kSmallUnscale = 1.0f / 4096.0f; // the small halves are stored times 2^12
 // a layer's floats for K input rows: big weights (K x 128 floats), small
-// weights (K x 128 halves), bias (128); in bf16, K x 128 bf16 and the bias
-template <bool kBf16>
-__host__ __device__ inline int block_floats(int k) {
-  return kBf16 ? k * (kUnits / 2) + kUnits : k * (kUnits + kUnits / 2) + kUnits;
-}
+// weights (K x 128 halves), bias (128)
+__host__ __device__ inline int block_floats(int k) { return k * (kUnits + kUnits / 2) + kUnits; }
 constexpr int kHiddenFloats = kUnits * (kUnits + kUnits / 2) + kUnits;   // a layer l >= 1
-constexpr int kHiddenFloats16 = kUnits * (kUnits / 2) + kUnits;          // the same in bf16
-template <bool kBf16>
-__host__ __device__ constexpr int hidden_floats() { return kBf16 ? kHiddenFloats16 : kHiddenFloats; }
 
 struct Shape {
   int n_freqs;
   int n_hidden;
-  int k0;        // 3 + 6F rounded up to a multiple of 8 (of 16 in bf16)
+  int k0;        // 3 + 6F rounded up to a multiple of 8
 };
 
 __host__ __device__ inline int round_up4(int v) { return (v + 3) & ~3; }
 __host__ __device__ inline int round_up8(int v) { return (v + 7) & ~7; }
 
 // From layer 0's block to layer l's, in floats.
-template <bool kBf16>
 __host__ __device__ inline long long layer_offset(const Shape& s, int l) {
-  return l == 0 ? 0LL
-                : block_floats<kBf16>(s.k0) + static_cast<long long>(l - 1) * hidden_floats<kBf16>();
+  return l == 0 ? 0LL : block_floats(s.k0) + static_cast<long long>(l - 1) * kHiddenFloats;
 }
 __host__ __device__ inline int header_floats(const Shape& s) { return 4 + round_up4(s.n_freqs); }
 // Shared-memory floats for the weights: every layer after the first
 // (resident for the block's life), or one of them (staged).
-template <bool kBf16>
 __host__ __device__ inline long long weight_smem_floats(const Shape& s, bool resident) {
   const long long later = s.n_hidden - 1;
-  return (resident ? later : (later > 0 ? 1 : 0)) * hidden_floats<kBf16>();
+  return (resident ? later : (later > 0 ? 1 : 0)) * kHiddenFloats;
 }
 
 // The shape of a model the launchers were given (widths[0] = 3 + 6F,
 // widths[l] = units of hidden layer l), or k0 = 0 when the kernels do not
 // take it: 1 to 8 hidden layers, no layer wider than 128.
-inline Shape make_shape(int n_freqs, int n_hidden, const int* widths, bool bf16 = false) {
+inline Shape make_shape(int n_freqs, int n_hidden, const int* widths) {
   Shape s{n_freqs, n_hidden, 0};
   if (n_freqs < 0 || n_hidden < 1 || n_hidden > kMaxHidden) return s;
   if (widths[0] != 3 + 6 * n_freqs) return s;
   for (int l = 0; l <= n_hidden; ++l)
     if (widths[l] < 1 || widths[l] > kUnits) return s;
-  s.k0 = bf16 ? (widths[0] + 15) & ~15 : round_up8(widths[0]);
+  s.k0 = round_up8(widths[0]);
   return s;
 }
 
 // Whether the later layers stay in shared memory for the block's life (1) or
 // are staged (0), given the other bytes the kernel needs and what a block may
 // have; -1 when even one staged layer does not fit.
-template <bool kBf16>
 inline int resident_mode(const Shape& s, long long other_bytes, long long limit) {
   const long long f = static_cast<long long>(sizeof(float));
-  if (other_bytes + f * weight_smem_floats<kBf16>(s, true) <= limit) return 1;
-  if (other_bytes + f * weight_smem_floats<kBf16>(s, false) <= limit) return 0;
+  if (other_bytes + f * weight_smem_floats(s, true) <= limit) return 1;
+  if (other_bytes + f * weight_smem_floats(s, false) <= limit) return 0;
   return -1;
 }
 
@@ -284,52 +249,6 @@ __device__ __forceinline__ Layer layer_at(const float* block, int k) {
           block + k * (kUnits + kUnits / 2)};
 }
 
-// The same in bf16: the weights in the bf16 fragment order, then the bias.
-struct Layer16 {
-  const uint4* w4;
-  const float* bias;
-};
-
-__device__ __forceinline__ Layer16 layer16_at(const float* block, int k) {
-  return {reinterpret_cast<const uint4*>(block), block + k * (kUnits / 2)};
-}
-
-// lo and hi rounded to bf16 (to nearest, ties to even) in one 32-bit word,
-// lo in the low half: the A-fragment register of two k-slots.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  uint32_t d;
-  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(d) : "f"(hi), "f"(lo));
-  return d;
-}
-
-// x rounded to bf16 (to nearest, ties to even), as a float32.
-__device__ __forceinline__ float bf16_round(float x) {
-  return __uint_as_float(pack_bf16(x, 0.0f) << 16);
-}
-
-// d = a * b + d for one m16n8k16 bf16 tile, float32 accumulators.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// One bf16 k-step of 16 against all 16 n-tiles: w4 points at the step's
-// fragments (kGlobal: in device memory, read through L1; else in shared
-// memory), one 16-byte load a lane an n-tile pair.
-template <bool kGlobal>
-__device__ __forceinline__ void k_step16(float (&acc)[kNTiles][4], const uint32_t (&a)[4],
-                                         const uint4* __restrict__ w4, int lane) {
-#pragma unroll
-  for (int p = 0; p < kNTiles / 2; ++p) {
-    const uint4 w = load<kGlobal>(w4 + p * 32 + lane);
-    mma_bf16(acc[2 * p], a, w.x, w.y);
-    mma_bf16(acc[2 * p + 1], a, w.z, w.w);
-  }
-}
-
 __device__ __forceinline__ float pick3(const float (&x)[3], int i) {
   return i == 0 ? x[0] : (i == 1 ? x[1] : x[2]);
 }
@@ -394,42 +313,6 @@ __device__ __forceinline__ void hidden_layer(float (&acc)[kNTiles][4],
   }
 }
 
-// Layer 0 in bf16 on rows g (xa) and g + 8 (xb): lane (g, t) takes features
-// 16 ks + 2 t, + 1, + 8, + 9 of its two rows (the A fragment of m16n8k16).
-__device__ __forceinline__ void first_layer16(float (&acc)[kNTiles][4], const float (&xa)[3],
-                                              const float (&xb)[3],
-                                              const float* __restrict__ freqs, const Shape& s,
-                                              const Layer16& w, int lane) {
-  zero(acc);
-  const int t = lane & 3;
-  for (int ks = 0; ks < s.k0 / 16; ++ks) {
-    const int c = 16 * ks + 2 * t;
-    uint32_t a[4];
-    a[0] = pack_bf16(feature(xa, c, freqs, s.n_freqs), feature(xa, c + 1, freqs, s.n_freqs));
-    a[1] = pack_bf16(feature(xb, c, freqs, s.n_freqs), feature(xb, c + 1, freqs, s.n_freqs));
-    a[2] = pack_bf16(feature(xa, c + 8, freqs, s.n_freqs), feature(xa, c + 9, freqs, s.n_freqs));
-    a[3] = pack_bf16(feature(xb, c + 8, freqs, s.n_freqs), feature(xb, c + 9, freqs, s.n_freqs));
-    k_step16<true>(acc, a, w.w4 + ks * (kNTiles / 2) * 32, lane);
-  }
-}
-
-// A hidden layer l >= 1 in bf16 from shared memory: act holds the previous
-// layer's outputs in accumulator order; n-tiles 2 ks and 2 ks + 1 are k-step
-// ks's A fragment (units 16 ks + 2 t, + 1 and 16 ks + 8 + 2 t, + 1).
-__device__ __forceinline__ void hidden_layer16(float (&acc)[kNTiles][4],
-                                               const float (&act)[kNTiles][4], const Layer16& w,
-                                               int lane) {
-  zero(acc);
-#pragma unroll
-  for (int ks = 0; ks < kNTiles / 2; ++ks) {
-    const uint32_t a[4] = {pack_bf16(act[2 * ks][0], act[2 * ks][1]),
-                           pack_bf16(act[2 * ks][2], act[2 * ks][3]),
-                           pack_bf16(act[2 * ks + 1][0], act[2 * ks + 1][1]),
-                           pack_bf16(act[2 * ks + 1][2], act[2 * ks + 1][3])};
-    k_step16<false>(acc, a, w.w4 + ks * (kNTiles / 2) * 32, lane);
-  }
-}
-
 __device__ __forceinline__ void bias_relu(float (&act)[kNTiles][4], const float (&acc)[kNTiles][4],
                                           const float* __restrict__ bias, int lane) {
   const int t = lane & 3;
@@ -459,70 +342,48 @@ struct Net {
   const float* wout;     // output weights [128], then the bias
 };
 
-template <bool kBf16>
 __device__ __forceinline__ Net net_of(const float* __restrict__ packed, const Shape& s) {
   Net n;
   n.scale = __ldg(packed);
   n.clamp = __ldg(packed + 1);
   n.freqs = packed + 4;
   n.layers = packed + header_floats(s);
-  n.wout = n.layers + layer_offset<kBf16>(s, s.n_hidden);
+  n.wout = n.layers + layer_offset(s, s.n_hidden);
   return n;
 }
 
 // Makes the block's resident layers (1 .. depth - 1) those of `net`; every
 // thread calls it.
-template <bool kBf16>
 __device__ __forceinline__ void load_resident(float* __restrict__ wsm, const Net& net,
                                               const Shape& s) {
   __syncthreads();   // nobody reads the previous weights any more
-  copy_floats(wsm, net.layers + layer_offset<kBf16>(s, 1), weight_smem_floats<kBf16>(s, true));
+  copy_floats(wsm, net.layers + layer_offset(s, 1), weight_smem_floats(s, true));
   __syncthreads();
 }
 
 // The clamped sdf of the warp's rows g (xa, scaled coordinates) and g + 8
-// (xb), returned to every lane of the row's four, in 3xTF32 or (kBf16) in
-// bf16. Every thread of the block calls it (a staged net copies its layers
-// with barriers).
-template <bool kBf16>
+// (xb), returned to every lane of the row's four. Every thread of the block
+// calls it (a staged net copies its layers with barriers).
 __device__ __forceinline__ float2 mlp_rows(const float (&xa)[3], const float (&xb)[3],
                                            const Net& net, const Shape& s, bool resident,
                                            float* __restrict__ wsm) {
   const int lane = threadIdx.x & 31, t = lane & 3;
   float acc[kNTiles][4], act[kNTiles][4];
-  if constexpr (kBf16) {
-    const Layer16 first = layer16_at(net.layers, s.k0);
-    first_layer16(acc, xa, xb, net.freqs, s, first, lane);
-    bias_relu(act, acc, first.bias, lane);
-  } else {
-    const Layer first = layer_at(net.layers, s.k0);
-    first_layer(acc, xa, xb, net.freqs, s, first, lane);
-    bias_relu(act, acc, first.bias, lane);
-  }
+  const Layer first = layer_at(net.layers, s.k0);
+  first_layer(acc, xa, xb, net.freqs, s, first, lane);
+  bias_relu(act, acc, first.bias, lane);
   for (int l = 1; l < s.n_hidden; ++l) {
     const float* block = wsm;
     if (resident) {
-      block += static_cast<long long>(l - 1) * hidden_floats<kBf16>();
+      block += static_cast<long long>(l - 1) * kHiddenFloats;
     } else {
       __syncthreads();
-      copy_floats(wsm, net.layers + layer_offset<kBf16>(s, l), hidden_floats<kBf16>());
+      copy_floats(wsm, net.layers + layer_offset(s, l), kHiddenFloats);
       __syncthreads();
     }
-    if constexpr (kBf16) {
-      const Layer16 w = layer16_at(block, kUnits);
-      hidden_layer16(acc, act, w, lane);
-      bias_relu(act, acc, w.bias, lane);
-    } else {
-      const Layer w = layer_at(block, kUnits);
-      hidden_layer(acc, act, w, lane);
-      bias_relu(act, acc, w.bias, lane);
-    }
-  }
-  if constexpr (kBf16) {   // the output layer's activations in bf16 too
-#pragma unroll
-    for (int nt = 0; nt < kNTiles; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) act[nt][i] = bf16_round(act[nt][i]);
+    const Layer w = layer_at(block, kUnits);
+    hidden_layer(acc, act, w, lane);
+    bias_relu(act, acc, w.bias, lane);
   }
   float p0 = 0.0f, p1 = 0.0f;
 #pragma unroll

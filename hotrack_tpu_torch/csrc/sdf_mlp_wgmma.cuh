@@ -1,18 +1,22 @@
 // The distilled-SDF MLP on Hopper's warpgroup tensor-core instruction
 // (wgmma), at float32-class precision (3xTF32) or in bf16, and the persistent
-// walk of 128-point rounds around it, for sdf_mlp.cu (#3, #3b) and
-// hand_energy.cu (#6): the two kernels differ only in how a point is read and
-// how a round is stored (`walk` below), and each instantiates the walk for
-// both precisions (its template parameter kBf16). obj_energy.cu and
-// hand_energy_skin.cu (#4, #7) run the mma.sync core of sdf_mlp_tc.cuh.
+// walk of 128-point rounds around it. sdf_mlp.cu (#3, #3b) and hand_energy.cu
+// (#6) instantiate the walk in both precisions (template parameter kBf16);
+// obj_energy.cu (#4, #4b) and hand_energy_skin.cu (#7, #7b) in bf16 only, and
+// run their 3xTF32 instantiations on the mma.sync core of sdf_mlp_tc.cuh. The
+// kernels differ in how a point is read, how a round is stored or summed and
+// what the producer warpgroup's spare warps do (`walk`, `Job` below).
 //
-// bf16 (kBf16, HOTRACK_SDF_BF16), the rule of sdf_mlp_tc.cuh: activations and
-// weights rounded to bf16 to nearest, ties to even, before every product,
-// float32 sums, bias, ReLU, output layer (float32 FMA on bf16-rounded values)
-// and clamp in float32. Instruction: wgmma.mma_async.m64n128k16.f32.bf16.bf16,
-// A from registers (4 words of two bf16 a thread: rows g and g + 8, k-slots
-// 2 t, 2 t + 1, 2 t + 8, 2 t + 9), B from a tile of shared memory (K-major, no
-// transpose); one wgmma a k-step of 16 into one accumulator, where 3xTF32
+// bf16 (kBf16, HOTRACK_SDF_BF16; the JAX package's compute_dtype bfloat16):
+// every layer's input activations and weights, the output layer's included,
+// rounded to bf16 to nearest, ties to even (cvt.rn.bf16x2.f32; the weights when
+// they are packed, ops/sdf_mlp.py _pack_wg16), exact products summed in float32
+// by the tensor cores, bias, ReLU, output layer (float32 FMA on bf16-rounded
+// values) and clamp in float32. Instruction:
+// wgmma.mma_async.m64n128k16.f32.bf16.bf16, A from registers (4 words of two
+// bf16 a thread: rows g and g + 8, k-slots 2 t, 2 t + 1, 2 t + 8, 2 t + 9), B
+// from a tile of shared memory (K-major, no transpose); one wgmma a k-step of
+// 16 into one accumulator, where 3xTF32
 // takes three a k-step of 8 into two. The C fragments of n-tiles 2 k and
 // 2 k + 1, bias added and ReLU'd, are k-step k's A fragment after
 // cvt.rn.bf16x2.f32, with the units in their natural order, so the later
@@ -91,10 +95,12 @@
 // kernel with wgmma registers by whole warpgroups, so 288 threads got 168 and
 // spilled); warp 8 copies, warps 9-11 meet the block's barriers and do the
 // kernel's side work for each item (`aside`: #6's silhouette hits, off the
-// consumers' path; nothing for #3). A work item is a round of 128 consecutive
-// points of one sequence, 64 a consumer warpgroup, 16 a warp; the block
-// walks items b, b + grid, ... in ascending order (a round never spans two
-// sequences), each round's points read during the round before. Entering
+// consumers' path; nothing for #3 and #4; `build`: #7's skinning into a stage
+// slot). A work item is a round of 128 consecutive points of one sequence, 64
+// a consumer warpgroup, 16 a warp; the block walks items b, b + grid, ... in
+// ascending order (a round never spans two sequences; #4 walks groups of a
+// candidate's rounds), each round's points read during the round before
+// (#7's taken from the stage where the round starts). Entering
 // another sequence, the whole block meets at a
 // barrier and the producer copies the new model's pinned tiles onto the
 // "pinned" mbarrier. Per round a consumer warpgroup runs layer 0 a k-step at a
@@ -144,6 +150,7 @@ constexpr int kProducerWarp = kConsumerWarps;     // the one that copies
 constexpr int kAsideThreads = kThreads - 32 * (kProducerWarp + 1);   // warps 9-11: `aside`
 constexpr int kConsumerRegs = 232;                // setmaxnreg: 2 x 128 x 232 + 128 x 40
 constexpr int kProducerRegs = 40;                 //   = 64,512 of the SM's 65,536
+constexpr int kLaunchRegs = (65536 / kThreads) & ~7;   // a thread's at launch: 168
 constexpr int kRows = 64;                         // points a warpgroup a round: wgmma's M
 constexpr int kRoundPoints = 2 * kRows;
 constexpr int kUnits = 128;
@@ -202,7 +209,7 @@ inline void plan(const Shape& s, long long limit, int& pinned, int& ring) {
                          barrier_bytes(kRing)) / kTileBytes;
   pinned = fit >= s.first_tiles ? static_cast<int>(fit) : -1;
 }
-inline long long smem_bytes(int pinned, int ring) {
+__host__ __device__ inline long long smem_bytes(int pinned, int ring) {
   return static_cast<long long>(pinned + ring) * kTileBytes + barrier_bytes(ring);
 }
 
@@ -244,6 +251,15 @@ __device__ __forceinline__ void setmaxnreg_inc() {
 template <int N>
 __device__ __forceinline__ void setmaxnreg_dec() {
   asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+// A warpgroup's registers set to N from the launch's kLaunchRegs: setmaxnreg
+// may only raise (inc) or lower (dec) the count, so N picks the instruction,
+// and N == kLaunchRegs keeps the launch's.
+template <int N>
+__device__ __forceinline__ void set_regs() {
+  static_assert(N % 8 == 0 && N >= 24 && N <= 256, "setmaxnreg takes 24 to 256, a multiple of 8");
+  if constexpr (N > kLaunchRegs) setmaxnreg_inc<N>();
+  else if constexpr (N < kLaunchRegs) setmaxnreg_dec<N>();
 }
 
 // bytes from device memory to shared memory, completing on bar's tx count.
@@ -485,6 +501,19 @@ __device__ __forceinline__ void bias_relu(float (&act)[64], const float (&dm)[64
 
 // ---- bf16 ----
 
+// lo and hi rounded to bf16 (to nearest, ties to even) in one 32-bit word,
+// lo in the low half: the A-fragment register of two k-slots.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  uint32_t d;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(d) : "f"(hi), "f"(lo));
+  return d;
+}
+
+// x rounded to bf16 (to nearest, ties to even), as a float32.
+__device__ __forceinline__ float bf16_round(float x) {
+  return __uint_as_float(pack_bf16(x, 0.0f) << 16);
+}
+
 // d (64 x 128 float32 sums) = A (64 x 16 bf16, 4 words a thread) * B (the
 // 16 x 128 bf16 tile that desc describes, K-major) + (scale_d ? d : 0).
 // Asynchronous, as wgmma_tf32.
@@ -538,7 +567,7 @@ __device__ __forceinline__ void first_fragments16(uint32_t (&a)[4], const float 
   }
   __syncwarp();   // the features branch by lane
 #pragma unroll
-  for (int i = 0; i < 4; ++i) a[i] = tc::pack_bf16(v[2 * i], v[2 * i + 1]);
+  for (int i = 0; i < 4; ++i) a[i] = pack_bf16(v[2 * i], v[2 * i + 1]);
 }
 
 // Layer 0's bf16 product of k-step ks on fragment a (its tile is pinned),
@@ -583,10 +612,10 @@ __device__ __forceinline__ void bias_relu16(uint32_t (&a)[kMaxKSteps / 2][4],
 #pragma unroll
   for (int j = 0; j < kMaxKSteps; ++j) {
     const float2 b = __ldg(reinterpret_cast<const float2*>(bias + 8 * j + 2 * t));
-    a[j / 2][2 * (j & 1)] = tc::pack_bf16(fmaxf(d[4 * j] + b.x, 0.0f),
-                                          fmaxf(d[4 * j + 1] + b.y, 0.0f));
-    a[j / 2][2 * (j & 1) + 1] = tc::pack_bf16(fmaxf(d[4 * j + 2] + b.x, 0.0f),
-                                              fmaxf(d[4 * j + 3] + b.y, 0.0f));
+    a[j / 2][2 * (j & 1)] = pack_bf16(fmaxf(d[4 * j] + b.x, 0.0f),
+                                      fmaxf(d[4 * j + 1] + b.y, 0.0f));
+    a[j / 2][2 * (j & 1) + 1] = pack_bf16(fmaxf(d[4 * j + 2] + b.x, 0.0f),
+                                          fmaxf(d[4 * j + 3] + b.y, 0.0f));
   }
 }
 
@@ -689,10 +718,10 @@ __device__ __forceinline__ float2 mlp_rows16(const float (&xa)[3], const float (
   for (int j = 0; j < kMaxKSteps; ++j) {
     const float2 b = __ldg(reinterpret_cast<const float2*>(bias + 8 * j + 2 * t));
     const float2 wo = __ldg(reinterpret_cast<const float2*>(net.wout + 8 * j + 2 * t));
-    p0 = fmaf(tc::bf16_round(fmaxf(d[4 * j] + b.x, 0.0f)), wo.x, p0);
-    p0 = fmaf(tc::bf16_round(fmaxf(d[4 * j + 1] + b.y, 0.0f)), wo.y, p0);
-    p1 = fmaf(tc::bf16_round(fmaxf(d[4 * j + 2] + b.x, 0.0f)), wo.x, p1);
-    p1 = fmaf(tc::bf16_round(fmaxf(d[4 * j + 3] + b.y, 0.0f)), wo.y, p1);
+    p0 = fmaf(bf16_round(fmaxf(d[4 * j] + b.x, 0.0f)), wo.x, p0);
+    p0 = fmaf(bf16_round(fmaxf(d[4 * j + 1] + b.y, 0.0f)), wo.y, p0);
+    p1 = fmaf(bf16_round(fmaxf(d[4 * j + 2] + b.x, 0.0f)), wo.x, p1);
+    p1 = fmaf(bf16_round(fmaxf(d[4 * j + 3] + b.y, 0.0f)), wo.y, p1);
   }
   p0 += __shfl_xor_sync(0xffffffffu, p0, 1);
   p1 += __shfl_xor_sync(0xffffffffu, p1, 1);
@@ -703,24 +732,97 @@ __device__ __forceinline__ float2 mlp_rows16(const float (&xa)[3], const float (
                      fminf(fmaxf(p1 + b, -net.clamp), net.clamp));
 }
 
+// A float of a per-round input (a frame, a pose), loaded where it is used: a
+// volatile load is neither hoisted out of the walk's loop nor kept in a
+// register across the MLP.
+__device__ __forceinline__ float frame_at(const float* p) {
+  float v;
+  asm volatile("ld.global.nc.f32 %0, [%1];\n" : "=f"(v) : "l"(p));
+  return v;
+}
+
+// What a kernel on the walk says besides its point reader and round store:
+// the defaults, which #3 and #6 keep (every hook below is empty for them, and
+// the walk compiles it away). A job derives from Job and overrides what it
+// uses:
+//   kGroups, span()                   rounds of a group: the block walks groups
+//                                     b, b + grid, ..., a group's rounds in
+//                                     ascending order (without kGroups every
+//                                     round is a group: items b, b + grid, ...);
+//   kSums                             each round's values summed (`add`, then
+//                                     `total` after a group's last round)
+//                                     instead of stored;
+//   kStage                            slots of a staged-input handshake: the
+//                                     aside warps `build` a round's inputs into
+//                                     a slot of shared memory up to kStage
+//                                     rounds ahead, the consumers `take` them
+//                                     where the round starts (a full and an
+//                                     empty mbarrier a slot); 0: `load` a round
+//                                     ahead and `place`, and `aside` beside;
+//   kConsumerRegs, kProducerRegs      the setmaxnreg split, 2 x 128 x consumer
+//                                     + 128 x producer <= 64,512 (kLaunchRegs
+//                                     both: the launch's, no setmaxnreg);
+//   scratch_bytes()                   shared memory the job uses after the
+//                                     walk's (its stage's barriers apart).
+struct Job {
+  static constexpr bool kGroups = false;
+  static constexpr bool kSums = false;
+  static constexpr int kStage = 0;
+  static constexpr int kConsumerRegs = 232;
+  static constexpr int kProducerRegs = 40;
+  __host__ __device__ long long span() const { return 1; }
+  __host__ long long scratch_bytes() const { return 0; }
+  __device__ void load(long long, long long, float (&)[3]) const {}
+  __device__ void place(long long, long long, const float (&)[3], float, float (&)[3]) const {}
+  __device__ void store(long long, long long, float) const {}
+  __device__ void aside(long long, long long, int) const {}
+  __device__ void build(long long, long long, int, int, unsigned char*) const {}
+  __device__ void take(long long, long long, int, const unsigned char*, float,
+                       float (&)[3]) const {}
+  __device__ void add(float&, long long, float2) const {}
+  __device__ void total(float&, long long, unsigned char*, int) const {}
+};
+
+// Bytes of a job's stage barriers, a full and an empty one a slot.
+template <class J>
+__host__ __device__ constexpr int stage_barrier_bytes() { return (16 * J::kStage + 15) & ~15; }
+
+// The shared memory a job adds to the walk's.
+template <class J>
+inline long long job_bytes(const J& job) { return stage_barrier_bytes<J>() + job.scratch_bytes(); }
+
 // The persistent walk of a kernel on this core, for one block of kThreads
-// threads with `smem` holding smem_bytes(pinned, ring) bytes: items = rounds x
-// sequences, item i is round i % rounds of sequence i / rounds, whose model
-// lies s * packed_seq floats into `packed` (wg layout). A Job says how the
-// kernel reads a point and stores a round:
+// threads with `smem` holding smem_bytes(pinned, ring) + job_bytes(job) bytes:
+// items = rounds x sequences, item i is round i % rounds of sequence i /
+// rounds, whose model lies s * packed_seq floats into `packed` (wg layout);
+// items is a multiple of job.span(). A Job says how the kernel reads a point
+// and stores a round:
 //   long long m                       points a sequence;
 //   load(s, row, raw[3])              the point's raw values, issued a round
 //                                     ahead (anything finite past m);
-//   place(s, raw, scale, x[3])        the MLP's scaled input, when its round
+//   place(s, row, raw, scale, x[3])   the MLP's scaled input, when its round
 //                                     starts (no loads in flight behind it);
 //   store(s, row, sdf)                the clamped sdf of a row < m, by lane
 //                                     row % 16 of the warp that holds it;
 //   aside(s, round, t)                warps 9-11's work for the item, thread
-//                                     t of kAsideThreads, beside the copies.
+//                                     t of kAsideThreads, beside the copies;
+// or, staged (kStage > 0), instead of load, place and aside:
+//   build(s, round, t, slot, scratch) warps 9-11 fill stage slot `slot` with
+//                                     the round's inputs (the walk waits for
+//                                     the slot to be free and says when it is
+//                                     full; the scratch's first int is -1
+//                                     before the first build);
+//   take(s, row, slot, scratch, scale, x[3])  the MLP's input from the slot;
+// and, summing (kSums), instead of store:
+//   add(sum, row, sdf)                every consumer thread after each round:
+//                                     sdf.x of its row g, sdf.y of g + 8;
+//   total(sum, group, scratch, parity)  every consumer thread after its
+//                                     group's last round (parity: the block's
+//                                     groups so far, mod 2).
 // A point's value depends on its raw values and its model only. kBf16: the
 // MLP in bf16 (mlp_rows16, the wg16 layout), else in 3xTF32.
-template <bool kBf16, class Job>
-__device__ __forceinline__ void walk(const Job& job, unsigned char* smem,
+template <bool kBf16, class J>
+__device__ __forceinline__ void walk(const J& job, unsigned char* smem,
                                      const float* __restrict__ packed, long long packed_seq,
                                      long long rounds, long long items, const Shape& shape,
                                      int pinned, int ring) {
@@ -733,21 +835,43 @@ __device__ __forceinline__ void walk(const Job& job, unsigned char* smem,
   w.pinned = pinned;
   w.next = 0;
   const uint32_t pin = w.empty + 8 * ring;   // the pinned tiles' copy
+  // the job's shared memory: its stage's barriers, then its scratch
+  unsigned char* job_smem = smem + smem_bytes(pinned, ring);
+  const uint32_t stage_full = smem_addr(job_smem), stage_empty = stage_full + 8 * J::kStage;
+  unsigned char* scratch = job_smem + stage_barrier_bytes<J>();
   if (threadIdx.x == 0) {
     for (int i = 0; i < ring; ++i) {
       mbar_init(w.full + 8 * i, 1);
       mbar_init(w.empty + 8 * i, kConsumerWarps);
     }
     mbar_init(pin, 1);
+    for (int i = 0; i < J::kStage; ++i) {
+      mbar_init(stage_full + 8 * i, kAsideThreads);
+      mbar_init(stage_empty + 8 * i, kConsumerWarps);
+    }
+    if constexpr (J::kStage > 0) *reinterpret_cast<int*>(scratch) = -1;
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
+  // the block's items: the rounds of groups b, b + grid, ... in ascending order
+  const long long span = J::kGroups ? job.span() : 1;
+  // read in each warpgroup's branch (a value live across setmaxnreg moves
+  // ptxas's register allocation)
+  const auto first = [&]() -> long long {
+    return J::kGroups ? static_cast<long long>(blockIdx.x) * span : blockIdx.x;
+  };
+  const auto after = [&](long long item) {
+    if constexpr (!J::kGroups) return item + gridDim.x;
+    return (item + 1) % span != 0 ? item + 1
+                                  : item + 1 + (static_cast<long long>(gridDim.x) - 1) * span;
+  };
   long long loaded = -1;
   if (warp >= kConsumerWarps) {   // the producer's warpgroup
-    setmaxnreg_dec<kProducerRegs>();
+    set_regs<J::kProducerRegs>();
     const bool copies = warp == kProducerWarp;   // the other three do the job's aside
-    for (long long item = blockIdx.x; item < items; item += gridDim.x) {
+    uint32_t built = 0;   // stage slots filled so far
+    for (long long item = first(); item < items; item = after(item)) {
       const long long s = item / rounds;
       const float* tiles = net_of(packed + s * packed_seq, shape).tiles;
       if (s != loaded) {   // the consumers are done with the previous model's tiles
@@ -762,7 +886,15 @@ __device__ __forceinline__ void walk(const Job& job, unsigned char* smem,
         }
       }
       if (!copies) {
-        job.aside(s, item - s * rounds, static_cast<int>(threadIdx.x) - 32 * (kProducerWarp + 1));
+        const int t = static_cast<int>(threadIdx.x) - 32 * (kProducerWarp + 1);
+        if constexpr (J::kStage > 0) {
+          const uint32_t n = built++, slot = n % J::kStage;
+          mbar_wait(stage_empty + 8 * slot, ((n / J::kStage) & 1) ^ 1);
+          job.build(s, item - s * rounds, t, static_cast<int>(slot), scratch);
+          mbar_arrive_if(stage_full + 8 * slot, 1);
+        } else {
+          job.aside(s, item - s * rounds, t);
+        }
         continue;
       }
       for (int t = pinned; t < shape.tiles; ++t) {
@@ -781,19 +913,23 @@ __device__ __forceinline__ void walk(const Job& job, unsigned char* smem,
     return;
   }
 
-  setmaxnreg_inc<kConsumerRegs>();
+  set_regs<J::kConsumerRegs>();
   const int g = lane >> 2;
-  uint32_t reloads = 0;
+  uint32_t reloads = 0, taken = 0;
+  float sum = 0.0f;   // kSums: the thread's part of its group's sum
+  int groups = 0;
   // the rows' points of the walk's next item are read a round ahead
   float na[3], nb[3];
   const auto fetch = [&](long long item) {
-    const long long s = item / rounds;
-    const long long row = (item - s * rounds) * kRoundPoints + warp * 16 + g;
-    job.load(s, row, na);
-    job.load(s, row + 8, nb);
+    if constexpr (J::kStage == 0) {
+      const long long s = item / rounds;
+      const long long row = (item - s * rounds) * kRoundPoints + warp * 16 + g;
+      job.load(s, row, na);
+      job.load(s, row + 8, nb);
+    }
   };
-  if (blockIdx.x < items) fetch(blockIdx.x);
-  for (long long item = blockIdx.x; item < items; item += gridDim.x) {
+  if (first() < items) fetch(first());
+  for (long long item = first(); item < items; item = after(item)) {
     const long long s = item / rounds;
     const Net net = net_of(packed + s * packed_seq, shape);
     if (s != loaded) {
@@ -802,18 +938,44 @@ __device__ __forceinline__ void walk(const Job& job, unsigned char* smem,
       loaded = s;
     }
     float xa[3], xb[3];
-    job.place(s, na, net.scale, xa);
-    job.place(s, nb, net.scale, xb);
-    if (item + gridDim.x < items) fetch(item + gridDim.x);
+    const long long row = (item - s * rounds) * kRoundPoints + warp * 16 + g;
+    if constexpr (J::kStage > 0) {
+      const uint32_t n = taken++, slot = n % J::kStage;
+      mbar_wait(stage_full + 8 * slot, (n / J::kStage) & 1);
+      job.take(s, row, static_cast<int>(slot), scratch, net.scale, xa);
+      job.take(s, row + 8, static_cast<int>(slot), scratch, net.scale, xb);
+      __syncwarp();   // the warp's reads of the slot are done
+      mbar_arrive_if(stage_empty + 8 * slot, lane == 0);
+    } else {
+      job.place(s, row, na, net.scale, xa);
+      job.place(s, row + 8, nb, net.scale, xb);
+      const long long next = after(item);
+      if (next < items) fetch(next);
+    }
     float2 sdf;
     if constexpr (kBf16) sdf = mlp_rows16(xa, xb, net, shape, w);
     else sdf = mlp_rows(xa, xb, net, shape, w);
-    // lane l < 16 stores the warp's row l, which lanes 4 (l % 8) .. + 3 hold
-    const long long base = (item - s * rounds) * kRoundPoints + warp * 16;
-    const float lo = __shfl_sync(0xffffffffu, sdf.x, 4 * (lane & 7));
-    const float hi = __shfl_sync(0xffffffffu, sdf.y, 4 * (lane & 7));
-    if (lane < 16 && base + lane < job.m) job.store(s, base + lane, lane < 8 ? lo : hi);
+    if constexpr (J::kSums) {
+      job.add(sum, row, sdf);
+      if ((item + 1) % span == 0) job.total(sum, item / span, scratch, groups++ & 1);
+    } else {
+      // lane l < 16 stores the warp's row l, which lanes 4 (l % 8) .. + 3 hold
+      const long long base = (item - s * rounds) * kRoundPoints + warp * 16;
+      const float lo = __shfl_sync(0xffffffffu, sdf.x, 4 * (lane & 7));
+      const float hi = __shfl_sync(0xffffffffu, sdf.y, 4 * (lane & 7));
+      if (lane < 16 && base + lane < job.m) job.store(s, base + lane, lane < 8 ? lo : hi);
+    }
   }
+}
+
+// A named barrier of the consumer warpgroups (warps 0-7), apart from the
+// block's barrier 0.
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(32 * kConsumerWarps) : "memory");
+}
+// The same for the aside warps (9-11).
+__device__ __forceinline__ void aside_sync() {
+  asm volatile("bar.sync 2, %0;\n" ::"n"(kAsideThreads) : "memory");
 }
 
 // Host side of a launch on this core.
@@ -837,15 +999,16 @@ struct Grid {
   int blocks = 0;
 };
 
-// Pinned tiles, ring slots, shared memory and grid for `items` rounds of a
-// model of `shape` within `limit` bytes a block.
+// Pinned tiles, ring slots, shared memory and grid for `items` groups of
+// rounds of a model of `shape` within `limit` bytes a block, `extra` of them
+// the job's (job_bytes).
 template <class Kernel>
 inline cudaError_t plan_launch(Kernel* kernel, const Shape& shape, int limit, long long items,
                                Grid& grid_of, int& pinned, int& ring, long long& smem,
-                               unsigned& grid) {
-  plan(shape, limit, pinned, ring);
+                               unsigned& grid, long long extra = 0) {
+  plan(shape, limit - extra, pinned, ring);
   if (pinned < 0) return cudaErrorInvalidValue;
-  smem = smem_bytes(pinned, ring);
+  smem = smem_bytes(pinned, ring) + extra;
   if (smem != grid_of.smem) {
     int device = 0, sms = 0, per_sm = 0;
     cudaError_t err = cudaGetDevice(&device);

@@ -35,8 +35,10 @@ Bound on the card: operations (the MLP's, three tensor-core passes in
 projection). The kernel's MLP runs on the tensor cores in 3xTF32
 (csrc/sdf_mlp_tc.cuh, `PackedSDF.tc`), within the plain version's bounds;
 `ops/tf32.py` emulates it. With `compute_dtype=torch.bfloat16`
-(HOTRACK_SDF_BF16) it is ops/sdf_mlp.py's bf16 MLP (`PackedSDF.tc16`, one bf16
-pass), and the skinning, transform and hit are unchanged.
+(HOTRACK_SDF_BF16) it is ops/sdf_mlp.py's bf16 MLP, one bf16 pass on the
+persistent wgmma walk that the SDF MLP kernel runs (csrc/sdf_mlp_wgmma.cuh,
+`PackedSDF.wg16`), with the skinning built a round or two ahead by the walk's
+spare warps; the skinning, transform and hit are the float32 kernel's code.
 """
 
 from __future__ import annotations

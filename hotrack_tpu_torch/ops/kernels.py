@@ -24,10 +24,13 @@ wrapper launches the same kernel body with one sequence, so sequence s of a
 batched launch is bitwise an unbatched launch on s's inputs.
 
 The four kernels that run the distilled-SDF MLP (#3, #4, #6, #7, and the
-batched #3b, #4b, #7b) each have two instantiations of one body: float32-class
-(3xTF32) and bf16 (`compute_dtype=torch.bfloat16`, ops/sdf_mlp.py). A wrapper
-given bf16 launches the bf16 one and counts it apart (`<name>_bf16` in
-`launch_counts`); it never takes the other precision.
+batched #3b, #4b, #7b) each have two instantiations: float32-class (3xTF32)
+and bf16 (`compute_dtype=torch.bfloat16`, ops/sdf_mlp.py). Every bf16 one runs
+the persistent wgmma walk of csrc/sdf_mlp_wgmma.cuh (`PackedSDF.wg16`); in
+3xTF32, #3 and #6 run the walk too (`PackedSDF.wg`), #4 and #7 the mma.sync
+core of csrc/sdf_mlp_tc.cuh (`PackedSDF.tc`). A wrapper given bf16 launches
+the bf16 one and counts it apart (`<name>_bf16` in `launch_counts`); it never
+takes the other precision.
 """
 
 from __future__ import annotations
@@ -418,8 +421,8 @@ def _precision(name: str, compute_dtype) -> str:
 
 def _mlp_args(name: str, packed, like: torch.Tensor, n_seq: int | None, layout: str):
     """The packed model's arguments for a launch (ops/sdf_mlp.PackedSDF): its
-    buffer in `layout` (`tc`, `tc16`: the mma.sync kernels' of
-    csrc/sdf_mlp_tc.cuh; `wg`, `wg16`: the wgmma kernels' of
+    buffer in `layout` (`tc`: the 3xTF32 mma.sync kernels' of
+    csrc/sdf_mlp_tc.cuh; `wg`, `wg16`: the wgmma walk's of
     csrc/sdf_mlp_wgmma.cuh), frequency count, hidden depth, widths and the
     floats from one sequence's model to the next (a stack (S, n) of
     `pack_distilled_batched`, or 0)."""
@@ -511,7 +514,7 @@ def _obj_energy(name: str, counter: str, pcld_cf: torch.Tensor, rts: torch.Tenso
     if p < 1 or n < 1 or n_seq < 1:
         raise ValueError(f"empty obj_sdf_energy problem: S={n_seq} P={p} N={n}")
     buf, n_freqs, n_hidden, widths, packed_seq = _mlp_args(
-        name, packed, pcld_cf, n_seq if batched else None, layout="tc16" if bf16 else "tc")
+        name, packed, pcld_cf, n_seq if batched else None, layout="wg16" if bf16 else "tc")
     lib = _load("obj_energy", _bind_obj_energy)
     out = torch.empty(rts.shape[:-1], dtype=torch.float32, device=pcld_cf.device)
     stream = torch.cuda.current_stream(pcld_cf.device).cuda_stream
@@ -527,11 +530,11 @@ def _obj_energy(name: str, counter: str, pcld_cf: torch.Tensor, rts: torch.Tenso
 def obj_sdf_energy_cuda(pcld_cf: torch.Tensor, rts: torch.Tensor, packed,
                         compute_dtype=None) -> torch.Tensor:
     """The fused object-pose energy on the card (csrc/obj_energy.cu, the
-    MLP on the tensor cores in 3xTF32 or, with compute_dtype torch.bfloat16,
-    in bf16): pcld_cf (3, N), rts (P, 12) (ops/obj_energy.obj_rts), both
-    contiguous float32, and a `PackedSDF` (its `tc` or `tc16` layout is read)
-    -> (P,) sums over the cloud of |sdf|. No atomics: two launches agree
-    bitwise."""
+    MLP on the tensor cores in 3xTF32 through mma.sync or, with compute_dtype
+    torch.bfloat16, in bf16 on the wgmma walk): pcld_cf (3, N), rts (P, 12)
+    (ops/obj_energy.obj_rts), both contiguous float32, and a `PackedSDF` (its
+    `tc` or `wg16` layout is read) -> (P,) sums over the cloud of |sdf|. No
+    atomics: two launches agree bitwise."""
     return _obj_energy("obj_sdf_energy_cuda", "obj_sdf_energy", pcld_cf, rts, packed, False,
                        compute_dtype)
 
@@ -699,7 +702,7 @@ def _hand_energy_skin(name: str, counter: str, pose_map, rt_flat, offset, posedi
     strides.append(_check_frame(name, frame, pose_map, one))
     h, w, mask_seq = _check_mask(name, mask, hw, pose_map, one)
     buf, n_freqs, n_hidden, widths, packed_seq = _mlp_args(
-        name, packed, pose_map, one, layout="tc16" if bf16 else "tc")
+        name, packed, pose_map, one, layout="wg16" if bf16 else "tc")
     seq_strides = (ctypes.c_longlong * 6)(*strides, mask_seq, packed_seq)
     lib = _load("hand_energy_skin", _bind_hand_energy_skin)
     sdf = torch.empty((*lead, p, n), dtype=torch.float32, device=pose_map.device)
@@ -723,10 +726,10 @@ def hand_energy_skin_cuda(pose_map: torch.Tensor, rt_flat: torch.Tensor,
                           frame: torch.Tensor, mask: torch.Tensor, hw, packed,
                           compute_dtype=None) -> tuple:
     """MANO skinning fused with the per-vertex hand energy on the card
-    (csrc/hand_energy_skin.cu, the MLP on the tensor cores in 3xTF32 reading
-    `PackedSDF.tc` or, with compute_dtype torch.bfloat16, in bf16 reading
-    `PackedSDF.tc16`). Per candidate: pose_map (P, K), rt_flat
-    (P * 12, 16), offset (P, 3) (mano/layer.mano_skin_inputs); per call:
+    (csrc/hand_energy_skin.cu, the MLP on the tensor cores in 3xTF32 through
+    mma.sync reading `PackedSDF.tc` or, with compute_dtype torch.bfloat16, in
+    bf16 on the wgmma walk reading `PackedSDF.wg16`). Per candidate: pose_map
+    (P, K), rt_flat (P * 12, 16), offset (P, 3) (mano/layer.mano_skin_inputs); per call:
     posedirs_cf (3, K, N), vshaped_cf (3, N), weights_t (16, N)
     (ops/hand_energy_skin.skin_consts); frame (16,), the packed mask for
     image size hw and a `PackedSDF`; all contiguous float32 on the current

@@ -20,8 +20,9 @@ the MLP's hidden layers on the tensor cores in 3xTF32 (csrc/sdf_mlp_tc.cuh,
 `PackedSDF.tc`): three passes, 0.904 ms at the TF32 peak, float32-class
 results within the plain version's bounds; `ops/tf32.py` emulates it. With
 `compute_dtype=torch.bfloat16` (HOTRACK_SDF_BF16) the MLP is ops/sdf_mlp.py's
-bf16 one: one bf16 pass (`PackedSDF.tc16`), 0.151 ms at the bf16 peak; the
-transform and the sum over N stay float32, as in the float32 kernel.
+bf16 one: one bf16 pass on the persistent wgmma walk that the SDF MLP kernel
+runs (csrc/sdf_mlp_wgmma.cuh, `PackedSDF.wg16`), 0.151 ms at the bf16 peak;
+the transform and the sum over N stay float32, in the float32 kernel's order.
 
 A CUDA tensor launches the kernel or raises; a CPU tensor takes the plain
 version, `_obj_sdf_energy_torch`, which is also the kernel's oracle.

@@ -33,12 +33,12 @@ Bound on the card: operations, 2 * (K0*H + H*H*(depth-1) + H) operations a
 point (71,168 at the shipped 21-128-128-128-1) against 16 bytes, at TF32's
 495 TFLOP/s three times over in 3xTF32, at bf16's 989 TFLOP/s once in bf16.
 
-`pack_distilled` packs a model four times: for the kernels that run the MLP
-through mma.sync, the fused object energy and the fused skinning + hand
-energy (csrc/sdf_mlp_tc.cuh, `PackedSDF.tc` in 3xTF32 and `PackedSDF.tc16`
-in bf16, in mma fragment order); and for those that run it through wgmma,
-this kernel and the fused per-vertex hand energy (csrc/sdf_mlp_wgmma.cuh,
-`PackedSDF.wg` and `PackedSDF.wg16`, tiles in their shared-memory image).
+`pack_distilled` packs a model three times: for the kernels that run the MLP
+through mma.sync, the 3xTF32 fused object energy and fused skinning + hand
+energy (csrc/sdf_mlp_tc.cuh, `PackedSDF.tc`, in mma fragment order); and for
+those that run it on the wgmma walk (csrc/sdf_mlp_wgmma.cuh, tiles in their
+shared-memory image): this kernel and the fused per-vertex hand energy in
+3xTF32 (`PackedSDF.wg`), and every SDF kernel in bf16 (`PackedSDF.wg16`).
 """
 
 from __future__ import annotations
@@ -64,7 +64,6 @@ class PackedSDF(NamedTuple):
     widths: tuple           # (3 + 6F, hidden widths...)
     tc: torch.Tensor        # the mma.sync layout (csrc/sdf_mlp_tc.cuh), (m,); (S, m) for S models
     wg: torch.Tensor        # the wgmma layout (csrc/sdf_mlp_wgmma.cuh), (k,); (S, k) likewise
-    tc16: torch.Tensor      # the mma.sync layout in bf16 (`_pack_tc16`)
     wg16: torch.Tensor      # the wgmma layout in bf16 (`_pack_wg16`)
 
 
@@ -152,13 +151,13 @@ def check_model(model) -> tuple:
 
 @torch.no_grad()
 def pack_distilled(model) -> PackedSDF:
-    """The model as the kernels read it, on its device: `tc` for the mma.sync
-    kernels (`_pack_tc`), `wg` for the wgmma ones (`_pack_wg`). Built
-    without a host synchronise; pack once per sequence and hand it to every
-    call."""
+    """The model as the kernels read it, on its device: `tc` for the 3xTF32
+    mma.sync kernels (`_pack_tc`), `wg` and `wg16` for the wgmma walk in
+    3xTF32 and bf16 (`_pack_wg`, `_pack_wg16`). Built without a host
+    synchronise; pack once per sequence and hand it to every call."""
     widths = check_model(model)
     return PackedSDF(widths[0] // 6, widths, _pack_tc(model, widths), _pack_wg(model, widths),
-                     _pack_tc16(model, widths), _pack_wg16(model, widths))
+                     _pack_wg16(model, widths))
 
 
 def _header(model, widths) -> list:
@@ -296,33 +295,6 @@ def _bf16_words(t: torch.Tensor) -> torch.Tensor:
     return t.contiguous().reshape(-1).view(torch.float32)
 
 
-def _fragment_order16(w: torch.Tensor) -> torch.Tensor:
-    """A layer's (K, 128) bf16 weights, K a multiple of 16, in the order the
-    bf16 mma fragments (m16n8k16) are loaded: [k-step][n-tile pair p][lane][8],
-    where lane (g, t) holds, as element 4 h + 2 kh + e, the weight of k-slot
-    16 k-step + 8 kh + 2 t + e and unit 16 p + 8 h + g (b0 for kh 0, b1 for
-    kh 1 of n-tile 2 p + h)."""
-    k = w.shape[0]
-    # (k-step, kh, t, e, p, h, g) -> (k-step, p, g, t, h, kh, e)
-    return w.reshape(k // 16, 2, 4, 2, 8, 2, 8).permute(0, 4, 6, 2, 5, 1, 3).reshape(-1)
-
-
-def _pack_tc16(model, widths) -> torch.Tensor:
-    """The bf16 layout of csrc/sdf_mlp_tc.cuh: the header; per hidden layer its
-    weights rounded to bf16 (3 + 6F rows padded with zeros to a multiple of 16
-    for layer 0, 128 after, in their natural order; 128 columns) in
-    `_fragment_order16` (K x 64 words), then its float32 bias padded to 128;
-    the output layer (`_output_layer16`)."""
-    parts = _header(model, widths)
-    for l, (w, b) in enumerate(zip(model.weights[:-1], model.biases[:-1])):
-        k = widths[0] + -widths[0] % 16 if l == 0 else MAX_WIDTH
-        full = torch.zeros((k, MAX_WIDTH), dtype=torch.bfloat16, device=w.device)
-        full[:w.shape[0], :w.shape[1]] = w.to(torch.bfloat16)
-        parts += [_bf16_words(_fragment_order16(full)),
-                  torch.nn.functional.pad(b.to(torch.float32), (0, MAX_WIDTH - b.shape[0]))]
-    return torch.cat(parts + _output_layer16(model)).contiguous()
-
-
 def _wg16_tiles(w: torch.Tensor) -> torch.Tensor:
     """A layer's (K, 128) bf16 weights, K a multiple of 16, as the bf16 wgmma
     walk's shared-memory tiles, one a k-step of 16: [k-step][nb][kb][r][c],
@@ -379,7 +351,7 @@ def pack_distilled_batched(models) -> PackedSDF:
                          f"got {[p.widths for p in packs]}")
     return PackedSDF(packs[0].n_freqs, packs[0].widths,
                      *(torch.stack([getattr(p, f) for p in packs])
-                       for f in ("tc", "wg", "tc16", "wg16")))
+                       for f in ("tc", "wg", "wg16")))
 
 
 def _check_batch(models, points: torch.Tensor) -> None:

@@ -2,7 +2,7 @@
 """Digests of the SDF kernels' outputs on one CUDA card, for one checkout of
 the port: whether two checkouts compute bitwise alike.
 
-    python3 scripts/digest_sdf_kernels.py [--repo DIR] [--bf16]
+    python3 scripts/digest_sdf_kernels.py [--repo DIR] [--bf16] [--time]
 
 Imports the hotrack_tpu_torch of `--repo` (default: this checkout), which
 builds its own kernels under `<repo>/build/kernels`, and prints one JSON line:
@@ -14,6 +14,12 @@ on seeded models and inputs at the shapes the paths give it: #3 (2048, 3,
 limit. Run two checkouts in one call (parent, change): equal digests mean the
 kernels' outputs did not change. `--bf16` digests the bf16 instantiations
 instead (compute_dtype torch.bfloat16; a checkout that has them).
+
+`--time` adds each digested kernel's device time at those shapes, in the
+digest's precision (with `--bf16`: the bf16 #3, #3b, #4, #4b, #6, #7, #7b), from
+CUDA events around each launch after two warm-up launches: the mean and the
+least of 20, in ms, under "ms". Two checkouts are timed alike in turns by
+running this script on each within one call: parent, change, change, parent.
 """
 
 from __future__ import annotations
@@ -30,6 +36,22 @@ import numpy as np
 
 def _digest(t) -> str:
     return hashlib.sha256(t.detach().cpu().contiguous().numpy().tobytes()).hexdigest()[:16]
+
+
+def _device_ms(fn, reps: int = 20) -> dict:
+    """{"mean", "min"} ms of one launch of fn by CUDA events, after two
+    warm-up launches."""
+    import torch
+    fn(), fn()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return {"mean": sum(times) / reps, "min": min(times)}
 
 
 def _model(rng, device):
@@ -52,6 +74,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--repo", default=str(Path(__file__).resolve().parent.parent))
     ap.add_argument("--bf16", action="store_true")
+    ap.add_argument("--time", action="store_true")
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.repo).resolve()))
     import torch
@@ -74,22 +97,28 @@ def main() -> int:
     cuda = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)  # noqa: E731
     models = [_model(rng, dev) for _ in range(4)]
     one, four = pack_distilled(models[0]), pack_distilled_batched(models)
-    out = {}
+    out, timed = {}, {}   # name -> digest; name -> a launch on the digested inputs
+
+    def run(name, fn):
+        res = fn()
+        out[name] = _digest(torch.stack(res) if isinstance(res, tuple) else res)
+        timed[name] = fn
+
     for shape, cf in (((2048, 3, 1024), True), ((5120, 778, 3), False)):
         pts = cuda(rng.randn(*shape) * 0.08)
-        out[f"#3 {shape}"] = _digest(kernels.sdf_mlp_cuda(pts, one, cf, **extra))
-    pts = cuda(rng.randn(4, 2048, 3, 1024) * 0.08)
-    out["#3b (4, 2048, 3, 1024)"] = _digest(kernels.sdf_mlp_batched_cuda(pts, four, True,
-                                                                         **extra))
+        run(f"#3 {shape}", lambda pts=pts, cf=cf: kernels.sdf_mlp_cuda(pts, one, cf, **extra))
+    pts_b = cuda(rng.randn(4, 2048, 3, 1024) * 0.08)
+    run("#3b (4, 2048, 3, 1024)",
+        lambda: kernels.sdf_mlp_batched_cuda(pts_b, four, True, **extra))
 
     def poses(lead):
         rot = unit_quaternion_to_matrix(normalize_quat(cuda(rng.randn(*lead, 4))))
         return obj_rts(rot, cuda(rng.randn(*lead, 3) * 0.03)).contiguous()
 
-    out["#4 (2048, 1024)"] = _digest(kernels.obj_sdf_energy_cuda(
-        cuda(rng.randn(3, 1024) * 0.06), poses((2048,)), one, **extra))
-    out["#4b (4, 2048, 1024)"] = _digest(kernels.obj_sdf_energy_batched_cuda(
-        cuda(rng.randn(4, 3, 1024) * 0.06), poses((4, 2048)), four, **extra))
+    obj_args = (cuda(rng.randn(3, 1024) * 0.06), poses((2048,)), one)
+    run("#4 (2048, 1024)", lambda: kernels.obj_sdf_energy_cuda(*obj_args, **extra))
+    objb_args = (cuda(rng.randn(4, 3, 1024) * 0.06), poses((4, 2048)), four)
+    run("#4b (4, 2048, 1024)", lambda: kernels.obj_sdf_energy_batched_cuda(*objb_args, **extra))
 
     hw = (480, 640)
     mask = lambda: pack_mask(torch.from_numpy(rng.rand(*hw) > 0.5).to(dev))  # noqa: E731
@@ -102,8 +131,8 @@ def main() -> int:
     verts = rng.randn(5120, 778, 3).astype(np.float32) * 0.08
     verts[..., :2] *= 4.0
     verts[..., 2] = np.abs(verts[..., 2]) + 0.3
-    sdf, hit = kernels.hand_energy_cuda(cuda(verts), frame(), mask(), hw, one, **extra)
-    out["#6 (5120, 778, 3)"] = _digest(torch.stack([sdf, hit]))
+    hand_args = (cuda(verts), frame(), mask(), hw, one)
+    run("#6 (5120, 778, 3)", lambda: kernels.hand_energy_cuda(*hand_args, **extra))
 
     mano = synthetic_mano_model().to(dev)
 
@@ -113,23 +142,26 @@ def main() -> int:
         return (*mano_skin_inputs(mano, pose, trans, shaped)[1:], skin_consts(mano, shaped))
 
     pose_map, rt_flat, offset, consts = skin(5120)
-    sdf, hit = kernels.hand_energy_skin_cuda(pose_map, rt_flat, offset, *consts, frame(), mask(),
-                                             hw, one, **extra)
-    out["#7 (5120, 135, 778)"] = _digest(torch.stack([sdf, hit]))
+    skin_args = (pose_map, rt_flat, offset, *consts, frame(), mask(), hw, one)
+    run("#7 (5120, 135, 778)", lambda: kernels.hand_energy_skin_cuda(*skin_args, **extra))
     seqs = [skin(5120) for _ in range(4)]
     stack = lambda i: torch.stack([q[i] for q in seqs]).contiguous()  # noqa: E731
     vshaped = torch.stack([q[3].vshaped_cf for q in seqs]).contiguous()
-    sdf, hit = kernels.hand_energy_skin_batched_cuda(
-        stack(0), stack(1), stack(2), seqs[0][3].posedirs_cf, vshaped, seqs[0][3].weights_t,
-        torch.stack([frame() for _ in range(4)]), torch.stack([mask() for _ in range(4)]), hw,
-        four, **extra)
-    out["#7b (4, 5120, 135, 778)"] = _digest(torch.stack([sdf, hit]))
+    skinb_args = (stack(0), stack(1), stack(2), seqs[0][3].posedirs_cf, vshaped,
+                  seqs[0][3].weights_t, torch.stack([frame() for _ in range(4)]),
+                  torch.stack([mask() for _ in range(4)]), hw, four)
+    run("#7b (4, 5120, 135, 778)",
+        lambda: kernels.hand_energy_skin_batched_cuda(*skinb_args, **extra))
     torch.cuda.synchronize()
+    ms = {name: _device_ms(fn) for name, fn in timed.items()} if args.time else None
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=False).stdout.strip().splitlines()
-    print(json.dumps({"repo": args.repo, "bf16": args.bf16, "card": card[0] if card else None,
-                      "digests": out}), flush=True)
+    line = {"repo": args.repo, "bf16": args.bf16, "card": card[0] if card else None,
+            "digests": out}
+    if ms is not None:
+        line["ms"] = ms
+    print(json.dumps(line), flush=True)
     return 0
 
 

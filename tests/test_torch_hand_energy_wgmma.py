@@ -60,11 +60,17 @@ def test_the_model_follows_the_sources():
                  "const float hi = __shfl_sync(0xffffffffu, sdf.y, 4 * (lane & 7));",
                  "if (lane < 16 && base + lane < job.m) job.store(s, base + lane, "
                  "lane < 8 ? lo : hi);",
-                 "for (long long item = blockIdx.x; item < items; item += gridDim.x) {",
-                 "job.aside(s, item - s * rounds, static_cast<int>(threadIdx.x) - "
-                 "32 * (kProducerWarp + 1));"):
+                 # groups of span() rounds a block are a job's choice (kGroups); #3
+                 # and #6 keep the default, so a block walks items b, b + grid, ...
+                 "static constexpr bool kGroups = false;",
+                 "return J::kGroups ? static_cast<long long>(blockIdx.x) * span : blockIdx.x;",
+                 "if constexpr (!J::kGroups) return item + gridDim.x;",
+                 "for (long long item = first(); item < items; item = after(item)) {",
+                 "const int t = static_cast<int>(threadIdx.x) - 32 * (kProducerWarp + 1);",
+                 "job.aside(s, item - s * rounds, t);"):
         assert line in header, line
     src = (kernels.CSRC_DIR / "hand_energy.cu").read_text()
+    assert "struct Vertices : wg::Job {" in src   # the defaults: no stage, no sums, span 1
     assert "for (int v = t; v < wg::kRoundPoints; v += wg::kAsideThreads) {" in src
     assert "const long long row = round * wg::kRoundPoints + v;" in src
     assert "wg::walk<kBf16>(job, smem, packed, 0, rounds, rounds, shape, pinned, ring);" in src

@@ -118,8 +118,9 @@ def test_library_name_changes_when_an_included_header_changes(tmp_path, monkeypa
     shutil.copytree(kernels.CSRC_DIR, csrc)
     monkeypatch.setattr(kernels, "CSRC_DIR", csrc)
     monkeypatch.setenv("HOTRACK_KERNEL_BUILD_DIR", str(tmp_path / "build"))
+    # the object energy's bf16 kernel runs the walk, its 3xTF32 one the mma.sync core
     assert [p.name for p in kernels.source_files("obj_energy")] \
-        == ["obj_energy.cu", "sdf_mlp_tc.cuh"]
+        == ["obj_energy.cu", "sdf_mlp_wgmma.cuh", "sdf_mlp_tc.cuh"]
     # sdf_mlp.cu reaches sdf_mlp_tc.cuh through sdf_mlp_wgmma.cuh
     assert [p.name for p in kernels.source_files("sdf_mlp")] \
         == ["sdf_mlp.cu", "sdf_mlp_wgmma.cuh", "sdf_mlp_tc.cuh"]
@@ -133,7 +134,8 @@ def test_library_name_changes_when_an_included_header_changes(tmp_path, monkeypa
     assert before == {name: kernels.library_path(name) for name in kernels.SOURCES}
     for header, users in (("hand_energy_core.cuh",
                            ("mask_lookup", "hand_energy", "hand_energy_skin")),
-                          ("sdf_mlp_wgmma.cuh", ("sdf_mlp", "hand_energy")),
+                          ("sdf_mlp_wgmma.cuh", ("sdf_mlp", "obj_energy", "hand_energy",
+                                                 "hand_energy_skin")),
                           ("sdf_mlp_tc.cuh", ("sdf_mlp", "obj_energy", "hand_energy",
                                               "hand_energy_skin"))):
         with open(csrc / header, "a") as f:

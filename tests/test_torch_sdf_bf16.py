@@ -144,30 +144,6 @@ def _bits(words: torch.Tensor) -> np.ndarray:
     return words.contiguous().numpy().view(np.uint16)
 
 
-def _decode_tc16(buf, widths):
-    """The bf16 mma.sync image read as the kernel's loads read it: per hidden
-    layer the (K, 128) weights (lane (g, t)'s 16 bytes of n-tile pair p at
-    k-step ks: b0 b1 of n-tile 2 p, then of 2 p + 1), the output weights."""
-    f = widths[0] // 6
-    at, layers = 4 + f + -f % 4, []
-    for l in range(len(widths)):
-        if l == len(widths) - 1:
-            return layers, buf[at:at + 128]
-        k = widths[0] + -widths[0] % 16 if l == 0 else 128
-        frag = _bits(buf[at:at + 64 * k]).reshape(k // 16, 8, 8, 4, 2, 2, 2)
-        w = np.zeros((k, 128), np.uint16)
-        for g in range(8):
-            for t in range(4):
-                for h in range(2):
-                    for kh in range(2):
-                        for e in range(2):
-                            rows = np.arange(k // 16) * 16 + 8 * kh + 2 * t + e
-                            cols = np.arange(8) * 16 + 8 * h + g
-                            w[np.ix_(rows, cols)] = frag[:, :, g, t, h, kh, e]
-        layers.append(w)
-        at += 64 * k + 128
-
-
 def _decode_wg16(buf, widths):
     """The bf16 wgmma image read through the tiles' descriptors (core matrix
     (nb, kb) at nb * kSbo + kb * kLbo bytes, 16 bytes a unit's row of 8
@@ -211,19 +187,19 @@ def test_packed_bf16_weights_are_bitwise_jax_and_laid_out_for_the_kernels(widths
     tmodel = random_model(7, widths=widths)[1]
     packed = sdf_mlp.pack_distilled(tmodel)
     want = [_jax_bf16_bits(w) for w in arrays["weights"]]
-    tc_layers, tc_out = _decode_tc16(packed.tc16, packed.widths)
     wg_layers = _decode_wg16(packed.wg16, packed.widths)
-    for l, w in enumerate(want[:-1]):
-        full = np.zeros((tc_layers[l].shape[0], 128), np.uint16)
+    for l, w in enumerate(want[1:-1], 1):   # the later layers' rows in order
+        full = np.zeros((128, 128), np.uint16)
         full[:w.shape[0], :w.shape[1]] = w
-        np.testing.assert_array_equal(tc_layers[l], full)       # rows in order
-        if l:
-            np.testing.assert_array_equal(wg_layers[l], full)
-    out_bits = tc_out.numpy().view(np.uint32)
+        np.testing.assert_array_equal(wg_layers[l], full)
+    f, n_hidden = len(arrays["freqs"]), len(widths) - 1
+    header = 4 + 4 * math.ceil(f / 4)
+    buf = packed.wg16.numpy()
+    assert buf[0] == tmodel.scale and buf[1] == tmodel.clamp
+    np.testing.assert_array_equal(buf[4:4 + f], arrays["freqs"])
+    out_bits = buf[header + 128 * n_hidden:header + 128 * (n_hidden + 1)].view(np.uint32)
     np.testing.assert_array_equal(out_bits[:want[-1].shape[0]] >> 16, want[-1][:, 0])
     assert not (out_bits & 0xFFFF).any()          # bf16 values as float32 words
-    assert torch.equal(packed.wg16[:4 + 4 * math.ceil(len(arrays["freqs"]) / 4)],
-                       packed.tc16[:4 + 4 * math.ceil(len(arrays["freqs"]) / 4)])
     # layer 0 of the wgmma walk: its k-slots' features times its slot rows are
     # the features times layer 0's bf16 weights, exactly (float64 sums of
     # exact products)
@@ -238,7 +214,7 @@ def test_packed_bf16_weights_are_bitwise_jax_and_laid_out_for_the_kernels(widths
     w0_jax = (want[0].astype(np.uint32) << 16).view(np.float32).astype(np.float64)
     np.testing.assert_allclose(got[:, :units], as64(feats) @ w0_jax, rtol=1e-12, atol=1e-12)
     batched = sdf_mlp.pack_distilled_batched([tmodel, random_model(8, widths=widths)[1]])
-    assert torch.equal(batched.tc16[0], packed.tc16) and torch.equal(batched.wg16[0], packed.wg16)
+    assert torch.equal(batched.wg16[0], packed.wg16)
 
 
 # ------------------------------------------------------------- plain versions
