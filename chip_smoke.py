@@ -254,17 +254,17 @@ OBJ_CPU_FRAMES = 2            # card against CPU
 MLP_WIDTHS = (21, 128, 128, 128)   # 3 frequencies, hidden 128, depth 3
 # Kernel against plain version on the card, one sdf value (|sdf| <= 0.05
 # after the clamp, activations of order 1). Every MLP kernel runs it on the
-# tensor cores in 3xTF32 (#3, #3b, #6 through wgmma, csrc/sdf_mlp_wgmma.cuh;
-# #4, #4b, #7, #7b through mma.sync, csrc/sdf_mlp_tc.cuh), which rounds
-# otherwise than float32 FMA: the tensor cores
-# truncate their float32 sums, so one sdf value lay up to 1.64e-7 from the
-# plain version's (#4 on 4096 single points) and 1.68e-7 (#7 on 398,336
-# vertices built bitwise alike), and 1.53e-7 from the exact-sum 3xTF32
-# emulation (ops/tf32.py), on the card (a float32 FMA kernel: 4.1e-08 from
-# the plain version); #3 sums a layer's big and small products in two
-# chains and showed 1.34e-7 at depth 8 (one chain: 3.4e-7). TC_SDF_ATOL holds
-# one such value; for #7 against the emulation it is the tight hold, where
-# the plain version's vertices carry their own rounding (SKIN_SDF_ATOL).
+# tensor cores in 3xTF32 through wgmma on one persistent walk
+# (csrc/sdf_mlp_wgmma.cuh: #3, #3b, #4, #4b, #6, #7, #7b), which rounds
+# otherwise than float32 FMA: the tensor cores truncate their float32 sums, so
+# one sdf value lay up to 1.64e-7 from the plain version's (#4 on 4096 single
+# points, on the earlier mma.sync core with one chain of sums) and 1.53e-7
+# from the exact-sum 3xTF32 emulation (ops/tf32.py), on the card (a float32
+# FMA kernel: 4.1e-08 from the plain version); the walk sums a layer's big and
+# small products in two chains and showed 1.34e-7 at depth 8 (one chain:
+# 3.4e-7). TC_SDF_ATOL holds one such value; for #7 against the emulation it
+# is the tight hold, where the plain version's vertices carry their own
+# rounding (SKIN_SDF_ATOL).
 TC_SDF_ATOL = 2.5e-7
 # a sum of N |sdf| values, relative to the sum's size (the card showed
 # 2.2e-07 for the float32 FMA kernel, 1.64e-06 for the 3xTF32 one at the
@@ -799,8 +799,9 @@ def phase_build():
     torch.cuda.synchronize()
     print(f"[build] {sorted(libs)}: {time.perf_counter() - t0:.3f} s", flush=True)
     for name, lib in libs.items():
-        # each kernel's entry (#3's and #6's templates: ILb0E 3xTF32, ILb1E bf16; #4's and
-        # #7's bf16 walk kernels: *_wg_kernel), then its registers and spills
+        # each kernel's entry (#3's, #4's and #6's templates: ILb0E 3xTF32, ILb1E bf16;
+        # #7's 3xTF32 pre-pass and walk, skin_vertices_kernel and hand_energy_rows_kernel,
+        # and its bf16 walk kernel, hand_energy_skin_wg_kernel), then its registers and spills
         with open(str(lib) + ".log") as f:
             report = [ln for ln in f.read().splitlines()
                       if "registers" in ln or "spill" in ln or "error" in ln.lower()
@@ -1368,18 +1369,53 @@ def phase_kernels_sdf_mlp() -> dict:
     return {"max_abs_err": max_err, **_headline(timed), "cases": timed}
 
 
+def _obj_frame(pcld_cf, rts):
+    """The candidates' object-frame clouds (P, 3, N), unscaled, with #4's
+    float32 expression ((-rt_c + r_c0 x) + r_c1 y) + r_c2 z, each product and
+    sum rounded on its own (one elementwise operation at a time)."""
+    x, y, z = pcld_cf[0], pcld_cf[1], pcld_cf[2]
+    r = rts[:, :, None]
+    return torch.stack([((-r[:, 9 + c] + r[:, 3 * c] * x) + r[:, 3 * c + 1] * y)
+                        + r[:, 3 * c + 2] * z for c in range(3)], 1)
+
+
+def _obj_order_sum(absdf):
+    """(P, N) |sdf| values summed as #4 sums them (csrc/obj_energy.cu
+    Candidates): lane (warp w, g) adds its rows 16 w + g, then 16 w + g + 8, of
+    each 128-point round in ascending order; a butterfly over the g bits in
+    the warp (xor 4, 8, 16 of the lane); the 8 warps in ascending order. Zeros
+    pad the last round (adding +0 changes no sum of |sdf|). float32 throughout,
+    one elementwise add at a time."""
+    p, n = absdf.shape
+    rounds = -(-n // 128)
+    rows = torch.nn.functional.pad(absdf, (0, rounds * 128 - n)).reshape(p, rounds, 8, 2, 8)
+    e = torch.zeros((p, 8, 8), dtype=torch.float32, device=absdf.device)   # [warp][g]
+    for r in range(rounds):
+        e = e + rows[:, r, :, 0]
+        e = e + rows[:, r, :, 1]
+    for bit in (1, 2, 4):   # lane xor 4, 8, 16: g xor 1, 2, 4
+        e = e + e[:, :, torch.arange(8, device=e.device) ^ bit]
+    total = e[:, 0, 0]
+    for w in range(1, 8):
+        total = total + e[:, w, 0]
+    return total
+
+
 def phase_kernels_obj_energy() -> dict:
     """Fused object energy kernel vs plain version and vs its 3xTF32
     emulation (ops/tf32.py) on the card: every sum within ENERGY_RTOL of its
-    size (+ ENERGY_ATOL a point) of both, and a second launch bitwise equal
-    to the first. No single PyTorch call computes the function: library_ms
-    is null."""
+    size (+ ENERGY_ATOL a point) of both, bitwise #3's |sdf| on the same
+    object-frame points summed in the kernel's order, and a second launch
+    bitwise equal to the first; the compiler's report clean. No single
+    PyTorch call computes the function: library_ms is null."""
     from hotrack_tpu_torch.ops import kernels
     from hotrack_tpu_torch.ops.obj_energy import (_obj_sdf_energy_torch,
                                                   fused_obj_sdf_energy, obj_rts)
-    from hotrack_tpu_torch.ops.sdf_mlp import fourier_features, pack_distilled
+    from hotrack_tpu_torch.ops.sdf_mlp import fourier_features, fused_sdf_mlp_cf, pack_distilled
     from hotrack_tpu_torch.ops.tf32 import raw_sdf_mlp_3xtf32
     from hotrack_tpu_torch.pose.rotations import normalize_quat, unit_quaternion_to_matrix
+    ptxas = _ptxas_clean("obj_energy")
+    print("[kernels] obj_energy ptxas: " + " | ".join(ptxas), flush=True)
     rng = np.random.RandomState(4)
     cases = [(f"object path ({p},{n})", MLP_WIDTHS, p, n, None, True)
              for p, n in OBJ_ENERGY_SHAPES]
@@ -1391,9 +1427,11 @@ def phase_kernels_obj_energy() -> dict:
         ("one point each (4096,1)", MLP_WIDTHS, 4096, 1, None, False),
         ("non-geometric frequencies, narrow (33,129)", (15, 32, 48), 33, 129, [1.0, 2.5],
          False),
-        ("6 frequencies, depth 4: layers staged (7,129)", (39, 128, 128, 128, 128), 7, 129,
-         None, False),
         ("depth 1 (5,100)", (9, 128), 5, 100, None, False),
+        ("6 frequencies, depth 4: the ring streams (7,129)", (39, 128, 128, 128, 128), 7, 129,
+         None, False),
+        ("depth 8 at width 128: the ring streams (9,300)", (21,) + (128,) * 8, 9, 300, None,
+         False),
     ]
     max_err, timed = 0.0, []
     for name, widths, p, n, freqs, is_timed in cases:
@@ -1407,9 +1445,14 @@ def phase_kernels_obj_energy() -> dict:
         rts = obj_rts(rot, trans).contiguous()
         want = _obj_sdf_energy_torch(model, pcld_cf, rts)
         emu = _obj_sdf_energy_torch(model, pcld_cf, rts, 1 << 16, raw_sdf_mlp_3xtf32)
+        as3 = _obj_order_sum(fused_sdf_mlp_cf(model, _obj_frame(pcld_cf, rts)).abs())
         torch.cuda.synchronize()
         if not torch.equal(got, again):
             raise AssertionError(f"[kernels] obj_sdf_energy {name}: two launches differ")
+        if not torch.equal(got, as3):
+            raise AssertionError(f"[kernels] obj_sdf_energy {name}: not #3's |sdf| on the object "
+                                 f"frame summed in the kernel's order "
+                                 f"({float((got - as3).abs().max()):.3e} off)")
         if got.shape != (p,) or not torch.isfinite(got).all():
             raise AssertionError(f"[kernels] obj_sdf_energy {name}: shape {tuple(got.shape)}")
         err, emu_err = (got - want).abs(), (got - emu).abs()
@@ -1424,7 +1467,8 @@ def phase_kernels_obj_energy() -> dict:
         line = (f"[kernels] obj_sdf_energy {name}: max error {float(err.max()):.3e} of sums "
                 f"near {float(want.mean()):.3f} (relative {rel:.3e}, bound {ENERGY_RTOL}); "
                 f"against the 3xTF32 emulation {float(emu_err.max()):.3e} (relative "
-                f"{emu_rel:.3e}); relaunch bitwise equal")
+                f"{emu_rel:.3e}); #3's |sdf| on the object frame summed in the kernel's order, "
+                f"bitwise; relaunch bitwise equal")
         if is_timed:
             packed = pack_distilled(model)
             m = p * n
@@ -1437,7 +1481,7 @@ def phase_kernels_obj_energy() -> dict:
             case["matmul_chain_ms"] = _time_ms(lambda: _matmul_chain(model, feats), 3)
             del feats
             ops = _mlp_ops(widths, m)
-            case.update(_bound(12.0 * n + 48.0 * p + 4.0 * p + 4 * packed.tc.numel(), 0.0, ops,
+            case.update(_bound(12.0 * n + 48.0 * p + 4.0 * p + 4 * packed.wg.numel(), 0.0, ops,
                                tensor_cores=True))
             case["shape"] = name
             timed.append(case)
@@ -2177,20 +2221,29 @@ def _exact_skin_inputs(rng, p: int, n: int):
 def _hand_energy_skin_emulated(rng) -> float:
     """#7 on vertices built bitwise alike (`_exact_skin_inputs`) against the
     plain version and its 3xTF32 emulation: sdf within TC_SDF_ATOL of both,
-    hit equal. Returns the larger error."""
+    hit equal; and against #6 on those vertices (skin_reference's) and frame:
+    sdf and hit bitwise, the two moving a vertex into the object's frame by
+    the same float32 expression (hand_energy_core.cuh scaled_object_frame).
+    Returns the larger error."""
+    from hotrack_tpu_torch.ops import kernels
     from hotrack_tpu_torch.ops.hand_energy_skin import (_hand_energy_skin_torch,
-                                                        fused_hand_energy_skin)
+                                                        fused_hand_energy_skin, skin_reference)
     from hotrack_tpu_torch.ops.mask_lookup import pack_mask
+    from hotrack_tpu_torch.ops.sdf_mlp import pack_distilled
     from hotrack_tpu_torch.ops.tf32 import raw_sdf_mlp_3xtf32
     worst = 0.0
-    for widths, p in ((MLP_WIDTHS, 512), ((39, 128, 128, 128, 128), 7)):
+    for widths, p in ((MLP_WIDTHS, 512), ((39, 128, 128, 128, 128), 7),
+                      ((21,) + (128,) * 8, 5)):
         model = _random_sdf(rng, widths, 0.05)
         packed_mask = pack_mask(_seeded_mask(rng, HAND_HW))
         frame = _seeded_frame(rng, HAND_HW)
-        args = (model, packed_mask, frame, *_exact_skin_inputs(rng, p, HAND_VERTS), HAND_HW)
+        inputs = _exact_skin_inputs(rng, p, HAND_VERTS)
+        args = (model, packed_mask, frame, *inputs, HAND_HW)
         sdf, hit = fused_hand_energy_skin(*args)
         want_sdf, want_hit = _hand_energy_skin_torch(*args)
         emu_sdf, _ = _hand_energy_skin_torch(*args, mlp=raw_sdf_mlp_3xtf32)
+        sdf6, hit6 = kernels.hand_energy_cuda(skin_reference(*inputs).contiguous(), frame,
+                                              packed_mask, HAND_HW, pack_distilled(model))
         torch.cuda.synchronize()
         err = float((sdf - want_sdf).abs().max())
         emu_err = float((sdf - emu_sdf).abs().max())
@@ -2200,9 +2253,15 @@ def _hand_energy_skin_emulated(rng) -> float:
                                  f"{err:.3e} from the plain version, {emu_err:.3e} from the "
                                  f"3xTF32 emulation (bound {TC_SDF_ATOL}), "
                                  f"{int((hit != want_hit).sum())} hits differ")
+        if not (torch.equal(sdf, sdf6) and torch.equal(hit, hit6)):
+            off = float((sdf - sdf6).abs().max())
+            raise AssertionError(f"[kernels] hand_energy_skin on exact vertices {widths}: not "
+                                 f"#6's on the same vertices (sdf {off:.3e} off, "
+                                 f"{int((hit != hit6).sum())} hits differ)")
         print(f"[kernels] hand_energy_skin on exact vertices {widths} ({p},{HAND_VERTS}): sdf "
               f"{err:.3e} from the plain version, {emu_err:.3e} from the 3xTF32 emulation "
-              f"(bound {TC_SDF_ATOL}); hit equal", flush=True)
+              f"(bound {TC_SDF_ATOL}); hit equal; sdf and hit bitwise #6's on the same "
+              f"vertices", flush=True)
     return worst
 
 
@@ -2211,8 +2270,10 @@ def phase_kernels_hand_energy_skin() -> dict:
     SKIN_SDF_ATOL, hit equal wherever the plain version's pixel coordinates
     are PIXEL_MARGIN clear of an integer and differing on at most
     FLIP_SHARE_BOUND of the vertices; against mano_forward the built vertices
-    within 5e-6 m; a second launch bitwise equal. No single PyTorch call
-    computes the function: library_ms is null."""
+    within 5e-6 m; a second launch bitwise equal; on vertices built bitwise
+    alike, #6's sdf and hit bitwise (`_hand_energy_skin_emulated`); the
+    compiler's report clean. No single PyTorch call computes the function:
+    library_ms is null."""
     from hotrack_tpu_torch.mano.layer import mano_forward, mano_skin_inputs
     from hotrack_tpu_torch.ops import kernels
     from hotrack_tpu_torch.ops.hand_energy_skin import (_hand_energy_skin_torch,
@@ -2220,6 +2281,8 @@ def phase_kernels_hand_energy_skin() -> dict:
                                                         skin_reference)
     from hotrack_tpu_torch.ops.mask_lookup import pack_mask
     from hotrack_tpu_torch.ops.sdf_mlp import pack_distilled
+    ptxas = _ptxas_clean("hand_energy_skin")
+    print("[kernels] hand_energy_skin ptxas: " + " | ".join(ptxas), flush=True)
     rng = np.random.RandomState(8)
     cases = [(f"hand path ({p},{k},{n}) on {hw}", MLP_WIDTHS, p, n, hw, None,
               (p, hw) == (HAND_PARTICLES, HAND_HW)) for p, k, n, hw in HAND_SKIN_SHAPES]
@@ -2227,8 +2290,11 @@ def phase_kernels_hand_energy_skin() -> dict:
         ("odd P (33,135,778) on (37,53)", MLP_WIDTHS, 33, HAND_VERTS, (37, 53), None, False),
         ("one candidate, small N (1,135,50) on (480,640)", MLP_WIDTHS, 1, 50, HAND_HW, None,
          False),
-        ("6 frequencies, depth 4 (7,135,129) on (480,640)", (39, 128, 128, 128, 128), 7, 129,
-         HAND_HW, None, False),
+        ("depth 1 (3,135,100) on (480,640)", (9, 128), 3, 100, HAND_HW, None, False),
+        ("6 frequencies, depth 4: the ring streams (7,135,129) on (480,640)",
+         (39, 128, 128, 128, 128), 7, 129, HAND_HW, None, False),
+        ("depth 8 at width 128: the ring streams (5,135,300) on (480,640)", (21,) + (128,) * 8,
+         5, 300, HAND_HW, None, False),
         ("non-geometric frequencies, narrow (6,135,778) on (1,1)", (15, 32, 48), 6, HAND_VERTS,
          NO_MASK_HW, [1.0, 2.5], False),
     ]
@@ -2281,7 +2347,7 @@ def phase_kernels_hand_energy_skin() -> dict:
             k = pose_map.shape[1]
             ops = _hand_ops(widths, m) + (2.0 * (3 * k + 12 * 16) + 18.0) * m
             n_bytes = 4.0 * (pose_map.numel() + rt_flat.numel() + offset.numel()
-                             + sum(c.numel() for c in consts) + packed.tc.numel()) \
+                             + sum(c.numel() for c in consts) + packed.wg.numel()) \
                 + packed_mask.numel() + 8.0 * m
             case.update(_bound(n_bytes, ops - _mlp_ops(widths, m), _mlp_ops(widths, m),
                                tensor_cores=True))
@@ -2428,7 +2494,7 @@ def phase_kernels_obj_energy_batched() -> dict:
                              lambda: _obj_sdf_energy_batched_torch(models, pcld, rts), None,
                              reps=5, slow_reps=2)
             ops = _mlp_ops(widths, s * p * n)
-            case.update(_bound(12.0 * s * n + 52.0 * s * p + 4 * packed.tc.numel(), 0.0, ops,
+            case.update(_bound(12.0 * s * n + 52.0 * s * p + 4 * packed.wg.numel(), 0.0, ops,
                                tensor_cores=True))
             case["shape"] = name
             timed.append(case)
@@ -2581,7 +2647,7 @@ def phase_kernels_hand_energy_skin_batched() -> dict:
             m = s * p * n
             ops = _hand_ops(widths, m) + (2.0 * (3 * k + 12 * 16) + 18.0) * m
             n_bytes = 4.0 * (pose_map.numel() + rt_flat.numel() + offset.numel()
-                             + sum(c.numel() for c in consts) + packed.tc.numel()
+                             + sum(c.numel() for c in consts) + packed.wg.numel()
                              + frames.numel()) + masks.numel() + 8.0 * m
             case.update(_bound(n_bytes, ops - _mlp_ops(widths, m), _mlp_ops(widths, m),
                                tensor_cores=True))
@@ -4413,11 +4479,11 @@ def _bf16_bound(case: dict, n_bytes: float, n_ops: float, widths, points: int) -
 
 
 def _ptxas_walk_jobs() -> str:
-    """The compiler's report for the bf16 walk kernels of #4 and #7
-    (`*_wg_kernel` in csrc/obj_energy.cu and csrc/hand_energy_skin.cu): each
-    entry's registers and spills, which must show no spill, and no wgmma
-    serialised (C7520 / C7513) or setmaxnreg ignored (C7508) in either
-    library."""
+    """The compiler's report for the walk kernels of #4 and #7 whose names
+    end in `_wg_kernel` (csrc/obj_energy.cu's in both precisions,
+    csrc/hand_energy_skin.cu's bf16 one): each entry's registers and spills,
+    which must show no spill, and no wgmma serialised (C7520 / C7513) or
+    setmaxnreg ignored (C7508) in either library."""
     from hotrack_tpu_torch.ops import kernels
     lines = []
     for name in ("obj_energy", "hand_energy_skin"):
@@ -4529,14 +4595,14 @@ def phase_kernels_sdf_bf16() -> dict:
         record("sdf_mlp", tag, line, case)
 
     # #4
-    # the depth-8 net's later layers are staged (7 x 33,280 bytes do not fit); its
+    # the depth-8 net's 58 bf16 tiles do not all fit: the ring streams 10; its
     # values all reach a clamp of 0.05, so it is held at a clamp of 1e3
     cases = [(f"path ({p},{n})", MLP_WIDTHS, p, n, 0.05, True) for p, n in BF16_OBJ_ENERGY_SHAPES]
     cases += [("odd P and N (2047,1000)", MLP_WIDTHS, 2047, 1000, 0.05, False),
               ("one candidate, one point (1,1)", MLP_WIDTHS, 1, 1, 0.05, False),
               ("6 frequencies, depth 4 (7,129)", (39, 128, 128, 128, 128), 7, 129, 0.05, False),
-              ("depth 8, layers staged, clamp 1e3 (5,300)", (21,) + (128,) * 8, 5, 300, 1e3,
-               False)]
+              ("depth 8: the ring streams 10 tiles, clamp 1e3 (5,300)", (21,) + (128,) * 8, 5,
+               300, 1e3, False)]
     for tag, widths, p, n, clamp, timed in cases:
         model = _random_sdf(rng, widths, clamp)
         pcld = torch.from_numpy((rng.randn(3, n) * 0.06).astype(np.float32)).cuda()

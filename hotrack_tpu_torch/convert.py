@@ -24,6 +24,8 @@ file they started from. Each net is loaded into the model the config builds
 (`--key/subkey value` overrides as in the test entry), strictly, before
 anything is written: a checkpoint of another architecture is refused. A
 bare directory name lies under <root>/exps/, as the config resolves it.
+After a split's paths it prints the JAX CLI's note on the Procrustes solver
+that a converted checkpoint must be evaluated with (`SOLVER_NOTE`).
 """
 
 from __future__ import annotations
@@ -38,6 +40,12 @@ PREFIXES = {"handnet": "handnet.", "iknet": "IKnet."}
 # a file with neither prefix holds one net with plain keys, as a single
 # net's training writes it; its keys say which net (the JAX loader's rule)
 PLAIN_MARKS = {"handnet": "bhand.", "iknet": "linear."}
+# printed after a split's paths, as hotrack_tpu/convert.py prints it after a
+# conversion: the solver a split checkpoint must be evaluated with
+SOLVER_NOTE = ("NOTE: the reference trains with the SVD palm canonicalization "
+               "(hand_utils.py:42-66); evaluate converted checkpoints with "
+               "--network/procrustes_solver svd (train/eval solver mismatch "
+               "measured +15% tracking MPJPE).")
 
 
 def _parse(argv):
@@ -167,6 +175,7 @@ def main(argv=None) -> list:
                     else cfg["experiment_dir"] + "_converted_iknet", args.epoch)
     for path in written:
         print(f"split -> {path}")
+    print(SOLVER_NOTE)
     return written
 
 

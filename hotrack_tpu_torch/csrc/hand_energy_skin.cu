@@ -10,12 +10,12 @@
 //   x_c   = ((s_3c vp_0 + s_3c+1 vp_1 + s_3c+2 vp_2) + s_9+c) + offset[p][c]
 //   sdf, hit = the per-vertex energy of hand_energy.cu at x
 // which is the linear blend skinning of mano_forward followed by
-// fused_hand_energy, with the vertices never written to device memory.
-// Inputs: per candidate pose_map (P, K), rt (P, 12, 16) (rt_flat of
-// mano/layer.py mano_skin_inputs), offset (P, 3); per call, vertex-minor,
-// posedirs (3, K, N), v_shaped (3, N), weights (16, N). Not carried over from
-// the TPU: vertices padded to a lane multiple, the particle tile with its
-// role-major slab and sub-tiles, P padded by repeating particle 0.
+// fused_hand_energy. Inputs: per candidate pose_map (P, K), rt (P, 12, 16)
+// (rt_flat of mano/layer.py mano_skin_inputs), offset (P, 3); per call,
+// vertex-minor, posedirs (3, K, N), v_shaped (3, N), weights (16, N). Not
+// carried over from the TPU: vertices padded to a lane multiple, the particle
+// tile with its role-major slab and sub-tiles, P padded by repeating
+// particle 0.
 //
 // Bound: operations. A vertex costs the MLP's 71,168 operations, three
 // tensor-core passes of them in 3xTF32 at 495 TFLOP/s, plus 1,239 float32
@@ -24,60 +24,66 @@
 // 1.792 ms (4.305 ms with the MLP in float32 FMA); the inputs are 1.35 KB a
 // candidate and 1.3 MB a call, the outputs 8 bytes a vertex.
 // Precision: the skinning is float32 FMA with float32 accumulation, sums in
-// ascending k and j from 0, the transform and projection as in
-// hand_energy_core.cuh, so the vertices and the hit are what they were with
-// the float32 MLP; the MLP's hidden layers are 3xTF32 (sdf_mlp_tc.cuh).
+// ascending k and j from 0 in the order written above, in both precisions, so
+// the two build bitwise the same vertices and hits; the transform into the
+// object's frame and the projection as in hand_energy_core.cuh.
 //
-// Design: a persistent grid of one block (256 threads, 8 warps) an SM, each
-// walking the (sequence, pair of candidates) items b, b + grid, ... in
-// ascending order, with the model's weights resident in shared memory
-// (copied again only when the walk enters another sequence). Phase 1 builds
-// an item's vertices into shared memory (2 x 3 x N floats): a thread takes a
-// vertex and computes it for both candidates, so a value of posedirs or
-// weights is loaded once (through L1/L2, neighbouring threads on neighbouring
-// addresses) and used twice, and the block's two halves take alternate tiles
-// of 128 vertices. Phase 2 walks the pair's 2 N vertices as one flat list in
-// rounds of 128, 16 a warp as the mma tiles' rows, so only the list's last
-// round is ragged (13 rounds for 2 x 778 vertices): the object-frame
-// transform, the MLP on the tensor cores and the pixel lookup (a lane a
-// vertex). With an odd P the last pair has one candidate. Shared memory:
-// 197,632 bytes of weights for 21-128-128-128-1, 18,688 of vertices and 2,656
-// of per-candidate inputs at N = 778, K = 135. No atomics; nothing depends on
-// the grid or on the block that took the item, so two launches agree
-// bitwise. Sequences: the per-candidate inputs and the outputs are
-// (S, P, ...); each per-call input (posedirs, v_shaped, weights, frame, mask,
-// packed model) lies s times its own stride further on, and a stride of 0
-// shares it between the sequences (posedirs and weights always are). An
-// unbatched launch is the case of one sequence: sequence s of a batched launch
-// computes bitwise what an unbatched launch on s's inputs computes.
+// 3xTF32, entry hotrack_hand_energy_skin: two kernels, one after the other
+// in the stream. (1) The skinning pre-pass (skin_vertices_kernel): a block of
+// 256 threads takes 32 vertices by 32 candidates of one sequence, stages the
+// candidates' inputs (transposed: entry e of candidate c at 32 e + c) and the
+// vertices' columns of posedirs, v_shaped and weights in shared memory (96,640
+// bytes at K = 135), and thread (warp w, lane j) builds vertex j for
+// candidates 4 w .. 4 w + 3 (a posedirs value loaded once for four
+// candidates, a pose_map entry a broadcast), writes it to a (S, P, N, 3)
+// scratch that the wrapper allocates (47.8 MB at 5120 x 778) and stores its
+// hit. So in this precision the vertices do reach device memory: about 0.03
+// ms of HBM each way at 3.35 TB/s. (2) The walk of sdf_mlp_wgmma.cuh in
+// 3xTF32 (wg::walk<false>, wgmma m64n128k8 TF32 from PackedSDF.wg, 48 of the
+// 70 tiles of 21-128-128-128-1 pinned, two consumer warpgroups at 232
+// registers and the producer's at 40, as #3 and #6): row r of a sequence is
+// the pre-pass's vertex r (candidate r / N, vertex r % N), 128 a round; a
+// consumer reads a row's vertex a round ahead, moves it into the object's
+// frame, scaled, where the round starts, as hand_energy.cu's `place` does,
+// and stores the sdf. So the sdf is bitwise #6's on the same vertices and
+// frame, and the hit bitwise #6's too. Why not the bf16 design below (the
+// skinning on the aside warps, off the consumers' path): beside the 3xTF32
+// consumers the stage leaves room for 33 of the 70 tiles, and setmaxnreg
+// leaves the aside warps 40 registers, where this skinning spilled at
+// 56-72 (PERF.md, section 6). No atomics; nothing depends on the grid or on
+// the block that took a row, so two launches agree bitwise. Sequences: the
+// per-candidate inputs and the outputs are (S, P, ...); each per-call input
+// (posedirs, v_shaped, weights, frame, mask, packed model) lies s times its
+// own stride further on, and a stride of 0 shares it between the sequences
+// (posedirs and weights always are). An unbatched launch is the case of one
+// sequence: sequence s of a batched launch computes bitwise what an unbatched
+// launch on s's inputs computes.
 //
 // bf16 (HOTRACK_SDF_BF16), entry hotrack_hand_energy_skin_bf16: a job on the
 // persistent bf16 wgmma walk of sdf_mlp_wgmma.cuh (wg::walk<true>, wgmma
-// m64n128k16, PackedSDF.wg16), the walk that #3 and #6 run, with the skinning
-// off the consumers' path. Rows: a round of 128 is a tile of 32 vertices by a
-// quad of 4 candidates, rounds tile-major, and row 4 j + c of a round is
-// candidate 4 quad + c's vertex 32 tile + j (rows past N or P are padding: 2.8%
-// at N = 778, none past P at P = 5120). The producer warpgroup's three aside
-// warps build each round's camera-frame vertices into a stage of shared memory
-// (kStage slots, up to two rounds ahead of the consumers, a full and an empty
-// mbarrier a slot, the walk's staged-input handshake): warp 9 + c, lane j
-// computes coordinate c of vertex 32 tile + j for the quad's four candidates
-// from the quad's per-candidate inputs (pose_map, rt, offset), staged in shared
-// memory for the round, and the tile's columns of posedirs, v_shaped and
-// weights, staged when a block's round moves to another tile or sequence (a
-// block's rounds b, b + 132, ... stay on one tile for about quads / 132 of
-// them: a posedirs value is loaded once for four candidates and for about ten
-// rounds); the three warps swap vp through shared memory, each finishes
-// coordinate c of x, then they look up the round's hits. The staged inputs
-// arrive by cp.async. The arithmetic is phase 1's above (sums in ascending k
-// and j from 0, FMA), so the vertices and the hits are bitwise the 3xTF32
-// kernel's. The consumers take a row's vertex from the stage and move it into
-// the object's frame, scaled, as hand_energy.cu's `place` does, and store the
-// sdf. Registers: the launch's 168 for every warp (no setmaxnreg: the aside's
-// sums need room to issue their shared-memory loads ahead of the FMAs; at 72
-// ptxas serialised them, and the consumers fit in 168).
-// Bound: one bf16 pass of the MLP at 989 TFLOP/s plus the same float32
-// operations, 0.360 ms at 5120 x 778 vertices.
+// m64n128k16, PackedSDF.wg16), with the skinning off the consumers' path and
+// the vertices never in device memory. Rows: a round of 128 is a tile of 32
+// vertices by a quad of 4 candidates, rounds tile-major, and row 4 j + c of a
+// round is candidate 4 quad + c's vertex 32 tile + j (rows past N or P are
+// padding: 2.8% at N = 778, none past P at P = 5120). The producer
+// warpgroup's three aside warps build each round's camera-frame vertices into
+// a stage of shared memory (kStage slots, up to two rounds ahead of the
+// consumers, a full and an empty mbarrier a slot, the walk's staged-input
+// handshake): warp 9 + c, lane j computes coordinate c of vertex 32 tile + j
+// for the quad's four candidates from the quad's per-candidate inputs
+// (pose_map, rt, offset), staged in shared memory for the round, and the
+// tile's columns of posedirs, v_shaped and weights, staged when a block's
+// round moves to another tile or sequence (a block's rounds b, b + 132, ...
+// stay on one tile for about quads / 132 of them: a posedirs value is loaded
+// once for four candidates and for about ten rounds); the three warps swap vp
+// through shared memory, each finishes coordinate c of x, then they look up
+// the round's hits. The staged inputs arrive by cp.async. The consumers take a
+// row's vertex from the stage and move it into the object's frame, scaled, as
+// hand_energy.cu's `place` does, and store the sdf. Registers: the launch's
+// 168 for every warp (no setmaxnreg: the aside's sums need room to issue their
+// shared-memory loads ahead of the FMAs; at 72 ptxas serialised them, and the
+// consumers fit in 168). Bound: one bf16 pass of the MLP at 989 TFLOP/s plus
+// the same float32 operations, 0.360 ms at 5120 x 778 vertices.
 
 #include "hand_energy_core.cuh"
 #include "sdf_mlp_wgmma.cuh"
@@ -86,11 +92,8 @@ namespace {
 
 using namespace hotrack;
 
-constexpr int kPair = 2;       // candidates a block item
 constexpr int kJoints = 16;
 constexpr int kRoles = 12;     // 9 rotation entries, 3 translation entries
-constexpr int kTilePoints = 128;
-static_assert(tc::kThreads == 2 * kTilePoints, "phase 1 takes two tiles of vertices a pass");
 
 // Floats (bytes for the mask) from one sequence's per-call input to the
 // next; 0 shares the input between the sequences.
@@ -98,157 +101,164 @@ struct SeqStrides {
   long long posedirs, v_shaped, weights, frame, mask, packed;
 };
 
-// floats of shared memory beyond the weights: the pair's vertices, then per
-// candidate pose_map (K), rt (12 x 16) and offset (3, padded to 4)
-__host__ __device__ inline int stage_floats(int k) {
-  return tc::round_up4(k) + kRoles * kJoints + 4;
+// ---- 3xTF32: the skinning pre-pass and the walk's rows ----
+
+constexpr int kPassVerts = 32;      // vertices a block of the pre-pass: one a lane
+constexpr int kPassCands = 32;      // candidates a block: four a warp
+constexpr int kPassThreads = 256;
+static_assert(kPassCands == 4 * (kPassThreads / 32), "a warp builds four candidates");
+
+// Floats of the pre-pass's shared memory at K = k: the block's candidates'
+// pose_map [k], rt [12 x 16] and offset [4] (entry e of candidate c at
+// 32 e + c), then its vertices' columns of posedirs [3 k], v_shaped [3] and
+// weights [16] (entry e of vertex j at 32 e + j).
+__host__ __device__ inline long long pass_floats(int k) {
+  return static_cast<long long>(kPassCands) * (k + kRoles * kJoints + 4) +
+         static_cast<long long>(kPassVerts) * (3 * k + 3 + kJoints);
 }
-__host__ __device__ inline long long pair_floats(int k, int n) {
-  return kPair * 3LL * tc::round_up4(n) + kPair * stage_floats(k);
-}
 
-__global__ void __launch_bounds__(tc::kThreads, 1)
-hand_energy_skin_kernel(const float* __restrict__ pose_map_g, const float* __restrict__ rt_g,
-                        const float* __restrict__ offset_g, const float* __restrict__ posedirs_g,
-                        const float* __restrict__ v_shaped_g, const float* __restrict__ weights_g,
-                        const float* __restrict__ frame_g,
-                        const unsigned char* __restrict__ mask_g,
-                        const float* __restrict__ packed_g, float* __restrict__ sdf_g,
-                        float* __restrict__ hit_g, int p_total, int k_pose, int n, int h, int w,
-                        long long items, SeqStrides seq, tc::Shape shape, int resident) {
-  extern __shared__ float4 smem4[];
-  float* wsm = reinterpret_cast<float*>(smem4);
-  float* xs = wsm + tc::weight_smem_floats(shape, resident != 0);   // [cand][coord][n4]
-  const int n4 = tc::round_up4(n);
-  float* stage = xs + kPair * 3 * n4;                                 // [cand][stage_floats]
-  const int stage_n = stage_floats(k_pose);
-  const int k4 = tc::round_up4(k_pose);
-  const int pairs = (p_total + kPair - 1) / kPair;
-
-  const int tid = threadIdx.x;
-  const int slot = tid & (kTilePoints - 1), half = tid >> 7;
-  const int lane = tid & 31, warp = tid >> 5, g = lane >> 2, t = lane & 3;
-  long long loaded = -1;
-  for (long long item = blockIdx.x; item < items; item += gridDim.x) {
-    const long long s = item / pairs;
-    const int p0 = static_cast<int>(item - s * pairs) * kPair;
-    const int n_cand = min(kPair, p_total - p0);
-    const float* pose_map = pose_map_g + s * p_total * k_pose;
-    const float* rt = rt_g + s * p_total * (kRoles * kJoints);
-    const float* offset = offset_g + s * p_total * 3;
-    const float* posedirs = posedirs_g + s * seq.posedirs;
-    const float* v_shaped = v_shaped_g + s * seq.v_shaped;
-    const float* weights = weights_g + s * seq.weights;
-    const unsigned char* mask = mask_g + s * seq.mask;
-    const tc::Net net = tc::net_of(packed_g + s * seq.packed, shape);
-    if (resident && s != loaded) {
-      tc::load_resident(wsm, net, shape);
-      loaded = s;
+// Block (x, y, z) builds vertices 32 x .. 32 x + 31 of candidates 32 y ..
+// 32 y + 31 of sequence z into verts (S, P, N, 3) and stores their hits.
+__global__ void __launch_bounds__(kPassThreads, 2)
+skin_vertices_kernel(const float* __restrict__ pose_map_g, const float* __restrict__ rt_g,
+                     const float* __restrict__ offset_g, const float* __restrict__ posedirs_g,
+                     const float* __restrict__ v_shaped_g, const float* __restrict__ weights_g,
+                     const float* __restrict__ frame_g, const unsigned char* __restrict__ mask_g,
+                     float* __restrict__ verts_g, float* __restrict__ hit_g, int p, int k, int n,
+                     int h, int w, SeqStrides seq) {
+  extern __shared__ float4 pass4[];
+  float* pm = reinterpret_cast<float*>(pass4);             // [k][32]
+  float* rt = pm + kPassCands * k;                          // [12 x 16][32]
+  float* og = rt + kPassCands * kRoles * kJoints;           // [4][32]
+  float* pd = og + kPassCands * 4;                          // [3 k][32]
+  float* vs = pd + kPassVerts * 3 * k;                      // [3][32]
+  float* wt = vs + kPassVerts * 3;                          // [16][32]
+  const long long s = blockIdx.z;
+  const int v0 = blockIdx.x * kPassVerts, p0 = blockIdx.y * kPassCands;
+  const int tid = threadIdx.x, lane = tid & 31, cq = 4 * (tid >> 5);
+  const long long cands = s * p + p0;   // the block's first candidate
+  // the candidates' inputs (zeros past p) and the vertices' columns (zeros past n)
+  for (int i = tid; i < kPassCands * k; i += kPassThreads)
+    pm[i] = p0 + (i & 31) < p ? __ldg(pose_map_g + (cands + (i & 31)) * k + (i >> 5)) : 0.0f;
+  for (int i = tid; i < kPassCands * kRoles * kJoints; i += kPassThreads)
+    rt[i] = p0 + (i & 31) < p
+                ? __ldg(rt_g + (cands + (i & 31)) * (kRoles * kJoints) + (i >> 5)) : 0.0f;
+  if (tid < kPassCands * 4)
+    og[tid] = p0 + (tid & 31) < p && tid < kPassCands * 3
+                  ? __ldg(offset_g + (cands + (tid & 31)) * 3 + (tid >> 5)) : 0.0f;
+  const bool real_v = v0 + lane < n;
+  const float* posedirs = posedirs_g + s * seq.posedirs + v0;
+  const float* v_shaped = v_shaped_g + s * seq.v_shaped + v0;
+  const float* weights = weights_g + s * seq.weights + v0;
+  for (int i = tid; i < kPassVerts * 3 * k; i += kPassThreads)
+    pd[i] = v0 + (i & 31) < n ? __ldg(posedirs + static_cast<long long>(i >> 5) * n + (i & 31))
+                              : 0.0f;
+  if (tid < kPassVerts * 3)
+    vs[tid] = real_v ? __ldg(v_shaped + static_cast<long long>(tid >> 5) * n + lane) : 0.0f;
+  for (int i = tid; i < kPassVerts * kJoints; i += kPassThreads)
+    wt[i] = v0 + (i & 31) < n ? __ldg(weights + static_cast<long long>(i >> 5) * n + (i & 31))
+                              : 0.0f;
+  __syncthreads();
+  // vp_c of the four candidates: a fmaf chain in ascending k from 0, then + v_shaped
+  float vp[3][4];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    float a[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    const float* col = pd + c * k * kPassVerts + lane;
+#pragma unroll 5
+    for (int kk = 0; kk < k; ++kk) {
+      const float d = col[kk * kPassVerts];
+      const float4 q = *reinterpret_cast<const float4*>(pm + kk * kPassCands + cq);
+      a[0] = fmaf(d, q.x, a[0]);
+      a[1] = fmaf(d, q.y, a[1]);
+      a[2] = fmaf(d, q.z, a[2]);
+      a[3] = fmaf(d, q.w, a[3]);
     }
-    __syncthreads();   // the previous item's phase 2 has read xs
-
-    // the pair's per-candidate inputs into shared memory (zeros for a missing one)
-    for (int i = tid; i < kPair * stage_n; i += tc::kThreads) {
-      const int c = i / stage_n, j = i - c * stage_n;
-      const long long p = p0 + c;
-      float v = 0.0f;
-      if (c < n_cand) {
-        if (j < k_pose) v = __ldg(pose_map + p * k_pose + j);
-        else if (j >= k4 && j < k4 + kRoles * kJoints)
-          v = __ldg(rt + p * (kRoles * kJoints) + (j - k4));
-        else if (j >= k4 + kRoles * kJoints && j < k4 + kRoles * kJoints + 3)
-          v = __ldg(offset + p * 3 + (j - k4 - kRoles * kJoints));
+    const float vsc = vs[c * kPassVerts + lane];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) vp[c][i] = __fadd_rn(a[i], vsc);
+  }
+  float wv[kJoints];
+#pragma unroll
+  for (int j = 0; j < kJoints; ++j) wv[j] = wt[j * kPassVerts + lane];
+  // x_c = ((s_3c vp_0 + s_3c+1 vp_1 + s_3c+2 vp_2) + s_9+c) + offset_c, each
+  // s_r a fmaf chain over the 16 joints in ascending order from 0
+  float x[3][4];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    float a[4], b[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float* r = rt + (e < 3 ? 3 * c + e : 9 + c) * kJoints * kPassCands + cq;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) b[i] = 0.0f;
+#pragma unroll
+      for (int j = 0; j < kJoints; ++j) {
+        const float4 q = *reinterpret_cast<const float4*>(r + j * kPassCands);
+        b[0] = fmaf(q.x, wv[j], b[0]);
+        b[1] = fmaf(q.y, wv[j], b[1]);
+        b[2] = fmaf(q.z, wv[j], b[2]);
+        b[3] = fmaf(q.w, wv[j], b[3]);
       }
-      stage[i] = v;
-    }
-    __syncthreads();
-
-    // ---- phase 1: the pair's vertices, float32 FMA ----
-    const float* pm0 = stage;
-    const float* pm1 = stage + stage_n;
-    for (int base = half * kTilePoints; base < n; base += 2 * kTilePoints) {
-      const int v = base + slot;
-      if (v >= n) continue;
-      float vp[kPair][3];
 #pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        const float* pd = posedirs + static_cast<long long>(c) * k_pose * n + v;
-        float a0 = 0.0f, a1 = 0.0f;
-#pragma unroll 9
-        for (int k = 0; k < k_pose; ++k) {
-          const float d = __ldg(pd + static_cast<long long>(k) * n);
-          a0 = fmaf(d, pm0[k], a0);
-          a1 = fmaf(d, pm1[k], a1);
-        }
-        const float vs = __ldg(v_shaped + static_cast<long long>(c) * n + v);
-        vp[0][c] = __fadd_rn(a0, vs);
-        vp[1][c] = __fadd_rn(a1, vs);
-      }
-      float wv[kJoints];
-#pragma unroll
-      for (int j = 0; j < kJoints; ++j) wv[j] = __ldg(weights + static_cast<long long>(j) * n + v);
-#pragma unroll
-      for (int c2 = 0; c2 < kPair; ++c2) {
-        const float* rg = stage + c2 * stage_n + k4;       // [role][joint]
-        const float* og = rg + kRoles * kJoints;
-        float sr[kRoles];
-#pragma unroll
-        for (int r = 0; r < kRoles; ++r) {
-          float a = 0.0f;
-#pragma unroll
-          for (int j = 0; j < kJoints; ++j) a = fmaf(rg[r * kJoints + j], wv[j], a);
-          sr[r] = a;
-        }
-#pragma unroll
-        for (int c = 0; c < 3; ++c) {
-          float a = __fmul_rn(sr[3 * c], vp[c2][0]);
-          a = fmaf(sr[3 * c + 1], vp[c2][1], a);
-          a = fmaf(sr[3 * c + 2], vp[c2][2], a);
-          xs[(c2 * 3 + c) * n4 + v] = __fadd_rn(__fadd_rn(a, sr[9 + c]), og[c]);
-        }
+      for (int i = 0; i < 4; ++i) {
+        if (e == 0) a[i] = __fmul_rn(b[i], vp[0][i]);
+        else if (e < 3) a[i] = fmaf(b[i], vp[e][i], a[i]);
       }
     }
-    __syncthreads();
-
-    // ---- phase 2: the per-vertex energy over the pair's flat vertex list,
-    // 16 vertices a warp a round, the MLP on the tensor cores ----
-    float frame[kFrameFloats];
 #pragma unroll
-    for (int i = 0; i < kFrameFloats; ++i) frame[i] = __ldg(frame_g + s * seq.frame + i);
-    const int total = n_cand * n;
-    float* sdf_out = sdf_g + (s * p_total + p0) * static_cast<long long>(n);
-    float* hit_out = hit_g + (s * p_total + p0) * static_cast<long long>(n);
-    for (int base = 0; base < total; base += tc::kRoundPoints) {
-      const int row0 = base + warp * tc::kRows;
-      float xa[3] = {0.0f, 0.0f, 0.0f}, xb[3] = {0.0f, 0.0f, 0.0f};
-      float cam[3];
+    for (int i = 0; i < 4; ++i)
+      x[c][i] = __fadd_rn(__fadd_rn(a[i], b[i]), og[c * kPassCands + cq + i]);
+  }
+  if (!real_v) return;
+  const float* frame = frame_g + s * seq.frame;
+  const unsigned char* mask = mask_g + s * seq.mask;
 #pragma unroll
-      for (int r = 0; r < 3; ++r) {
-        // r 0, 1: the mma rows g and g + 8; r 2: the lane's own vertex for the hit
-        const int i = row0 + (r == 2 ? lane : g + 8 * r);
-        if (i >= total || (r == 2 && lane >= tc::kRows)) continue;
-        const int c2 = i >= n ? 1 : 0;
-        const int v = i - c2 * n;
-        const float x = xs[(c2 * 3 + 0) * n4 + v], y = xs[(c2 * 3 + 1) * n4 + v],
-                    z = xs[(c2 * 3 + 2) * n4 + v];
-        if (r == 2) {
-          cam[0] = x; cam[1] = y; cam[2] = z;
-        } else {
-          float obj[3];
-          scaled_object_frame(frame, net.scale, x, y, z, obj);
-          float (&dst)[3] = r == 0 ? xa : xb;
-          dst[0] = obj[0]; dst[1] = obj[1]; dst[2] = obj[2];
-        }
-      }
-      if (lane < tc::kRows && row0 + lane < total)
-        hit_out[row0 + lane] = silhouette_hit(mask, h, w, frame, cam[0], cam[1], cam[2]);
-      const float2 sdf = tc::mlp_rows(xa, xb, net, shape, resident != 0, wsm);
-      if (t == 0) {
-        if (row0 + g < total) sdf_out[row0 + g] = sdf.x;
-        if (row0 + g + 8 < total) sdf_out[row0 + g + 8] = sdf.y;
-      }
+  for (int i = 0; i < 4; ++i) {
+    if (p0 + cq + i < p) {
+      const long long at = (cands + cq + i) * n + v0 + lane;
+      verts_g[3 * at] = x[0][i];
+      verts_g[3 * at + 1] = x[1][i];
+      verts_g[3 * at + 2] = x[2][i];
+      hit_g[at] = silhouette_hit(mask, h, w, frame, x[0][i], x[1][i], x[2][i]);
     }
   }
+}
+
+// The walk's rows in 3xTF32: row r of sequence s is the pre-pass's vertex r
+// (candidate r / n, vertex r % n), in the camera frame.
+struct Rows : wg::Job {
+  const float* __restrict__ verts;   // (n_seq, m, 3)
+  const float* __restrict__ frame;   // (16,), frame_seq floats a sequence
+  float* __restrict__ sdf;           // (n_seq, m)
+  long long m, frame_seq;            // m = p n
+
+  __device__ __forceinline__ void load(long long s, long long row, float (&x)[3]) const {
+    x[0] = x[1] = x[2] = 0.0f;
+    if (row >= m) return;
+    const float* q = verts + 3 * (s * m + row);
+    x[0] = __ldg(q);
+    x[1] = __ldg(q + 1);
+    x[2] = __ldg(q + 2);
+  }
+  __device__ __forceinline__ void place(long long s, long long, const float (&raw)[3],
+                                        float scale, float (&x)[3]) const {
+    float f[12];
+#pragma unroll
+    for (int i = 0; i < 12; ++i) f[i] = wg::frame_at(frame + s * frame_seq + i);
+    scaled_object_frame(f, scale, raw[0], raw[1], raw[2], x);
+  }
+  __device__ __forceinline__ void store(long long s, long long row, float value) const {
+    sdf[s * m + row] = value;
+  }
+};
+
+__global__ void __launch_bounds__(wg::kThreads, 1)
+hand_energy_rows_kernel(const __grid_constant__ Rows job, const float* __restrict__ packed,
+                        long long packed_seq, long long rounds, long long items,
+                        wg::Shape shape, int pinned, int ring) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  wg::walk<false>(job, smem, packed, packed_seq, rounds, items, shape, pinned, ring);
 }
 
 // ---- bf16: the walk's job ----
@@ -260,7 +270,7 @@ constexpr int kBatch = 8;   // shared-memory loads issued together in the sums
 // Floats of the staged inputs of a quad: pose_map (k, padded to 4), rt
 // (12 x 16), offset (3, padded to 4), each entry e of candidate c at 4 e + c.
 __host__ __device__ inline int quad_entries(int k) {
-  return tc::round_up4(k) + kRoles * kJoints + 4;
+  return wg::round_up4(k) + kRoles * kJoints + 4;
 }
 
 // 4 bytes from device memory into shared memory without holding a register
@@ -338,7 +348,7 @@ struct Skinned : wg::Job {
     const int c = t >> 5, j = t & 31;
     const int tile = static_cast<int>(round / quads), q = static_cast<int>(round % quads);
     const int v = kTile * tile + j, first = kQuad * q, count = min(kQuad, p - first);
-    const int k4 = tc::round_up4(k);
+    const int k4 = wg::round_up4(k);
     const long long cands = s * p + first;   // the quad's first candidate
     // the tile's columns: posedirs and v_shaped of (c, v), weights of v
     const int key = static_cast<int>(s) * tiles + tile;
@@ -486,38 +496,43 @@ hand_energy_skin_wg_kernel(const __grid_constant__ Skinned job, const float* __r
   wg::walk<true>(job, smem, packed, job.seq.packed, rounds, items, shape, pinned, ring);
 }
 
-int g_smem_limit = 0;            // what a block of either kernel may opt into
-long long g_grid_smem = -1;      // persistent_blocks' memo
-int g_grid_blocks = 0;
-wg::Grid g_grid_wg;
+int g_smem_limit = 0;     // what a block of any of the three kernels may opt into
+wg::Grid g_grid_rows;     // the 3xTF32 walk's
+wg::Grid g_grid_wg;       // the bf16 walk's
 
 int launch(const void* pose_map, const void* rt, const void* offset, const void* posedirs,
            const void* v_shaped, const void* weights, const void* frame, const void* mask,
-           const void* packed, void* sdf, void* hit, int p, int k, int n, int h, int w, int n_seq,
-           const SeqStrides& seq, int n_freqs, int n_hidden, const int* widths, void* stream) {
-  const tc::Shape shape = tc::make_shape(n_freqs, n_hidden, widths);
-  if (shape.k0 == 0) return static_cast<int>(cudaErrorInvalidValue);
-  const long long other = 4LL * pair_floats(k, n);
-  const int resident = tc::resident_mode(shape, other, g_smem_limit);
-  if (resident < 0 || static_cast<long long>(kPair) * n > 2147483647LL)
+           const void* packed, void* sdf, void* hit, void* verts, int p, int k, int n, int h,
+           int w, int n_seq, const SeqStrides& seq, int n_freqs, int n_hidden,
+           const int* widths, void* stream) {
+  const wg::Shape shape = wg::make_shape(n_freqs, n_hidden, widths);
+  const long long pass_smem = 4 * pass_floats(k);
+  const int tiles = (n + kPassVerts - 1) / kPassVerts, chunks = (p + kPassCands - 1) / kPassCands;
+  if (shape.tiles == 0 || pass_smem > g_smem_limit || chunks > 65535 || n_seq > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  const long long smem = other + 4LL * tc::weight_smem_floats(shape, resident != 0);
-  const long long items = static_cast<long long>((p + kPair - 1) / kPair) * n_seq;
-  const int blocks = tc::persistent_blocks(hand_energy_skin_kernel, smem, g_grid_smem,
-                                           g_grid_blocks);
-  if (blocks < 1) {
-    const cudaError_t err = cudaGetLastError();
-    return static_cast<int>(err != cudaSuccess ? err : cudaErrorUnknown);
-  }
-  const unsigned grid = static_cast<unsigned>(items < blocks ? items : blocks);
-  hand_energy_skin_kernel<<<grid, tc::kThreads, static_cast<size_t>(smem),
-                            static_cast<cudaStream_t>(stream)>>>(
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  skin_vertices_kernel<<<dim3(tiles, chunks, n_seq), kPassThreads,
+                         static_cast<size_t>(pass_smem), st>>>(
       static_cast<const float*>(pose_map), static_cast<const float*>(rt),
       static_cast<const float*>(offset), static_cast<const float*>(posedirs),
       static_cast<const float*>(v_shaped), static_cast<const float*>(weights),
       static_cast<const float*>(frame), static_cast<const unsigned char*>(mask),
-      static_cast<const float*>(packed), static_cast<float*>(sdf), static_cast<float*>(hit), p,
-      k, n, h, w, items, seq, shape, resident);
+      static_cast<float*>(verts), static_cast<float*>(hit), p, k, n, h, w, seq);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long m = static_cast<long long>(p) * n;
+  const long long rounds = (m + wg::kRoundPoints - 1) / wg::kRoundPoints;
+  int pinned = 0, ring = 0;
+  long long smem = 0;
+  unsigned grid = 0;
+  err = wg::plan_launch(hand_energy_rows_kernel, shape, g_smem_limit, rounds * n_seq,
+                        g_grid_rows, pinned, ring, smem, grid);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const Rows job{{}, static_cast<const float*>(verts), static_cast<const float*>(frame),
+                 static_cast<float*>(sdf), m, seq.frame};
+  hand_energy_rows_kernel<<<grid, wg::kThreads, static_cast<size_t>(smem), st>>>(
+      job, static_cast<const float*>(packed), seq.packed, rounds, rounds * n_seq, shape, pinned,
+      ring);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -552,67 +567,58 @@ int launch_bf16(const void* pose_map, const void* rt, const void* offset, const 
 }
 
 // The arguments both entries take, checked; seq_strides: 6 host long longs.
-template <bool kBf16>
-int launch_either(const void* pose_map, const void* rt, const void* offset, const void* posedirs,
-                  const void* v_shaped, const void* weights, const void* frame, const void* mask,
-                  const void* packed, void* sdf, void* hit, int p, int k, int n, int h, int w,
-                  int n_seq, const long long* seq_strides, int n_freqs, int n_hidden,
-                  const int* widths, void* stream) {
-  if (p < 1 || k < 1 || n < 1 || h < 1 || w < 1 || n_seq < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const SeqStrides seq{seq_strides[0], seq_strides[1], seq_strides[2], seq_strides[3],
-                       seq_strides[4], seq_strides[5]};
-  return (kBf16 ? launch_bf16 : launch)(pose_map, rt, offset, posedirs, v_shaped, weights, frame,
-                                        mask, packed, sdf, hit, p, k, n, h, w, n_seq, seq,
-                                        n_freqs, n_hidden, widths, stream);
+bool bad_args(int p, int k, int n, int h, int w, int n_seq) {
+  return p < 1 || k < 1 || n < 1 || h < 1 || w < 1 || n_seq < 1;
+}
+SeqStrides strides_of(const long long* seq_strides) {
+  return {seq_strides[0], seq_strides[1], seq_strides[2], seq_strides[3], seq_strides[4],
+          seq_strides[5]};
 }
 
 }  // namespace
 
 extern "C" {
 
-// Opts both instantiations into as much dynamic shared memory as a block may
+// Opts the three kernels into as much dynamic shared memory as a block may
 // have on the current device, once per process; a launch takes what its net
-// and N need.
+// and K need.
 int hotrack_hand_energy_skin_init() {
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaDeviceGetAttribute(&g_smem_limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(hand_energy_skin_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, g_smem_limit);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(wg::opt_in(hand_energy_skin_wg_kernel, g_smem_limit));
+  cudaError_t err = wg::opt_in(hand_energy_rows_kernel, g_smem_limit);
+  if (err == cudaSuccess) err = wg::opt_in(hand_energy_skin_wg_kernel, g_smem_limit);
+  if (err == cudaSuccess) err = wg::opt_in(skin_vertices_kernel, g_smem_limit);
+  return static_cast<int>(err);
 }
 
 // pose_map (p, k), rt (p, 12, 16), offset (p, 3), posedirs (3, k, n), v_shaped (3, n),
-// weights (16, n), frame (16,), mask (h, ceil(w / 8)) uint8, packed (PackedSDF.tc),
-// sdf (p, n), hit (p, n), each with a leading n_seq: device pointers; seq_strides:
-// 6 host long longs, SeqStrides' fields in order; widths: n_hidden + 1 host ints.
-// Returns cudaErrorInvalidValue when the pair's vertices and one layer of the
-// net do not fit a block's shared memory (n above about 6000).
+// weights (16, n), frame (16,), mask (h, ceil(w / 8)) uint8, packed (PackedSDF.wg),
+// sdf (p, n), hit (p, n), verts (p, n, 3) scratch, each with a leading n_seq: device
+// pointers; seq_strides: 6 host long longs, SeqStrides' fields in order; widths:
+// n_hidden + 1 host ints. Returns cudaErrorInvalidValue when the pre-pass's
+// shared memory does not fit a block (k above about 400).
 int hotrack_hand_energy_skin(const void* pose_map, const void* rt, const void* offset,
                              const void* posedirs, const void* v_shaped, const void* weights,
                              const void* frame, const void* mask, const void* packed,
-                             void* sdf, void* hit, int p, int k, int n, int h, int w,
-                             int n_seq, const long long* seq_strides, int n_freqs,
+                             void* sdf, void* hit, void* verts, int p, int k, int n, int h,
+                             int w, int n_seq, const long long* seq_strides, int n_freqs,
                              int n_hidden, const int* widths, void* stream) {
-  return launch_either<false>(pose_map, rt, offset, posedirs, v_shaped, weights, frame, mask,
-                              packed, sdf, hit, p, k, n, h, w, n_seq, seq_strides, n_freqs,
-                              n_hidden, widths, stream);
+  if (bad_args(p, k, n, h, w, n_seq)) return static_cast<int>(cudaErrorInvalidValue);
+  return launch(pose_map, rt, offset, posedirs, v_shaped, weights, frame, mask, packed, sdf, hit,
+                verts, p, k, n, h, w, n_seq, strides_of(seq_strides), n_freqs, n_hidden, widths,
+                stream);
 }
 
-// The same in bf16 on the wgmma walk: packed is PackedSDF.wg16.
+// The same in bf16 on the fused walk job, without the scratch: packed is
+// PackedSDF.wg16.
 int hotrack_hand_energy_skin_bf16(const void* pose_map, const void* rt, const void* offset,
                                   const void* posedirs, const void* v_shaped,
                                   const void* weights, const void* frame, const void* mask,
                                   const void* packed, void* sdf, void* hit, int p, int k, int n,
                                   int h, int w, int n_seq, const long long* seq_strides,
                                   int n_freqs, int n_hidden, const int* widths, void* stream) {
-  return launch_either<true>(pose_map, rt, offset, posedirs, v_shaped, weights, frame, mask,
-                             packed, sdf, hit, p, k, n, h, w, n_seq, seq_strides, n_freqs,
-                             n_hidden, widths, stream);
+  if (bad_args(p, k, n, h, w, n_seq)) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_bf16(pose_map, rt, offset, posedirs, v_shaped, weights, frame, mask, packed, sdf,
+                     hit, p, k, n, h, w, n_seq, strides_of(seq_strides), n_freqs, n_hidden,
+                     widths, stream);
 }
 
 }  // extern "C"

@@ -1,11 +1,11 @@
 // The distilled-SDF MLP on Hopper's warpgroup tensor-core instruction
 // (wgmma), at float32-class precision (3xTF32) or in bf16, and the persistent
-// walk of 128-point rounds around it. sdf_mlp.cu (#3, #3b) and hand_energy.cu
-// (#6) instantiate the walk in both precisions (template parameter kBf16);
-// obj_energy.cu (#4, #4b) and hand_energy_skin.cu (#7, #7b) in bf16 only, and
-// run their 3xTF32 instantiations on the mma.sync core of sdf_mlp_tc.cuh. The
-// kernels differ in how a point is read, how a round is stored or summed and
-// what the producer warpgroup's spare warps do (`walk`, `Job` below).
+// walk of 128-point rounds around it: the port's one MLP core. sdf_mlp.cu
+// (#3, #3b), hand_energy.cu (#6), obj_energy.cu (#4, #4b) and
+// hand_energy_skin.cu (#7, #7b) instantiate the walk in both precisions
+// (template parameter kBf16). The kernels differ in how a point is read, how a
+// round is stored or summed and what the producer warpgroup's spare warps do
+// (`walk`, `Job` below).
 //
 // bf16 (kBf16, HOTRACK_SDF_BF16; the JAX package's compute_dtype bfloat16):
 // every layer's input activations and weights, the output layer's included,
@@ -31,25 +31,26 @@
 // (features, bias, ReLU, conversion of 384 activations a point) is no longer
 // small beside it.
 //
-// Computes what sdf_mlp_tc.cuh computes: per point, Fourier features
-// s*x | sin(f*s*x) | cos(f*s*x) (axis-major, frequency-minor; sincosf of the
-// float32 product, sinf's and cosf's arithmetic), Dense + ReLU hidden layers
-// whose products are 3xTF32 (every operand split as big = tf32(x), small =
-// tf32(x - big), rounded to nearest with ties away from zero by
-// tc::tf32_round; small*small dropped), then the 128 -> 1 output layer and the
-// clamp in float32 FMA. The sums differ from sdf_mlp_tc.cuh's: a layer's
-// big*big products go into one float32 accumulator chain (dm) and its
-// small*big and big*small products into another (dc), added once in float32
-// before the bias. The tensor cores truncate as they accumulate, so the chain
-// that carries the layer's size now truncates 16 times a layer, not 48 (the
-// small products' chain is 2^-11 of its size): one sdf value lay up to
-// 1.34e-7 from the plain version's on the card at depth 8 (2.1e-7 and 3.4e-7
-// with one chain at the shipped width and at depth 8), inside TC_SDF_ATOL.
+// 3xTF32 (the default): per point, Fourier features s*x | sin(f*s*x) |
+// cos(f*s*x) (axis-major, frequency-minor; sincosf of the float32 product,
+// sinf's and cosf's arithmetic), Dense + ReLU hidden layers whose products are
+// 3xTF32 (every operand split as big = tf32(x), small = tf32(x - big), rounded
+// to nearest with ties away from zero by tf32_round, the rule of ops/tf32.py;
+// small*small dropped), then the 128 -> 1 output layer and the clamp in
+// float32 FMA. A layer's big*big products go into one float32 accumulator
+// chain (dm) and its small*big and big*small products into another (dc),
+// added once in float32 before the bias. The tensor cores truncate as they
+// accumulate, so the chain that carries the layer's size truncates 16 times a
+// layer (the small products' chain is 2^-11 of its size): one sdf value lay up
+// to 1.34e-7 from the plain version's on the card at depth 8 (2.1e-7 and
+// 3.4e-7 with one chain of all 48 products at the shipped width and at depth
+// 8), inside TC_SDF_ATOL.
 //
 // Bound: operations, 3 x 2 x (K0 H + H H (depth - 1)) tensor-core operations
 // a point at TF32's 495 TFLOP/s (0.904 ms for 2048 x 1024 points of
-// 21-128-128-128-1). mma.sync tops out at 302-323 TFLOP/s on the H100
-// (scripts/mma_sync_rate.py); only wgmma reaches the tensor cores' full rate.
+// 21-128-128-128-1). The sm_80 instruction, mma.sync, tops out at 302-323
+// TFLOP/s on the H100 (scripts/mma_sync_rate.py); only wgmma reaches the
+// tensor cores' full rate, so it is the one instruction of this core.
 //
 // Instruction: wgmma.mma_async.m64n128k8.f32.tf32.tf32, A (the activations)
 // from registers, B (the weights) from shared memory through a matrix
@@ -60,10 +61,11 @@
 // the accumulator that of the m16n8 C fragment, n-tile j in d[4 j .. 4 j + 3]
 // (d0 d1 row g cols 8 j + 2 t, + 1; d2 d3 row g + 8). So one layer's
 // outputs are the next layer's A fragments with no data movement, given the
-// next layer's rows in _tc_rows' order (ops/sdf_mlp.py), as in
-// sdf_mlp_tc.cuh. Layer 0's rows are ordered so that a lane's k-slots t and
-// t + 4 are one angle's sine and cosine (_wg_rows): one sincosf a lane a row
-// a k-step, where sinf and cosf apart cost 0.3 ms a launch at (2048, 3, 1024).
+// next layer's rows of each k-block of 8 in the order of units 0 2 4 6 1 3 5 7
+// (ops/sdf_mlp.py _wg_rows). Layer 0's rows are ordered so that a lane's
+// k-slots t and t + 4 are one angle's sine and cosine (_wg_rows): one sincosf
+// a lane a row a k-step, where sinf and cosf apart cost 0.3 ms a launch at
+// (2048, 3, 1024).
 //
 // Weights: B is K-major for .tf32 and both halves of a weight are 32-bit
 // words (big, and small as a TF32 float32; wgmma has no fp16 B beside a tf32
@@ -95,14 +97,14 @@
 // kernel with wgmma registers by whole warpgroups, so 288 threads got 168 and
 // spilled); warp 8 copies, warps 9-11 meet the block's barriers and do the
 // kernel's side work for each item (`aside`: #6's silhouette hits, off the
-// consumers' path; nothing for #3 and #4; `build`: #7's skinning into a stage
-// slot). A work item is a round of 128 consecutive points of one sequence, 64
-// a consumer warpgroup, 16 a warp; the block walks items b, b + grid, ... in
-// ascending order (a round never spans two sequences; #4 walks groups of a
-// candidate's rounds), each round's points read during the round before
-// (#7's taken from the stage where the round starts). Entering
-// another sequence, the whole block meets at a
-// barrier and the producer copies the new model's pinned tiles onto the
+// consumers' path; nothing for #3, #4 and 3xTF32 #7, whose pre-pass stores
+// the hits; `build`: bf16 #7's skinning into a stage slot). A work item is a
+// round of 128 consecutive points of one sequence, 64 a consumer warpgroup, 16
+// a warp; the block walks items b, b + grid, ... in ascending order (a round
+// never spans two sequences; #4 walks groups of a candidate's rounds), each
+// round's points read during the round before (bf16 #7's taken from the stage
+// where the round starts). Entering another sequence, the whole block meets at
+// a barrier and the producer copies the new model's pinned tiles onto the
 // "pinned" mbarrier. Per round a consumer warpgroup runs layer 0 a k-step at a
 // time, the next k-step's features computed while the products run, and each
 // later layer as 16 k-steps: split the k-step's A fragments from the kept
@@ -128,7 +130,7 @@
 //   tiles, 1024 words each: layer 0's ks0 = (3F + 6) / 4 k-steps (a k-step's
 //   k-slots t and t + 4 hold the sine and cosine of angle 4 ks + t, then the 3
 //   coordinates, then zero rows: _wg_rows), then 16 k-steps a later layer
-//   (128 rows in _tc_rows' order); a k-step's big tile, then its small tile
+//   (128 rows in _wg_rows' order); a k-step's big tile, then its small tile
 // and in bf16 (PackedSDF.wg16, _pack_wg16): the same header, biases and
 // output layer (its weights rounded to bf16); then one tile of bf16 weights a
 // k-step of 16 (core matrices of 8 units x 8 k-slots): layer 0's (3F + 10) / 8
@@ -138,8 +140,6 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#include "sdf_mlp_tc.cuh"
 
 namespace hotrack {
 namespace wg {
@@ -160,6 +160,19 @@ constexpr int kTileBytes = 4 * kTileFloats;
 constexpr int kRing = 8;                          // slots of streamed tiles
 constexpr uint32_t kLbo = 128;                    // from k-slots 0-3 to 4-7 (bytes)
 constexpr uint32_t kSbo = 256;                    // from units 8 nb to 8 nb + 8 (bytes)
+constexpr int kMaxHidden = 8;
+
+__host__ __device__ inline int round_up4(int v) { return (v + 3) & ~3; }
+
+// x rounded to TF32 (10 mantissa bits) to nearest, ties away from zero, as a
+// 32-bit pattern with the 13 low bits 0 (ops/tf32.py tf32_round).
+__device__ __forceinline__ uint32_t tf32_round(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+__device__ __forceinline__ float pick3(const float (&x)[3], int i) {
+  return i == 0 ? x[0] : (i == 1 ? x[1] : x[2]);
+}
 
 struct Shape {
   int n_freqs;
@@ -169,12 +182,15 @@ struct Shape {
   int first_tiles;  // layer 0's: 2 ks0; in bf16 ks0
 };
 
-// The shape of a model the launcher was given, or tiles = 0 when the kernel
-// does not take it: 1 to 8 hidden layers, no layer wider than 128.
+// The shape of a model the launcher was given (widths[0] = 3 + 6F, widths[l]
+// = units of hidden layer l), or tiles = 0 when the kernel does not take it:
+// 1 to 8 hidden layers, no layer wider than 128.
 inline Shape make_shape(int n_freqs, int n_hidden, const int* widths, bool bf16 = false) {
   Shape s{n_freqs, n_hidden, 0, 0, 0};
-  const tc::Shape t = tc::make_shape(n_freqs, n_hidden, widths);
-  if (t.k0 == 0) return s;
+  if (n_freqs < 0 || n_hidden < 1 || n_hidden > kMaxHidden || widths[0] != 3 + 6 * n_freqs)
+    return s;
+  for (int l = 0; l <= n_hidden; ++l)
+    if (widths[l] < 1 || widths[l] > kUnits) return s;
   if (bf16) {
     s.ks0 = (3 * n_freqs + 10) / 8;
     s.first_tiles = s.ks0;
@@ -188,7 +204,7 @@ inline Shape make_shape(int n_freqs, int n_hidden, const int* widths, bool bf16 
 }
 
 __host__ __device__ inline int header_floats(const Shape& s) {
-  return 4 + tc::round_up4(s.n_freqs);
+  return 4 + round_up4(s.n_freqs);
 }
 __host__ __device__ inline int tiles_offset(const Shape& s) {
   return header_floats(s) + kUnits * s.n_hidden + kUnits + 4;
@@ -333,8 +349,8 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[64], const uint32_t (&a)[4
 
 // A k-step's A fragment halves: big = tf32(x), small = tf32(x - big).
 __device__ __forceinline__ void split(uint32_t& big, uint32_t& small, float x) {
-  big = tc::tf32_round(x);
-  small = tc::tf32_round(__fsub_rn(x, __uint_as_float(big)));
+  big = tf32_round(x);
+  small = tf32_round(__fsub_rn(x, __uint_as_float(big)));
 }
 
 // Where the block's tiles are, and how far its walk through the streamed
@@ -377,11 +393,11 @@ __device__ __forceinline__ void first_fragments(uint32_t (&ab)[1][4], uint32_t (
   if (j < angles) {
     const int axis = j / s.n_freqs;
     const float f = __ldg(freqs + (j - axis * s.n_freqs));
-    sincosf(__fmul_rn(tc::pick3(xa, axis), f), &a[0], &a[2]);
-    sincosf(__fmul_rn(tc::pick3(xb, axis), f), &a[1], &a[3]);
+    sincosf(__fmul_rn(pick3(xa, axis), f), &a[0], &a[2]);
+    sincosf(__fmul_rn(pick3(xb, axis), f), &a[1], &a[3]);
   } else if (j < angles + 3) {
-    a[0] = tc::pick3(xa, j - angles);
-    a[1] = tc::pick3(xb, j - angles);
+    a[0] = pick3(xa, j - angles);
+    a[1] = pick3(xb, j - angles);
   }
   __syncwarp();   // the features branch by lane
 #pragma unroll
@@ -433,7 +449,7 @@ __device__ __forceinline__ void first_layer(float (&dm)[64], float (&dc)[64],
 
 // A later layer's products for the warpgroup: act holds the previous
 // layer's outputs (bias and ReLU applied) in accumulator order, which is this
-// layer's A-fragment order (_tc_rows' order): units 8 ks + 2 t and + 1 of
+// layer's A-fragment order (_wg_rows' order): units 8 ks + 2 t and + 1 of
 // rows g and g + 8 are k-slots t and t + 4 of k-step ks. Each k-step's
 // fragments are split while the one before runs (two sets, in turns), its
 // products go into dm (big*big) and dc (small*big + big*small), a group a
@@ -558,11 +574,11 @@ __device__ __forceinline__ void first_fragments16(uint32_t (&a)[4], const float 
     if (j < angles) {
       const int axis = j / s.n_freqs;
       const float f = __ldg(freqs + (j - axis * s.n_freqs));
-      sincosf(__fmul_rn(tc::pick3(xa, axis), f), &v[4 * h], &v[4 * h + 1]);
-      sincosf(__fmul_rn(tc::pick3(xb, axis), f), &v[4 * h + 2], &v[4 * h + 3]);
+      sincosf(__fmul_rn(pick3(xa, axis), f), &v[4 * h], &v[4 * h + 1]);
+      sincosf(__fmul_rn(pick3(xb, axis), f), &v[4 * h + 2], &v[4 * h + 3]);
     } else if (j < angles + 3) {
-      v[4 * h] = tc::pick3(xa, j - angles);
-      v[4 * h + 2] = tc::pick3(xb, j - angles);
+      v[4 * h] = pick3(xa, j - angles);
+      v[4 * h + 2] = pick3(xb, j - angles);
     }
   }
   __syncwarp();   // the features branch by lane

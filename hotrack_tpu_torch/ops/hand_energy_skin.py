@@ -14,10 +14,10 @@ candidate p and vertex v:
     sdf, hit = the per-vertex energy of ops/hand_energy.py at x
 
 which is `mano_forward`'s linear blend skinning followed by
-`fused_hand_energy`, with the 5120 x 778 vertices never written to device
-memory. The per-candidate inputs come from `mano.layer.mano_skin_inputs`,
-the per-call constants from `skin_consts` below (vertex-minor layouts, so
-neighbouring threads read neighbouring addresses). This is the hand pose
+`fused_hand_energy`. The per-candidate inputs come from
+`mano.layer.mano_skin_inputs`, the per-call constants from `skin_consts`
+below (vertex-minor layouts, so neighbouring threads read neighbouring
+addresses). This is the hand pose
 optimiser's default route (`hand_energy: skin`). Not carried over from the
 TPU: the 778 -> 896 lane padding, the particle tiles and their role-major
 slab, padding P by repeating particle 0.
@@ -32,13 +32,17 @@ A CUDA tensor launches the kernel or raises; a CPU tensor takes the plain
 version, `_hand_energy_skin_torch`, which is also the kernel's oracle.
 Bound on the card: operations (the MLP's, three tensor-core passes in
 3xTF32, plus 1,239 float32 operations a vertex of skinning, transform and
-projection). The kernel's MLP runs on the tensor cores in 3xTF32
-(csrc/sdf_mlp_tc.cuh, `PackedSDF.tc`), within the plain version's bounds;
-`ops/tf32.py` emulates it. With `compute_dtype=torch.bfloat16`
-(HOTRACK_SDF_BF16) it is ops/sdf_mlp.py's bf16 MLP, one bf16 pass on the
-persistent wgmma walk that the SDF MLP kernel runs (csrc/sdf_mlp_wgmma.cuh,
-`PackedSDF.wg16`), with the skinning built a round or two ahead by the walk's
-spare warps; the skinning, transform and hit are the float32 kernel's code.
+projection). In 3xTF32 a skinning pre-pass writes the vertices to a scratch
+of device memory (47.8 MB at 5120 x 778) and stores their hits, and the MLP
+runs on the tensor cores on the persistent wgmma walk that the SDF MLP kernel
+runs (csrc/sdf_mlp_wgmma.cuh, `PackedSDF.wg`), as the fused hand energy's: its
+sdf and hit are bitwise `fused_hand_energy`'s on the same vertices, within
+the plain version's bounds; `ops/tf32.py` emulates the MLP. With
+`compute_dtype=torch.bfloat16` (HOTRACK_SDF_BF16) it is ops/sdf_mlp.py's bf16
+MLP, one bf16 pass on the same walk (`PackedSDF.wg16`), with the skinning
+built a round or two ahead by the walk's spare warps and the vertices never
+in device memory; the skinning, transform and hit are the 3xTF32 kernel's
+arithmetic, so the two build bitwise the same vertices.
 """
 
 from __future__ import annotations

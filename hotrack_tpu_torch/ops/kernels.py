@@ -25,12 +25,11 @@ batched launch is bitwise an unbatched launch on s's inputs.
 
 The four kernels that run the distilled-SDF MLP (#3, #4, #6, #7, and the
 batched #3b, #4b, #7b) each have two instantiations: float32-class (3xTF32)
-and bf16 (`compute_dtype=torch.bfloat16`, ops/sdf_mlp.py). Every bf16 one runs
-the persistent wgmma walk of csrc/sdf_mlp_wgmma.cuh (`PackedSDF.wg16`); in
-3xTF32, #3 and #6 run the walk too (`PackedSDF.wg`), #4 and #7 the mma.sync
-core of csrc/sdf_mlp_tc.cuh (`PackedSDF.tc`). A wrapper given bf16 launches
-the bf16 one and counts it apart (`<name>_bf16` in `launch_counts`); it never
-takes the other precision.
+and bf16 (`compute_dtype=torch.bfloat16`, ops/sdf_mlp.py). All of them run
+the persistent wgmma walk of csrc/sdf_mlp_wgmma.cuh, the 3xTF32 ones on
+`PackedSDF.wg`, the bf16 ones on `PackedSDF.wg16`. A wrapper given bf16
+launches the bf16 one and counts it apart (`<name>_bf16` in `launch_counts`);
+it never takes the other precision.
 """
 
 from __future__ import annotations
@@ -249,9 +248,11 @@ def _bind_hand_energy(lib: ctypes.CDLL) -> None:
 
 def _bind_hand_energy_skin(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
+    tail = [i] * 6 + [ctypes.POINTER(ctypes.c_longlong), i, i, ctypes.POINTER(ctypes.c_int), p]
+    # the 3xTF32 entry takes the pre-pass's vertex scratch after hit
+    lib.hotrack_hand_energy_skin.argtypes = [p] * 12 + tail
+    lib.hotrack_hand_energy_skin_bf16.argtypes = [p] * 11 + tail
     for fn in (lib.hotrack_hand_energy_skin, lib.hotrack_hand_energy_skin_bf16):
-        fn.argtypes = [p] * 11 + [i] * 6 + [
-            ctypes.POINTER(ctypes.c_longlong), i, i, ctypes.POINTER(ctypes.c_int), p]
         fn.restype = i
     lib.hotrack_hand_energy_skin_init.restype = i
 
@@ -421,11 +422,10 @@ def _precision(name: str, compute_dtype) -> str:
 
 def _mlp_args(name: str, packed, like: torch.Tensor, n_seq: int | None, layout: str):
     """The packed model's arguments for a launch (ops/sdf_mlp.PackedSDF): its
-    buffer in `layout` (`tc`: the 3xTF32 mma.sync kernels' of
-    csrc/sdf_mlp_tc.cuh; `wg`, `wg16`: the wgmma walk's of
-    csrc/sdf_mlp_wgmma.cuh), frequency count, hidden depth, widths and the
-    floats from one sequence's model to the next (a stack (S, n) of
-    `pack_distilled_batched`, or 0)."""
+    buffer in the wgmma walk's layout of the launch's precision (`wg` for
+    3xTF32, `wg16` for bf16: csrc/sdf_mlp_wgmma.cuh), frequency count, hidden
+    depth, widths and the floats from one sequence's model to the next (a
+    stack (S, n) of `pack_distilled_batched`, or 0)."""
     buf = getattr(packed, layout)
     _check_f32(name, "the packed model", buf)
     if buf.device != like.device:
@@ -514,7 +514,7 @@ def _obj_energy(name: str, counter: str, pcld_cf: torch.Tensor, rts: torch.Tenso
     if p < 1 or n < 1 or n_seq < 1:
         raise ValueError(f"empty obj_sdf_energy problem: S={n_seq} P={p} N={n}")
     buf, n_freqs, n_hidden, widths, packed_seq = _mlp_args(
-        name, packed, pcld_cf, n_seq if batched else None, layout="wg16" if bf16 else "tc")
+        name, packed, pcld_cf, n_seq if batched else None, layout="wg16" if bf16 else "wg")
     lib = _load("obj_energy", _bind_obj_energy)
     out = torch.empty(rts.shape[:-1], dtype=torch.float32, device=pcld_cf.device)
     stream = torch.cuda.current_stream(pcld_cf.device).cuda_stream
@@ -530,11 +530,12 @@ def _obj_energy(name: str, counter: str, pcld_cf: torch.Tensor, rts: torch.Tenso
 def obj_sdf_energy_cuda(pcld_cf: torch.Tensor, rts: torch.Tensor, packed,
                         compute_dtype=None) -> torch.Tensor:
     """The fused object-pose energy on the card (csrc/obj_energy.cu, the
-    MLP on the tensor cores in 3xTF32 through mma.sync or, with compute_dtype
-    torch.bfloat16, in bf16 on the wgmma walk): pcld_cf (3, N), rts (P, 12)
-    (ops/obj_energy.obj_rts), both contiguous float32, and a `PackedSDF` (its
-    `tc` or `wg16` layout is read) -> (P,) sums over the cloud of |sdf|. No
-    atomics: two launches agree bitwise."""
+    MLP on the tensor cores through wgmma on the persistent walk, in 3xTF32
+    or, with compute_dtype torch.bfloat16, in bf16): pcld_cf (3, N), rts
+    (P, 12) (ops/obj_energy.obj_rts), both contiguous float32, and a
+    `PackedSDF` (its `wg` or `wg16` layout is read) -> (P,) sums over the
+    cloud of |sdf|. No atomics: two launches agree bitwise, and a candidate's
+    per-point |sdf| is `sdf_mlp_cuda`'s on its object-frame points."""
     return _obj_energy("obj_sdf_energy_cuda", "obj_sdf_energy", pcld_cf, rts, packed, False,
                        compute_dtype)
 
@@ -702,18 +703,22 @@ def _hand_energy_skin(name: str, counter: str, pose_map, rt_flat, offset, posedi
     strides.append(_check_frame(name, frame, pose_map, one))
     h, w, mask_seq = _check_mask(name, mask, hw, pose_map, one)
     buf, n_freqs, n_hidden, widths, packed_seq = _mlp_args(
-        name, packed, pose_map, one, layout="wg16" if bf16 else "tc")
+        name, packed, pose_map, one, layout="wg16" if bf16 else "wg")
     seq_strides = (ctypes.c_longlong * 6)(*strides, mask_seq, packed_seq)
     lib = _load("hand_energy_skin", _bind_hand_energy_skin)
     sdf = torch.empty((*lead, p, n), dtype=torch.float32, device=pose_map.device)
     hit = torch.empty((*lead, p, n), dtype=torch.float32, device=pose_map.device)
     stream = torch.cuda.current_stream(pose_map.device).cuda_stream
-    launch = lib.hotrack_hand_energy_skin_bf16 if bf16 else lib.hotrack_hand_energy_skin
-    err = launch(
-        pose_map.data_ptr(), rt_flat.data_ptr(), offset.data_ptr(), posedirs_cf.data_ptr(),
-        vshaped_cf.data_ptr(), weights_t.data_ptr(), frame.data_ptr(), mask.data_ptr(),
-        buf.data_ptr(), sdf.data_ptr(), hit.data_ptr(), p, k, n, h, w, n_seq,
-        seq_strides, n_freqs, n_hidden, widths, stream)
+    ptrs = [pose_map.data_ptr(), rt_flat.data_ptr(), offset.data_ptr(), posedirs_cf.data_ptr(),
+            vshaped_cf.data_ptr(), weights_t.data_ptr(), frame.data_ptr(), mask.data_ptr(),
+            buf.data_ptr(), sdf.data_ptr(), hit.data_ptr()]
+    if bf16:
+        launch = lib.hotrack_hand_energy_skin_bf16
+    else:   # the skinning pre-pass's vertices, (S, P, N, 3), read by the walk
+        launch = lib.hotrack_hand_energy_skin
+        verts = torch.empty((n_seq, p, n, 3), dtype=torch.float32, device=pose_map.device)
+        ptrs.append(verts.data_ptr())
+    err = launch(*ptrs, p, k, n, h, w, n_seq, seq_strides, n_freqs, n_hidden, widths, stream)
     _check_status(err, f"{counter}{bf16} launch (S={n_seq}, P={p}, K={k}, N={n}, "
                        f"mask {h}x{w}, widths {packed.widths})")
     _count(counter + bf16)
@@ -726,15 +731,18 @@ def hand_energy_skin_cuda(pose_map: torch.Tensor, rt_flat: torch.Tensor,
                           frame: torch.Tensor, mask: torch.Tensor, hw, packed,
                           compute_dtype=None) -> tuple:
     """MANO skinning fused with the per-vertex hand energy on the card
-    (csrc/hand_energy_skin.cu, the MLP on the tensor cores in 3xTF32 through
-    mma.sync reading `PackedSDF.tc` or, with compute_dtype torch.bfloat16, in
-    bf16 on the wgmma walk reading `PackedSDF.wg16`). Per candidate: pose_map
-    (P, K), rt_flat (P * 12, 16), offset (P, 3) (mano/layer.mano_skin_inputs); per call:
-    posedirs_cf (3, K, N), vshaped_cf (3, N), weights_t (16, N)
-    (ops/hand_energy_skin.skin_consts); frame (16,), the packed mask for
-    image size hw and a `PackedSDF`; all contiguous float32 on the current
-    card -> (sdf (P, N), hit (P, N)). The vertices never reach device
-    memory. Gradient-free."""
+    (csrc/hand_energy_skin.cu, the MLP on the tensor cores through wgmma on
+    the persistent walk: in 3xTF32 reading `PackedSDF.wg`, after a skinning
+    pre-pass that writes the vertices to a (P, N, 3) scratch allocated here;
+    with compute_dtype torch.bfloat16, in bf16 reading `PackedSDF.wg16`, the
+    skinning on the walk's spare warps and the vertices never in device
+    memory). Per candidate: pose_map (P, K), rt_flat (P * 12, 16), offset
+    (P, 3) (mano/layer.mano_skin_inputs); per call: posedirs_cf (3, K, N),
+    vshaped_cf (3, N), weights_t (16, N) (ops/hand_energy_skin.skin_consts);
+    frame (16,), the packed mask for image size hw and a `PackedSDF`; all
+    contiguous float32 on the current card -> (sdf (P, N), hit (P, N)). In
+    3xTF32 the sdf and the hit are bitwise `hand_energy_cuda`'s on the same
+    vertices and frame. Gradient-free."""
     return _hand_energy_skin("hand_energy_skin_cuda", "hand_energy_skin", pose_map, rt_flat,
                              offset, posedirs_cf, vshaped_cf, weights_t, frame, mask, hw,
                              packed, False, compute_dtype)

@@ -16,13 +16,14 @@ launches agree bitwise.
 
 Bound on the card: operations (P * N * 71,168 operations at the shipped
 net, 149.2 GFLOP at 2048 x 1024, against 116 KB of traffic). The kernel runs
-the MLP's hidden layers on the tensor cores in 3xTF32 (csrc/sdf_mlp_tc.cuh,
-`PackedSDF.tc`): three passes, 0.904 ms at the TF32 peak, float32-class
-results within the plain version's bounds; `ops/tf32.py` emulates it. With
+the MLP on the persistent wgmma walk that the SDF MLP kernel runs
+(csrc/sdf_mlp_wgmma.cuh), its hidden layers on the tensor cores in 3xTF32
+(`PackedSDF.wg`): three passes, 0.904 ms at the TF32 peak, float32-class
+results within the plain version's bounds, a point's |sdf| the SDF MLP
+kernel's on its object-frame point; `ops/tf32.py` emulates it. With
 `compute_dtype=torch.bfloat16` (HOTRACK_SDF_BF16) the MLP is ops/sdf_mlp.py's
-bf16 one: one bf16 pass on the persistent wgmma walk that the SDF MLP kernel
-runs (csrc/sdf_mlp_wgmma.cuh, `PackedSDF.wg16`), 0.151 ms at the bf16 peak;
-the transform and the sum over N stay float32, in the float32 kernel's order.
+bf16 one: one bf16 pass on the same walk (`PackedSDF.wg16`), 0.151 ms at the
+bf16 peak; the transform and the sum over N stay float32, in the same order.
 
 A CUDA tensor launches the kernel or raises; a CPU tensor takes the plain
 version, `_obj_sdf_energy_torch`, which is also the kernel's oracle.
@@ -110,7 +111,10 @@ def fused_obj_sdf_energy_batched(models, pcld_cf: torch.Tensor, rotations: torch
     if pcld_cf.dim() != 3 or pcld_cf.shape[1] != 3 or rotations.shape[0] != pcld_cf.shape[0]:
         raise ValueError(f"pcld_cf must be (S, 3, N) beside rotations (S, P, 3, 3), got "
                          f"{tuple(pcld_cf.shape)} and {tuple(rotations.shape)}")
-    rts = obj_rts(rotations, translations)
+    # a sequence at a time: on the card a batched matrix product rounds by its
+    # batch's shape, and sequence s's rts, so its energies, are then bitwise the
+    # unbatched call's on its inputs
+    rts = torch.stack([obj_rts(r, t) for r, t in zip(rotations, translations)])
     if pcld_cf.is_cuda:
         packed = packed if packed is not None else pack_distilled_batched(models)
         return kernels.obj_sdf_energy_batched_cuda(pcld_cf.contiguous(), rts.contiguous(),

@@ -33,12 +33,11 @@ Bound on the card: operations, 2 * (K0*H + H*H*(depth-1) + H) operations a
 point (71,168 at the shipped 21-128-128-128-1) against 16 bytes, at TF32's
 495 TFLOP/s three times over in 3xTF32, at bf16's 989 TFLOP/s once in bf16.
 
-`pack_distilled` packs a model three times: for the kernels that run the MLP
-through mma.sync, the 3xTF32 fused object energy and fused skinning + hand
-energy (csrc/sdf_mlp_tc.cuh, `PackedSDF.tc`, in mma fragment order); and for
-those that run it on the wgmma walk (csrc/sdf_mlp_wgmma.cuh, tiles in their
-shared-memory image): this kernel and the fused per-vertex hand energy in
-3xTF32 (`PackedSDF.wg`), and every SDF kernel in bf16 (`PackedSDF.wg16`).
+`pack_distilled` packs a model twice, once a precision, for the one core
+that runs the MLP in every SDF kernel (this one, the fused object energy,
+the fused hand energy and the fused skinning + hand energy): the persistent
+wgmma walk of csrc/sdf_mlp_wgmma.cuh, its weights as tiles in their
+shared-memory image, `PackedSDF.wg` in 3xTF32 and `PackedSDF.wg16` in bf16.
 """
 
 from __future__ import annotations
@@ -50,21 +49,21 @@ import torch
 
 from . import kernels
 
-MAX_WIDTH = 128   # widest layer the kernels take (csrc/sdf_mlp_tc.cuh kUnits)
+MAX_WIDTH = 128   # widest layer the kernels take (csrc/sdf_mlp_wgmma.cuh kUnits)
 MAX_HIDDEN = 8
 PLAIN_CHUNK = 1 << 18  # points per pass of the plain version: 128 MiB an activation
 
 
 class PackedSDF(NamedTuple):
     """A model's parameters as the kernels read them: the layer widths and
-    one float32 buffer a core and precision (each header describes its
-    layout; the bf16 images hold two bf16 a float32 word)."""
+    one float32 buffer a precision, both in the layout of the wgmma walk
+    (csrc/sdf_mlp_wgmma.cuh's header describes it; the bf16 image holds two
+    bf16 a float32 word)."""
 
     n_freqs: int
     widths: tuple           # (3 + 6F, hidden widths...)
-    tc: torch.Tensor        # the mma.sync layout (csrc/sdf_mlp_tc.cuh), (m,); (S, m) for S models
-    wg: torch.Tensor        # the wgmma layout (csrc/sdf_mlp_wgmma.cuh), (k,); (S, k) likewise
-    wg16: torch.Tensor      # the wgmma layout in bf16 (`_pack_wg16`)
+    wg: torch.Tensor        # 3xTF32 (`_pack_wg`), (k,); (S, k) for S models
+    wg16: torch.Tensor      # bf16 (`_pack_wg16`), likewise
 
 
 COMPUTE_DTYPES = (None, torch.bfloat16)   # float32-class, and the bf16 of HOTRACK_SDF_BF16
@@ -151,13 +150,12 @@ def check_model(model) -> tuple:
 
 @torch.no_grad()
 def pack_distilled(model) -> PackedSDF:
-    """The model as the kernels read it, on its device: `tc` for the 3xTF32
-    mma.sync kernels (`_pack_tc`), `wg` and `wg16` for the wgmma walk in
-    3xTF32 and bf16 (`_pack_wg`, `_pack_wg16`). Built without a host
-    synchronise; pack once per sequence and hand it to every call."""
+    """The model as the kernels read it, on its device: `wg` and `wg16` for
+    the wgmma walk in 3xTF32 and bf16 (`_pack_wg`, `_pack_wg16`). Built
+    without a host synchronise; pack once per sequence and hand it to every
+    call."""
     widths = check_model(model)
-    return PackedSDF(widths[0] // 6, widths, _pack_tc(model, widths), _pack_wg(model, widths),
-                     _pack_wg16(model, widths))
+    return PackedSDF(widths[0] // 6, widths, _pack_wg(model, widths), _pack_wg16(model, widths))
 
 
 def _header(model, widths) -> list:
@@ -167,67 +165,6 @@ def _header(model, widths) -> list:
     return [model.scale.reshape(1).to(torch.float32), model.clamp.reshape(1).to(torch.float32),
             torch.zeros(2, **f32),
             torch.nn.functional.pad(model.freqs.to(torch.float32), (0, -n_freqs % 4))]
-
-
-def _fragment_order(w: torch.Tensor) -> torch.Tensor:
-    """A layer's (K, 128) big weights, K a multiple of 8, in the order the
-    mma fragments are loaded: [k-step][n-tile pair p][lane][4], where lane
-    (g, t) = (lane // 4, lane % 4) holds, as element 2 h + kh, the weight of
-    k-slot 8 k-step + t + 4 kh and unit 16 p + 8 h + g (n-tile 2 p + h)."""
-    k = w.shape[0]
-    # (k-step, kh, t, p, h, g) -> (k-step, p, g, t, h, kh)
-    return w.reshape(k // 8, 2, 4, 8, 2, 8).permute(0, 3, 5, 2, 4, 1).reshape(-1)
-
-
-def _fragment_order_small(w: torch.Tensor) -> torch.Tensor:
-    """The same for the small halves, four n-tiles a lane's 16 bytes:
-    [k-step][n-tile quad q][lane][8], element 2 j + kh the weight of k-slot
-    8 k-step + t + 4 kh and unit 32 q + 8 j + g (n-tile 4 q + j)."""
-    k = w.shape[0]
-    # (k-step, kh, t, q, j, g) -> (k-step, q, g, t, j, kh)
-    return w.reshape(k // 8, 2, 4, 4, 4, 8).permute(0, 3, 5, 2, 4, 1).reshape(-1)
-
-
-def _tc_rows(l: int, k: int, device=None) -> torch.Tensor:
-    """For layer l's k-slots, the input rows they hold: the features as they
-    are for layer 0; after it, units 0 2 4 6 1 3 5 7 of each k-block of 8, so
-    that one layer's mma accumulators are the next one's A fragments
-    (csrc/sdf_mlp_tc.cuh). Made on `device`: no copy from the host."""
-    slot = torch.arange(k, device=device)
-    if l == 0:
-        return slot
-    j = slot % 8
-    return slot - j + (j % 4) * 2 + j // 4
-
-
-def _tc_k(l: int, widths) -> int:
-    return widths[0] + -widths[0] % 8 if l == 0 else MAX_WIDTH
-
-
-def _pack_tc(model, widths) -> torch.Tensor:
-    """The layout of csrc/sdf_mlp_tc.cuh: [scale, clamp, 0, 0], the
-    frequencies padded to a multiple of 4; per hidden layer its weights
-    (3 + 6F rows padded with zeros to a multiple of 8 for layer 0, 128 x 128
-    with the rows in `_tc_rows`' order after; 128 columns) split as the 3xTF32
-    kernels read them (`ops/tf32.weight_split`): the big halves in fragment
-    order, the small halves as fp16 in fragment order (two a float32 word),
-    then the bias padded to 128; the output layer's 128 weights, its bias,
-    0 0 0."""
-    from .tf32 import weight_split
-    f32 = dict(dtype=torch.float32, device=model.freqs.device)
-    parts = _header(model, widths)
-    for l, (w, b) in enumerate(zip(model.weights[:-1], model.biases[:-1])):
-        k = _tc_k(l, widths)
-        full = torch.zeros((k, MAX_WIDTH), **f32)
-        full[:w.shape[0], :w.shape[1]] = w
-        big, small16 = weight_split(full[_tc_rows(l, k, full.device)])
-        parts += [_fragment_order(big),
-                  _fragment_order_small(small16).contiguous().view(torch.float32),
-                  torch.nn.functional.pad(b.to(torch.float32), (0, MAX_WIDTH - b.shape[0]))]
-    wout = model.weights[-1][:, 0].to(torch.float32)
-    parts += [torch.nn.functional.pad(wout, (0, MAX_WIDTH - wout.shape[0])),
-              model.biases[-1].to(torch.float32), torch.zeros(3, **f32)]
-    return torch.cat(parts).contiguous()
 
 
 def _wg_tiles(w: torch.Tensor) -> torch.Tensor:
@@ -247,9 +184,15 @@ def _wg_rows(l: int, widths, device=None) -> torch.Tensor:
     with A = 3F angles (features 3 + j and 3 + A + j), k-slot t of k-step ks
     holds the sine of angle 4 ks + t and k-slot t + 4 its cosine; past the
     angles, k-slots t hold the 3 coordinates and the rest are 0 (ks0 = (A + 6)
-    // 4 k-steps). Later layers: `_tc_rows`' order."""
+    // 4 k-steps). Later layers: units 0 2 4 6 1 3 5 7 of each k-block of 8, so
+    that one layer's wgmma accumulators are the next one's A fragments (a
+    lane's accumulators hold units 8 j + 2 t and 8 j + 2 t + 1 of k-block j,
+    its A fragment wants k-slots t and t + 4). Made on `device`: no copy from
+    the host."""
     if l:
-        return _tc_rows(l, MAX_WIDTH, device)
+        slot = torch.arange(MAX_WIDTH, device=device)
+        j = slot % 8
+        return slot - j + (j % 4) * 2 + j // 4
     angles = 3 * (widths[0] // 6)
     slot = torch.arange(8 * ((angles + 6) // 4), device=device)
     j = 4 * (slot // 8) + slot % 4
@@ -351,7 +294,7 @@ def pack_distilled_batched(models) -> PackedSDF:
                          f"got {[p.widths for p in packs]}")
     return PackedSDF(packs[0].n_freqs, packs[0].widths,
                      *(torch.stack([getattr(p, f) for p in packs])
-                       for f in ("tc", "wg", "wg16")))
+                       for f in ("wg", "wg16")))
 
 
 def _check_batch(models, points: torch.Tensor) -> None:

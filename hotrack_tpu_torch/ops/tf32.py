@@ -1,26 +1,24 @@
-"""The arithmetic of the tensor-core SDF kernels (csrc/sdf_mlp_tc.cuh through
-mma.sync, csrc/sdf_mlp_wgmma.cuh through wgmma), emulated in plain PyTorch:
-3xTF32.
+"""The arithmetic of the tensor-core SDF kernels in 3xTF32 (the wgmma walk of
+csrc/sdf_mlp_wgmma.cuh, which every SDF kernel runs), emulated in plain
+PyTorch.
 
 A float32 x is split as big = tf32(x), small = tf32(x - big), where tf32
 rounds to the nearest value with 10 mantissa bits (ties away from zero: the
 13 low bits of the pattern are rounded off, as the kernels' `tf32_round`
 does with integer operations). A product a * b is then taken as
-big_a big_b + big_a small_b + small_a big_b, dropping small_a small_b.
-The mma.sync kernels keep a weight's small half as fp16 of small * 2^12,
-exact for every weight of normal size (`weight_split` rounds as they do);
-the wgmma kernel keeps it as a TF32 float32, which differs only for weights
-below about 2^-14, by at most 2^-37. Products of two TF32 values are exact
-in float32, so this emulation sums them in float64 and rounds each layer's
-sum to float32 once: it differs from the kernels only in the summation order
-and the truncation of the tensor cores' float32 accumulators (the wgmma
-kernel sums a layer's big*big products and its small ones in two
+big_a big_b + big_a small_b + small_a big_b, dropping small_a small_b. The
+kernels keep both halves of a weight as TF32 values in float32 words
+(`ops/sdf_mlp._pack_wg` splits them with `tf32_split`), and the activations
+are split after each layer's bias and ReLU. Products of two TF32 values are
+exact in float32, so this emulation sums them in float64 and rounds each
+layer's sum to float32 once: it differs from the kernels only in the
+summation order and the truncation of the tensor cores' float32 accumulators
+(the kernels sum a layer's big*big products and its small ones in two
 accumulators, added once). The features, biases, ReLU, output layer and
 clamp are float32 as in the plain version (ops/sdf_mlp.raw_sdf_mlp).
 
-`ops/sdf_mlp.pack_distilled` splits the weights with `weight_split`; the
-emulated MLP is used by the tests and by `chip_smoke.py` to hold the
-kernels' fragment layout tightly, and the port's paths never call it.
+The emulated MLP is used by the tests and by `chip_smoke.py` to hold the
+kernels' arithmetic tightly; the port's paths never call it.
 """
 
 from __future__ import annotations
@@ -30,7 +28,6 @@ import torch
 from .sdf_mlp import fourier_features
 
 _LOW_BITS = 0x1000   # half of the 13 dropped bits' unit
-SMALL_SCALE = 4096.0  # a weight's small half is kept as fp16 of small * 2^12
 
 
 def tf32_round(x: torch.Tensor) -> torch.Tensor:
@@ -47,20 +44,11 @@ def tf32_split(x: torch.Tensor) -> tuple:
     return big, tf32_round(x - big)
 
 
-def weight_split(w: torch.Tensor) -> tuple:
-    """A weight's halves as the kernels keep them: (big, the fp16 word of
-    small * 2^12). big + small16 / 2^12 is `tf32_split`'s big + small wherever
-    small * 2^12 is a normal fp16 (|w| above about 2^-15)."""
-    big, small = tf32_split(w)
-    return big, (small * SMALL_SCALE).to(torch.float16)
-
-
 def _product_3xtf32(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """a (M, K) @ w (K, N), float32 operands, in 3xTF32 with exact sums of
     the exact products, rounded to float32 once."""
     ab, as_ = (t.double() for t in tf32_split(a))
-    wb, ws16 = weight_split(w)
-    wb, ws = wb.double(), ws16.double() / SMALL_SCALE
+    wb, ws = (t.double() for t in tf32_split(w))
     return (torch.matmul(ab, wb + ws) + torch.matmul(as_, wb)).to(torch.float32)
 
 

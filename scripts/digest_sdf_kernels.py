@@ -2,7 +2,7 @@
 """Digests of the SDF kernels' outputs on one CUDA card, for one checkout of
 the port: whether two checkouts compute bitwise alike.
 
-    python3 scripts/digest_sdf_kernels.py [--repo DIR] [--bf16] [--time]
+    python3 scripts/digest_sdf_kernels.py [--repo DIR] [--bf16] [--time] [--ptxas]
 
 Imports the hotrack_tpu_torch of `--repo` (default: this checkout), which
 builds its own kernels under `<repo>/build/kernels`, and prints one JSON line:
@@ -20,6 +20,11 @@ digest's precision (with `--bf16`: the bf16 #3, #3b, #4, #4b, #6, #7, #7b), from
 CUDA events around each launch after two warm-up launches: the mean and the
 least of 20, in ms, under "ms". Two checkouts are timed alike in turns by
 running this script on each within one call: parent, change, change, parent.
+
+`--ptxas` adds, under "ptxas", the compiler's report of each SDF source's
+library (csrc/sdf_mlp.cu, obj_energy.cu, hand_energy.cu, hand_energy_skin.cu):
+a line a kernel with its registers and spill bytes, so that two checkouts show
+whether a change moved a spill.
 """
 
 from __future__ import annotations
@@ -54,6 +59,18 @@ def _device_ms(fn, reps: int = 20) -> dict:
     return {"mean": sum(times) / reps, "min": min(times)}
 
 
+def _ptxas(lib) -> list:
+    """A line a kernel of the library's ptxas report: its mangled name, then
+    what the compiler said of its registers, stack and spills."""
+    out, name = [], None
+    for ln in Path(str(lib) + ".log").read_text().splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1] if "'" in ln else ln.strip()
+        elif "bytes spill" in ln or "Used" in ln:
+            out.append(f"{name}: {ln.split(':', 1)[-1].strip()}")
+    return out
+
+
 def _model(rng, device):
     """A seeded 21-128-128-128-1 model with He-scaled weights and a small
     output layer (a quarter of the values near the 0.05 clamp)."""
@@ -75,6 +92,7 @@ def main() -> int:
     ap.add_argument("--repo", default=str(Path(__file__).resolve().parent.parent))
     ap.add_argument("--bf16", action="store_true")
     ap.add_argument("--time", action="store_true")
+    ap.add_argument("--ptxas", action="store_true")
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.repo).resolve()))
     import torch
@@ -161,6 +179,9 @@ def main() -> int:
             "digests": out}
     if ms is not None:
         line["ms"] = ms
+    if args.ptxas:
+        line["ptxas"] = {name: _ptxas(kernels.build(name))
+                         for name in ("sdf_mlp", "obj_energy", "hand_energy", "hand_energy_skin")}
     print(json.dumps(line), flush=True)
     return 0
 

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """The rate one CUDA card gives `mma.sync.aligned.m16n8k8` with TF32
-operands and float32 accumulators, the instruction under the 3xTF32 SDF
-kernels (hotrack_tpu_torch/csrc/sdf_mlp_tc.cuh), against the data sheet's
-dense TF32 peak (495 TFLOP/s on an H100 SXM, which wgmma reaches).
+operands and float32 accumulators, the sm_80 instruction that the 3xTF32 object
+and skinned hand energy kernels ran on until they moved to the wgmma walk
+(hotrack_tpu_torch/csrc/sdf_mlp_wgmma.cuh), against the data sheet's dense TF32
+peak (495 TFLOP/s on an H100 SXM, which wgmma reaches): why they moved.
 
     python3 scripts/mma_sync_rate.py [--iters 4096]
 

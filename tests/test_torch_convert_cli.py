@@ -11,9 +11,12 @@ runners read, and composes them back (`--export`). Held here:
 - split then compose returns the file it started from, and the nets load
   strictly into the models the config builds;
 - a checkpoint of another architecture is refused;
+- a split prints, after its paths, the note on the Procrustes solver that
+  the JAX CLI prints after a conversion, word for word;
 - `--profile DIR` writes a Chrome trace of the evaluation.
 """
 
+import ast
 import json
 import os
 
@@ -109,6 +112,31 @@ def test_split_takes_a_single_nets_plain_file(files, tmp_path, name, net):
     _same_file(written[0], files[name])
     cfg = dict(files["cfg"], experiment_dir=str(dirs["handnet"]), IKNet_dir=str(dirs["iknet"]))
     (load_handnet if net == "handnet" else load_iknet)(cfg, "cpu")
+
+
+def _jax_cli_note() -> str:
+    """The note hotrack_tpu/convert.py's main prints: the string constant of
+    its print call that starts with "NOTE:", read from the source."""
+    import hotrack_tpu.convert as jax_convert
+    with open(jax_convert.__file__) as f:
+        tree = ast.parse(f.read())
+    notes = [node.args[0].value for node in ast.walk(tree)
+             if isinstance(node, ast.Call) and getattr(node.func, "id", None) == "print"
+             and node.args and isinstance(node.args[0], ast.Constant)
+             and str(node.args[0].value).startswith("NOTE:")]
+    assert len(notes) == 1, notes
+    return notes[0]
+
+
+def test_split_prints_the_jax_clis_solver_note_after_the_paths(files, tmp_path, capsys):
+    written = convert.main(_argv("--ckpt", files["both"], "--experiment_dir",
+                                 str(tmp_path / "hand"), "--IKNet_dir", str(tmp_path / "ik")))
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[-3:] == [*(f"split -> {path}" for path in written), _jax_cli_note()]
+    # a compose writes one file and prints no note
+    convert.main(_argv("--export", str(tmp_path / "both.pt"), "--experiment_dir",
+                       str(tmp_path / "hand"), "--IKNet_dir", str(tmp_path / "ik")))
+    assert "NOTE:" not in capsys.readouterr().out
 
 
 def test_split_refuses_a_file_of_neither_net(files, tmp_path):

@@ -26,11 +26,12 @@ version by library products, so the vertices differ by float32 rounding
 steep features, and `hit` may flip where the plain version's pixel
 coordinate lies within PIXEL_MARGIN of an integer: it is held equal
 everywhere else. The fused skinning runs the MLP on the tensor cores in
-3xTF32 (csrc/sdf_mlp_tc.cuh): on vertices that it and the plain version
-build bitwise alike, its sdf is held within TC_SDF_ATOL of the plain
-version's and of the 3xTF32 emulation's (ops/tf32.py; one value lay up to
-1.7e-7 off on the card: the tensor cores' float32 sums truncate). Two
-launches of every kernel agree bitwise.
+3xTF32 on the fused energy's wgmma walk, after a skinning pre-pass: on
+vertices that it and the plain version build bitwise alike, its sdf is held
+within TC_SDF_ATOL of the plain version's and of the 3xTF32 emulation's
+(ops/tf32.py; the tensor cores' float32 sums truncate), and its sdf and hit
+bitwise the fused energy kernel's on those vertices; its compiler report shows
+no spill. Two launches of every kernel agree bitwise.
 
 bf16 (HOTRACK_SDF_BF16): #6's and #7's bf16 instantiations, `hit` exactly the
 3xTF32 kernel's, `sdf` against the bf16 plain version under
@@ -275,12 +276,14 @@ def test_hand_energy_skin_kernel_matches_plain_version(cuda_device, name, hw, p,
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("widths", [(21, 128, 128, 128), (39, 128, 128, 128, 128), (9, 128)])
+@pytest.mark.parametrize("widths", [(21, 128, 128, 128), (39, 128, 128, 128, 128), (9, 128),
+                                    (21,) + (128,) * 8])
 def test_hand_energy_skin_kernel_matches_its_3xtf32_emulation(cuda_device, widths):
     """No pose blend, one joint a vertex with the identity rotation: the
     kernel and skin_reference build every vertex as ((v_shaped + t) + offset),
-    bitwise alike, so the sdf isolates the MLP's 3xTF32 arithmetic (the depth-4
-    net's later layers do not fit shared memory: they are staged)."""
+    bitwise alike, so the sdf isolates the MLP's 3xTF32 arithmetic (the deep
+    nets' tiles stream through the walk's ring), and is bitwise the fused
+    energy kernel's on those vertices, hit and all."""
     rng = np.random.RandomState(len(widths))
     model = distilled_from_numpy(model_arrays(7, widths=widths), device=cuda_device)
     mano = synthetic_mano_model().to(cuda_device)
@@ -308,6 +311,18 @@ def test_hand_energy_skin_kernel_matches_its_3xtf32_emulation(cuda_device, width
     assert torch.equal(hit, want_hit)
     assert float((sdf - want_sdf).abs().max()) <= TC_SDF_ATOL
     assert float((sdf - emu_sdf).abs().max()) <= TC_SDF_ATOL
+    sdf6, hit6 = hand_energy.fused_hand_energy(model, args[1], args[2], verts, hw)
+    assert torch.equal(sdf, sdf6) and torch.equal(hit, hit6)
+
+
+@pytest.mark.gpu
+def test_hand_energy_skin_kernel_compiles_without_spills_or_serialised_wgmma(cuda_device):
+    """ptxas's report beside the library (the pre-pass, the 3xTF32 walk and
+    the bf16 walk): no spill, no wgmma serialised, no setmaxnreg ignored."""
+    log = open(str(kernels.build("hand_energy_skin")) + ".log").read()
+    assert log.count("Compiling entry function") == 3 and "registers" in log
+    assert not any(code in log for code in ("C7520", "C7513", "C7508")), log
+    assert not any(int(n) for n in re.findall(r"(\d+) bytes spill", log)), log
 
 
 @pytest.mark.gpu

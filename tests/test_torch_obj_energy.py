@@ -118,26 +118,23 @@ def test_library_name_changes_when_an_included_header_changes(tmp_path, monkeypa
     shutil.copytree(kernels.CSRC_DIR, csrc)
     monkeypatch.setattr(kernels, "CSRC_DIR", csrc)
     monkeypatch.setenv("HOTRACK_KERNEL_BUILD_DIR", str(tmp_path / "build"))
-    # the object energy's bf16 kernel runs the walk, its 3xTF32 one the mma.sync core
+    # every SDF kernel runs the wgmma walk, in both precisions; the mma.sync core is gone
     assert [p.name for p in kernels.source_files("obj_energy")] \
-        == ["obj_energy.cu", "sdf_mlp_wgmma.cuh", "sdf_mlp_tc.cuh"]
-    # sdf_mlp.cu reaches sdf_mlp_tc.cuh through sdf_mlp_wgmma.cuh
-    assert [p.name for p in kernels.source_files("sdf_mlp")] \
-        == ["sdf_mlp.cu", "sdf_mlp_wgmma.cuh", "sdf_mlp_tc.cuh"]
+        == ["obj_energy.cu", "sdf_mlp_wgmma.cuh"]
+    assert [p.name for p in kernels.source_files("sdf_mlp")] == ["sdf_mlp.cu", "sdf_mlp_wgmma.cuh"]
     assert [p.name for p in kernels.source_files("fps")] == ["fps.cu"]
-    # the fused hand energy runs the SDF MLP's wgmma core; the float32 FMA core is gone
     assert [p.name for p in kernels.source_files("hand_energy")] \
-        == ["hand_energy.cu", "hand_energy_core.cuh", "sdf_mlp_wgmma.cuh", "sdf_mlp_tc.cuh"]
-    assert not (csrc / "sdf_mlp_core.cuh").exists()
+        == ["hand_energy.cu", "hand_energy_core.cuh", "sdf_mlp_wgmma.cuh"]
+    assert [p.name for p in kernels.source_files("hand_energy_skin")] \
+        == ["hand_energy_skin.cu", "hand_energy_core.cuh", "sdf_mlp_wgmma.cuh"]
+    assert not (csrc / "sdf_mlp_core.cuh").exists() and not (csrc / "sdf_mlp_tc.cuh").exists()
     before = {name: kernels.library_path(name) for name in kernels.SOURCES}
     assert all(p.parent == tmp_path / "build" for p in before.values())
     assert before == {name: kernels.library_path(name) for name in kernels.SOURCES}
     for header, users in (("hand_energy_core.cuh",
                            ("mask_lookup", "hand_energy", "hand_energy_skin")),
                           ("sdf_mlp_wgmma.cuh", ("sdf_mlp", "obj_energy", "hand_energy",
-                                                 "hand_energy_skin")),
-                          ("sdf_mlp_tc.cuh", ("sdf_mlp", "obj_energy", "hand_energy",
-                                              "hand_energy_skin"))):
+                                                 "hand_energy_skin"))):
         with open(csrc / header, "a") as f:
             f.write("// edited\n")
         after = {name: kernels.library_path(name) for name in kernels.SOURCES}
@@ -146,7 +143,7 @@ def test_library_name_changes_when_an_included_header_changes(tmp_path, monkeypa
         before = after
     # a header reached through another header counts too
     (csrc / "inner.cuh").write_text("#pragma once\n")
-    with open(csrc / "sdf_mlp_tc.cuh", "a") as f:
+    with open(csrc / "sdf_mlp_wgmma.cuh", "a") as f:
         f.write('#include "inner.cuh"\n')
     nested = kernels.library_path("sdf_mlp")
     assert [p.name for p in kernels.source_files("sdf_mlp")][-1] == "inner.cuh"

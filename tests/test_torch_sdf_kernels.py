@@ -11,15 +11,17 @@ card and no JAX:
     python -m pytest tests/test_torch_sdf_kernels.py -m gpu -q
 
 Tolerances, both sides float32. Both kernels run the MLP's hidden layers on
-the tensor cores in 3xTF32 (the SDF MLP through wgmma, csrc/sdf_mlp_wgmma.cuh;
-the energy through mma.sync, csrc/sdf_mlp_tc.cuh), whose float32 sums
-truncate: one value within TC_SDF_ATOL (|sdf| <= 0.05; one lay up to 1.34e-7
-from the plain version's on the card at depth 8, where a float32 FMA kernel
-had 4.1e-8), against the plain version and against the 3xTF32 emulation of
-ops/tf32.py, whose exact sums would show a layout error at the size of a
-weight; a sum of N |sdf| values within ENERGY_RTOL of its size plus
-ENERGY_ATOL a point; two launches of either kernel bitwise equal (a fixed
-summation order, no atomics).
+the tensor cores in 3xTF32 on one persistent wgmma walk
+(csrc/sdf_mlp_wgmma.cuh), whose float32 sums truncate: one value within
+TC_SDF_ATOL (|sdf| <= 0.05; one lay up to 1.34e-7 from the plain version's on
+the card at depth 8, where a float32 FMA kernel had 4.1e-8), against the plain
+version and against the 3xTF32 emulation of ops/tf32.py, whose exact sums
+would show a layout error at the size of a weight; a sum of N |sdf| values
+within ENERGY_RTOL of its size plus ENERGY_ATOL a point, and bitwise the SDF
+MLP kernel's |sdf| on the same object-frame points summed in the energy
+kernel's order (a point's value depends on its inputs and model only); two
+launches of either kernel bitwise equal (a fixed summation order, no
+atomics); the energy kernel's compiler report shows no spill.
 
 bf16 (HOTRACK_SDF_BF16, `compute_dtype=torch.bfloat16`): each kernel's bf16
 instantiation against the bf16 plain version, under tests/test_torch_sdf_bf16.py's
@@ -28,6 +30,8 @@ BF16_SDF_ATOL_TIGHT, every value within BF16_CARD_FLIPS of `bf16_flip_atol`'s
 steps, a sum within `bf16_sum_atol`), two launches bitwise equal, and apart from
 the 3xTF32 kernel by more than 1e-5 somewhere (so that bf16 really ran).
 """
+
+import re
 
 import numpy as np
 import pytest
@@ -224,6 +228,42 @@ def test_obj_energy_kernel_matches_plain_version_and_relaunches_bitwise(cuda_dev
     # off by the size of a weight
     emu = obj_energy._obj_sdf_energy_torch(model, pcld_cf, rts, mlp=tf32.raw_sdf_mlp_3xtf32)
     assert bool(((got - emu).abs() <= ENERGY_RTOL * emu.abs() + ENERGY_ATOL * n).all())
+    # the SDF MLP kernel on the object frame, #4's float32 expression one
+    # elementwise operation at a time, summed in #4's order: bitwise
+    r = rts[:, :, None]
+    obj = torch.stack([((-r[:, 9 + c] + r[:, 3 * c] * pcld_cf[0]) + r[:, 3 * c + 1] * pcld_cf[1])
+                       + r[:, 3 * c + 2] * pcld_cf[2] for c in range(3)], 1)
+    assert torch.equal(got, _order_sum(sdf_mlp.fused_sdf_mlp_cf(model, obj).abs()))
+
+
+def _order_sum(absdf):
+    """(P, N) values summed as csrc/obj_energy.cu sums them: lane (warp w, g)
+    adds rows 16 w + g, then 16 w + g + 8, of each round of 128 in ascending
+    order (zeros pad the last), a butterfly over g (lane xor 4, 8, 16), the
+    8 warps in ascending order; float32, one elementwise add at a time."""
+    p, n = absdf.shape
+    rounds = -(-n // 128)
+    rows = torch.nn.functional.pad(absdf, (0, rounds * 128 - n)).reshape(p, rounds, 8, 2, 8)
+    e = torch.zeros((p, 8, 8), dtype=torch.float32, device=absdf.device)
+    for r in range(rounds):
+        e = e + rows[:, r, :, 0]
+        e = e + rows[:, r, :, 1]
+    for bit in (1, 2, 4):
+        e = e + e[:, :, torch.arange(8, device=e.device) ^ bit]
+    total = e[:, 0, 0]
+    for w in range(1, 8):
+        total = total + e[:, w, 0]
+    return total
+
+
+@pytest.mark.gpu
+def test_obj_energy_kernel_compiles_without_spills_or_serialised_wgmma(cuda_device):
+    """ptxas's report beside the library, both precisions' walk kernels: no
+    spill, no wgmma serialised (C7520 / C7513), no setmaxnreg ignored (C7508)."""
+    log = open(str(kernels.build("obj_energy")) + ".log").read()
+    assert log.count("Compiling entry function") == 2 and "registers" in log
+    assert not any(code in log for code in ("C7520", "C7513", "C7508")), log
+    assert not any(int(v) for v in re.findall(r"(\d+) bytes spill", log)), log
 
 
 @pytest.mark.gpu

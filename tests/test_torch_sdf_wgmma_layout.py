@@ -285,8 +285,7 @@ def _product(a: np.ndarray, w: np.ndarray) -> np.ndarray:
 
 def _emulated_hidden(model, pts: np.ndarray) -> list:
     """The hidden layers of `raw_sdf_mlp_3xtf32` with each weight's small half
-    exact in TF32 (the wgmma kernel keeps it as a float32 word; the mma.sync
-    kernels' fp16 word rounds it where |w| < 2^-14)."""
+    exact in TF32 (the wgmma kernel keeps it as a float32 word)."""
     h = sdf_mlp.fourier_features(torch.from_numpy(pts), model.freqs, model.scale).numpy()
     out = []
     for w, b in zip(model.weights[:-1], model.biases[:-1]):
