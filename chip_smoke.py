@@ -4462,14 +4462,20 @@ def _bf16_turns(fns: dict, reps: int = 10, slow_reps: int = 3) -> dict:
 
 
 def _cuda_core_ms(widths, points: int) -> float:
-    """The float32 work the bf16 kernels do beside the tensor cores, at the
-    float32 peak: a point's scaled coordinates and angles (3 + 3F products),
-    3F sincosf (BF16_SINCOS_OPS each), and for each hidden unit the bias, the
-    ReLU and the conversion to bf16, and the output layer's 2 x 128."""
+    """The CUDA-core instructions the bf16 kernels issue beside the tensor
+    cores, a lane each, at the SMs' issue rate (LANES_PER_SM a cycle an SM at
+    the card's SM clock): most are single operations, which the float32 FMA
+    peak (two operations an FMA) would count at half their cost. A point: its
+    scaled coordinates and angles (3 + 3F products), 3F sincosf
+    (BF16_SINCOS_OPS each); a hidden layer's 128 units feeding the next, the
+    bias, the ReLU and half a conversion each (cvt.rn.bf16x2 rounds two); the
+    last layer's feeding the output layer, the same, the half word taken out
+    of the conversion and the FMA."""
     f = (widths[0] - 3) // 6
-    hidden = sum(widths[1:])
-    ops = 3 + 3 * f + BF16_SINCOS_OPS * 3 * f + 3 * hidden + 2 * widths[-1]
-    return 1e3 * ops * points / FP32_FLOPS
+    ops = 3 + 3 * f + BF16_SINCOS_OPS * 3 * f + 2.5 * sum(widths[1:-1]) + 4.5 * widths[-1]
+    rate = LANES_PER_SM * torch.cuda.get_device_properties(0).multi_processor_count \
+        * _sm_clock_hz()
+    return 1e3 * ops * points / rate
 
 
 def _bf16_bound(case: dict, n_bytes: float, n_ops: float, widths, points: int) -> None:
@@ -4481,17 +4487,20 @@ def _bf16_bound(case: dict, n_bytes: float, n_ops: float, widths, points: int) -
 def _ptxas_walk_jobs() -> str:
     """The compiler's report for the walk kernels of #4 and #7 whose names
     end in `_wg_kernel` (csrc/obj_energy.cu's in both precisions,
-    csrc/hand_energy_skin.cu's bf16 one): each entry's registers and spills,
-    which must show no spill, and no wgmma serialised (C7520 / C7513) or
-    setmaxnreg ignored (C7508) in either library."""
+    csrc/hand_energy_skin.cu's bf16 one) and for the bf16 instantiations of
+    #3 and #6 (csrc/sdf_mlp.cu, hand_energy.cu; `ILb1E` in the name): each
+    entry's registers and spills, which must show no spill, and no wgmma
+    serialised (C7520 / C7513) or setmaxnreg ignored (C7508) in any of the
+    four libraries."""
     from hotrack_tpu_torch.ops import kernels
     lines = []
-    for name in ("obj_energy", "hand_energy_skin"):
+    for name, mark in (("obj_energy", "_wg_kernel"), ("hand_energy_skin", "_wg_kernel"),
+                       ("sdf_mlp", "ILb1E"), ("hand_energy", "ILb1E")):
         with open(str(kernels.build(name)) + ".log") as f:
             log = f.read()
         bad = [ln for ln in log.splitlines() if any(c in ln for c in ("C7520", "C7513", "C7508"))]
         for entry in log.split("Compiling entry function")[1:]:
-            if "_wg_kernel" not in entry.split("\n", 1)[0]:
+            if mark not in entry.split("\n", 1)[0]:
                 continue
             report = [ln.split(":", 1)[-1].strip() for ln in entry.splitlines()
                       if "registers" in ln or "spill" in ln]
@@ -4545,7 +4554,7 @@ def phase_kernels_sdf_bf16() -> dict:
     bf16 = torch.bfloat16
     rng = np.random.RandomState(14)
     out = {}
-    print(f"[sdf-bf16] ptxas, #4 and #7 on the bf16 walk: {_ptxas_walk_jobs()}", flush=True)
+    print(f"[sdf-bf16] ptxas, the walk's jobs and bf16 #3, #6: {_ptxas_walk_jobs()}", flush=True)
 
     def record(name, tag, line, case=None):
         entry = out.setdefault(name, {"max_abs_err": 0.0, "cases": []})
@@ -4563,7 +4572,7 @@ def phase_kernels_sdf_bf16() -> dict:
     # #3
     cases = [(f"path {shape}", MLP_WIDTHS, shape, cf, True) for shape, cf in BF16_SDF_MLP_SHAPES]
     cases += [("ragged round (37,3)", MLP_WIDTHS, (37, 3), False, False),
-              ("depth 8 at width 128: the ring streams 10 tiles (2,3,700)", (21,) + (128,) * 8,
+              ("depth 8 at width 128: the ring streams 11 tiles (2,3,700)", (21,) + (128,) * 8,
                (2, 3, 700), True, False),
               ("6 frequencies, depth 4 (3,3,1000)", (39, 128, 128, 128, 128), (3, 3, 1000), True,
                False),
@@ -4595,13 +4604,13 @@ def phase_kernels_sdf_bf16() -> dict:
         record("sdf_mlp", tag, line, case)
 
     # #4
-    # the depth-8 net's 58 bf16 tiles do not all fit: the ring streams 10; its
+    # the depth-8 net's 58 bf16 tiles do not all fit: the ring streams 11; its
     # values all reach a clamp of 0.05, so it is held at a clamp of 1e3
     cases = [(f"path ({p},{n})", MLP_WIDTHS, p, n, 0.05, True) for p, n in BF16_OBJ_ENERGY_SHAPES]
     cases += [("odd P and N (2047,1000)", MLP_WIDTHS, 2047, 1000, 0.05, False),
               ("one candidate, one point (1,1)", MLP_WIDTHS, 1, 1, 0.05, False),
               ("6 frequencies, depth 4 (7,129)", (39, 128, 128, 128, 128), 7, 129, 0.05, False),
-              ("depth 8: the ring streams 10 tiles, clamp 1e3 (5,300)", (21,) + (128,) * 8, 5,
+              ("depth 8: the ring streams 11 tiles, clamp 1e3 (5,300)", (21,) + (128,) * 8, 5,
                300, 1e3, False)]
     for tag, widths, p, n, clamp, timed in cases:
         model = _random_sdf(rng, widths, clamp)

@@ -36,10 +36,16 @@
 // launches agree bitwise.
 //
 // bf16 (HOTRACK_SDF_BF16): a second instantiation with the bf16 MLP of
-// sdf_mlp_wgmma.cuh (PackedSDF.wg16), entry hotrack_hand_energy_bf16: its sdf
-// is bitwise sdf_mlp.cu's bf16 instantiation on object_frame's points, its hit
-// the same as above. Bound: one bf16 pass at 989 TFLOP/s plus the 27 float32
-// operations, 0.288 ms at 5120 x 778 vertices.
+// sdf_mlp_wgmma.cuh (PackedSDF.wg16, the model's head in shared memory beside
+// the pinned tiles), entry hotrack_hand_energy_bf16: its sdf is bitwise
+// sdf_mlp.cu's bf16 instantiation on object_frame's points, its hit the same
+// as above. Bound: one bf16 pass at 989 TFLOP/s plus the 27 float32
+// operations, 0.288 ms at 5120 x 778 vertices; as for #3, the consumer warps'
+// CUDA-core issue (the features, the epilogues, the output layer, here also
+// the frame transform) holds the kernel to about three times it, and the
+// core's schedule (one wait a layer, the head in shared memory, two
+// activations a conversion) trims it; the values are bitwise the
+// one-k-step-at-a-time core's.
 
 #include "hand_energy_core.cuh"
 #include "sdf_mlp_wgmma.cuh"

@@ -36,10 +36,18 @@
 //
 // bf16 (HOTRACK_SDF_BF16): a second instantiation of the same walk with the
 // bf16 MLP of sdf_mlp_wgmma.cuh (wgmma m64n128k16 bf16, PackedSDF.wg16, 18
-// tiles for 21-128-128-128-1, all pinned), entry hotrack_sdf_mlp_bf16. Bound:
-// one bf16 pass at 989 TFLOP/s, 0.151 ms for 2048 x 1024 points. It keeps the
-// properties above: two launches agree bitwise, and so do a batched launch's
-// sequence and the unbatched launch on its inputs.
+// tiles for 21-128-128-128-1, all pinned, the model's head in shared memory
+// beside them), entry hotrack_sdf_mlp_bf16. Bound: one bf16 pass at 989
+// TFLOP/s, 0.151 ms for 2048 x 1024 points; what holds the kernel to about
+// three times that is its consumer warps' CUDA-core issue (the features'
+// sincosf, the bias, ReLU and conversion of each activation, the output
+// layer's FMA chains), which the core's schedule trims: one wait a layer, the
+// head's loads from shared memory, two activations a conversion, and here the
+// point's batch element found by a 32-bit division where the points fit (a
+// 64-bit one takes several times the instructions). Its values are bitwise the
+// one-k-step-at-a-time core's, and it keeps the properties above: two
+// launches agree bitwise, and so do a batched launch's sequence and the
+// unbatched launch on its inputs.
 
 #include "sdf_mlp_wgmma.cuh"
 
@@ -58,7 +66,12 @@ struct Points : wg::Job {
   __device__ __forceinline__ void load(long long s, long long mi, float (&x)[3]) const {
     x[0] = x[1] = x[2] = 0.0f;
     if (mi >= m) return;
-    const long long b = mi / n_inner, n = mi - b * n_inner;
+    // in 32 bits where every point fits in them (a 64-bit division costs
+    // several times the instructions)
+    const long long b = m <= 0xFFFFFFFFLL
+                            ? static_cast<unsigned>(mi) / static_cast<unsigned>(n_inner)
+                            : mi / n_inner;
+    const long long n = mi - b * n_inner;
     const float* q = pts + s * pts_seq + b * batch_stride + n * point_stride;
     x[0] = __ldg(q);
     x[1] = __ldg(q + chan_stride);

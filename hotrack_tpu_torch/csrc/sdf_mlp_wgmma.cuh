@@ -26,10 +26,31 @@
 // 32). A bf16 tile of a k-step of 16 and 128 units is 4096 bytes, as a TF32
 // tile of a k-step of 8: the descriptor, plan() and the ring are the same, and
 // 21-128-128-128-1 is 2 + 8 + 8 = 18 tiles (73,728 bytes), all pinned; depth
-// 8 at width 128 is 58 tiles, of which the ring streams 10. Bound: one bf16
-// pass at 989 TFLOP/s, 0.151 ms for 2048 x 1024 points; the CUDA-core work
-// (features, bias, ReLU, conversion of 384 activations a point) is no longer
-// small beside it.
+// 8 at width 128 is 58 tiles, of which the ring streams 11.
+// bf16 bound and schedule: one bf16 pass at 989 TFLOP/s is 0.151 ms for 2048 x
+// 1024 points, but what bounds the kernel on this card is the consumer warps'
+// CUDA-core issue: per round a warp runs the features (six sincosf, most of a
+// round's dependent latency), the bias, ReLU and paired conversion of 256
+// hidden activations (FMNMX and F2FP at half the FADD rate) and the output
+// layer's 128 FMAs in two chains, beside 18 products a warpgroup that the
+// tensor cores finish in 1,152 cycles; a consumer round takes about 5,500 SM
+// cycles (scripts/profile_bf16_walk.py --phases) and two warps a scheduler do
+// not hide it. The schedule therefore cuts what the consumers issue and wait
+// for, and keeps each point's arithmetic: the model's head (scale, clamp,
+// frequencies, biases, output layer) is copied to shared memory with the
+// pinned tiles, where from device memory every round began by waiting for its
+// scale and frequencies, which the streamed points push out of L1; layer 0's
+// two k-steps are issued back to back and a pinned layer's eight as one
+// group, one wait each (the per-k-step ring handshake only for streamed
+// tiles); the output layer rounds two activations a cvt.rn.bf16x2.f32 and
+// takes each out of the packed word; the walk divides by 32 bits where the
+// items fit. The same k-steps in the same order into one float32 accumulator,
+// the same roundings: every value is bitwise what the one-k-step-at-a-time
+// schedule computed. Ping-pong turns of
+// the two consumer warpgroups (named barriers) and the features on the aside
+// warps (a staged feature slot) were measured and lost: the tensor cores are
+// not what the warps wait for, and three aside warps are slower at the
+// features than eight consumer warps (PERF.md, section 6).
 //
 // 3xTF32 (the default): per point, Fourier features s*x | sin(f*s*x) |
 // cos(f*s*x) (axis-major, frequency-minor; sincosf of the float32 product,
@@ -104,10 +125,10 @@
 // never spans two sequences; #4 walks groups of a candidate's rounds), each
 // round's points read during the round before (bf16 #7's taken from the stage
 // where the round starts). Entering another sequence, the whole block meets at
-// a barrier and the producer copies the new model's pinned tiles onto the
-// "pinned" mbarrier. Per round a consumer warpgroup runs layer 0 a k-step at a
-// time, the next k-step's features computed while the products run, and each
-// later layer as 16 k-steps: split the k-step's A fragments from the kept
+// a barrier and the producer copies the new model's pinned tiles (and in bf16
+// its head) onto the "pinned" mbarrier. Per round a 3xTF32 consumer warpgroup
+// runs layer 0 a k-step at a time, the next k-step's features computed while
+// the products run, and each later layer as 16 k-steps: split the k-step's A fragments from the kept
 // outputs of the layer before (two sets in turns), wait for a streamed tile,
 // fence, issue three wgmmas (small*big and big*small into dc, big*big into
 // dm), commit the group; once the next group is issued the one before is done
@@ -132,9 +153,10 @@
 //   coordinates, then zero rows: _wg_rows), then 16 k-steps a later layer
 //   (128 rows in _wg_rows' order); a k-step's big tile, then its small tile
 // and in bf16 (PackedSDF.wg16, _pack_wg16): the same header, biases and
-// output layer (its weights rounded to bf16); then one tile of bf16 weights a
-// k-step of 16 (core matrices of 8 units x 8 k-slots): layer 0's (3F + 10) / 8
-// (_wg16_rows), then 8 a later layer (128 rows in order).
+// output layer (its weights rounded to bf16), the head that the walk copies to
+// shared memory (Shape.head bytes, a multiple of 16); then one tile of bf16
+// weights a k-step of 16 (core matrices of 8 units x 8 k-slots): layer 0's
+// (3F + 10) / 8 (_wg16_rows), then 8 a later layer (128 rows in order).
 
 #pragma once
 
@@ -180,13 +202,23 @@ struct Shape {
   int ks0;          // layer 0's k-steps: 3F angles and 3 coordinates, 4 a k-step (8 in bf16)
   int tiles;        // 2 (ks0 + 16 (n_hidden - 1)); in bf16 ks0 + 8 (n_hidden - 1)
   int first_tiles;  // layer 0's: 2 ks0; in bf16 ks0
+  int head;         // bf16: bytes of the model's head (everything before its tiles), kept in
+                    // shared memory beside the tiles; 0 in 3xTF32
 };
+
+// Floats of a packed model's header, and before its tiles.
+__host__ __device__ inline int header_floats(const Shape& s) {
+  return 4 + round_up4(s.n_freqs);
+}
+__host__ __device__ inline int tiles_offset(const Shape& s) {
+  return header_floats(s) + kUnits * s.n_hidden + kUnits + 4;
+}
 
 // The shape of a model the launcher was given (widths[0] = 3 + 6F, widths[l]
 // = units of hidden layer l), or tiles = 0 when the kernel does not take it:
 // 1 to 8 hidden layers, no layer wider than 128.
 inline Shape make_shape(int n_freqs, int n_hidden, const int* widths, bool bf16 = false) {
-  Shape s{n_freqs, n_hidden, 0, 0, 0};
+  Shape s{n_freqs, n_hidden, 0, 0, 0, 0};
   if (n_freqs < 0 || n_hidden < 1 || n_hidden > kMaxHidden || widths[0] != 3 + 6 * n_freqs)
     return s;
   for (int l = 0; l <= n_hidden; ++l)
@@ -195,6 +227,7 @@ inline Shape make_shape(int n_freqs, int n_hidden, const int* widths, bool bf16 
     s.ks0 = (3 * n_freqs + 10) / 8;
     s.first_tiles = s.ks0;
     s.tiles = s.ks0 + kMaxKSteps / 2 * (n_hidden - 1);
+    s.head = 4 * tiles_offset(s);
   } else {
     s.ks0 = (3 * n_freqs + 6) / 4;
     s.first_tiles = 2 * s.ks0;
@@ -203,20 +236,15 @@ inline Shape make_shape(int n_freqs, int n_hidden, const int* widths, bool bf16 
   return s;
 }
 
-__host__ __device__ inline int header_floats(const Shape& s) {
-  return 4 + round_up4(s.n_freqs);
-}
-__host__ __device__ inline int tiles_offset(const Shape& s) {
-  return header_floats(s) + kUnits * s.n_hidden + kUnits + 4;
-}
 // Bytes of the mbarriers: full and empty a ring slot, one for the pinned tiles.
 __host__ __device__ inline int barrier_bytes(int ring) { return (8 * (2 * ring + 1) + 15) & ~15; }
 
 // How many tiles stay pinned and how many slots the ring has, for `limit`
-// bytes of shared memory a block: every tile when they all fit, else a ring
-// of kRing and as many as fit beside it (at least layer 0's). pinned < 0: no
-// room.
+// bytes of shared memory a block (the model's head apart): every tile when
+// they all fit, else a ring of kRing and as many as fit beside it (at least
+// layer 0's). pinned < 0: no room.
 inline void plan(const Shape& s, long long limit, int& pinned, int& ring) {
+  limit -= s.head;
   ring = 0;
   pinned = s.tiles;
   if (static_cast<long long>(s.tiles) * kTileBytes + barrier_bytes(0) <= limit) return;
@@ -525,10 +553,10 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return d;
 }
 
-// x rounded to bf16 (to nearest, ties to even), as a float32.
-__device__ __forceinline__ float bf16_round(float x) {
-  return __uint_as_float(pack_bf16(x, 0.0f) << 16);
-}
+// The low (lo) and the high (hi) bf16 of a pack_bf16 word, as float32: the
+// bits of pack_bf16(x, 0) << 16, x rounded to bf16, two to a conversion.
+__device__ __forceinline__ float bf16_lo(uint32_t v) { return __uint_as_float(v << 16); }
+__device__ __forceinline__ float bf16_hi(uint32_t v) { return __uint_as_float(v & 0xFFFF0000u); }
 
 // d (64 x 128 float32 sums) = A (64 x 16 bf16, 4 words a thread) * B (the
 // 16 x 128 bf16 tile that desc describes, K-major) + (scale_d ? d : 0).
@@ -561,7 +589,8 @@ __device__ __forceinline__ void wgmma_bf16(float (&d)[64], const uint32_t (&a)[4
 // _wg16_rows: lane (g, t) takes angle 8 ks + t as k-slots 2 t (sine) and
 // 2 t + 1 (cosine) and angle 8 ks + 4 + t as k-slots 2 t + 8 and 2 t + 9, of
 // rows g (xa) and g + 8 (xb), one sincosf each; past the 3F angles, the three
-// coordinates as the first k-slot of a pair, and zeros.
+// coordinates as the first k-slot of a pair, and zeros (the model's
+// frequencies in shared memory or device memory).
 __device__ __forceinline__ void first_fragments16(uint32_t (&a)[4], const float (&xa)[3],
                                                   const float (&xb)[3],
                                                   const float* __restrict__ freqs,
@@ -572,8 +601,8 @@ __device__ __forceinline__ void first_fragments16(uint32_t (&a)[4], const float 
   for (int h = 0; h < 2; ++h) {
     const int j = 8 * ks + 4 * h + (threadIdx.x & 3);
     if (j < angles) {
-      const int axis = j / s.n_freqs;
-      const float f = __ldg(freqs + (j - axis * s.n_freqs));
+      const int axis = (j >= s.n_freqs) + (j >= 2 * s.n_freqs);   // j / F, without a division
+      const float f = freqs[j - axis * s.n_freqs];
       sincosf(__fmul_rn(pick3(xa, axis), f), &v[4 * h], &v[4 * h + 1]);
       sincosf(__fmul_rn(pick3(xb, axis), f), &v[4 * h + 2], &v[4 * h + 3]);
     } else if (j < angles + 3) {
@@ -586,37 +615,46 @@ __device__ __forceinline__ void first_fragments16(uint32_t (&a)[4], const float 
   for (int i = 0; i < 4; ++i) a[i] = pack_bf16(v[2 * i], v[2 * i + 1]);
 }
 
-// Layer 0's bf16 product of k-step ks on fragment a (its tile is pinned),
-// the fragment of k-step ks + 1 computed into next meanwhile.
-__device__ __forceinline__ void first_step16(float (&d)[64], uint32_t (&a)[1][4],
-                                             uint32_t (&next)[1][4], const float (&xa)[3],
-                                             const float (&xb)[3],
-                                             const float* __restrict__ freqs, const Shape& s,
+// Layer 0's bf16 products of k-step ks on fragment f[0] and, where the layer
+// has it, of k-step ks + 1 on f[1] (their tiles are pinned): a group each, no
+// wait.
+__device__ __forceinline__ void first_pair16(float (&d)[64], uint32_t (&f)[2][4], const Shape& s,
                                              const Tiles& w, int ks) {
-  fence_a(a);
+  fence_a(f);
   fence_acc(d);
   wgmma_fence();
-  wgmma_bf16(d, a[0], tile_desc(w.pinned_base + static_cast<uint32_t>(ks) * kTileBytes), ks > 0);
+  wgmma_bf16(d, f[0], tile_desc(w.pinned_base + static_cast<uint32_t>(ks) * kTileBytes), ks > 0);
   wgmma_commit();
-  first_fragments16(next[0], xa, xb, freqs, s, ks + 1);
-  wgmma_wait<0>();
-  fence_acc(d);
-  fence_a(a);   // the product reads a until here
+  if (ks + 1 < s.ks0) {
+    fence_a(f);
+    fence_acc(d);
+    wgmma_fence();
+    wgmma_bf16(d, f[1], tile_desc(w.pinned_base + static_cast<uint32_t>(ks + 1) * kTileBytes), 1);
+    wgmma_commit();
+  }
 }
 
-// Layer 0 in bf16 for the warpgroup, one k-step at a time (two fragments,
-// taken in turns); d is overwritten.
+// Layer 0 in bf16 for the warpgroup: a pair of k-steps' fragments computed
+// (the shipped net's two k-steps are one pair), then their products issued
+// back to back, and one wait at the end; a later pair (more than three
+// frequencies) waits for the one before. d is overwritten.
 __device__ __forceinline__ void first_layer16(float (&d)[64], const float (&xa)[3],
                                               const float (&xb)[3],
                                               const float* __restrict__ freqs, const Shape& s,
                                               const Tiles& w) {
-  uint32_t a[1][4], n[1][4];
-  first_fragments16(a[0], xa, xb, freqs, s, 0);
+  uint32_t f[2][4];
   for (int ks = 0; ks < s.ks0; ks += 2) {
-    first_step16(d, a, n, xa, xb, freqs, s, w, ks);
-    if (ks + 1 == s.ks0) break;
-    first_step16(d, n, a, xa, xb, freqs, s, w, ks + 1);
+    if (ks > 0) {   // the pair before reads f until here
+      wgmma_wait<0>();
+      fence_a(f);
+    }
+    first_fragments16(f[0], xa, xb, freqs, s, ks);
+    first_fragments16(f[1], xa, xb, freqs, s, ks + 1);
+    first_pair16(d, f, s, w, ks);
   }
+  wgmma_wait<0>();
+  fence_acc(d);
+  fence_a(f);
 }
 
 // A layer's bf16 A fragments from its sums: ReLU(d + bias) of n-tiles 2 ks
@@ -625,9 +663,10 @@ __device__ __forceinline__ void first_layer16(float (&d)[64], const float (&xa)[
 __device__ __forceinline__ void bias_relu16(uint32_t (&a)[kMaxKSteps / 2][4],
                                             const float (&d)[64],
                                             const float* __restrict__ bias, int t) {
+  const float2* __restrict__ bt = reinterpret_cast<const float2*>(bias + 2 * t);
 #pragma unroll
   for (int j = 0; j < kMaxKSteps; ++j) {
-    const float2 b = __ldg(reinterpret_cast<const float2*>(bias + 8 * j + 2 * t));
+    const float2 b = bt[4 * j];
     a[j / 2][2 * (j & 1)] = pack_bf16(fmaxf(d[4 * j] + b.x, 0.0f),
                                       fmaxf(d[4 * j + 1] + b.y, 0.0f));
     a[j / 2][2 * (j & 1) + 1] = pack_bf16(fmaxf(d[4 * j + 2] + b.x, 0.0f),
@@ -636,27 +675,42 @@ __device__ __forceinline__ void bias_relu16(uint32_t (&a)[kMaxKSteps / 2][4],
 }
 
 // A later layer's bf16 products for the warpgroup on the fragments a of the
-// layer before, tile first_tile + ks for k-step ks, a group a k-step; once
-// the next is issued, the one before is done and its ring slot goes back. d
-// is overwritten.
+// layer before, tile first_tile + ks for k-step ks. A layer whose tiles are
+// all pinned (every layer of a net of up to 18 tiles) issues its eight
+// products back to back as one group and waits once; a layer with streamed
+// tiles takes each from the ring, a group a k-step, and once the next is
+// issued the one before is done and its ring slot goes back. d is
+// overwritten.
 __device__ __forceinline__ void hidden_layer16(float (&d)[64],
                                                uint32_t (&a)[kMaxKSteps / 2][4],
                                                int first_tile, Tiles& w) {
   int held = -1;   // the previous k-step's ring slot
-#pragma unroll
-  for (int ks = 0; ks < kMaxKSteps / 2; ++ks) {
-    int slot;
-    const uint64_t desc = tile_desc(acquire(w, first_tile + ks, slot));
-    // the wait above branches by thread: the product after it needs its own
-    // fence, or the compiler inserts one and serialises the products
+  if (first_tile + kMaxKSteps / 2 <= w.pinned) {
+    // a tile kTileBytes further on: its descriptor kTileBytes / 16 further on
+    const uint64_t desc = tile_desc(w.pinned_base + static_cast<uint32_t>(first_tile) * kTileBytes);
     fence_a(a);
     fence_acc(d);
     wgmma_fence();
-    wgmma_bf16(d, a[ks], desc, ks > 0);
+#pragma unroll
+    for (int ks = 0; ks < kMaxKSteps / 2; ++ks)
+      wgmma_bf16(d, a[ks], desc + static_cast<uint64_t>(ks) * (kTileBytes >> 4), ks > 0);
     wgmma_commit();
-    wgmma_wait<1>();
-    release(w, held);
-    held = slot;
+  } else {
+#pragma unroll
+    for (int ks = 0; ks < kMaxKSteps / 2; ++ks) {
+      int slot;
+      const uint64_t desc = tile_desc(acquire(w, first_tile + ks, slot));
+      // the wait above branches by thread: the product after it needs its own
+      // fence, or the compiler inserts one and serialises the products
+      fence_a(a);
+      fence_acc(d);
+      wgmma_fence();
+      wgmma_bf16(d, a[ks], desc, ks > 0);
+      wgmma_commit();
+      wgmma_wait<1>();
+      release(w, held);
+      held = slot;
+    }
   }
   wgmma_wait<0>();
   fence_acc(d);
@@ -664,7 +718,7 @@ __device__ __forceinline__ void hidden_layer16(float (&d)[64],
   release(w, held);
 }
 
-// The model's parts in device memory.
+// The model's parts: in device memory, or (bf16) the head in shared memory.
 struct Net {
   float scale, clamp;
   const float* freqs;
@@ -681,6 +735,18 @@ __device__ __forceinline__ Net net_of(const float* __restrict__ packed, const Sh
   n.bias = packed + header_floats(s);
   n.wout = n.bias + kUnits * s.n_hidden;
   n.tiles = packed + tiles_offset(s);
+  return n;
+}
+
+// The head of a model copied to shared memory (bf16; its tiles apart).
+__device__ __forceinline__ Net net_in(const float* head, const Shape& s) {
+  Net n;
+  n.scale = head[0];
+  n.clamp = head[1];
+  n.freqs = head + 4;
+  n.bias = head + header_floats(s);
+  n.wout = n.bias + kUnits * s.n_hidden;
+  n.tiles = nullptr;
   return n;
 }
 
@@ -717,7 +783,7 @@ __device__ __forceinline__ float2 mlp_rows(const float (&xa)[3], const float (&x
 
 // mlp_rows in bf16: the same rows, one accumulator, the output layer in
 // float32 FMA on bf16-rounded activations and weights (the packed output
-// weights are rounded already).
+// weights are rounded already; the activations two to a conversion).
 __device__ __forceinline__ float2 mlp_rows16(const float (&xa)[3], const float (&xb)[3],
                                              const Net& net, const Shape& s, Tiles& w) {
   const int t = threadIdx.x & 3;
@@ -728,22 +794,27 @@ __device__ __forceinline__ float2 mlp_rows16(const float (&xa)[3], const float (
     bias_relu16(a, d, net.bias + kUnits * (l - 1), t);
     hidden_layer16(d, a, s.first_tiles + kMaxKSteps / 2 * (l - 1), w);
   }
-  const float* bias = net.bias + kUnits * (s.n_hidden - 1);
+  const float2* __restrict__ bt =
+      reinterpret_cast<const float2*>(net.bias + kUnits * (s.n_hidden - 1) + 2 * t);
+  const float2* __restrict__ wt = reinterpret_cast<const float2*>(net.wout + 2 * t);
   float p0 = 0.0f, p1 = 0.0f;
 #pragma unroll
   for (int j = 0; j < kMaxKSteps; ++j) {
-    const float2 b = __ldg(reinterpret_cast<const float2*>(bias + 8 * j + 2 * t));
-    const float2 wo = __ldg(reinterpret_cast<const float2*>(net.wout + 8 * j + 2 * t));
-    p0 = fmaf(bf16_round(fmaxf(d[4 * j] + b.x, 0.0f)), wo.x, p0);
-    p0 = fmaf(bf16_round(fmaxf(d[4 * j + 1] + b.y, 0.0f)), wo.y, p0);
-    p1 = fmaf(bf16_round(fmaxf(d[4 * j + 2] + b.x, 0.0f)), wo.x, p1);
-    p1 = fmaf(bf16_round(fmaxf(d[4 * j + 3] + b.y, 0.0f)), wo.y, p1);
+    const float2 b = bt[4 * j], wo = wt[4 * j];
+    // units 8 j + 2 t and + 1 of rows g (r0) and g + 8 (r1)
+    const uint32_t r0 = pack_bf16(fmaxf(d[4 * j] + b.x, 0.0f), fmaxf(d[4 * j + 1] + b.y, 0.0f));
+    const uint32_t r1 =
+        pack_bf16(fmaxf(d[4 * j + 2] + b.x, 0.0f), fmaxf(d[4 * j + 3] + b.y, 0.0f));
+    p0 = fmaf(bf16_lo(r0), wo.x, p0);
+    p0 = fmaf(bf16_hi(r0), wo.y, p0);
+    p1 = fmaf(bf16_lo(r1), wo.x, p1);
+    p1 = fmaf(bf16_hi(r1), wo.y, p1);
   }
   p0 += __shfl_xor_sync(0xffffffffu, p0, 1);
   p1 += __shfl_xor_sync(0xffffffffu, p1, 1);
   p0 += __shfl_xor_sync(0xffffffffu, p0, 2);
   p1 += __shfl_xor_sync(0xffffffffu, p1, 2);
-  const float b = __ldg(net.wout + kUnits);
+  const float b = net.wout[kUnits];
   return make_float2(fminf(fmaxf(p0 + b, -net.clamp), net.clamp),
                      fminf(fmaxf(p1 + b, -net.clamp), net.clamp));
 }
@@ -808,11 +879,11 @@ template <class J>
 inline long long job_bytes(const J& job) { return stage_barrier_bytes<J>() + job.scratch_bytes(); }
 
 // The persistent walk of a kernel on this core, for one block of kThreads
-// threads with `smem` holding smem_bytes(pinned, ring) + job_bytes(job) bytes:
-// items = rounds x sequences, item i is round i % rounds of sequence i /
-// rounds, whose model lies s * packed_seq floats into `packed` (wg layout);
-// items is a multiple of job.span(). A Job says how the kernel reads a point
-// and stores a round:
+// threads with `smem` holding smem_bytes(pinned, ring) + shape.head +
+// job_bytes(job) bytes: items = rounds x sequences, item i is round i % rounds
+// of sequence i / rounds, whose model lies s * packed_seq floats into `packed`
+// (wg layout); items is a multiple of job.span(). A Job says how the kernel
+// reads a point and stores a round:
 //   long long m                       points a sequence;
 //   load(s, row, raw[3])              the point's raw values, issued a round
 //                                     ahead (anything finite past m);
@@ -850,9 +921,14 @@ __device__ __forceinline__ void walk(const J& job, unsigned char* smem,
   w.empty = w.full + 8 * ring;
   w.pinned = pinned;
   w.next = 0;
-  const uint32_t pin = w.empty + 8 * ring;   // the pinned tiles' copy
+  const uint32_t pin = w.empty + 8 * ring;   // the pinned tiles' (and the head's) copy
+  // bf16: the model's head (scale, clamp, frequencies, biases, output layer),
+  // which every round reads, in shared memory beside the tiles: in device
+  // memory it misses L1 behind the streamed points (3xTF32 reads it there)
+  float* head = reinterpret_cast<float*>(smem + smem_bytes(pinned, ring));
+  const int head_bytes = kBf16 ? shape.head : 0;
   // the job's shared memory: its stage's barriers, then its scratch
-  unsigned char* job_smem = smem + smem_bytes(pinned, ring);
+  unsigned char* job_smem = smem + smem_bytes(pinned, ring) + head_bytes;
   const uint32_t stage_full = smem_addr(job_smem), stage_empty = stage_full + 8 * J::kStage;
   unsigned char* scratch = job_smem + stage_barrier_bytes<J>();
   if (threadIdx.x == 0) {
@@ -882,23 +958,35 @@ __device__ __forceinline__ void walk(const J& job, unsigned char* smem,
     return (item + 1) % span != 0 ? item + 1
                                   : item + 1 + (static_cast<long long>(gridDim.x) - 1) * span;
   };
+  // an item's sequence; in bf16 in 32 bits where every item fits in them (a
+  // 64-bit division costs several times the instructions, a few times a round)
+  const auto seq_of = [&](long long item) -> long long {
+    if constexpr (kBf16) {
+      if (items <= 0xFFFFFFFFLL)
+        return static_cast<unsigned>(item) / static_cast<unsigned>(rounds);
+    }
+    return item / rounds;
+  };
   long long loaded = -1;
   if (warp >= kConsumerWarps) {   // the producer's warpgroup
     set_regs<J::kProducerRegs>();
     const bool copies = warp == kProducerWarp;   // the other three do the job's aside
     uint32_t built = 0;   // stage slots filled so far
     for (long long item = first(); item < items; item = after(item)) {
-      const long long s = item / rounds;
-      const float* tiles = net_of(packed + s * packed_seq, shape).tiles;
+      const long long s = seq_of(item);
+      const float* tiles = packed + s * packed_seq + tiles_offset(shape);
       if (s != loaded) {   // the consumers are done with the previous model's tiles
         __syncthreads();
         loaded = s;
         if (copies) {
-          if (lane == 0) mbar_expect_tx(pin, static_cast<uint32_t>(pinned) * kTileBytes);
+          if (lane == 0)
+            mbar_expect_tx(pin, static_cast<uint32_t>(pinned) * kTileBytes + head_bytes);
           __syncwarp();
           for (int t = lane; t < pinned; t += 32)
             bulk_copy(w.pinned_base + static_cast<uint32_t>(t) * kTileBytes,
                       tiles + static_cast<long long>(t) * kTileFloats, kTileBytes, pin);
+          if (head_bytes > 0 && lane == 0)
+            bulk_copy(smem_addr(head), packed + s * packed_seq, head_bytes, pin);
         }
       }
       if (!copies) {
@@ -938,7 +1026,7 @@ __device__ __forceinline__ void walk(const J& job, unsigned char* smem,
   float na[3], nb[3];
   const auto fetch = [&](long long item) {
     if constexpr (J::kStage == 0) {
-      const long long s = item / rounds;
+      const long long s = seq_of(item);
       const long long row = (item - s * rounds) * kRoundPoints + warp * 16 + g;
       job.load(s, row, na);
       job.load(s, row + 8, nb);
@@ -946,13 +1034,14 @@ __device__ __forceinline__ void walk(const J& job, unsigned char* smem,
   };
   if (first() < items) fetch(first());
   for (long long item = first(); item < items; item = after(item)) {
-    const long long s = item / rounds;
-    const Net net = net_of(packed + s * packed_seq, shape);
+    const long long s = seq_of(item);
+    Net net = net_of(packed + s * packed_seq, shape);
     if (s != loaded) {
       __syncthreads();
       mbar_wait(pin, reloads++ & 1);
       loaded = s;
     }
+    if constexpr (kBf16) net = net_in(head, shape);   // once the copy has landed
     float xa[3], xb[3];
     const long long row = (item - s * rounds) * kRoundPoints + warp * 16 + g;
     if constexpr (J::kStage > 0) {
@@ -1024,7 +1113,7 @@ inline cudaError_t plan_launch(Kernel* kernel, const Shape& shape, int limit, lo
                                unsigned& grid, long long extra = 0) {
   plan(shape, limit - extra, pinned, ring);
   if (pinned < 0) return cudaErrorInvalidValue;
-  smem = smem_bytes(pinned, ring) + extra;
+  smem = smem_bytes(pinned, ring) + shape.head + extra;
   if (smem != grid_of.smem) {
     int device = 0, sms = 0, per_sm = 0;
     cudaError_t err = cudaGetDevice(&device);

@@ -124,7 +124,9 @@ def test_obj_energy_batched_kernel(cuda_device, name, s, p, n):
     torch.cuda.synchronize()
     assert kernels.launch_counts["obj_sdf_energy_batched"] == before + 2
     assert torch.equal(got, again) and got.shape == (s, p)
-    rts = obj_energy.obj_rts(rot, trans).contiguous()
+    # a sequence at a time, as the wrapper builds them: a batched product on the
+    # card rounds by its shape
+    rts = torch.stack([obj_energy.obj_rts(r, t) for r, t in zip(rot, trans)]).contiguous()
     want = obj_energy._obj_sdf_energy_batched_torch(models, pcld, rts)
     assert bool(((got - want).abs() <= ENERGY_RTOL * want.abs() + ENERGY_ATOL * n).all())
     for i, model in enumerate(models):
@@ -283,7 +285,9 @@ def test_obj_energy_batched_kernel_bf16(cuda_device, name, s, p, n):
         before["obj_sdf_energy_batched_bf16"] + 2
     assert kernels.launch_counts["obj_sdf_energy_batched"] == before["obj_sdf_energy_batched"]
     assert torch.equal(got, again) and got.shape == (s, p)
-    rts = obj_energy.obj_rts(rot, trans).contiguous()
+    # a sequence at a time, as the wrapper builds them: a batched product on the
+    # card rounds by its shape
+    rts = torch.stack([obj_energy.obj_rts(r, t) for r, t in zip(rot, trans)]).contiguous()
     want = obj_energy._obj_sdf_energy_batched_torch(models, pcld, rts, compute_dtype=BF16)
     for i, model in enumerate(models):
         one = kernels.obj_sdf_energy_cuda(pcld[i].contiguous(), rts[i].contiguous(),

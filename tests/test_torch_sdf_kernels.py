@@ -118,7 +118,7 @@ def test_sdf_mlp_kernel_ragged_counts_around_a_round(cuda_device, m, cf):
 def test_sdf_mlp_kernel_depth_8_at_width_128(cuda_device, compute_dtype):
     """The deepest net the kernels take, whose later layers do not all fit
     in a block's shared memory at once (in bf16, 58 tiles of which the ring
-    streams 10)."""
+    streams 11 beside the model's head)."""
     model = distilled_from_numpy(model_arrays(5, widths=(21,) + (128,) * 8), device=cuda_device)
     pts = torch.from_numpy((np.random.RandomState(6).randn(5, 3, 300) * 0.08)
                            .astype(np.float32)).to(cuda_device)
