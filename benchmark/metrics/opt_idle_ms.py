@@ -1,0 +1,9 @@
+"""opt_idle_ms: the device's idle milliseconds a loop frame in the traced call whose
+gap falls to an optimiser's span (`opt.*`, or a span nested under one): the gaps the
+host leaves while it runs the particle optimisers (metrics/program_spans.py)."""
+
+from benchmark.metrics import program_spans
+
+
+def read(ctx):
+    return program_spans.idle_ms_under(ctx, "opt.")

@@ -67,6 +67,7 @@ from ..pose.rotations import (
 )
 from ..sdf.distill import sdf_compute_dtype
 from ..sdf.volume import nearest_sdf
+from ..utils.trace import spanned
 from .obj_pose import _reproject_so3
 from .particle import (
     ParticleSpec,
@@ -121,6 +122,7 @@ def world2point2d(xyz: torch.Tensor, fx, fy, cx, cy) -> torch.Tensor:
     return torch.stack([y, x], dim=-1)
 
 
+@spanned("opt.hand_pose")
 @torch.no_grad()
 def optimize_hand_pose(
     mano_model: ManoModel,

@@ -17,6 +17,7 @@ import torch
 
 from ..mano.layer import mano_forward
 from ..mano.model import ManoModel
+from ..utils.trace import spanned
 from .particle import ParticleSpec, run_particle_opt
 
 SHAPE_SPEC = ParticleSpec(iterations=20, scaling_coefficient2=2000.0, beta=0.9)
@@ -33,6 +34,7 @@ def kp2length(kp: torch.Tensor) -> torch.Tensor:
     return torch.linalg.norm(bones, dim=-1)
 
 
+@spanned("opt.hand_shape")
 @torch.no_grad()
 def optimize_hand_shape(
     mano_model: ManoModel,

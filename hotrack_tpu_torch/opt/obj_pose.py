@@ -42,6 +42,7 @@ from ..pose.rotations import (
 )
 from ..sdf.distill import eval_distilled_sdf_cf, sdf_compute_dtype
 from ..sdf.volume import trilinear_sdf
+from ..utils.trace import spanned
 from .particle import (
     ParticleSpec,
     normalize_quat_head,
@@ -72,6 +73,7 @@ def _trilinear_batched(volumes: torch.Tensor, points: torch.Tensor, voxel_scale:
                         for v, p in zip(volumes, points)])
 
 
+@spanned("opt.obj_pose")
 @torch.no_grad()
 def optimize_obj_pose(
     sdf_volume: torch.Tensor | None,  # (V, V, V) instance-frame SDF (volume route)

@@ -31,6 +31,8 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from ..utils.trace import span
+
 
 class ParticleSpec(NamedTuple):
     """Static configuration of a particle optimiser."""
@@ -102,35 +104,38 @@ def run_particle_opt(
     mean_aux = torch.zeros(batch, **like)
 
     for _ in range(spec.iterations):
-        sample_ext = extend_sample(presampled * search[..., None, :])  # (*b, P, De)
-        energy, aux = energy_fn(params, sample_ext)
+        with span("opt.particle.iter"):
+            sample_ext = extend_sample(presampled * search[..., None, :])  # (*b, P, De)
+            with span("opt.particle.energy"):
+                energy, aux = energy_fn(params, sample_ext)
 
-        origin = energy[..., :1]
-        better = energy < origin
-        weight = torch.where(better, origin - energy, torch.zeros_like(energy))
-        weight_sum = torch.sum(weight, dim=-1) + spec.weight_eps
-        success = torch.any(better, dim=-1)
-        safe_sum = torch.where(weight_sum > 0, weight_sum, torch.ones_like(weight_sum))
+            origin = energy[..., :1]
+            better = energy < origin
+            weight = torch.where(better, origin - energy, torch.zeros_like(energy))
+            weight_sum = torch.sum(weight, dim=-1) + spec.weight_eps
+            success = torch.any(better, dim=-1)
+            safe_sum = torch.where(weight_sum > 0, weight_sum, torch.ones_like(weight_sum))
 
-        mean_aux = torch.where(success, torch.sum(aux * weight, dim=-1) / safe_sum, aux[..., 0])
-        mean_ext = torch.sum(sample_ext * weight[..., None], dim=-2) / safe_sum[..., None]
-        if postprocess_mean is not None:
-            mean_ext = postprocess_mean(mean_ext)
-        mean_ext = torch.where(success[..., None], mean_ext, torch.zeros_like(mean_ext))
-        if trace is not None:
-            trace.append((energy, success, mean_ext))
+            mean_aux = torch.where(success, torch.sum(aux * weight, dim=-1) / safe_sum,
+                                   aux[..., 0])
+            mean_ext = torch.sum(sample_ext * weight[..., None], dim=-2) / safe_sum[..., None]
+            if postprocess_mean is not None:
+                mean_ext = postprocess_mean(mean_ext)
+            mean_ext = torch.where(success[..., None], mean_ext, torch.zeros_like(mean_ext))
+            if trace is not None:
+                trace.append((energy, success, mean_ext))
 
-        new_params = apply_mean(params, mean_ext)
-        params = tuple(torch.where(_per_batch(success, old), new, old)
-                       for new, old in zip(new_params, params))
+            new_params = apply_mean(params, mean_ext)
+            params = tuple(torch.where(_per_batch(success, old), new, old)
+                           for new, old in zip(new_params, params))
 
-        # search = E * c2 * |m| / ||m|| + 1e-3
-        s = torch.abs(search_slice(mean_ext)) + 1e-3
-        new_search = mean_aux[..., None] * spec.scaling_coefficient2 * s \
-            / torch.linalg.norm(s, dim=-1, keepdim=True) + 1e-3
-        both = torch.logical_and(prev_success, success)[..., None]
-        search = torch.where(
-            both, spec.beta * new_search + (1 - spec.beta) * prev_search, new_search)
-        prev_search = torch.where(success[..., None], search, prev_search)
-        prev_success = success
+            # search = E * c2 * |m| / ||m|| + 1e-3
+            s = torch.abs(search_slice(mean_ext)) + 1e-3
+            new_search = mean_aux[..., None] * spec.scaling_coefficient2 * s \
+                / torch.linalg.norm(s, dim=-1, keepdim=True) + 1e-3
+            both = torch.logical_and(prev_success, success)[..., None]
+            search = torch.where(
+                both, spec.beta * new_search + (1 - spec.beta) * prev_search, new_search)
+            prev_search = torch.where(success[..., None], search, prev_search)
+            prev_success = success
     return params, mean_aux

@@ -26,6 +26,7 @@ import torch
 from ..ops.sdf_mlp import fourier_features as _features
 from ..ops.sdf_mlp import fused_sdf_mlp, fused_sdf_mlp_cf
 from ..ops.sdf_mlp import raw_sdf_mlp as _raw_sdf
+from ..utils.trace import spanned
 from .volume import trilinear_sdf
 
 __all__ = ["DistilledSDF", "MAX_FREQS", "HIDDEN", "DEPTH", "_features", "_raw_sdf",
@@ -98,6 +99,7 @@ def near_surface_indices(flat: torch.Tensor, clamp: float, u: torch.Tensor) -> t
     return torch.clamp(idx, 0, flat.shape[0] - 1).to(flat.device)
 
 
+@spanned("sdf.distill")
 def distill_sdf_volume(volume: torch.Tensor, voxel_scale: float,
                        generator: torch.Generator | None = None,
                        steps: int = 4000, batch: int = 8192,

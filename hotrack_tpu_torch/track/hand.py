@@ -39,6 +39,7 @@ from ..models.hand_utils import handkp2palmkp
 from ..ops.sdf_mlp import pack_distilled, pack_distilled_batched
 from ..opt.hand_pose import ContactZones, optimize_hand_pose
 from ..opt.hand_shape import kp2length, optimize_hand_shape
+from ..utils.trace import span, spanned
 from . import shards
 from .types import HandTrackResult
 
@@ -205,6 +206,7 @@ class HandStep:
     def opt_out(self, x):
         return x[:, 0] if self.batched else x
 
+    @spanned("track.hand.init")
     def init_state(self, points0: torch.Tensor, init_kp0: torch.Tensor,
                    mano_beta: torch.Tensor | None = None) -> dict:
         """Frame 0's clouds (S, N, 3) and keypoint estimate (S, 21, 3) ->
@@ -216,7 +218,8 @@ class HandStep:
         palm = _rest_palm_template(self.mano, shape_code)
         if self.use_iknet and self.shape_mode:
             # frame-0 shape optimisation from HandTrackNet's first prediction
-            ret0 = self.handnet(points0, init_kp0, palm)
+            with span("net.handtracknet"):
+                ret0 = self.handnet(points0, init_kp0, palm)
             lengths = kp2length(ret0["pred_kp"])[:, None]                 # (S, 1, 15)
             shape_code, _ = optimize_hand_shape(self.mano, self.shape_particles,
                                                 self.seq(lengths))
@@ -235,6 +238,7 @@ class HandStep:
                 "history": (torch.zeros((n_seq, HISTORY_ROWS, 15), **like)
                             if self.shape_mode == 3 else None)}
 
+    @spanned("track.hand.frame")
     def step(self, state: dict, hand_points: torch.Tensor, projection=None,
              obj_rotation=None, obj_translation=None, background_mask=None):
         """One frame of S sequences: hand_points (S, N, 3); with the pose
@@ -251,7 +255,8 @@ class HandStep:
         cloud_mean = torch.mean(hand_points, dim=-2, keepdim=True)
         recentred = None if i == 0 else last_kp + cloud_mean
         jittered_kp = state["init_kp"] if i == 0 else recentred
-        ret = self.handnet(hand_points, jittered_kp, palm, compute_visibility=self.use_iknet)
+        with span("net.handtracknet"):
+            ret = self.handnet(hand_points, jittered_kp, palm, compute_visibility=self.use_iknet)
         baseline_kp = ret["pred_kp"]
         pred_kp = baseline_kp
         theta = torch.zeros((n_seq, 45), **like)
@@ -275,7 +280,8 @@ class HandStep:
                 shape_code = shape_code.reshape(n_seq, 10)
                 palm = _rest_palm_template(self.mano, shape_code)
 
-            ik_ret = self.iknet(baseline_kp, palm)
+            with span("net.iknet"):
+                ik_ret = self.iknet(baseline_kp, palm)
             theta = ik_ret["MANO_theta"]
             global_r = ik_ret["global_pose"].rotation
             global_t = ik_ret["global_pose"].translation

@@ -22,6 +22,7 @@ from ..opt.obj_pose import optimize_obj_pose
 from ..opt.shape_update import estimate_normals, merge_observations, update_shape
 from ..ops.sdf_mlp import pack_distilled, pack_distilled_batched
 from ..sdf.volume import trilinear_sdf
+from ..utils.trace import span
 from . import shards
 from .types import ObjTrackResult
 
@@ -40,15 +41,17 @@ def track_obj_sequence(
 ) -> ObjTrackResult:
     packed = None
     if distilled is not None and obj_points.is_cuda:
-        packed = pack_distilled(distilled)  # once per sequence
+        with span("track.obj.init"):
+            packed = pack_distilled(distilled)  # once per sequence
     r, t = init_rotation, init_translation
     rs, ts, energies = [], [], []
     for pcld in obj_points:
-        r, t, energy = optimize_obj_pose(
-            sdf_volume, presampled, pcld, r, t, voxel_scale=voxel_scale,
-            bbox_res=bbox_res, distilled=distilled, obj_energy=obj_energy,
-            packed=packed)
-        rs.append(r), ts.append(t), energies.append(energy)
+        with span("track.obj.frame"):
+            r, t, energy = optimize_obj_pose(
+                sdf_volume, presampled, pcld, r, t, voxel_scale=voxel_scale,
+                bbox_res=bbox_res, distilled=distilled, obj_energy=obj_energy,
+                packed=packed)
+            rs.append(r), ts.append(t), energies.append(energy)
     return ObjTrackResult(rotation=torch.stack(rs), translation=torch.stack(ts),
                           sdf_energy=torch.stack(energies))
 
@@ -74,14 +77,16 @@ def track_obj_sequences_batched(
         raise ValueError(f"{len(distilled)} models for {obj_points.shape[0]} sequences")
     packed = None
     if distilled is not None and obj_points.is_cuda:
-        packed = pack_distilled_batched(distilled)  # once per chunk of sequences
+        with span("track.obj.init"):
+            packed = pack_distilled_batched(distilled)  # once per chunk of sequences
     r, t = init_rotations, init_translations
     rs, ts, energies = [], [], []
     for f in range(obj_points.shape[1]):
-        r, t, energy = optimize_obj_pose(
-            sdf_volumes, presampled, obj_points[:, f], r, t, voxel_scale=voxel_scale,
-            bbox_res=bbox_res, distilled=distilled, obj_energy=obj_energy, packed=packed)
-        rs.append(r), ts.append(t), energies.append(energy)
+        with span("track.obj.frame"):
+            r, t, energy = optimize_obj_pose(
+                sdf_volumes, presampled, obj_points[:, f], r, t, voxel_scale=voxel_scale,
+                bbox_res=bbox_res, distilled=distilled, obj_energy=obj_energy, packed=packed)
+            rs.append(r), ts.append(t), energies.append(energy)
     return ObjTrackResult(rotation=torch.stack(rs, 1), translation=torch.stack(ts, 1),
                           sdf_energy=torch.stack(energies, 1))
 

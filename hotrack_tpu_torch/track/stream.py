@@ -36,6 +36,7 @@ import torch
 from ..mano.model import ManoModel
 from ..opt.obj_pose import optimize_obj_pose
 from ..ops.sdf_mlp import pack_distilled
+from ..utils.trace import spanned
 from .hand import HandStep
 
 
@@ -159,6 +160,7 @@ class ObjTracker:
         """The pose (3, 3), (3, 1) of frame 0's estimate."""
         return rotation, translation
 
+    @spanned("track.obj.frame")
     @torch.no_grad()
     def step(self, state, obj_points: torch.Tensor):
         """One frame: obj_points (N, 3) -> (the next state, {rotation,

@@ -18,7 +18,7 @@ the full hand pipeline with IKNet and the MANO shape and pose optimisers
 obj_opt`, see run_obj_track.py for `sdf_query` and `obj_energy`). `--debug`
 and `--debug_save` draw a figure a tracked hand frame (utils/vis.py);
 `--profile DIR` writes a torch.profiler trace of the whole evaluation into
-DIR.
+DIR; its host timeline carries the trackers' spans (utils/trace.py).
 
 `--dp_devices N` (or `all`, -1: every card) trains, and evaluates single
 frames, on N ranks, one process a device (train/dp.py): every rank reads the
@@ -47,6 +47,7 @@ import torch
 from ..config import get_config
 from ..data import get_dataloader, prepare_batch
 from ..nn.precision import resolve_compute_dtype
+from ..utils import trace
 from ..utils.dicts import add_dict, cvt_numpy, divide_dict, log_loss_summary
 from . import dp
 from .trainer import Trainer, pin_fp32
@@ -236,6 +237,7 @@ def test_main(argv=None):
     with torch.profiler.profile(activities=activities) as prof:
         out = _evaluate(cfg, save_flag)
         _sync(torch.device(cfg["device"]))
+    trace.clear()   # the trace file carries the spans
     os.makedirs(profile_dir, exist_ok=True)
     path = pjoin(profile_dir, f"test_{time.strftime('%Y%m%d_%H%M%S')}_{os.getpid()}.json")
     prof.export_chrome_trace(path)
