@@ -14,7 +14,8 @@ from __future__ import annotations
 
 import torch
 
-from .model import KP_REORDER, LEV1_IDXS, LEV2_IDXS, LEV3_IDXS, REORDER_IDXS, ManoModel
+from .model import (KP_REORDER, LEV1_IDXS, LEV2_IDXS, LEV3_IDXS, REORDER_IDXS, ManoModel,
+                    index_tensor)
 
 
 def mano_rodrigues(axisang: torch.Tensor) -> torch.Tensor:
@@ -76,12 +77,13 @@ def _kinematic_chain(rot_mats: torch.Tensor, joints: torch.Tensor):
 
     root_rot = rot_mats[:, 0]
     root_j = joints[:, 0]
-    lev1, lev2, lev3 = list(LEV1_IDXS), list(LEV2_IDXS), list(LEV3_IDXS)
+    device = rot_mats.device
+    lev1, lev2, lev3 = (index_tensor(ids, device) for ids in (LEV1_IDXS, LEV2_IDXS, LEV3_IDXS))
     r1, t1 = compose(root_rot[:, None], root_j[:, None],
                      rot_mats[:, lev1], joints[:, lev1] - root_j[:, None])
     r2, t2 = compose(r1, t1, rot_mats[:, lev2], joints[:, lev2] - joints[:, lev1])
     r3, t3 = compose(r2, t2, rot_mats[:, lev3], joints[:, lev3] - joints[:, lev2])
-    order = list(REORDER_IDXS)
+    order = index_tensor(REORDER_IDXS, device)
     r_all = torch.cat([root_rot[:, None], r1, r2, r3], dim=1)[:, order]
     t_all = torch.cat([root_j[:, None], t1, t2, t3], dim=1)[:, order]
     t_rel = t_all - torch.sum(r_all * joints[..., None, :], dim=-1)
@@ -125,7 +127,7 @@ def mano_forward(model: ManoModel, pose_coeffs: torch.Tensor,
     if root_palm:
         palm = (verts[:, 95] + verts[:, 22])[:, None] / 2.0
         jtr = torch.cat([palm, jtr[:, 1:]], dim=1)
-    jtr = torch.cat([jtr, tips], dim=1)[:, list(KP_REORDER)]
+    jtr = torch.cat([jtr, tips], dim=1)[:, index_tensor(KP_REORDER, jtr.device)]
 
     if not original_version:
         center = jtr[:, :1]
@@ -168,7 +170,7 @@ def mano_skin_inputs(model: ManoModel, pose_coeffs: torch.Tensor,
     t5 = torch.einsum("vj,bjx->bvx", w5, t_rel)
     tips = torch.einsum("bvxy,bvy->bvx", r5, vp5) + t5
 
-    jtr = torch.cat([t_all, tips], dim=1)[:, list(KP_REORDER)]
+    jtr = torch.cat([t_all, tips], dim=1)[:, index_tensor(KP_REORDER, tips.device)]
     center = jtr[:, :1]
     kp = jtr - center + trans[:, None]
     offset = trans - center[:, 0]

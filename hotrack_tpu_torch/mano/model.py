@@ -9,6 +9,7 @@ MANO_*.pkl without chumpy.
 
 from __future__ import annotations
 
+import functools
 import io
 import os
 import pickle
@@ -43,6 +44,17 @@ KP_REORDER = (0, 13, 14, 15, 16, 1, 2, 3, 17, 4, 5, 6, 18, 10, 11, 12, 19, 7, 8,
 
 # palm keypoint ids within the 21-kp convention
 PALM_KP_IDS = (0, 1, 5, 9, 13, 17)
+
+
+@functools.lru_cache(maxsize=None)
+def index_tensor(ids: tuple, device: torch.device) -> torch.Tensor:
+    """The int64 tensor of a tuple of ids on `device`, made once per (ids,
+    device). Indexing a card tensor with it gathers what the Python list of
+    the ids gathers, in the same order, without the list's copy to the card
+    and the wait for it at every use. Made outside inference mode, so that
+    autograd may save it as the index of a gather."""
+    with torch.inference_mode(False):
+        return torch.tensor(ids, dtype=torch.int64, device=device)
 
 
 class ManoModel(NamedTuple):

@@ -52,7 +52,7 @@ import numpy as np
 import torch
 
 from ..mano.layer import mano_forward, mano_skin_inputs, pca_comps2pose, shape_hand
-from ..mano.model import TIPS_RIGHT, ManoModel
+from ..mano.model import TIPS_RIGHT, ManoModel, index_tensor
 from ..ops.hand_energy import (fused_hand_energy, fused_hand_energy_batched, hand_frame,
                                pixel_coords)
 from ..ops.hand_energy_skin import (fused_hand_energy_skin, fused_hand_energy_skin_batched,
@@ -177,7 +177,7 @@ def optimize_hand_pose(
     compute_dtype = sdf_compute_dtype()
     n_verts = mano_model.weights.shape[0]
     vis = vis_mask.to(presampled.dtype)[..., 0, :]             # (*b, 21)
-    invis_finger = 1.0 - vis[..., list(TIP_KP_IDS)]            # (*b, 5)
+    invis_finger = 1.0 - vis[..., index_tensor(TIP_KP_IDS, vis.device)]   # (*b, 5)
     n_vis = torch.clamp(torch.sum(vis, dim=-1), min=1.0)
     n_invis = torch.clamp(torch.sum(1.0 - vis, dim=-1), min=1.0)
     # the same values give the same result bitwise whatever layout they came in

@@ -16,7 +16,7 @@ import math
 import torch
 
 from ..mano.layer import mano_forward
-from ..mano.model import ManoModel
+from ..mano.model import ManoModel, index_tensor
 from ..utils.trace import spanned
 from .particle import ParticleSpec, run_particle_opt
 
@@ -30,7 +30,8 @@ BONE_PARENT = (0, 1, 2, 0, 5, 6, 0, 9, 10, 0, 13, 14, 0, 17, 18)
 
 def kp2length(kp: torch.Tensor) -> torch.Tensor:
     """(..., 21, 3) keypoints -> (..., 15) bone lengths."""
-    bones = kp[..., list(BONE_IDX), :] - kp[..., list(BONE_PARENT), :]
+    bones = (kp[..., index_tensor(BONE_IDX, kp.device), :]
+             - kp[..., index_tensor(BONE_PARENT, kp.device), :])
     return torch.linalg.norm(bones, dim=-1)
 
 

@@ -79,7 +79,7 @@ def _per_batch(flag: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
 def run_particle_opt(
     spec: ParticleSpec,
     presampled: torch.Tensor,         # (P, D) fixed bank, row 0 == 0
-    initial_scale,                    # scalar or (D,)
+    initial_scale: float,             # the first search size of every dimension
     params: tuple,                    # tuple of tensors: the current parameters
     energy_fn: Callable,              # (params, sample_ext (*b, P, De)) -> ((*b, P), (*b, P))
     apply_mean: Callable,             # (params, mean_ext (*b, De)) -> params
@@ -98,7 +98,8 @@ def run_particle_opt(
     batch = tuple(batch)
     dim = presampled.shape[1]
     like = dict(dtype=presampled.dtype, device=presampled.device)
-    search = torch.as_tensor(initial_scale, **like).expand(*batch, dim).clone()
+    # filled on the device: a tensor made from a host number is copied and waited for
+    search = torch.full((*batch, dim), initial_scale, **like)
     prev_search = search
     prev_success = torch.ones(batch, dtype=torch.bool, device=presampled.device)
     mean_aux = torch.zeros(batch, **like)
